@@ -1,0 +1,645 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port serves its main path on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA device (an H100: the kernels are built for sm_90a) and nvcc;
+imports nothing of JAX or of the JAX package. Phases, each raising on
+failure (the script then exits non-zero):
+
+1. device: the card's name and power limit (nvidia-smi), then the kernels of
+   the main path built from ``src/repro_torch/csrc`` (one nvcc per source,
+   all at once);
+2. kernels vs their plain versions on the card, at the main path's shapes
+   (llama3.2-1b, 4 slots, an 8192-token view, 16-token pages, DSA top-2048)
+   and at edge cases (-1 holes, a length cut mid-page, an all-masked row,
+   S not a multiple of the block, all-zero scores, fp32 and bf16), with
+   kernel / plain / library times and the roofline bound;
+3. serve: full-width llama3.2-1b in bf16 with seeded random weights,
+   ``ServeConfig(method="dsa", max_len=8192, n_slots=4)``, 2 prompts past
+   ``min_context`` (chunked prefill) and 2 short ones (bucketed prefill);
+   every request completes and both kernels launch once per layer per
+   sparse decode step; then the same requests again with four steady
+   sparse decode polls under ``torch.profiler``, for the device's busy
+   share and each kernel's in-situ time (tables under ``chiprun_out/``);
+4. the same requests at float32, once through the kernels and once through
+   the plain versions (``ops.use_kernels(False)``): the first sparse decode
+   step's logits agree and the greedy tokens are equal;
+5. a ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}`` as
+   the last line.
+
+``--phases`` runs a subset of kernels, serve and compare (the default is
+all three).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+from types import SimpleNamespace
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# H100 SXM, NVIDIA data sheet (dense rates)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12        # tensor cores, bf16 in, fp32 accumulate
+FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
+L2_BYTES = 50 * 2**20
+SERVE_ARCH = "llama3.2-1b"
+PROMPT_LENS = (4500, 4400, 300, 260)     # two past min_context, two short
+MAX_NEW = 16
+VIEW = 8192
+PAGE = 16
+SLOTS = 4
+
+# tolerances (kernel vs plain on the card); both sides compute in fp32, so
+# the differences are summation order only, at bf16 inputs as at fp32 ones
+TOPK_VAL_TOL = 1e-4          # relative to the largest |score| of the row
+ATTN_TOL = 1e-4              # abs, on out (|out| <= max|v|) and on lse
+LOGIT_TOL = 2e-3             # abs, fp32 logits after 16 layers
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+
+def time_ms(fns, n: int = 20) -> float:
+    """Device time of one call: n calls captured in a CUDA graph and replayed
+    between two events, so host launch overhead is not counted. ``fns`` is
+    one callable (its inputs stay L2-resident across the calls) or a list of
+    callables on copies of the inputs, called in turn (see ``cold_copies``)."""
+    import torch
+
+    fns = fns if isinstance(fns, list) else [fns]
+    n = max(n, 2 * len(fns))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(n):
+            fns[i % len(fns)]()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reps = 5
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * n)
+
+
+def cold_copies(per_call_bytes: int) -> int:
+    """Copies of a call's inputs to rotate through in ``time_ms`` so that each
+    call finds its data out of L2: between two uses of one copy the others
+    touch at least twice the L2's size."""
+    return max(2, math.ceil(2 * L2_BYTES / per_call_bytes) + 1)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+
+def _topk_check(name, kv, ki, pv, pi):
+    """Values within TOPK_VAL_TOL of the row's scale; indices equal wherever
+    the plain value is isolated from its neighbours by more than that."""
+    import torch
+
+    scale = pv.abs().amax(-1, keepdim=True).clamp(min=1.0)
+    finite = torch.isfinite(pv)
+    if not torch.equal(finite, torch.isfinite(kv)):
+        raise AssertionError(f"{name}: -inf pattern differs")
+    err = ((kv - pv).abs() / scale)[finite]
+    max_err = float(err.max()) if err.numel() else 0.0
+    if max_err > TOPK_VAL_TOL:
+        raise AssertionError(f"{name}: value err {max_err} > {TOPK_VAL_TOL}")
+    band = TOPK_VAL_TOL * scale
+    gap = torch.full_like(pv, float("inf"))
+    d = (pv[..., 1:] - pv[..., :-1]).abs()
+    gap[..., 1:] = torch.minimum(gap[..., 1:], d)
+    gap[..., :-1] = torch.minimum(gap[..., :-1], d)
+    exact = (pv == pv.roll(1, -1)) | (pv == pv.roll(-1, -1))
+    isolated = (gap > band) | exact     # exact ties must order identically
+    if not torch.equal(ki[isolated], pi[isolated]):
+        raise AssertionError(f"{name}: indices differ outside the tie band")
+    log(f"  {name}: max rel err {max_err:.3g} (tol {TOPK_VAL_TOL}), "
+        f"{int(isolated.sum())}/{isolated.numel()} indices compared, equal")
+    return float((kv - pv).abs()[finite].max()) if finite.any() else 0.0
+
+
+def _attn_check(name, ko, kl, po, pl_):
+    import torch
+
+    e_out = float((ko - po).abs().max())
+    e_lse = float(((kl - pl_).abs() / pl_.abs().clamp(min=1.0)).max())
+    if not (e_out <= ATTN_TOL and e_lse <= ATTN_TOL):
+        raise AssertionError(f"{name}: out err {e_out}, lse rel err {e_lse}"
+                             f" > {ATTN_TOL}")
+    if not (torch.isfinite(ko).all() and torch.isfinite(kl).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    log(f"  {name}: out max abs err {e_out:.3g}, lse rel err {e_lse:.3g} "
+        f"(tol {ATTN_TOL})")
+    return e_out
+
+
+def _main_path_lengths():
+    return [n + MAX_NEW // 2 for n in PROMPT_LENS]   # mid-decode lengths
+
+
+def check_relevancy(dev):
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import relevancy_topk as rt
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, Hq, dk = SLOTS, 64, 128                 # DSA index heads / dim
+    S = VIEW // PAGE                           # pooled keys: one per page
+    k_sel = 2048 // PAGE
+    block = max(min(4096, S), k_sel)
+    q = torch.randn(B, Hq, dk, generator=g, device=dev).bfloat16()
+    keys = torch.randn(B, S, dk, generator=g, device=dev).bfloat16()
+    for b, n in enumerate(_main_path_lengths()):   # pooled zeros past live
+        keys[b, -(-n // PAGE):] = 0
+    w = torch.softmax(torch.randn(B, Hq, generator=g, device=dev), -1)
+    kv, ki = rt.relevancy_topk_candidates(q, keys, w, block=block)
+    pv, pi = rt.relevancy_topk_candidates_plain(q, keys, w, block=block)
+    err = _topk_check("relevancy main path bf16", kv, ki, pv, pi)
+
+    # edge cases through the public op (padding, clamping, ties, fp32)
+    cases = [
+        ("S=300 padded to 384", 300, 128, 20, torch.bfloat16, False),
+        ("k > S clamped", 48, 64, 100, torch.float32, False),
+        ("all-zero scores", 512, 512, 128, torch.bfloat16, True),
+        ("fp32", 512, 512, 128, torch.float32, False),
+    ]
+    for name, s, blk, k, dt, zero in cases:
+        qq = torch.randn(2, Hq, dk, generator=g, device=dev).to(dt)
+        kk = torch.zeros(2, s, dk, device=dev, dtype=dt) if zero else \
+            torch.randn(2, s, dk, generator=g, device=dev).to(dt)
+        ww = torch.softmax(torch.randn(2, Hq, generator=g, device=dev), -1)
+        a = ops.relevancy_topk(qq, kk, ww, k, block=blk)
+        b = ref.relevancy_topk(qq, kk, ww, k)
+        if a[1].shape != (2, min(k, s)):
+            raise AssertionError(f"{name}: shape {tuple(a[1].shape)}")
+        if zero and not torch.equal(a[1].long(), torch.arange(
+                k, device=dev).expand(2, k)):
+            raise AssertionError(f"{name}: ties not by ascending index")
+        err = max(err, _topk_check(f"relevancy {name}", a[0], a[1], b[0],
+                                   b[1]))
+
+    # L2-warm timing: on the path, q_idx and the pooled keys are written by
+    # the ops just before the kernel
+    ms = time_ms(lambda: rt.relevancy_topk_candidates(q, keys, w,
+                                                      block=block))
+    plain_ms = time_ms(lambda: rt.relevancy_topk_candidates_plain(
+        q, keys, w, block=block))
+    nb, c = S // block, block
+    L2 = int(math.log2(block))
+    n_bytes = (q.numel() + keys.numel()) * 2 + w.numel() * 4 + B * nb * c * 8
+    # q.k products of bf16 inputs: exact on the tensor cores (bf16 products,
+    # fp32 accumulation); relu.w terms and compare-exchanges on fp32 cores
+    dots = 2 * B * S * Hq * dk
+    rest = 2 * B * S * Hq + B * nb * (block // 2) * L2 * (L2 + 1) // 2
+    return {
+        "name": "relevancy_topk_candidates", "route": "cuda",
+        "source": "src/repro_torch/csrc/relevancy_topk.cu",
+        "replaces": "src/repro/kernels/relevancy_topk.py:55",
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None,
+        **_bound(n_bytes, [(dots, _dot_rate(q, keys)),
+                           (rest, FP32_FLOP_PER_S)]),
+        "timing": "L2-warm (on the path its inputs are written just before)",
+        "tolerance": f"values {TOPK_VAL_TOL} x row max|score|; indices "
+                     f"equal outside the tie band",
+        "shape": f"q [{B},{Hq},{dk}] bf16, keys [{B},{S},{dk}] bf16, "
+                 f"block {block}, c {c}",
+    }
+
+
+def _dot_rate(a, b):
+    """Peak rate of dot products of ``a`` by ``b`` computed in fp32: the
+    tensor cores' when both are bf16, else the fp32 cores'."""
+    import torch
+
+    both_bf16 = a.dtype == b.dtype == torch.bfloat16
+    return BF16_FLOP_PER_S if both_bf16 else FP32_FLOP_PER_S
+
+
+def _bound(n_bytes, terms):
+    """Least time for ``n_bytes`` moved and ``terms`` = [(operations, peak
+    rate)], each type of operation at its own peak, the types in turn."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = sum(n / rate for n, rate in terms) * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": n_bytes, "operations": sum(n for n, _ in terms)}
+
+
+def _selected_pages(lengths, n_sel, n_pages, g, dev):
+    """DSA-like selections: distinct live pages in score order, -1 where a
+    slot has fewer live pages than n_sel."""
+    import torch
+
+    rows = []
+    for n in lengths:
+        live = -(-n // PAGE)
+        perm = torch.randperm(live, generator=g, device=dev)[:n_sel]
+        row = torch.full((n_sel,), -1, dtype=torch.int32, device=dev)
+        row[: perm.numel()] = perm.to(torch.int32)
+        rows.append(row)
+    return torch.stack(rows)
+
+
+def check_paged_attention(dev):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import sparse_decode_attention as sda
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, KV, G, dh = SLOTS, 8, 4, 64              # llama3.2-1b GQA
+    Hq, n_sel = KV * G, 2048 // PAGE
+    lengths = _main_path_lengths()
+    q = torch.randn(B, Hq, dh, generator=g, device=dev).bfloat16()
+    kc = torch.randn(B, VIEW, KV, dh, generator=g, device=dev).bfloat16()
+    vc = torch.randn(B, VIEW, KV, dh, generator=g, device=dev).bfloat16()
+    pages = _selected_pages(lengths, n_sel, VIEW // PAGE, g, dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    ko, kl = sda.paged_decode_attention(q, kc, vc, pages, lens,
+                                        page_size=PAGE)
+    po, pl_ = sda.paged_decode_attention_plain(q, kc, vc, pages, lens,
+                                               page_size=PAGE)
+    err = _attn_check("paged attention main path bf16", ko, kl, po, pl_)
+
+    # edge cases: fp32, a hole, an all-masked row, a length cut mid-page,
+    # pages larger than the kernel's token tile, a ragged last tile
+    for name, dt, ps, nsel, S in [("fp32 edge rows", torch.float32, 16, 9,
+                                   512),
+                                  ("bf16 ps=128", torch.bfloat16, 128, 3,
+                                   1024),
+                                  ("fp32 ps=4 ragged tile", torch.float32, 4,
+                                   7, 256)]:
+        b = 3
+        qq = torch.randn(b, Hq, dh, generator=g, device=dev).to(dt)
+        kk = torch.randn(b, S, KV, dh, generator=g, device=dev).to(dt)
+        vv = torch.randn(b, S, KV, dh, generator=g, device=dev).to(dt)
+        pp = torch.stack([torch.randperm(S // ps, generator=g, device=dev)
+                          [:nsel] for _ in range(b)]).to(torch.int32)
+        pp[0, 1] = -1                              # hole
+        pp[2, :] = -1                              # all masked
+        ll = torch.tensor([S - ps // 2 - 1, S // 2 + 1, S], dtype=torch.int32,
+                          device=dev)
+        a = sda.paged_decode_attention(qq, kk, vv, pp, ll, page_size=ps)
+        r = sda.paged_decode_attention_plain(qq, kk, vv, pp, ll, page_size=ps)
+        err = max(err, _attn_check(f"paged attention {name}", *a, *r))
+        want = vv[2, :ps].float().mean(0)          # all-masked row: mean v
+        got = a[0][2].reshape(KV, G, dh)
+        if float((got - want[:, None]).abs().max()) > ATTN_TOL:
+            raise AssertionError("all-masked row is not the page-0 mean of v")
+
+    # library yardstick: SDPA over the pre-gathered selected pages with the
+    # validity mask (gather and GQA expansion not timed)
+    safe = pages.clamp(min=0).long()
+    rows = torch.arange(B, device=dev)[:, None]
+    kg = kc.reshape(B, VIEW // PAGE, PAGE, KV, dh)[rows, safe]
+    vg = vc.reshape(B, VIEW // PAGE, PAGE, KV, dh)[rows, safe]
+    n_tok = n_sel * PAGE
+    kg = kg.reshape(B, n_tok, KV, dh).permute(0, 2, 1, 3) \
+        .repeat_interleave(G, 1).contiguous()
+    vg = vg.reshape(B, n_tok, KV, dh).permute(0, 2, 1, 3) \
+        .repeat_interleave(G, 1).contiguous()
+    tok = safe[:, :, None] * PAGE + torch.arange(PAGE, device=dev)
+    valid = ((pages[:, :, None] >= 0) & (tok < lens[:, None, None])) \
+        .reshape(B, 1, 1, n_tok)
+    qs = q[:, :, None]
+    lib_out = F.scaled_dot_product_attention(qs, kg, vg, attn_mask=valid)
+    lib_err = float((lib_out[:, :, 0].float() - po).abs().max())
+    log(f"  SDPA yardstick vs plain: max abs err {lib_err:.3g} (bf16 output)")
+
+    valid_tok = int(valid.sum())
+    n_pages_read = sum(max(int((row >= 0).sum()), 1) for row in pages)
+    n_bytes = (q.numel() * 2 + n_pages_read * PAGE * KV * dh * 2 * 2
+               + pages.numel() * 4 + B * 4 + B * Hq * dh * 4 + B * Hq * 4)
+    # q.k of bf16 inputs on the tensor cores; p.v takes fp32 weights
+    qk = pv = 2 * valid_tok * Hq * dh
+
+    # on the path the kernel runs right after pool_gather has written the
+    # whole view (67 MB of K/V per layer), so its pages are mostly out of
+    # L2: time it on copies of k/v rotated past the L2 (cold), and once
+    # on one copy (warm) beside it
+    n = cold_copies(n_bytes)
+    ks = [kc] + [kc.clone() for _ in range(n - 1)]
+    vs = [vc] + [vc.clone() for _ in range(n - 1)]
+    ms = time_ms([lambda k=k, v=v: sda.paged_decode_attention(
+        q, k, v, pages, lens, page_size=PAGE) for k, v in zip(ks, vs)])
+    ms_warm = time_ms(lambda: sda.paged_decode_attention(
+        q, kc, vc, pages, lens, page_size=PAGE))
+    plain_ms = time_ms([lambda k=k, v=v: sda.paged_decode_attention_plain(
+        q, k, v, pages, lens, page_size=PAGE) for k, v in zip(ks, vs)])
+    del ks, vs
+    n_lib = cold_copies(2 * kg.numel() * kg.element_size())
+    kgs = [kg] + [kg.clone() for _ in range(n_lib - 1)]
+    vgs = [vg] + [vg.clone() for _ in range(n_lib - 1)]
+    library_ms = time_ms([lambda k=k, v=v: F.scaled_dot_product_attention(
+        qs, k, v, attn_mask=valid) for k, v in zip(kgs, vgs)])
+    del kgs, vgs
+    return {
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_decode_attention.cu",
+        "replaces": "src/repro/kernels/sparse_decode_attention.py:66",
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        **_bound(n_bytes, [(qk, _dot_rate(q, kc)), (pv, FP32_FLOP_PER_S)]),
+        "ms_l2_warm": ms_warm,
+        "timing": f"cold L2: ms, plain_ms and library_ms rotate over {n}, "
+                  f"{n}, {n_lib} copies of their k/v; ms_l2_warm on one copy",
+        "tolerance": f"out abs {ATTN_TOL}, lse rel {ATTN_TOL}",
+        "library": "scaled_dot_product_attention over the pre-gathered "
+                   "selected pages with the validity mask (gather not timed)",
+        "shape": f"q [{B},{Hq},{dh}] bf16, k/v [{B},{VIEW},{KV},{dh}] bf16, "
+                 f"{n_sel} pages of {PAGE}",
+    }
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: serving
+# ---------------------------------------------------------------------------
+
+
+def _requests(vocab: int):
+    import numpy as np
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(i, rng.integers(0, vocab, size=n), MAX_NEW)
+            for i, n in enumerate(PROMPT_LENS)]
+
+
+def serve(dtype: str, dev, record: bool = False, profile_polls: int = 0):
+    """Serve the requests: the long ones first; the short ones join once the
+    long ones decode, so all four share the sparse steps. Returns the
+    engine, handles, wall seconds and (with ``record``) the logits row that
+    produced each of a request's tokens after the first, plus the first
+    sparse step's logits. ``profile_polls`` > 0 traces that many polls of
+    steady sparse decode with ``torch.profiler`` (``profile``: see
+    ``_Profile``)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = get_arch(SERVE_ARCH).replace(dtype=dtype)
+    params = init_params(cfg, 0, device=dev)
+    sc = ServeConfig(method="dsa", max_len=VIEW, n_slots=SLOTS,
+                     kv_page_size=PAGE, page=PAGE)
+    eng = Engine(cfg, params, sc, seed=1, device=dev)
+    reqs = _requests(cfg.vocab_size)
+    rows, first_sparse = {r.rid: [] for r in reqs}, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [eng.submit(r) for r in reqs[:2]]
+    late = reqs[2:]
+    polls, prof = 0, None
+    while eng.busy() or late:
+        if late and not eng.has_prefill_work() and eng.queue_depth() == 0:
+            handles += [eng.submit(r) for r in late]
+            late = []
+        if (profile_polls and prof is None and eng.stats["sparse_steps"]
+                and not late and not eng.queue_depth()
+                and not eng.has_prefill_work()):
+            prof = _Profile(profile_polls)   # steady sparse decode, 4 slots
+        ev = eng.poll()
+        if prof is not None:
+            prof.tick()
+        polls += 1
+        if polls > 1000:
+            raise RuntimeError("serving did not finish in 1000 polls")
+        if record and ev.steps:
+            for rid, slot, _tok in ev.emissions:
+                rows[rid].append(eng.last_logits[slot])
+            if eng.last_sparse and first_sparse is None:
+                first_sparse = eng.last_logits.clone()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for h in handles:
+        if not h.done or len(h.tokens) != MAX_NEW:
+            raise AssertionError(f"request {h.rid} incomplete: {h.tokens}")
+        if not all(0 <= t < cfg.vocab_size for t in h.tokens):
+            raise AssertionError(f"request {h.rid}: token out of vocab")
+    if not torch.isfinite(eng.last_logits).all():
+        raise AssertionError("non-finite logits")
+    if eng.stats["sparse_steps"] == 0:
+        raise AssertionError("no decode step crossed min_context")
+    if profile_polls and (prof is None or prof.result is None):
+        raise AssertionError("the profiled polls did not complete")
+    return SimpleNamespace(eng=eng, handles=handles, wall=wall, rows=rows,
+                           first_sparse=first_sparse, cfg=cfg,
+                           profile=prof and prof.result)
+
+
+# the CUDA symbol of each kernel, as the profiler names it
+KERNEL_SYMBOLS = {"relevancy_topk_candidates": "relevancy_topk_kernel",
+                  "paged_decode_attention": "paged_decode_kernel"}
+
+
+class _Profile:
+    """torch.profiler over the next ``n`` polls. On the last one, sets
+    ``result`` (wall and device-busy time, the busy share, each kernel's
+    mean in-situ device time) and writes the per-op table (device time
+    first) and a chrome trace to chiprun_out/."""
+
+    def __init__(self, n: int):
+        import torch
+
+        self.n, self.polls, self.result = n, n, None
+        self.prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        torch.cuda.synchronize()
+        self.prof.start()
+        self.t0 = time.perf_counter()
+
+    def tick(self):
+        import torch
+
+        self.n -= 1
+        if self.n:
+            return
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - self.t0) * 1e6
+        self.prof.stop()
+        avgs = self.prof.key_averages()
+        cpu = torch.autograd.DeviceType.CPU
+        dev_us = sum(e.self_device_time_total for e in self.prof.events()
+                     if e.device_type != cpu)
+        out = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "profile_decode.txt"), "w") as f:
+            f.write(f"card: {card_line()}\nwall {wall_us:.0f} us, device "
+                    f"busy {dev_us:.0f} us ({100 * dev_us / wall_us:.1f}%)\n")
+            f.write(avgs.table(sort_by="self_device_time_total",
+                               row_limit=40))
+        self.prof.export_chrome_trace(os.path.join(out,
+                                                   "profile_decode.json"))
+        in_situ = {}
+        for name, sym in KERNEL_SYMBOLS.items():
+            hits = [e for e in avgs if sym in e.key]
+            if not hits:
+                raise AssertionError(f"profile: no {sym} in the decode polls")
+            n = sum(e.count for e in hits)
+            in_situ[name] = sum(e.self_device_time_total for e in hits) \
+                / n / 1e3
+        self.result = {"polls": self.polls, "wall_us": wall_us,
+                       "device_busy_us": dev_us,
+                       "device_busy_share": dev_us / wall_us,
+                       "kernel_ms_in_situ": in_situ}
+        log(f"  profiled: wall {wall_us:.0f} us, device busy {dev_us:.0f} us")
+
+
+def phase_serve(dev):
+    """The main path's run (launch counts reset just before it and read just
+    after), then the same requests again with four profiled decode polls."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    run = serve("bfloat16", dev)
+    counts = ops.launch_counts()
+    eng, handles, wall, cfg = run.eng, run.handles, run.wall, run.cfg
+    want = cfg.n_layers * eng.stats["sparse_steps"]
+    log(f"  launches {counts}, sparse steps {eng.stats['sparse_steps']} of "
+        f"{eng.stats['decode_steps']}, expected {want} each")
+    for name, n in counts.items():
+        if n != want or n == 0:
+            raise AssertionError(f"{name}: {n} launches, expected {want}")
+    toks = sum(len(h.tokens) for h in handles)
+    ttft = sorted(h.ttft_s() for h in handles)
+    stats = eng.stats
+    del run, eng
+    profile = serve("bfloat16", dev, profile_polls=4).profile
+    summary = {
+        "card": card_line(), "arch": SERVE_ARCH, "dtype": "bfloat16",
+        "requests": len(handles),
+        "prompt_lens": list(PROMPT_LENS), "max_new": MAX_NEW,
+        "tokens": toks, "wall_s": wall, "tok_per_s": toks / wall,
+        "ttft_s": {str(h.rid): h.ttft_s() for h in handles},
+        "ttft_p50_s": statistics.median(ttft),
+        "decode_steps": stats["decode_steps"],
+        "sparse_steps": stats["sparse_steps"],
+        "decode_step_ms_median": 1e3 * statistics.median(stats["step_s"]),
+        "prefill_s": stats["prefill_s"], "launches": counts,
+        "profiled_decode": profile,
+    }
+    print(json.dumps({"serve": summary}), flush=True)
+    return counts, profile
+
+
+def phase_compare(dev):
+    import torch
+    from repro_torch.kernels import ops
+
+    ops.use_kernels(True)
+    k = serve("float32", dev, record=True)
+    k_h, k_first = k.handles, k.first_sparse
+    del k
+    ops.use_kernels(False)
+    try:
+        p = serve("float32", dev, record=True)
+    finally:
+        ops.use_kernels(True)
+    p_h, p_rows, p_first = p.handles, p.rows, p.first_sparse
+    del p
+    err = float((k_first - p_first).abs().max())
+    log(f"  first sparse step logits: max abs diff {err:.3g} "
+        f"(tol {LOGIT_TOL})")
+    if not err <= LOGIT_TOL:
+        raise AssertionError(f"kernel vs plain logits differ by {err}")
+    for a, b in zip(k_h, p_h):
+        if a.tokens == b.tokens:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                 if x != y)
+        if i == 0:
+            raise AssertionError(f"request {a.rid}: first token differs")
+        top2 = torch.topk(p_rows[b.rid][i - 1].float(), 2).values
+        margin = float(top2[0] - top2[1])
+        log(f"  request {a.rid}: tokens differ at {i}, top-2 margin "
+            f"{margin:.3g}")
+        if margin > LOGIT_TOL:
+            raise AssertionError(f"request {a.rid}: greedy tokens differ at "
+                                 f"{i} with margin {margin} > {LOGIT_TOL}")
+    log(f"  greedy tokens: {[len(h.tokens) for h in k_h]} compared")
+    return err
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="kernels,serve,compare")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device")
+    from repro_torch.kernels import _build
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build()
+    log(f"[1] built {list(_build.SOURCES)} in {time.perf_counter() - t0:.1f}"
+        f" s")
+    for name, text in _build.BUILD_LOGS.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  {name}: {line.strip()}")
+
+    kernels = []
+    if "kernels" in phases:
+        log("[2] kernels vs plain versions")
+        kernels = [check_relevancy(dev), check_paged_attention(dev)]
+    if "serve" in phases:
+        log("[3] serve llama3.2-1b bf16, DSA")
+        counts, profile = phase_serve(dev)
+        for k in kernels:
+            k["launches"] = counts[k["name"]]
+            k["ms_in_situ"] = profile["kernel_ms_in_situ"][k["name"]]
+    if "compare" in phases:
+        log("[4] kernel path vs plain path, fp32")
+        phase_compare(dev)
+    torch.cuda.synchronize()
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

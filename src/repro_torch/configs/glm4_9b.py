@@ -1,0 +1,20 @@
+"""glm4-9b [dense] — 40L d_model=4096 32H (GQA kv=2) d_ff=13696 vocab=151552.
+
+RoPE (partial, GLM applies rotary to half the head dim), extreme GQA kv=2.
+[hf:THUDM/glm-4-9b; hf]
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="glm4-9b",
+    family="dense",
+    n_layers=40,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=2,
+    d_ff=13696,
+    vocab_size=151552,
+    head_dim=128,
+    qkv_bias=True,
+    rope_theta=10000.0,
+)

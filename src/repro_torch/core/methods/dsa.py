@@ -1,0 +1,124 @@
+"""DeepSeek Sparse Attention, lightning indexer (twin of
+``repro.core.methods.dsa``), paper Table 1 row 1.
+
+  prepare   project the query and the cached keys into compact index vectors
+  relevancy 64-head inner product, per-head ReLU, query-weighted sum
+  retrieve  top-k, quantized to micro-pages of ``page`` tokens
+  apply     attention restricted to the retrieved pages
+
+Relevancy + retrieve run in the fused relevancy kernel, apply in the paged
+decode attention kernel (``repro_torch.kernels``).
+
+PyTorch does not promote mixed dtypes in ``@``; JAX does. Every cast below
+that JAX's promotion made implicitly is written out.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig, MemoryConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+Params = Dict
+
+
+def dsa_init(cfg: ArchConfig, mem: MemoryConfig, seed: int = 0, *,
+             stacked: bool = True, device="cuda") -> Params:
+    """Per-layer lightning-indexer weights, stacked [L, ...]. ``wq_idx`` and
+    ``wk_idx`` are always bf16, ``w_wgt`` fp32, as in the reference."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    hd = cfg.hd
+    hp_in = cfg.n_heads * hd
+    kv_in = cfg.n_kv_heads * hd
+    lead = (cfg.n_layers if stacked else 1,)
+    p = {
+        "wq_idx": L.dense_init(gen, hp_in, mem.index_heads * mem.index_dim,
+                               torch.bfloat16, lead=lead),
+        "wk_idx": L.dense_init(gen, kv_in, mem.index_dim, torch.bfloat16,
+                               lead=lead),
+        "w_wgt": L.dense_init(gen, hp_in, mem.index_heads, torch.float32,
+                              scale=0.02, lead=lead),
+    }
+    return p if stacked else {k: v[0] for k, v in p.items()}
+
+
+def _matmul_promoted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the dtype JAX's promotion gives (fp32 @ bf16 -> fp32,
+    bf16 @ bf16 -> bf16)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def _index_qkw(sp: Params, q: torch.Tensor, k_cache: torch.Tensor,
+               mem: MemoryConfig):
+    """prepare: q [B,Hp,hd]; k_cache [B,S,KV,hd] -> index tensors
+    (q_idx [B,Hi,di], k_idx [B,S,di], w [B,Hi] fp32)."""
+    B = q.shape[0]
+    S = k_cache.shape[1]
+    n_in = sp["wq_idx"].shape[0]
+    qf = q.reshape(B, -1)[:, :n_in]
+    # qf is in the model dtype, wq_idx bf16: JAX promotes, torch must be told
+    q_idx = _matmul_promoted(qf, sp["wq_idx"]).reshape(
+        B, -1, sp["wk_idx"].shape[1])
+    k_idx = _matmul_promoted(k_cache.reshape(B, S, -1), sp["wk_idx"])
+    # the weights are fp32; qf.float() is the reference's own cast
+    w = torch.softmax(qf.float() @ sp["w_wgt"], dim=-1)
+    return q_idx, k_idx, w
+
+
+def strip_dead_heads(q: torch.Tensor, cfg: ArchConfig):
+    """[B, 1, Hp, hd] -> [B, n_heads, hd]: drop TP dead-head padding before
+    the paged attention kernel (it needs Hq % KV == 0)."""
+    return q[:, 0, : cfg.n_heads]
+
+
+def repad_dead_heads(out: torch.Tensor, q_like: torch.Tensor,
+                     cfg: ArchConfig):
+    """[B, n_heads, hd] -> [B, 1, Hp, hd] (zeros in the dead-head slots),
+    in q's dtype."""
+    B, _, HP, hd = q_like.shape
+    full = torch.zeros((B, HP, hd), dtype=q_like.dtype, device=out.device)
+    full[:, : cfg.n_heads] = out.to(q_like.dtype)
+    return full[:, None]
+
+
+def select_pages(sp: Params, q, kc, lb, mem: MemoryConfig, page: int):
+    """prepare + relevancy + retrieve for one layer: q [B,1,Hp,hd], kc
+    [B,S,KV,hd], lb [B] live lengths -> selected page ids [B, top_k // page]
+    int32, -1 past each slot's live context."""
+    B, S = q.shape[0], kc.shape[1]
+    n_pages_sel = max(mem.top_k // page, 1)
+    # --- prepare: index projection of the query and the cached keys ---
+    q_idx, k_idx, w = _index_qkw(sp, q[:, 0], kc, mem)
+    # page-level scores through mean-pooled index keys per micro-page
+    kp = k_idx.reshape(B, S // page, page, -1).mean(dim=2)
+    # --- fused relevancy + retrieve (kernel) ---
+    _, pidx = ops.relevancy_topk(q_idx, kp, w, n_pages_sel,
+                                 block=max(min(4096, S // page), n_pages_sel))
+    # mask pages beyond each slot's live context
+    return torch.where(pidx * page < lb[:, None], pidx,
+                       torch.full_like(pidx, -1)).to(torch.int32)
+
+
+def make_sparse_fn(cfg: ArchConfig, mem: MemoryConfig, *, tp: int = 16,
+                   page: int = 16, max_context: int = 0):
+    """Returns sparse_fn(q, kc, vc, length, sp, k_new=None) for
+    ``model.decode_step_paged``."""
+
+    def sparse_fn(q, kc, vc, length, sp, k_new=None):
+        lb = torch.as_tensor(length, dtype=torch.int32,
+                             device=q.device).reshape(-1).expand(q.shape[0])
+        pidx = select_pages(sp, q, kc, lb, mem, page)
+        # --- apply: paged sparse attention over the retrieved pages ---
+        out, _ = ops.paged_decode_attention(strip_dead_heads(q, cfg), kc, vc,
+                                            pidx, lb, page_size=page)
+        return repad_dead_heads(out, q, cfg)
+
+    return sparse_fn
+

@@ -1,0 +1,100 @@
+"""Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
+own into ``build/repro_torch/lib<name>-<hash>.so`` at the repository root
+(or under ``$REPRO_TORCH_BUILD_DIR``). The hash covers the source and the
+flags, so an edited source is rebuilt at its next use and an unchanged one
+is loaded as built. ``build()`` starts one nvcc per source, all at once, and
+waits for them together. Nothing is compiled or loaded on import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+from typing import Dict, Iterable
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = ("relevancy_topk", "paged_decode_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+#: nvcc output (ptxas register / shared-memory / spill report) per source
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def build_dir() -> pathlib.Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return pathlib.Path(env)
+    # src/repro_torch/kernels/_build.py -> repository root
+    return pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    cands = [os.environ.get("NVCC"), shutil.which("nvcc"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set NVCC or CUDA_HOME); the CUDA "
+                       "kernels of repro_torch are built at first use")
+
+
+def library_path(name: str) -> pathlib.Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, pathlib.Path]:
+    """Compile every named source whose library is missing, in parallel.
+    Raises with nvcc's output if any compile fails."""
+    out = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in out.items() if not p.exists()}
+    if not todo:
+        return out
+    nvcc = _nvcc()
+    procs = {}
+    for n, p in todo.items():
+        p.parent.mkdir(parents=True, exist_ok=True)
+        tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, cmd)
+    failed = []
+    for n, (proc, tmp, cmd) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOGS[n] = log
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, todo[n])     # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err:
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err}: {msg}")

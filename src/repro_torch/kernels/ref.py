@@ -1,0 +1,82 @@
+"""Plain-torch oracles for the ported kernels (twins of ``repro.kernels.ref``).
+
+All oracles use fp32 math. Top-k breaks ties by ascending index, as the
+reference's ``lax.top_k`` and bitonic network do: a stable descending sort
+followed by a slice (``torch.topk`` promises no tie order).
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+NEG_INF = -1e30
+
+
+def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis, descending, ties by ascending index."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# 1. Fused relevancy scoring + top-k (DeepSeek lightning-indexer style)
+# ---------------------------------------------------------------------------
+
+
+def relevancy_scores(q: torch.Tensor, keys: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """q [B,Hq,dk]; keys [B,S,dk]; weights [B,Hq] -> scores [B,S].
+
+    score_s = sum_h w_h * relu(q_h . k_s)   (DSA indexer, paper App. D)
+    """
+    dots = torch.einsum("bhd,bsd->bhs", q.float(), keys.float())
+    return torch.einsum("bh,bhs->bs", weights.float(), torch.relu(dots))
+
+
+def relevancy_topk(q, keys, weights, k: int):
+    """Exact oracle: (vals [B,k], idx [B,k]) sorted descending, ``k``
+    clamped to the key count."""
+    return topk_stable(relevancy_scores(q, keys, weights),
+                       min(k, keys.shape[1]))
+
+
+# ---------------------------------------------------------------------------
+# 2. Paged sparse decode attention (apply-to-inference stage)
+# ---------------------------------------------------------------------------
+
+
+def paged_decode_attention(q, k_cache, v_cache, page_ids, page_size: int,
+                           length):
+    """Attention of one query over the selected pages.
+
+    q [B,Hq,dh]; k/v [B,S,KV,dh]; page_ids [B,P] (-1 = hole); length [] or
+    [B] -> (out [B,Hq,dh] fp32, lse [B,Hq] fp32). A -1 page reads page 0 and
+    is masked, so a row with no valid token averages v over page 0 (every
+    masked score is -1e30 and the softmax is uniform), as the reference does.
+    """
+    B, S, KV, dh = k_cache.shape
+    Hq = q.shape[1]
+    G = Hq // KV
+    P = page_ids.shape[1]
+    ps = page_size
+    safe = page_ids.clamp(min=0).long()
+    rows = torch.arange(B, device=q.device)[:, None]
+    kg = k_cache.reshape(B, S // ps, ps, KV, dh)[rows, safe]  # [B,P,ps,KV,dh]
+    vg = v_cache.reshape(B, S // ps, ps, KV, dh)[rows, safe]
+    qg = q.reshape(B, KV, G, dh).float() / math.sqrt(dh)
+    sc = torch.einsum("bkgd,bptkd->bkgpt", qg, kg.float())
+    tok_pos = safe[:, :, None] * ps + torch.arange(ps, device=q.device)
+    lb = torch.as_tensor(length, device=q.device).reshape(-1).expand(B)
+    valid = (page_ids[:, :, None] >= 0) & (tok_pos < lb[:, None, None])
+    sc = torch.where(valid[:, None, None], sc, torch.full_like(sc, NEG_INF))
+    sc = sc.reshape(B, KV, G, P * ps)
+    m = sc.amax(-1)
+    p = torch.exp(sc - m[..., None])
+    l = p.sum(-1)
+    out = torch.einsum("bkgn,bnkd->bkgd", p,
+                       vg.reshape(B, P * ps, KV, dh).float())
+    out = out / l[..., None]
+    lse = m + torch.log(l)
+    return out.reshape(B, Hq, dh), lse.reshape(B, Hq)

@@ -1,0 +1,10 @@
+"""Dense-family model for the port (twin of ``repro.models``)."""
+from repro_torch.models.model import (  # noqa: F401
+    init_params,
+    forward,
+    last_logits,
+    make_page_pool,
+    decode_step_paged,
+    extend_paged,
+    prefill_bucketed,
+)

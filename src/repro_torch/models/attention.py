@@ -1,0 +1,165 @@
+"""GQA attention (twin of ``repro.models.attention``), in plain PyTorch.
+
+The reference computes these in XLA, outside any Pallas kernel; so does the
+port. Query heads are padded to a multiple of ``tp`` with dead heads whose
+q rows and o-proj columns are zero (``head_mask`` zeroes their outputs).
+
+  * ``attention_full``         causal attention over a prompt (query chunks);
+  * ``attention_decode``       one query token vs a KV view (dense decode);
+  * ``attention_decode_chunk`` C new query tokens vs a KV view (chunked
+                               prefill).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+
+Params = Dict[str, torch.Tensor]
+
+NEG_INF = -1e30
+
+
+def attn_init(gen, cfg: ArchConfig, tp: int = 16, n: int = 1) -> Params:
+    """Stacked [n, ...] attention weights (dead-head slices zeroed)."""
+    d, hd, kv = cfg.d_model, cfg.hd, cfg.n_kv_heads
+    hp = cfg.padded_heads(tp)
+    dt = L.dtype_of(cfg)
+    lead = (n,)
+    p: Params = {
+        "wq": L.dense_init(gen, d, hp * hd, dt, lead=lead),
+        "wk": L.dense_init(gen, d, kv * hd, dt, lead=lead),
+        "wv": L.dense_init(gen, d, kv * hd, dt, lead=lead),
+        "wo": L.dense_init(gen, hp * hd, d, dt, lead=lead,
+                           scale=1.0 / np.sqrt(2 * cfg.n_layers * hp * hd)),
+    }
+    if hp != cfg.n_heads:
+        p["wq"].view(n, d, hp, hd)[:, :, cfg.n_heads:] = 0
+        p["wo"].view(n, hp, hd, d)[:, cfg.n_heads:] = 0
+    dev = gen.device
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(lead + (hp * hd,), dtype=dt, device=dev)
+        p["bk"] = torch.zeros(lead + (kv * hd,), dtype=dt, device=dev)
+        p["bv"] = torch.zeros(lead + (kv * hd,), dtype=dt, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(lead + (hd,), dtype=torch.float32, device=dev)
+        p["k_norm"] = torch.ones(lead + (hd,), dtype=torch.float32, device=dev)
+    return p
+
+
+def head_mask(cfg: ArchConfig, tp: int = 16, device=None) -> torch.Tensor:
+    hp = cfg.padded_heads(tp)
+    return torch.as_tensor((np.arange(hp) < cfg.n_heads).astype(np.float32),
+                           device=device)
+
+
+def head_to_kv(cfg: ArchConfig, tp: int = 16) -> np.ndarray:
+    """Static map padded-query-head -> kv head (dead heads map to kv 0)."""
+    hp, h, kv = cfg.padded_heads(tp), cfg.n_heads, cfg.n_kv_heads
+    g = max(h // kv, 1)
+    m = np.minimum(np.arange(hp) // g, kv - 1)
+    m[h:] = 0
+    return m.astype(np.int32)
+
+
+def project_qkv(p: Params, x, cos, sin, cfg: ArchConfig, tp: int = 16):
+    """x [B, S, d] -> q [B, S, Hp, hd], k/v [B, S, KV, hd] (rope applied)."""
+    B, S, _ = x.shape
+    hd, kv = cfg.hd, cfg.n_kv_heads
+    hp = cfg.padded_heads(tp)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, hp, hd)
+    k = k.reshape(B, S, kv, hd)
+    v = v.reshape(B, S, kv, hd)
+    if cfg.qk_norm:
+        q = L.rms_norm({"w": p["q_norm"]}, q, cfg.norm_eps)
+        k = L.rms_norm({"w": p["k_norm"]}, k, cfg.norm_eps)
+    if cfg.rope_style != "none":
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def expand_kv(kv_arr: torch.Tensor, cfg: ArchConfig, tp: int = 16):
+    """[..., KV, hd] -> [..., Hp, hd] by group broadcast (or gather)."""
+    hp, kv = cfg.padded_heads(tp), cfg.n_kv_heads
+    if hp % kv == 0:
+        return kv_arr.repeat_interleave(hp // kv, dim=-2)
+    idx = torch.as_tensor(head_to_kv(cfg, tp), device=kv_arr.device).long()
+    return kv_arr.index_select(-2, idx)
+
+
+def _softmax_attend(sc, mask, vexp):
+    """sc [B,H,Q,K] fp32 with mask [B|1,1|.,Q,K] -> out [B,Q,H,hd] fp32."""
+    sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vexp)
+
+
+def attention_full(q, k, v, cfg: ArchConfig, *, q_chunk: int = 256,
+                   window: Optional[int] = None, tp: int = 16):
+    """Causal attention; q [B,S,Hp,hd], k/v [B,S,KV,hd] -> [B,S,Hp,hd].
+    Query chunks of ``q_chunk`` bound the score tile to [B,Hp,q_chunk,S]."""
+    B, S, HP, hd = q.shape
+    window = window if window is not None else (cfg.sliding_window or None)
+    kexp = expand_kv(k, cfg, tp).float()
+    vexp = expand_kv(v, cfg, tp).float()
+    bq = min(q_chunk, S)
+    q32 = q.float() * (1.0 / np.sqrt(hd))
+    kpos = torch.arange(S, device=q.device)
+    outs = []
+    for s0 in range(0, S, bq):
+        qc = q32[:, s0:s0 + bq]
+        qpos = s0 + torch.arange(qc.shape[1], device=q.device)
+        sc = torch.einsum("bqhd,bkhd->bhqk", qc, kexp)
+        mask = qpos[:, None] >= kpos[None, :]
+        if window:
+            mask &= qpos[:, None] - kpos[None, :] < window
+        outs.append(_softmax_attend(sc, mask[None, None], vexp))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def attention_decode(q, k_cache, v_cache, length, cfg: ArchConfig, *,
+                     window: Optional[int] = None, tp: int = 16):
+    """q [B,1,Hp,hd]; caches [B,Smax,KV,hd]; length [] or [B] -> [B,1,Hp,hd]."""
+    B, Smax = k_cache.shape[0], k_cache.shape[1]
+    hd = q.shape[-1]
+    window = window if window is not None else (cfg.sliding_window or None)
+    kexp = expand_kv(k_cache, cfg, tp).float()
+    vexp = expand_kv(v_cache, cfg, tp).float()
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float() * (1.0 / np.sqrt(hd)),
+                      kexp)
+    pos = torch.arange(Smax, device=q.device)
+    lb = torch.as_tensor(length, device=q.device).reshape(-1).expand(B)
+    mask = pos[None, :] < lb[:, None]
+    if window:
+        mask &= pos[None, :] >= (lb[:, None] - window)
+    return _softmax_attend(sc, mask[:, None, None, :], vexp).to(q.dtype)
+
+
+def attention_decode_chunk(q, k_cache, v_cache, start, cfg: ArchConfig, *,
+                           window: Optional[int] = None, tp: int = 16):
+    """Chunked-prefill attention: q [B,C,Hp,hd] vs caches [B,Smax,KV,hd] that
+    already hold the C new keys at start[b]..start[b]+C-1; query i of row b
+    sits at start[b]+i and attends causally -> [B,C,Hp,hd]. Rows past a
+    slot's real span are garbage the caller ignores."""
+    B, C = q.shape[:2]
+    Smax = k_cache.shape[1]
+    hd = q.shape[-1]
+    window = window if window is not None else (cfg.sliding_window or None)
+    kexp = expand_kv(k_cache, cfg, tp).float()
+    vexp = expand_kv(v_cache, cfg, tp).float()
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float() * (1.0 / np.sqrt(hd)),
+                      kexp)
+    kpos = torch.arange(Smax, device=q.device)
+    qpos = start.long()[:, None] + torch.arange(C, device=q.device)[None, :]
+    mask = kpos[None, None, :] <= qpos[:, :, None]               # [B, C, Smax]
+    if window:
+        mask &= kpos[None, None, :] > (qpos[:, :, None] - window)
+    return _softmax_attend(sc, mask[:, None], vexp).to(q.dtype)

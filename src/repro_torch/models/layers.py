@@ -1,0 +1,85 @@
+"""Core layers (twin of ``repro.models.layers``): RMSNorm, RoPE, SwiGLU MLP,
+embedding and LM head, as plain functions over parameter dicts.
+
+Weights are stored in ``cfg.dtype`` (bf16 by default); norms and RoPE run in
+fp32 and cast back, matmuls run in the weights' dtype.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+
+Params = Dict[str, torch.Tensor]
+
+
+def dtype_of(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)          # "bfloat16" -> torch.bfloat16
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               scale: Optional[float] = None, lead: Tuple[int, ...] = ()):
+    """N(0, 1) * scale in fp32, cast to ``dtype``; scale 1/sqrt(d_in) by
+    default. ``lead`` prepends stacked axes (one draw per layer)."""
+    scale = scale if scale is not None else 1.0 / np.sqrt(d_in)
+    w = torch.randn(lead + (d_in, d_out), generator=gen,
+                    device=gen.device, dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["w"]).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, rotary_dim: Optional[int] = None):
+    """Inverse frequencies for the rotary embedding (fp32 numpy)."""
+    rd = rotary_dim or head_dim
+    return 1.0 / (theta ** (np.arange(0, rd, 2, dtype=np.float32) / rd))
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 rotary_dim: Optional[int] = None):
+    """positions [..., S] -> cos/sin [..., S, rd//2] in fp32."""
+    inv = torch.as_tensor(rope_freqs(head_dim, theta, rotary_dim),
+                          device=positions.device)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """x [B, S, H, hd]; cos/sin [B, S, rd//2] (broadcast over heads).
+    Rotates the first ``2 * cos.shape[-1]`` channels."""
+    rd2 = cos.shape[-1]
+    xf = x.float()
+    x1, x2, rest = xf[..., :rd2], xf[..., rd2:2 * rd2], xf[..., 2 * rd2:]
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s, rest], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: (silu(x W1) * x W3) W2."""
+    return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p["w"][tokens.long()]
+
+
+def lm_head(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Logits over the PADDED vocab; pad rows masked to fp32's minimum."""
+    logits = x @ p["w"]
+    pad = cfg.padded_vocab - cfg.vocab_size
+    if pad:
+        mask = torch.zeros((cfg.padded_vocab,), dtype=logits.dtype,
+                           device=logits.device)
+        mask[cfg.vocab_size:] = torch.finfo(torch.float32).min
+        logits = logits + mask
+    return logits

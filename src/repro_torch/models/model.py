@@ -1,0 +1,231 @@
+"""Model (twin of ``repro.models.model``), dense family only: init, forward,
+prefill over length buckets, chunked extend and decode over the paged pool.
+
+Parameters are nested dicts of tensors with layer-stacked ``[L, ...]``
+leaves, the reference's layout, so ``weights.from_jax_params`` carries a JAX
+parameter tree over unchanged. Layers run as a Python loop over the stack.
+The pool ops write the KV pages in place; the reference donated those
+buffers to its jitted steps instead (``repro/serving/engine.py:342-356``).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.page_pool import (pool_gather, pool_scatter_span,
+                                           pool_scatter_token)
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+Params = Dict
+
+
+def _require_dense(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"repro_torch serves the dense family only; {cfg.name} is "
+            f"{cfg.family!r} (ROADMAP Queue 1 item 13)")
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, *, tp: int = 16,
+                device="cuda") -> Params:
+    """Seeded init with the reference's distributions, scales, dtypes and
+    dead-head zeroing (the draws themselves differ from ``jax.random``)."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dt = L.dtype_of(cfg)
+    n, d, ff, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    ones = lambda *shape: torch.ones(shape, dtype=torch.float32, device=dev)
+    lead = (n,)
+    return {
+        "embed": {"w": L.dense_init(gen, V, d, dt, scale=0.02)},
+        "final_norm": {"w": ones(d)},
+        "lm_head": {"w": L.dense_init(gen, d, V, dt)},
+        "layers": {
+            "attn": A.attn_init(gen, cfg, tp, n),
+            "attn_norm": {"w": ones(n, d)},
+            "mlp_norm": {"w": ones(n, d)},
+            "mlp": {
+                "w1": L.dense_init(gen, d, ff, dt, lead=lead),
+                "w3": L.dense_init(gen, d, ff, dt, lead=lead),
+                "w2": L.dense_init(gen, ff, d, dt, lead=lead,
+                                   scale=1.0 / np.sqrt(2 * n * ff)),
+            },
+        },
+    }
+
+
+def layer(tree, i: int):
+    """Layer ``i`` of a layer-stacked parameter tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _rope_tables(cfg: ArchConfig, positions):
+    if cfg.rope_style == "none":
+        return None, None
+    if cfg.rope_style != "rope":
+        raise NotImplementedError(f"rope_style {cfg.rope_style!r}")
+    return L.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+
+
+def _attn_out(lp: Params, out, cfg: ArchConfig, tp: int):
+    """Dead-head mask, then the o-projection. out [B,S,Hp,hd] -> [B,S,d]."""
+    hm = A.head_mask(cfg, tp, device=out.device).to(out.dtype)
+    out = out * hm[None, None, :, None]
+    B, Sq, HP, hd = out.shape
+    return out.reshape(B, Sq, HP * hd) @ lp["wo"]
+
+
+def _mlp_block(lp, x, cfg):
+    return x + L.mlp(lp["mlp"], L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps))
+
+
+def forward(params: Params, cfg: ArchConfig, tokens, *, positions=None,
+            collect_cache: bool = False, tp: int = 16):
+    """tokens [B, S] -> (hidden [B,S,d], caches-or-None); caches hold the
+    stacked k/v [L, B, S, KV, hd]."""
+    _require_dense(cfg)
+    B, Sq = tokens.shape
+    x = L.embed(params["embed"], tokens)
+    if positions is None:
+        positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
+    cos, sin = _rope_tables(cfg, positions)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = layer(params["layers"], i)
+        h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+        q, k, v = A.project_qkv(lp["attn"], h, cos, sin, cfg, tp)
+        attn = A.attention_full(q, k, v, cfg, tp=tp)
+        x = _mlp_block(lp, x + _attn_out(lp["attn"], attn, cfg, tp), cfg)
+        if collect_cache:
+            ks.append(k)
+            vs.append(v)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    caches = None
+    if collect_cache:
+        caches = {"k": torch.stack(ks), "v": torch.stack(vs), "length": Sq}
+    return x, caches
+
+
+def last_logits(params, cfg: ArchConfig, x):
+    return L.lm_head(params["lm_head"], x[:, -1:], cfg)[:, 0]
+
+
+def make_page_pool(cfg: ArchConfig, n_slots: int, max_len: int, *,
+                   page_size: int, total_pages: int, tp: int = 16,
+                   dtype=None, device="cuda") -> Dict:
+    """Paged KV pool. Physical page 0 is the reserved zero/trash page: every
+    unallocated table entry points at it, dead-slot writes land on it zeroed,
+    and it must stay zero so pooled decode equals per-request decode."""
+    dev = resolve_device(device)
+    dt = dtype or L.dtype_of(cfg)
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    if max_len % page_size:
+        raise ValueError(f"max_len {max_len} % page_size {page_size} != 0")
+    shape = (cfg.n_layers, total_pages, page_size, kv, hd)
+    return {
+        "k_pages": torch.zeros(shape, dtype=dt, device=dev),
+        "v_pages": torch.zeros(shape, dtype=dt, device=dev),
+        "page_table": torch.zeros((n_slots, max_len // page_size),
+                                  dtype=torch.int32, device=dev),
+        "lengths": torch.zeros((n_slots,), dtype=torch.int32, device=dev),
+    }
+
+
+def decode_step_paged(params, cfg: ArchConfig, token, pool, live, *,
+                      tp: int = 16, sparse_fn=None, sparse_params=None):
+    """One decode step over the paged pool with PER-SLOT lengths.
+
+    token [B]; pool from ``make_page_pool`` (``lengths`` pre-masked to 0 for
+    dead slots; ``page_table`` may be a view narrower than max_len); live [B]
+    bool. ``sparse_fn(q, kc, vc, length, sp_layer, k_new=)`` replaces dense
+    attention; the engine passes it only when the sparse window holds (the
+    reference's fallback cond, decided on the host). Writes the new K/V into
+    the pool in place; returns (logits [B, V], pool with lengths advanced).
+    """
+    _require_dense(cfg)
+    lengths = pool["lengths"]
+    table = pool["page_table"]
+    live = live.bool()
+    x = L.embed(params["embed"], token[:, None])
+    cos, sin = _rope_tables(cfg, lengths[:, None])
+    for i in range(cfg.n_layers):
+        lp = layer(params["layers"], i)
+        kp, vp = pool["k_pages"][i], pool["v_pages"][i]
+        h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+        q, k, v = A.project_qkv(lp["attn"], h, cos, sin, cfg, tp)
+        pool_scatter_token(kp, table, lengths, k[:, 0], live)
+        pool_scatter_token(vp, table, lengths, v[:, 0], live)
+        kc, vc = pool_gather(kp, table), pool_gather(vp, table)
+        if sparse_fn is not None:
+            attn = sparse_fn(q, kc, vc, lengths + 1, layer(sparse_params, i),
+                             k_new=k)
+        else:
+            attn = A.attention_decode(q, kc, vc, lengths + 1, cfg, tp=tp)
+        x = _mlp_block(lp, x + _attn_out(lp["attn"], attn, cfg, tp), cfg)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    pool = dict(pool, lengths=lengths + live.to(lengths.dtype))
+    return last_logits(params, cfg, x), pool
+
+
+def extend_paged(params, cfg: ArchConfig, tokens, pool, n_valid, *,
+                 tp: int = 16):
+    """Chunked prefill: append a span of C tokens per slot to the paged pool.
+
+    tokens [B, C] (rows padded past ``n_valid[b]``); n_valid [B] (0 = slot not
+    prefilling this step). Queries attend causally to the existing prefix
+    plus the chunk. Returns (logits [B, V] at each row's last valid token,
+    pool with lengths advanced); the pages are written in place.
+    """
+    _require_dense(cfg)
+    B, C = tokens.shape
+    lengths = pool["lengths"]
+    table = pool["page_table"]
+    x = L.embed(params["embed"], tokens)
+    positions = lengths.long()[:, None] + torch.arange(C, device=x.device)
+    cos, sin = _rope_tables(cfg, positions)
+    for i in range(cfg.n_layers):
+        lp = layer(params["layers"], i)
+        kp, vp = pool["k_pages"][i], pool["v_pages"][i]
+        h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+        q, k, v = A.project_qkv(lp["attn"], h, cos, sin, cfg, tp)
+        pool_scatter_span(kp, table, lengths, k, n_valid)
+        pool_scatter_span(vp, table, lengths, v, n_valid)
+        kc, vc = pool_gather(kp, table), pool_gather(vp, table)
+        attn = A.attention_decode_chunk(q, kc, vc, lengths, cfg, tp=tp)
+        x = _mlp_block(lp, x + _attn_out(lp["attn"], attn, cfg, tp), cfg)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    last = (n_valid.long() - 1).clamp(0, C - 1)
+    xg = x[torch.arange(B, device=x.device), last][:, None]     # [B, 1, d]
+    logits = L.lm_head(params["lm_head"], xg, cfg)[:, 0]
+    pool = dict(pool, lengths=lengths + n_valid.to(lengths.dtype))
+    return logits, pool
+
+
+def prefill_bucketed(params, cfg: ArchConfig, tokens, true_lens, *,
+                     tp: int = 16):
+    """Batched admission prefill over a length bucket.
+
+    tokens [B, Sb] right-padded prompts; true_lens [B]. Returns (logits [B, V]
+    at each row's last REAL token, k, v) with k/v [L, B, Sb, KV, hd] zeroed
+    past ``true_lens``, so splicing them into the pool leaves the dead region
+    exactly zero.
+    """
+    B, Sb = tokens.shape
+    x, caches = forward(params, cfg, tokens, collect_cache=True, tp=tp)
+    last = (true_lens.long() - 1).clamp(0, Sb - 1)
+    xg = x[torch.arange(B, device=x.device), last][:, None]
+    logits = L.lm_head(params["lm_head"], xg, cfg)[:, 0]
+    mask = torch.arange(Sb, device=x.device)[None, :] < true_lens[:, None]
+    m = mask[None, :, :, None, None]
+    k = caches["k"] * m.to(caches["k"].dtype)
+    v = caches["v"] * m.to(caches["v"].dtype)
+    return logits, k, v

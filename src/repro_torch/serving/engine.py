@@ -1,0 +1,498 @@
+"""Paged continuous-batching engine with the memory pipeline (twin of
+``repro.serving.engine``), stepped decode only.
+
+* Requests enter through ``submit(Request)``; ``poll`` admits from the queue
+  (short prompts batched per pow2 length bucket, long prompts in chunks
+  interleaved with decode), runs one pooled decode step and routes the
+  emitted tokens into their ``ResponseHandle``s.
+* Every slot decodes at its own RoPE position, cache offset and attention
+  mask over the paged KV pool; the decode view covers the longest live slot,
+  bucketed to pow2 multiples of the alignment granule.
+* The paper's dynamic fallback: the reference takes a traced ``lax.cond`` on
+  the max over the slots' lengths; here the host holds those lengths and
+  picks the branch itself (``placement.use_sparse``), dense attention below
+  ``min_context`` and the DSA pipeline (relevancy-top-k + paged decode
+  attention kernels) inside the window.
+
+The pool is updated in place; the reference donates the pool buffers to its
+jitted steps instead (``repro/serving/engine.py:342-356``).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig, MemoryConfig
+from repro_torch.core import placement
+from repro_torch.core.methods import get_sparse_method
+from repro_torch.models import model as M
+from repro_torch.serving.api import Request, ResponseHandle
+from repro_torch.serving.events import StepEvents
+from repro_torch.serving.kv_cache import PagedKVPool, SlotManager
+
+POOL_FAMILIES = ("dense",)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """The reference's fields. The port serves the paged pool with stepped
+    decode and no offload or retrieval; ``Engine`` raises
+    ``NotImplementedError`` for any other value of those fields."""
+    max_len: int = 4096
+    n_slots: int = 8
+    method: str = "none"       # none | dsa
+    tp: int = 16
+    page: int = 16             # dsa micro-page size
+    greedy: bool = True
+    paged: bool = True
+    kv_page_size: int = 16     # physical KV page (pool granule)
+    pool_pages: int = 0        # 0 = full backing; else arena size
+    prefill_chunk: int = 128   # chunk span for chunked prefill
+    chunk_threshold: int = 512 # prompts longer than this prefill in chunks
+    view_buckets: bool = True  # size the decode view by max live length
+    offload: str = "off"
+    offload_validate: bool = False
+    offload_shards: int = 1
+    main_mesh: int = 1
+    retrieval: Optional[object] = None
+    offload_cfg: Optional[object] = None
+    fused_steps: int = 1
+
+
+def _check_supported(cfg: ArchConfig, sc: ServeConfig) -> None:
+    oc = sc.offload_cfg
+    nested = None if oc is None else (
+        getattr(oc, "mode", "off"), getattr(oc, "validate", False),
+        getattr(oc, "shards", 1), getattr(oc, "main_mesh", 1))
+    todo = [
+        (sc.offload != "off" or sc.offload_validate
+         or nested not in (None, ("off", False, 1, 1)),
+         "hetero offload (offload / offload_validate / offload_cfg)",
+         "Queue 1 item 8"),
+        (sc.offload_shards > 1 or sc.main_mesh > 1,
+         "multi-device serving (offload_shards / main_mesh)",
+         "Queue 1 item 10"),
+        (sc.fused_steps > 1, "fused decode (fused_steps > 1)",
+         "Queue 1 item 7"),
+        (sc.retrieval is not None, "the retrieval service (retrieval)",
+         "Queue 1 item 9"),
+        (not sc.paged, "the legacy dense pool (paged=False)",
+         "Queue 1 item 5b"),
+        (cfg.family not in POOL_FAMILIES, f"the {cfg.family!r} family",
+         "Queue 1 item 13"),
+    ]
+    for bad, what, item in todo:
+        if bad:
+            raise NotImplementedError(
+                f"repro_torch does not port {what} yet (ROADMAP {item})")
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class Engine:
+    def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
+                 seed: int = 0, mem: Optional[MemoryConfig] = None,
+                 device="cuda", sparse_params=None):
+        """``params`` from ``models.init_params`` or
+        ``weights.from_jax_params``. ``sparse_params`` (the DSA indexer
+        weights) default to ``dsa_init(seed)``; pass the reference engine's
+        to compare the two."""
+        _check_supported(cfg, sc)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = _to_device(params, self.device)
+        self.mem = mem or cfg.memory.replace(method=sc.method)
+        # the sparse pipeline needs the view page-aligned, the pool kv-page
+        # aligned
+        gran = 1 if sc.method == "none" else max(sc.page,
+                                                 self.mem.block_size)
+        gran = math.lcm(gran, sc.kv_page_size)
+        if sc.max_len % gran:
+            sc = dataclasses.replace(
+                sc, max_len=((sc.max_len + gran - 1) // gran) * gran)
+        self.sc = sc
+        self._gran = gran
+        self.sparse_params = None
+        self._sparse_fn = None
+        if sc.method != "none":
+            init_fn, mk = get_sparse_method(sc.method)
+            self.sparse_params = _to_device(
+                sparse_params if sparse_params is not None
+                else init_fn(cfg, self.mem, seed, device=self.device),
+                self.device)
+            self._sparse_fn = mk(cfg, self.mem, tp=sc.tp, page=sc.page)
+
+        self.slots = SlotManager(sc.n_slots, sc.max_len)
+        self.pool: Optional[PagedKVPool] = None
+        # chunked-prefill state: slot -> [request_id, prompt np, next_pos]
+        self._chunks: Dict[int, list] = {}
+        self._table_view_cache = None  # ((npv, table_version), view)
+        # step_s: wall seconds of the latest decode steps (bounded)
+        self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "tokens": 0,
+                      "host_steps": 0, "decode_steps": 0, "sparse_steps": 0,
+                      "step_s": collections.deque(maxlen=4096)}
+        # logits of the latest decode step and whether it took the sparse
+        # branch (read by chip_smoke's kernel-vs-plain comparison)
+        self.last_logits: Optional[torch.Tensor] = None
+        self.last_sparse = False
+
+        self.prefill_token_budget = 2048   # per-poll admission budget
+        self.queue: collections.deque = collections.deque()
+        self._handles: Dict[int, ResponseHandle] = {}
+        self._inflight_h: Dict[int, ResponseHandle] = {}
+        self.done: Dict[int, ResponseHandle] = {}
+        self._auto_rid = 0                 # generate() uses negative rids
+        self._polled_prefill = False
+
+    # ------------------------------------------------------------------
+    # request-level serving API (submit / poll / drain)
+    # ------------------------------------------------------------------
+
+    def submit(self, req: Request) -> ResponseHandle:
+        """Enqueue one :class:`Request`; admission happens inside ``poll``."""
+        if not isinstance(req, Request):
+            raise TypeError(
+                f"submit() takes a serving.Request, got {type(req)!r}")
+        if req.rid in self._handles and not self._handles[req.rid].done:
+            raise ValueError(f"request id {req.rid} already in flight")
+        h = ResponseHandle(req)
+        self._handles[req.rid] = h
+        self.queue.append(req)
+        return h
+
+    def queue_depth(self) -> int:
+        return len(self.queue)
+
+    def busy(self) -> bool:
+        return bool(self.queue or self._inflight_h)
+
+    def _next_rid(self) -> int:
+        self._auto_rid -= 1
+        return self._auto_rid
+
+    def _mark_admitted(self, req: Request) -> None:
+        h = self._handles[req.rid]
+        h.admitted = time.perf_counter()
+        self._inflight_h[req.rid] = h
+
+    def _admit_from_queue(self) -> None:
+        """FCFS batch admission within the per-poll prefill token budget:
+        short prompts admit together (one bucketed prefill per bucket),
+        long prompts switch to chunked mode, rejections re-queue at the
+        FRONT."""
+        if not self.queue:
+            return
+        budget = self.prefill_token_budget
+        batch: List[Request] = []
+        while self.queue and budget > 0:
+            req = self.queue[0]
+            plen = len(req)
+            if req.override("chunked", plen > self.sc.chunk_threshold):
+                if not self._admit_chunked(req.rid, req.tokens, req.max_new):
+                    break
+                self.queue.popleft()
+                self._mark_admitted(req)
+                continue
+            if batch and plen > budget:
+                break
+            batch.append(req)
+            self.queue.popleft()
+            budget -= plen
+        if not batch:
+            return
+        oks = self._admit_many([(r.rid, r.tokens, r.max_new) for r in batch])
+        for r, ok in zip(reversed(batch), reversed(oks)):
+            if ok:
+                self._mark_admitted(r)
+            else:
+                self.queue.appendleft(r)
+
+    def _dispatch(self, ev: StepEvents) -> None:
+        now = time.perf_counter()
+        for rid, _slot, tok in ev.emissions:
+            h = self._inflight_h.get(rid)
+            if h is None:
+                continue
+            if h.first_token_t is None:
+                h.first_token_t = now
+            h.tokens.append(int(tok))
+            if len(h.tokens) >= h.request.max_new:
+                h.finished = now
+                self.done[rid] = h
+                del self._inflight_h[rid]
+
+    def poll(self) -> StepEvents:
+        """One serving turn: admit, advance chunked prefill, one pooled
+        decode step, route the emissions."""
+        self._ensure_pool()
+        self._admit_from_queue()
+        self._polled_prefill = bool(self.has_prefill_work()
+                                    and self.prefill_step())
+        ev = self.step_pool()
+        self._dispatch(ev)
+        return ev
+
+    def drain(self, max_steps: int = 10_000) -> Dict[int, ResponseHandle]:
+        """Pump ``poll`` until queue and pool are empty (or the head request
+        can never admit); returns completed handles by rid."""
+        steps = 0
+        while (self.queue or self._inflight_h) and steps < max_steps:
+            ev = self.poll()
+            steps += max(1, ev.steps)
+            if not ev and not self._polled_prefill:
+                if self.has_prefill_work():
+                    continue
+                if not self.queue or not self._inflight_h:
+                    break      # idle, or the head request can never admit
+        return dict(self.done)
+
+    def throughput_tokens_per_s(self) -> float:
+        if not self.done:
+            return 0.0
+        toks = sum(len(h.tokens) for h in self.done.values())
+        t0 = min(h.submitted for h in self.done.values())
+        t1 = max(h.finished for h in self.done.values())
+        return toks / max(t1 - t0, 1e-9)
+
+    def generate(self, prompts, max_new: int) -> np.ndarray:
+        """prompts [B, S] -> generated [B, max_new] (greedy), through
+        ``submit`` + ``drain``. The reference's fallback to a batched
+        dense-cache loop is not ported: a batch the pool cannot take
+        raises."""
+        prompts_np = np.asarray(prompts)
+        B, S = prompts_np.shape
+        if S + max_new > self.sc.max_len:
+            raise ValueError(f"prompt {S} + max_new {max_new} exceeds "
+                             f"max_len {self.sc.max_len}")
+        if self.busy() or self.slots.live_mask().any():
+            raise RuntimeError("generate() needs an idle engine")
+        handles = [self.submit(Request(self._next_rid(), row, max_new))
+                   for row in prompts_np]
+        self.drain()
+        for h in handles:
+            self.done.pop(h.rid, None)
+            self._handles.pop(h.rid, None)
+        if not all(h.done for h in handles):
+            raise RuntimeError(f"requests did not complete: "
+                               f"{[h.rid for h in handles if not h.done]}")
+        return np.stack([np.asarray(h.tokens, np.int32) for h in handles])
+
+    # ------------------------------------------------------------------
+    # admission
+    # ------------------------------------------------------------------
+
+    def _ensure_pool(self):
+        if self.pool is None:
+            self.pool = PagedKVPool(
+                self.cfg, self.sc.n_slots, self.sc.max_len,
+                page_size=self.sc.kv_page_size,
+                total_pages=self.sc.pool_pages, tp=self.sc.tp,
+                device=self.device)
+            self._pending = np.zeros((self.sc.n_slots,), np.int32)
+
+    def _bucket_len(self, prompt_len: int) -> int:
+        ps = self.sc.kv_page_size
+        b = _next_pow2(max(prompt_len, ps))
+        b = ((b + ps - 1) // ps) * ps
+        return min(b, self.sc.max_len)
+
+    def _admit_many(self, requests: List[Tuple[int, np.ndarray, int]]
+                    ) -> List[bool]:
+        """Admit a batch of (request_id, prompt, max_new): one bucketed
+        prefill per distinct bucket length."""
+        self._ensure_pool()
+        admitted: Dict[int, List] = {}   # bucket_len -> [(slot, prompt)]
+        ok: List[bool] = []
+        for rid, prompt, max_new in requests:
+            prompt = np.asarray(prompt)
+            total = len(prompt) + max_new
+            if total > self.sc.max_len or not self.pool.can_alloc(total):
+                ok.append(False)
+                break                    # FCFS: later requests wait too
+            slot = self.slots.admit(rid, len(prompt), max_new)
+            if slot is None:
+                ok.append(False)
+                break
+            self.pool.alloc(slot, total)
+            admitted.setdefault(self._bucket_len(len(prompt)), []).append(
+                (slot, prompt))
+            ok.append(True)
+        ok.extend([False] * (len(requests) - len(ok)))
+        t0 = time.perf_counter()
+        for Sb, group in admitted.items():
+            self._prefill_bucket(Sb, group)
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        return ok
+
+    def _prefill_bucket(self, Sb: int, group: List[Tuple[int, np.ndarray]]):
+        """One prefill over a length bucket + one page splice."""
+        ps = self.sc.kv_page_size
+        B = len(group)
+        toks = np.zeros((B, Sb), np.int32)
+        lens = np.zeros((B,), np.int32)
+        for i, (_, prompt) in enumerate(group):
+            toks[i, : len(prompt)] = prompt
+            lens[i] = len(prompt)
+        dev = self.device
+        logits, k, v = M.prefill_bucketed(
+            self.params, self.cfg, torch.as_tensor(toks, device=dev),
+            torch.as_tensor(lens, device=dev), tp=self.sc.tp)
+        n_pages = Sb // ps
+        dest = np.stack([self.pool.table[slot, :n_pages]
+                         for slot, _ in group]).reshape(-1)
+        # k/v [L, B, Sb, KV, hd] -> pages [L, B*n_pages, ps, KV, hd]; entries
+        # past a slot's reservation point at page 0 and carry zeros
+        dest_t = torch.as_tensor(dest, dtype=torch.long, device=dev)
+        Lc = k.shape[0]
+        self.pool.device["k_pages"][:, dest_t] = k.reshape(
+            Lc, B * n_pages, ps, *k.shape[3:])
+        self.pool.device["v_pages"][:, dest_t] = v.reshape(
+            Lc, B * n_pages, ps, *v.shape[3:])
+        nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()
+        for i, (slot, _) in enumerate(group):
+            self._pending[slot] = nxt[i]
+
+    def _admit_chunked(self, request_id: int, prompt: np.ndarray,
+                       max_new: int) -> bool:
+        """Allocate slot + pages now; ``prefill_step`` streams the prompt in
+        ``prefill_chunk`` spans interleaved with decode."""
+        self._ensure_pool()
+        prompt = np.asarray(prompt)
+        total = len(prompt) + max_new
+        if total > self.sc.max_len or not self.pool.can_alloc(total):
+            return False
+        slot = self.slots.admit(request_id, len(prompt), max_new)
+        if slot is None:
+            return False
+        self.pool.alloc(slot, total)
+        self.slots.slots[slot].length = 0      # grows as chunks land
+        self._chunks[slot] = [request_id, prompt, 0]
+        return True
+
+    def has_prefill_work(self) -> bool:
+        return bool(self._chunks)
+
+    def prefill_step(self) -> bool:
+        """Advance every mid-prefill slot by one chunk. Returns True if any
+        chunk work was done."""
+        if not self._chunks:
+            return False
+        self._ensure_pool()
+        C = self.sc.prefill_chunk
+        n = self.sc.n_slots
+        toks = np.zeros((n, C), np.int32)
+        n_valid = np.zeros((n,), np.int32)
+        for slot, (_rid, prompt, pos) in self._chunks.items():
+            take = min(C, len(prompt) - pos)
+            toks[slot, :take] = prompt[pos: pos + take]
+            n_valid[slot] = take
+        lengths = np.asarray([s.length for s in self.slots.slots], np.int32)
+        lengths = np.where(n_valid > 0, lengths, 0)
+        t0 = time.perf_counter()
+        dev = self.device
+        pool = dict(self.pool.device,
+                    page_table=self._table_view(lengths, extra=C),
+                    lengths=torch.as_tensor(lengths, device=dev))
+        logits, _ = M.extend_paged(self.params, self.cfg,
+                                   torch.as_tensor(toks, device=dev), pool,
+                                   torch.as_tensor(n_valid, device=dev),
+                                   tp=self.sc.tp)
+        nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        for slot in list(self._chunks):
+            _rid, prompt, pos = self._chunks[slot]
+            take = int(n_valid[slot])
+            self.slots.slots[slot].length += take
+            if pos + take >= len(prompt):
+                self._pending[slot] = nxt[slot]
+                del self._chunks[slot]
+            else:
+                self._chunks[slot][2] = pos + take
+        return True
+
+    # ------------------------------------------------------------------
+    # pooled decode
+    # ------------------------------------------------------------------
+
+    def _view_len(self, needed: int) -> int:
+        """Logical length of the gathered decode view: enough pages for the
+        longest live slot, bucketed to pow2 multiples of the granule."""
+        if not self.sc.view_buckets:
+            return self.sc.max_len
+        g = self._gran
+        units = _next_pow2(max(1, -(-needed // g)))
+        return min(g * units, self.sc.max_len)
+
+    def _table_view(self, lengths: np.ndarray, extra: int = 1):
+        """Page table restricted to the bucketed view length, cached on
+        (view pages, pool.table_version)."""
+        needed = int(lengths.max()) + extra if lengths.size else 1
+        npv = self._view_len(needed) // self.sc.kv_page_size
+        key = (npv, self.pool.table_version)
+        if self._table_view_cache is None or self._table_view_cache[0] != key:
+            view = self.pool.device["page_table"][:, :npv].long().contiguous()
+            self._table_view_cache = (key, view)
+        return self._table_view_cache[1]
+
+    def _decode_live(self) -> np.ndarray:
+        """Slots that decode this step: live and not mid-prefill."""
+        live = self.slots.live_mask()
+        for slot in self._chunks:
+            live[slot] = False
+        return live
+
+    def step_pool(self) -> StepEvents:
+        """One decode step for every live slot, each at its own length."""
+        self._ensure_pool()
+        live = self._decode_live()
+        if not live.any():
+            return StepEvents()
+        lengths = np.where(live, self.slots.lengths(), 0).astype(np.int32)
+        # the reference's fallback cond, on the host: lengths + 1 is the
+        # context each slot attends over this step
+        sparse = (self._sparse_fn is not None
+                  and placement.use_sparse(lengths + 1, self.mem))
+        dev = self.device
+        t0 = time.perf_counter()
+        pool = dict(self.pool.device, page_table=self._table_view(lengths),
+                    lengths=torch.as_tensor(lengths, device=dev))
+        logits, _ = M.decode_step_paged(
+            self.params, self.cfg, torch.as_tensor(self._pending, device=dev),
+            pool, torch.as_tensor(live, device=dev), tp=self.sc.tp,
+            sparse_fn=self._sparse_fn if sparse else None,
+            sparse_params=self.sparse_params)
+        nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()
+        dt = time.perf_counter() - t0
+        self.last_logits, self.last_sparse = logits, sparse
+        self.stats["decode_s"] += dt
+        self.stats["step_s"].append(dt)
+        self.stats["host_steps"] += 1
+        self.stats["decode_steps"] += 1
+        self.stats["sparse_steps"] += int(sparse)
+        ev = StepEvents(steps=1)
+        for i in np.flatnonzero(live):
+            rid = self.slots.slots[i].request_id
+            ev.emissions.append((rid, int(i), int(self._pending[i])))
+            self._pending[i] = nxt[i]
+        self.stats["tokens"] += len(ev.emissions)
+        self.slots.step(live)
+        for i in np.flatnonzero(live):
+            if self.slots.slots[i].done:
+                ev.finished.append(int(i))
+                self.pool.release(int(i))
+        return ev

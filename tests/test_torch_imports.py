@@ -1,0 +1,41 @@
+"""The port stands alone: no file of ``src/repro_torch`` nor ``chip_smoke.py``
+imports JAX or the JAX package, and ``import repro_torch`` works on a machine
+without nvcc, triton or a GPU (kernels are built and loaded at first use)."""
+import ast
+import importlib
+import pathlib
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "repro")
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name in _imported(tree):
+        top = name.split(".")[0]
+        assert top not in BANNED, f"{path.name} imports {name}"
+
+
+@pytest.mark.parametrize("mod", [
+    "repro_torch", "repro_torch.kernels.ops", "repro_torch.serving",
+    "repro_torch.launch.serve", "repro_torch.weights",
+])
+def test_port_imports_without_cuda_toolchain(mod):
+    importlib.import_module(mod)

@@ -1,0 +1,119 @@
+"""The port's serving engine on the CPU: the same greedy tokens as the JAX
+``Engine`` for a mixed batch (short bucketed prompts plus one chunked
+prompt, more requests than slots), for ``method="none"`` and ``"dsa"``, from
+the same JAX-initialized weights; pooled == one-at-a-time inside the port;
+the pool back at zero after release; unported features raise.
+
+Smoke config at dtype float32. Tokens must be equal exactly.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.configs import get_arch as jget_arch  # noqa: E402
+from repro.models import init_params as jinit  # noqa: E402
+from repro.serving import Engine as JEngine  # noqa: E402
+from repro.serving import OffloadConfig  # noqa: E402
+from repro.serving import Request as JRequest  # noqa: E402
+from repro.serving import ServeConfig as JServeConfig  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.serving import Engine, Request, ServeConfig  # noqa: E402
+from repro_torch.weights import from_jax_params  # noqa: E402
+
+torch.set_num_threads(2)
+TP = 16
+# page=4 selects 4 of the view's pages; a low chunk threshold sends the
+# 40-token prompt through chunked prefill at smoke size
+SC = dict(max_len=64, n_slots=2, tp=TP, page=4, kv_page_size=16,
+          prefill_chunk=16, chunk_threshold=24)
+LENS = (16, 9, 40, 20)
+MAX_NEW = 5
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jcfg = jget_arch("llama3.2-1b").smoke().replace(dtype="float32")
+    tcfg = get_arch("llama3.2-1b").smoke().replace(dtype="float32")
+    jparams = jinit(jcfg, jax.random.PRNGKey(0), tp=TP)
+    return jcfg, tcfg, jparams, from_jax_params(_np_tree(jparams), "cpu")
+
+
+def _prompts(vocab):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, size=n).astype(np.int32) for n in LENS]
+
+
+def _port_engine(weights, method, jeng=None, **kw):
+    _, tcfg, _, tparams = weights
+    sp = None
+    if jeng is not None and jeng.sparse_params is not None:
+        sp = from_jax_params(_np_tree(jeng.sparse_params), "cpu")
+    return Engine(tcfg, tparams, ServeConfig(method=method, **SC, **kw),
+                  device="cpu", sparse_params=sp)
+
+
+@pytest.mark.parametrize("method", ["none", "dsa"])
+def test_engine_tokens_match_jax_engine(weights, method):
+    jcfg, _, jparams, _ = weights
+    jeng = JEngine(jcfg, jparams, JServeConfig(method=method, **SC),
+                   key=jax.random.PRNGKey(1))
+    teng = _port_engine(weights, method, jeng)
+    prompts = _prompts(jcfg.vocab_size)
+    jh = [jeng.submit(JRequest(i, p, MAX_NEW)) for i, p in enumerate(prompts)]
+    th = [teng.submit(Request(i, p, MAX_NEW)) for i, p in enumerate(prompts)]
+    jeng.drain()
+    teng.drain()
+    for a, b in zip(jh, th):
+        assert a.done and b.done
+        np.testing.assert_array_equal(b.result(), a.result())
+    assert teng.stats["decode_steps"] == jeng.stats["decode_steps"]
+    if method == "dsa":      # smoke min_context = 0: every step is sparse
+        assert teng.stats["sparse_steps"] == teng.stats["decode_steps"] > 0
+
+
+def test_pooled_matches_one_at_a_time_and_pool_scrubbed(weights):
+    jcfg = weights[0]
+    prompts = _prompts(jcfg.vocab_size)
+    pooled = _port_engine(weights, "dsa")
+    hs = [pooled.submit(Request(i, p, MAX_NEW)) for i, p in enumerate(prompts)]
+    pooled.drain()
+    single = _port_engine(weights, "dsa")
+    for h, p in zip(hs, prompts):
+        np.testing.assert_array_equal(h.result(),
+                                      single.generate(p[None], MAX_NEW)[0])
+    for eng in (pooled, single):
+        assert eng.pool.pages_in_use() == 0
+        assert not eng.pool.device["k_pages"].any()
+        assert not eng.pool.device["v_pages"].any()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(offload="sync"), dict(offload_cfg=OffloadConfig(mode="sync")), dict(offload_shards=2),
+    dict(main_mesh=2), dict(fused_steps=2), dict(retrieval=object()),
+    dict(paged=False), dict(method="seer"),
+])
+def test_unported_features_raise(weights, kw):
+    kw = dict(kw)
+    method = kw.pop("method", "dsa")
+    with pytest.raises(NotImplementedError):
+        _port_engine(weights, method, **kw)
+
+
+def test_non_dense_family_raises(weights):
+    cfg = get_arch("granite-moe-1b-a400m").smoke()
+    with pytest.raises(NotImplementedError):
+        Engine(cfg, weights[3], ServeConfig(**SC), device="cpu")
+
+
+def test_default_device_needs_cuda(weights):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Engine(weights[1], weights[3], ServeConfig(**SC))
