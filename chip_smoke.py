@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch/CUDA port serves its main path on one GPU.
+"""Quickest proof that the PyTorch/CUDA port serves its paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -8,28 +8,40 @@ imports nothing of JAX or of the JAX package. Phases, each raising on
 failure (the script then exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), then the kernels of
-   the main path built from ``src/repro_torch/csrc`` (one nvcc per source,
-   all at once);
-2. kernels vs their plain versions on the card, at the main path's shapes
-   (llama3.2-1b, 4 slots, an 8192-token view, 16-token pages, DSA top-2048)
-   and at edge cases (-1 holes, a length cut mid-page, an all-masked row,
-   S not a multiple of the block, all-zero scores, fp32 and bf16), with
-   kernel / plain / library times and the roofline bound;
+   the paths built from ``src/repro_torch/csrc`` (one nvcc per source, all
+   at once);
+2. kernels vs their plain versions on the card, with kernel / plain /
+   library times and the roofline bound: relevancy-top-k and paged decode
+   attention at the DSA path's shapes (llama3.2-1b, 4 slots, an 8192-token
+   view, 16-token pages, DSA top-2048) and at Seer's / LServe's (one gated
+   head, 64-token blocks, a 4096-token budget), page min/max at LServe's
+   (k [4, 8192, 8, 64] bf16, 64-token pages), each also at edge cases (-1
+   holes, a length cut mid-page, an all-masked row, S not a multiple of the
+   block, all-zero scores, fp32 and bf16, a single page, scalar loads);
 3. serve: full-width llama3.2-1b in bf16 with seeded random weights,
-   ``ServeConfig(method="dsa", max_len=8192, n_slots=4)``, 2 prompts past
-   ``min_context`` (chunked prefill) and 2 short ones (bucketed prefill);
-   every request completes and both kernels launch once per layer per
-   sparse decode step; then the same requests again with four steady
+   ``ServeConfig(method=m, max_len=8192, n_slots=4)`` for m in dsa, lserve
+   and seer, seer in both its top-k and its threshold selection (``RUNS``),
+   2 prompts past ``min_context`` (chunked prefill) and 2 short
+   ones (bucketed prefill); every request completes and each kernel of the
+   method's path launches once per layer per sparse decode step, every
+   other kernel never; then the same requests again with four steady
    sparse decode polls under ``torch.profiler``, for the device's busy
    share and each kernel's in-situ time (tables under ``chiprun_out/``);
-4. the same requests at float32, once through the kernels and once through
-   the plain versions (``ops.use_kernels(False)``): the first sparse decode
-   step's logits agree and the greedy tokens are equal;
-5. a ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}`` as
-   the last line.
+   one ``serve`` line per run;
+4. compare: the same requests at float32 for each run, once through the
+   kernels and once through the plain versions (``ops.use_kernels(False)``):
+   the first sparse decode step's logits agree and the greedy tokens are
+   equal (or differ only where the plain top-2 margin is within the
+   tolerance);
+5. pipeline: each method's four-stage ``build_pipeline``, unfused and
+   fused, on one layer's full-width tensors: equal outputs, and a
+   ``{"pipeline": ...}`` line with the ``StageProfiler`` stage times and
+   shares (the paper's Fig. 3-5 breakdown);
+6. a ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``
+   as the last line.
 
-``--phases`` runs a subset of kernels, serve and compare (the default is
-all three).
+``--phases`` runs a subset of kernels, serve, compare and pipeline (the
+default is all four).
 """
 from __future__ import annotations
 
@@ -55,8 +67,24 @@ SERVE_ARCH = "llama3.2-1b"
 PROMPT_LENS = (4500, 4400, 300, 260)     # two past min_context, two short
 MAX_NEW = 16
 VIEW = 8192
-PAGE = 16
+PAGE = 16                                # DSA micro-page, kv pool page
+BLOCK = 64                               # Seer block / LServe logical page
+BUDGET = 4096                            # Seer / LServe token budget
 SLOTS = 4
+METHODS = ("dsa", "lserve", "seer")
+# the serve and compare runs: label -> (method, MemoryConfig overrides)
+RUNS = {"dsa": ("dsa", {}), "lserve": ("lserve", {}), "seer": ("seer", {}),
+        "seer-threshold": ("seer", {"selection": "threshold"})}
+PHASES = ("kernels", "serve", "compare", "pipeline")
+# the kernels each method's sparse decode step launches, once per layer
+PATH_KERNELS = {
+    "dsa": ("relevancy_topk_candidates", "paged_decode_attention"),
+    "seer": ("relevancy_topk_candidates", "paged_decode_attention"),
+    "lserve": ("page_minmax", "paged_decode_attention"),
+}
+# the path whose serve run gives a kernel's in-situ time in its row
+HOME_PATH = {"relevancy_topk_candidates": "dsa",
+             "paged_decode_attention": "dsa", "page_minmax": "lserve"}
 
 # tolerances (kernel vs plain on the card); both sides compute in fp32, so
 # the differences are summation order only, at bf16 inputs as at fp32 ones
@@ -212,33 +240,66 @@ def check_relevancy(dev):
         err = max(err, _topk_check(f"relevancy {name}", a[0], a[1], b[0],
                                    b[1]))
 
+    # Seer's shape: one gated query head (dk = index_dim 128), unit weight,
+    # the view's 128 pooled 64-token blocks (zero past the live length),
+    # top-64 of one 128-key block
+    nblk, n_sel = VIEW // BLOCK, BUDGET // BLOCK
+    qs = torch.randn(B, 1, dk, generator=g, device=dev).bfloat16()
+    ks = torch.randn(B, nblk, dk, generator=g, device=dev).bfloat16()
+    for b, n in enumerate(_main_path_lengths()):
+        ks[b, -(-n // BLOCK):] = 0
+    ws = torch.ones(B, 1, device=dev)
+    sblk = max(min(4096, nblk), n_sel)
+    a = rt.relevancy_topk_candidates(qs, ks, ws, block=sblk)
+    b_ = rt.relevancy_topk_candidates_plain(qs, ks, ws, block=sblk)
+    seer_err = _topk_check("relevancy seer shape bf16", *a, *b_)
+    a = ops.relevancy_topk(qs, ks, ws, n_sel, block=sblk)
+    b_ = ref.relevancy_topk(qs, ks, ws, n_sel)
+    seer_err = max(seer_err, _topk_check("relevancy seer top-64", *a, *b_))
+
     # L2-warm timing: on the path, q_idx and the pooled keys are written by
     # the ops just before the kernel
-    ms = time_ms(lambda: rt.relevancy_topk_candidates(q, keys, w,
-                                                      block=block))
-    plain_ms = time_ms(lambda: rt.relevancy_topk_candidates_plain(
-        q, keys, w, block=block))
-    nb, c = S // block, block
-    L2 = int(math.log2(block))
-    n_bytes = (q.numel() + keys.numel()) * 2 + w.numel() * 4 + B * nb * c * 8
-    # q.k products of bf16 inputs: exact on the tensor cores (bf16 products,
-    # fp32 accumulation); relu.w terms and compare-exchanges on fp32 cores
-    dots = 2 * B * S * Hq * dk
-    rest = 2 * B * S * Hq + B * nb * (block // 2) * L2 * (L2 + 1) // 2
+    row = _relevancy_timing(q, keys, w, block)
+    seer = _relevancy_timing(qs, ks, ws, sblk)
     return {
         "name": "relevancy_topk_candidates", "route": "cuda",
         "source": "src/repro_torch/csrc/relevancy_topk.cu",
         "replaces": "src/repro/kernels/relevancy_topk.py:55",
-        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": None,
-        **_bound(n_bytes, [(dots, _dot_rate(q, keys)),
-                           (rest, FP32_FLOP_PER_S)]),
+        "launches": None, "max_abs_err": err, **row, "library_ms": None,
         "timing": "L2-warm (on the path its inputs are written just before)",
         "tolerance": f"values {TOPK_VAL_TOL} x row max|score|; indices "
                      f"equal outside the tie band",
-        "shape": f"q [{B},{Hq},{dk}] bf16, keys [{B},{S},{dk}] bf16, "
-                 f"block {block}, c {c}",
+        "shape": f"DSA: q [{B},{Hq},{dk}] bf16, keys [{B},{S},{dk}] bf16, "
+                 f"block {block}, c {block}",
+        "other_shapes": [dict(
+            seer, path="seer", max_abs_err=seer_err, library_ms=None,
+            shape=f"q [{B},1,{dk}] bf16, keys [{B},{nblk},{dk}] bf16, "
+                  f"w ones, block {sblk}, c {sblk}, top-{n_sel}")],
     }
+
+
+def _relevancy_timing(q, keys, w, block):
+    """Kernel and plain times (L2-warm) and the bound of one candidates
+    call."""
+    from repro_torch.kernels import relevancy_topk as rt
+
+    ms = time_ms(lambda: rt.relevancy_topk_candidates(q, keys, w,
+                                                      block=block))
+    plain_ms = time_ms(lambda: rt.relevancy_topk_candidates_plain(
+        q, keys, w, block=block))
+    B, Hq, dk = q.shape
+    S = keys.shape[1]
+    nb, c = S // block, block
+    L2 = int(math.log2(block))
+    n_bytes = (q.numel() + keys.numel()) * q.element_size() \
+        + w.numel() * 4 + B * nb * c * 8
+    # q.k products of bf16 inputs: exact on the tensor cores (bf16 products,
+    # fp32 accumulation); relu.w terms and compare-exchanges on fp32 cores
+    dots = 2 * B * S * Hq * dk
+    rest = 2 * B * S * Hq + B * nb * (block // 2) * L2 * (L2 + 1) // 2
+    return {"ms": ms, "plain_ms": plain_ms,
+            **_bound(n_bytes, [(dots, _dot_rate(q, keys)),
+                               (rest, FP32_FLOP_PER_S)])}
 
 
 def _dot_rate(a, b):
@@ -260,14 +321,15 @@ def _bound(n_bytes, terms):
             "bytes": n_bytes, "operations": sum(n for n, _ in terms)}
 
 
-def _selected_pages(lengths, n_sel, n_pages, g, dev):
-    """DSA-like selections: distinct live pages in score order, -1 where a
-    slot has fewer live pages than n_sel."""
+def _selected_pages(lengths, n_sel, ps, g, dev):
+    """Selections as the sparse methods make them: distinct live pages of
+    ``ps`` tokens in score order, -1 where a slot has fewer live pages than
+    n_sel."""
     import torch
 
     rows = []
     for n in lengths:
-        live = -(-n // PAGE)
+        live = -(-n // ps)
         perm = torch.randperm(live, generator=g, device=dev)[:n_sel]
         row = torch.full((n_sel,), -1, dtype=torch.int32, device=dev)
         row[: perm.numel()] = perm.to(torch.int32)
@@ -277,23 +339,29 @@ def _selected_pages(lengths, n_sel, n_pages, g, dev):
 
 def check_paged_attention(dev):
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import sparse_decode_attention as sda
 
     g = torch.Generator(device=dev).manual_seed(1)
     B, KV, G, dh = SLOTS, 8, 4, 64              # llama3.2-1b GQA
-    Hq, n_sel = KV * G, 2048 // PAGE
+    Hq = KV * G
     lengths = _main_path_lengths()
     q = torch.randn(B, Hq, dh, generator=g, device=dev).bfloat16()
     kc = torch.randn(B, VIEW, KV, dh, generator=g, device=dev).bfloat16()
     vc = torch.randn(B, VIEW, KV, dh, generator=g, device=dev).bfloat16()
-    pages = _selected_pages(lengths, n_sel, VIEW // PAGE, g, dev)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    ko, kl = sda.paged_decode_attention(q, kc, vc, pages, lens,
-                                        page_size=PAGE)
-    po, pl_ = sda.paged_decode_attention_plain(q, kc, vc, pages, lens,
-                                               page_size=PAGE)
-    err = _attn_check("paged attention main path bf16", ko, kl, po, pl_)
+    # DSA: 128 pages of 16; Seer / LServe: 64 pages of 64 (a 4096 budget)
+    dsa_pages = _selected_pages(lengths, 2048 // PAGE, PAGE, g, dev)
+    blk_pages = _selected_pages(lengths, BUDGET // BLOCK, BLOCK, g, dev)
+    errs = {}
+    for name, pages, ps in [("DSA", dsa_pages, PAGE),
+                            ("Seer/LServe", blk_pages, BLOCK)]:
+        ko, kl = sda.paged_decode_attention(q, kc, vc, pages, lens,
+                                            page_size=ps)
+        po, pl_ = sda.paged_decode_attention_plain(q, kc, vc, pages, lens,
+                                                   page_size=ps)
+        errs[name] = _attn_check(f"paged attention {name} shape bf16", ko,
+                                 kl, po, pl_)
+    err, blk_err = errs["DSA"], errs["Seer/LServe"]
 
     # edge cases: fp32, a hole, an all-masked row, a length cut mid-page,
     # pages larger than the kernel's token tile, a ragged last tile
@@ -302,7 +370,9 @@ def check_paged_attention(dev):
                                   ("bf16 ps=128", torch.bfloat16, 128, 3,
                                    1024),
                                   ("fp32 ps=4 ragged tile", torch.float32, 4,
-                                   7, 256)]:
+                                   7, 256),
+                                  ("bf16 ps=64", torch.bfloat16, 64, 12,
+                                   1024)]:
         b = 3
         qq = torch.randn(b, Hq, dh, generator=g, device=dev).to(dt)
         kk = torch.randn(b, S, KV, dh, generator=g, device=dev).to(dt)
@@ -321,45 +391,77 @@ def check_paged_attention(dev):
         if float((got - want[:, None]).abs().max()) > ATTN_TOL:
             raise AssertionError("all-masked row is not the page-0 mean of v")
 
+    row = _paged_timing(q, kc, vc, dsa_pages, lens, PAGE)
+    blk = _paged_timing(q, kc, vc, blk_pages, lens, BLOCK)
+    return {
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_decode_attention.cu",
+        "replaces": "src/repro/kernels/sparse_decode_attention.py:66",
+        "launches": None, "max_abs_err": err, **row,
+        "tolerance": f"out abs {ATTN_TOL}, lse rel {ATTN_TOL}",
+        "library": "scaled_dot_product_attention over the pre-gathered "
+                   "selected pages with the validity mask (gather not timed)",
+        "shape": f"DSA: q [{B},{Hq},{dh}] bf16, k/v [{B},{VIEW},{KV},{dh}] "
+                 f"bf16, {2048 // PAGE} pages of {PAGE}",
+        "other_shapes": [dict(
+            blk, path="seer, lserve", max_abs_err=blk_err,
+            shape=f"q [{B},{Hq},{dh}] bf16, k/v [{B},{VIEW},{KV},{dh}] bf16,"
+                  f" {BUDGET // BLOCK} pages of {BLOCK}")],
+    }
+
+
+def _paged_timing(q, kc, vc, pages, lens, ps):
+    """Kernel, plain and library times of one paged attention call, and its
+    bound. On the path the kernel runs right after pool_gather has written
+    the whole view (67 MB of K/V per layer), so its pages are mostly out of
+    L2: it is timed on copies of k/v rotated past the L2 (cold), and once on
+    one copy (warm) beside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import sparse_decode_attention as sda
+
+    B, S, KV, dh = kc.shape
+    Hq = q.shape[1]
+    G = Hq // KV
+    n_sel = pages.shape[1]
     # library yardstick: SDPA over the pre-gathered selected pages with the
     # validity mask (gather and GQA expansion not timed)
     safe = pages.clamp(min=0).long()
-    rows = torch.arange(B, device=dev)[:, None]
-    kg = kc.reshape(B, VIEW // PAGE, PAGE, KV, dh)[rows, safe]
-    vg = vc.reshape(B, VIEW // PAGE, PAGE, KV, dh)[rows, safe]
-    n_tok = n_sel * PAGE
+    rows = torch.arange(B, device=kc.device)[:, None]
+    kg = kc.reshape(B, S // ps, ps, KV, dh)[rows, safe]
+    vg = vc.reshape(B, S // ps, ps, KV, dh)[rows, safe]
+    n_tok = n_sel * ps
     kg = kg.reshape(B, n_tok, KV, dh).permute(0, 2, 1, 3) \
         .repeat_interleave(G, 1).contiguous()
     vg = vg.reshape(B, n_tok, KV, dh).permute(0, 2, 1, 3) \
         .repeat_interleave(G, 1).contiguous()
-    tok = safe[:, :, None] * PAGE + torch.arange(PAGE, device=dev)
+    tok = safe[:, :, None] * ps + torch.arange(ps, device=kc.device)
     valid = ((pages[:, :, None] >= 0) & (tok < lens[:, None, None])) \
         .reshape(B, 1, 1, n_tok)
     qs = q[:, :, None]
+    po, _ = sda.paged_decode_attention_plain(q, kc, vc, pages, lens,
+                                             page_size=ps)
     lib_out = F.scaled_dot_product_attention(qs, kg, vg, attn_mask=valid)
     lib_err = float((lib_out[:, :, 0].float() - po).abs().max())
-    log(f"  SDPA yardstick vs plain: max abs err {lib_err:.3g} (bf16 output)")
+    log(f"  SDPA yardstick vs plain (pages of {ps}): max abs err "
+        f"{lib_err:.3g} (bf16 output)")
 
     valid_tok = int(valid.sum())
-    n_pages_read = sum(max(int((row >= 0).sum()), 1) for row in pages)
-    n_bytes = (q.numel() * 2 + n_pages_read * PAGE * KV * dh * 2 * 2
+    n_pages_read = sum(max(int((r >= 0).sum()), 1) for r in pages)
+    n_bytes = (q.numel() * 2 + n_pages_read * ps * KV * dh * 2 * 2
                + pages.numel() * 4 + B * 4 + B * Hq * dh * 4 + B * Hq * 4)
     # q.k of bf16 inputs on the tensor cores; p.v takes fp32 weights
     qk = pv = 2 * valid_tok * Hq * dh
 
-    # on the path the kernel runs right after pool_gather has written the
-    # whole view (67 MB of K/V per layer), so its pages are mostly out of
-    # L2: time it on copies of k/v rotated past the L2 (cold), and once
-    # on one copy (warm) beside it
     n = cold_copies(n_bytes)
     ks = [kc] + [kc.clone() for _ in range(n - 1)]
     vs = [vc] + [vc.clone() for _ in range(n - 1)]
     ms = time_ms([lambda k=k, v=v: sda.paged_decode_attention(
-        q, k, v, pages, lens, page_size=PAGE) for k, v in zip(ks, vs)])
+        q, k, v, pages, lens, page_size=ps) for k, v in zip(ks, vs)])
     ms_warm = time_ms(lambda: sda.paged_decode_attention(
-        q, kc, vc, pages, lens, page_size=PAGE))
+        q, kc, vc, pages, lens, page_size=ps))
     plain_ms = time_ms([lambda k=k, v=v: sda.paged_decode_attention_plain(
-        q, k, v, pages, lens, page_size=PAGE) for k, v in zip(ks, vs)])
+        q, k, v, pages, lens, page_size=ps) for k, v in zip(ks, vs)])
     del ks, vs
     n_lib = cold_copies(2 * kg.numel() * kg.element_size())
     kgs = [kg] + [kg.clone() for _ in range(n_lib - 1)]
@@ -367,21 +469,97 @@ def check_paged_attention(dev):
     library_ms = time_ms([lambda k=k, v=v: F.scaled_dot_product_attention(
         qs, k, v, attn_mask=valid) for k, v in zip(kgs, vgs)])
     del kgs, vgs
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            **_bound(n_bytes, [(qk, _dot_rate(q, kc)), (pv, FP32_FLOP_PER_S)]),
+            "ms_l2_warm": ms_warm,
+            "timing": f"cold L2: ms, plain_ms and library_ms rotate over {n}, "
+                      f"{n}, {n_lib} copies of their k/v; ms_l2_warm on one "
+                      f"copy"}
+
+
+def _exact(name, a, b):
+    """Bit-for-bit equality of two fp32 tensors (NaN-free inputs)."""
+    import torch
+
+    if a.shape != b.shape or not torch.equal(a.view(torch.int32),
+                                             b.view(torch.int32)):
+        raise AssertionError(f"{name}: not bit-exact")
+
+
+def check_page_minmax(dev):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import page_pool as pp
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, KV, dh, ps = SLOTS, 8, 64, BLOCK
+    k = torch.randn(B, VIEW, KV, dh, generator=g, device=dev).bfloat16()
+    for b, n in enumerate(_main_path_lengths()):   # the view: zeros past live
+        k[b, n:] = 0
+    mn, mx = pp.page_minmax(k, page_size=ps)
+    pmn, pmx = pp.page_minmax_plain(k, page_size=ps)
+    _exact("page_minmax main path min", mn, pmn)
+    _exact("page_minmax main path max", mx, pmx)
+    log(f"  page_minmax LServe shape bf16: bit-exact ({mn.numel()} x 2)")
+    # edge cases through the public op: fp32, 16-token pages, one page,
+    # all-negative and mixed-sign values, scalar loads (KV x dh = 15)
+    cases = [("fp32", torch.float32, 4, 1024, 8, 64, 64, False),
+             ("bf16 ps=16", torch.bfloat16, 4, 1024, 8, 64, 16, False),
+             ("one page", torch.bfloat16, 2, 64, 8, 64, 64, False),
+             ("all negative", torch.bfloat16, 2, 256, 8, 64, 64, True),
+             ("mixed sign fp32", torch.float32, 2, 256, 8, 64, 16, False),
+             ("scalar loads bf16", torch.bfloat16, 2, 128, 3, 5, 64, False),
+             ("scalar loads fp32", torch.float32, 2, 128, 3, 5, 16, False)]
+    for name, dt, b, S, kv, d, p, negative in cases:
+        kk = torch.randn(b, S, kv, d, generator=g, device=dev) * 3 - 0.5
+        if negative:
+            kk = -kk.abs() - 0.1
+        kk = kk.to(dt)
+        a = ops.page_minmax(kk, page_size=p)
+        r = pp.page_minmax_plain(kk, page_size=p)
+        _exact(f"page_minmax {name} min", a[0], r[0])
+        _exact(f"page_minmax {name} max", a[1], r[1])
+        log(f"  page_minmax {name}: bit-exact")
+    try:
+        pp.page_minmax(k[:, : ps + 1], page_size=ps)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("page_minmax accepted S % page_size != 0")
+
+    # on the path it reads the view pool_gather has just written (67 MB of
+    # K and V per layer), so its keys are mostly out of L2: cold timing
+    n_bytes = k.numel() * 2 + 2 * mn.numel() * 4
+    n = cold_copies(n_bytes)
+    ks = [k] + [k.clone() for _ in range(n - 1)]
+    ms = time_ms([lambda x=x: pp.page_minmax(x, page_size=ps) for x in ks])
+    ms_warm = time_ms(lambda: pp.page_minmax(k, page_size=ps))
+    plain_ms = time_ms([lambda x=x: pp.page_minmax_plain(x, page_size=ps)
+                        for x in ks])
+
+    def library(x):
+        lo, hi = torch.aminmax(x.view(B, VIEW // ps, ps, KV, dh), dim=2)
+        return lo.float(), hi.float()
+
+    lo, hi = library(k)
+    _exact("aminmax yardstick min", lo, pmn)
+    library_ms = time_ms([lambda x=x: library(x) for x in ks])
+    del ks
     return {
-        "name": "paged_decode_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_decode_attention.cu",
-        "replaces": "src/repro/kernels/sparse_decode_attention.py:66",
-        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "name": "page_minmax", "route": "cuda",
+        "source": "src/repro_torch/csrc/page_minmax.cu",
+        "replaces": "src/repro/kernels/page_pool.py:99",
+        "launches": None, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_ms,
-        **_bound(n_bytes, [(qk, _dot_rate(q, kc)), (pv, FP32_FLOP_PER_S)]),
+        # one compare for the min and one for the max per element, on the
+        # fp32 cores
+        **_bound(n_bytes, [(2 * k.numel(), FP32_FLOP_PER_S)]),
         "ms_l2_warm": ms_warm,
-        "timing": f"cold L2: ms, plain_ms and library_ms rotate over {n}, "
-                  f"{n}, {n_lib} copies of their k/v; ms_l2_warm on one copy",
-        "tolerance": f"out abs {ATTN_TOL}, lse rel {ATTN_TOL}",
-        "library": "scaled_dot_product_attention over the pre-gathered "
-                   "selected pages with the validity mask (gather not timed)",
-        "shape": f"q [{B},{Hq},{dh}] bf16, k/v [{B},{VIEW},{KV},{dh}] bf16, "
-                 f"{n_sel} pages of {PAGE}",
+        "timing": f"cold L2: ms, plain_ms and library_ms rotate over {n} "
+                  f"copies of k; ms_l2_warm on one copy",
+        "tolerance": "bit-exact",
+        "library": "torch.aminmax over the page axis, then .float()",
+        "shape": f"k [{B},{VIEW},{KV},{dh}] bf16, pages of {ps}",
     }
 
 
@@ -399,24 +577,27 @@ def _requests(vocab: int):
             for i, n in enumerate(PROMPT_LENS)]
 
 
-def serve(dtype: str, dev, record: bool = False, profile_polls: int = 0):
-    """Serve the requests: the long ones first; the short ones join once the
-    long ones decode, so all four share the sparse steps. Returns the
-    engine, handles, wall seconds and (with ``record``) the logits row that
-    produced each of a request's tokens after the first, plus the first
-    sparse step's logits. ``profile_polls`` > 0 traces that many polls of
-    steady sparse decode with ``torch.profiler`` (``profile``: see
-    ``_Profile``)."""
+def serve(dtype: str, dev, run: str, record: bool = False,
+          profile_polls: int = 0):
+    """Serve the requests as ``RUNS[run]`` says: the long ones first; the short
+    ones join once the long ones decode, so all four share the sparse steps.
+    Returns the engine, handles, wall seconds and (with ``record``) the
+    logits row that produced each of a request's tokens after the first,
+    plus the first sparse step's logits. ``profile_polls`` > 0 traces that
+    many polls of steady sparse decode with ``torch.profiler``
+    (``profile``: see ``_Profile``)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import init_params
     from repro_torch.serving import Engine, ServeConfig
 
+    method, mem_kw = RUNS[run]
     cfg = get_arch(SERVE_ARCH).replace(dtype=dtype)
     params = init_params(cfg, 0, device=dev)
-    sc = ServeConfig(method="dsa", max_len=VIEW, n_slots=SLOTS,
+    sc = ServeConfig(method=method, max_len=VIEW, n_slots=SLOTS,
                      kv_page_size=PAGE, page=PAGE)
-    eng = Engine(cfg, params, sc, seed=1, device=dev)
+    eng = Engine(cfg, params, sc, seed=1, device=dev,
+                 mem=cfg.memory.replace(method=method, **mem_kw))
     reqs = _requests(cfg.vocab_size)
     rows, first_sparse = {r.rid: [] for r in reqs}, None
     torch.cuda.synchronize()
@@ -431,7 +612,7 @@ def serve(dtype: str, dev, record: bool = False, profile_polls: int = 0):
         if (profile_polls and prof is None and eng.stats["sparse_steps"]
                 and not late and not eng.queue_depth()
                 and not eng.has_prefill_work()):
-            prof = _Profile(profile_polls)   # steady sparse decode, 4 slots
+            prof = _Profile(profile_polls, run)   # steady, 4 slots
         ev = eng.poll()
         if prof is not None:
             prof.tick()
@@ -453,7 +634,9 @@ def serve(dtype: str, dev, record: bool = False, profile_polls: int = 0):
     if not torch.isfinite(eng.last_logits).all():
         raise AssertionError("non-finite logits")
     if eng.stats["sparse_steps"] == 0:
-        raise AssertionError("no decode step crossed min_context")
+        raise AssertionError(f"{run}: no decode step crossed min_context")
+    if eng.sc.max_len != VIEW:
+        raise AssertionError(f"{run}: max_len {eng.sc.max_len} != {VIEW}")
     if profile_polls and (prof is None or prof.result is None):
         raise AssertionError("the profiled polls did not complete")
     return SimpleNamespace(eng=eng, handles=handles, wall=wall, rows=rows,
@@ -463,19 +646,22 @@ def serve(dtype: str, dev, record: bool = False, profile_polls: int = 0):
 
 # the CUDA symbol of each kernel, as the profiler names it
 KERNEL_SYMBOLS = {"relevancy_topk_candidates": "relevancy_topk_kernel",
-                  "paged_decode_attention": "paged_decode_kernel"}
+                  "paged_decode_attention": "paged_decode_kernel",
+                  "page_minmax": "page_minmax_kernel"}
 
 
 class _Profile:
-    """torch.profiler over the next ``n`` polls. On the last one, sets
-    ``result`` (wall and device-busy time, the busy share, each kernel's
-    mean in-situ device time) and writes the per-op table (device time
-    first) and a chrome trace to chiprun_out/."""
+    """torch.profiler over the next ``n`` polls of serve run ``run``. On the
+    last one, sets ``result`` (wall and device-busy time, the busy share, the
+    mean in-situ device time of each kernel of the method's path) and writes
+    the per-op table (device time first) and a chrome trace to
+    chiprun_out/profile_decode_<run>.*."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, run: str):
         import torch
 
         self.n, self.polls, self.result = n, n, None
+        self.run, self.method = run, RUNS[run][0]
         self.prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA])
@@ -498,15 +684,16 @@ class _Profile:
                      if e.device_type != cpu)
         out = os.path.join(ROOT, "chiprun_out")
         os.makedirs(out, exist_ok=True)
-        with open(os.path.join(out, "profile_decode.txt"), "w") as f:
+        stem = os.path.join(out, f"profile_decode_{self.run}")
+        with open(stem + ".txt", "w") as f:
             f.write(f"card: {card_line()}\nwall {wall_us:.0f} us, device "
                     f"busy {dev_us:.0f} us ({100 * dev_us / wall_us:.1f}%)\n")
             f.write(avgs.table(sort_by="self_device_time_total",
                                row_limit=40))
-        self.prof.export_chrome_trace(os.path.join(out,
-                                                   "profile_decode.json"))
+        self.prof.export_chrome_trace(stem + ".json")
         in_situ = {}
-        for name, sym in KERNEL_SYMBOLS.items():
+        for name in PATH_KERNELS[self.method]:
+            sym = KERNEL_SYMBOLS[name]
             hits = [e for e in avgs if sym in e.key]
             if not hits:
                 raise AssertionError(f"profile: no {sym} in the decode polls")
@@ -517,34 +704,44 @@ class _Profile:
                        "device_busy_us": dev_us,
                        "device_busy_share": dev_us / wall_us,
                        "kernel_ms_in_situ": in_situ}
-        log(f"  profiled: wall {wall_us:.0f} us, device busy {dev_us:.0f} us")
+        log(f"  profiled {self.run}: wall {wall_us:.0f} us, device busy "
+            f"{dev_us:.0f} us")
 
 
-def phase_serve(dev):
-    """The main path's run (launch counts reset just before it and read just
+def phase_serve(dev, label: str):
+    """The run's path (launch counts reset just before it and read just
     after), then the same requests again with four profiled decode polls."""
     from repro_torch.kernels import ops
 
+    method = RUNS[label][0]
     ops.reset_launch_counts()
-    run = serve("bfloat16", dev)
+    run = serve("bfloat16", dev, label)
     counts = ops.launch_counts()
     eng, handles, wall, cfg = run.eng, run.handles, run.wall, run.cfg
     want = cfg.n_layers * eng.stats["sparse_steps"]
     log(f"  launches {counts}, sparse steps {eng.stats['sparse_steps']} of "
-        f"{eng.stats['decode_steps']}, expected {want} each")
+        f"{eng.stats['decode_steps']}, expected {want} for "
+        f"{PATH_KERNELS[method]}, 0 for the rest")
+    if set(counts) != set(KERNEL_SYMBOLS):
+        raise AssertionError(f"counted kernels {sorted(counts)}")
     for name, n in counts.items():
-        if n != want or n == 0:
-            raise AssertionError(f"{name}: {n} launches, expected {want}")
+        expect = want if name in PATH_KERNELS[method] else 0
+        if n != expect:
+            raise AssertionError(f"{label}: {name} launched {n} times, "
+                                 f"expected {expect}")
     toks = sum(len(h.tokens) for h in handles)
     ttft = sorted(h.ttft_s() for h in handles)
     stats = eng.stats
     del run, eng
-    profile = serve("bfloat16", dev, profile_polls=4).profile
+    profile = serve("bfloat16", dev, label, profile_polls=4).profile
     summary = {
-        "card": card_line(), "arch": SERVE_ARCH, "dtype": "bfloat16",
-        "requests": len(handles),
+        "run": label, "method": method, **RUNS[label][1],
+        "card": card_line(), "arch": SERVE_ARCH,
+        "dtype": "bfloat16", "requests": len(handles),
         "prompt_lens": list(PROMPT_LENS), "max_new": MAX_NEW,
         "tokens": toks, "wall_s": wall, "tok_per_s": toks / wall,
+        "greedy_tokens": {str(h.rid): [int(t) for t in h.tokens]
+                          for h in handles},
         "ttft_s": {str(h.rid): h.ttft_s() for h in handles},
         "ttft_p50_s": statistics.median(ttft),
         "decode_steps": stats["decode_steps"],
@@ -557,49 +754,97 @@ def phase_serve(dev):
     return counts, profile
 
 
-def phase_compare(dev):
+def phase_compare(dev, label: str):
     import torch
     from repro_torch.kernels import ops
 
     ops.use_kernels(True)
-    k = serve("float32", dev, record=True)
+    k = serve("float32", dev, label, record=True)
     k_h, k_first = k.handles, k.first_sparse
     del k
     ops.use_kernels(False)
     try:
-        p = serve("float32", dev, record=True)
+        p = serve("float32", dev, label, record=True)
     finally:
         ops.use_kernels(True)
     p_h, p_rows, p_first = p.handles, p.rows, p.first_sparse
     del p
     err = float((k_first - p_first).abs().max())
-    log(f"  first sparse step logits: max abs diff {err:.3g} "
+    log(f"  {label} first sparse step logits: max abs diff {err:.3g} "
         f"(tol {LOGIT_TOL})")
     if not err <= LOGIT_TOL:
-        raise AssertionError(f"kernel vs plain logits differ by {err}")
+        raise AssertionError(f"{label}: kernel vs plain logits differ by "
+                             f"{err}")
     for a, b in zip(k_h, p_h):
         if a.tokens == b.tokens:
             continue
         i = next(j for j, (x, y) in enumerate(zip(a.tokens, b.tokens))
                  if x != y)
         if i == 0:
-            raise AssertionError(f"request {a.rid}: first token differs")
+            raise AssertionError(f"{label} request {a.rid}: first token "
+                                 f"differs")
         top2 = torch.topk(p_rows[b.rid][i - 1].float(), 2).values
         margin = float(top2[0] - top2[1])
         log(f"  request {a.rid}: tokens differ at {i}, top-2 margin "
             f"{margin:.3g}")
         if margin > LOGIT_TOL:
-            raise AssertionError(f"request {a.rid}: greedy tokens differ at "
-                                 f"{i} with margin {margin} > {LOGIT_TOL}")
-    log(f"  greedy tokens: {[len(h.tokens) for h in k_h]} compared")
+            raise AssertionError(f"{label} request {a.rid}: greedy tokens "
+                                 f"differ at {i} with margin {margin} > "
+                                 f"{LOGIT_TOL}")
+    log(f"  {label} greedy tokens: {[len(h.tokens) for h in k_h]} compared")
     return err
+
+
+def phase_pipeline(dev, method: str):
+    """The method's four-stage pipeline, unfused and fused, on one layer's
+    full-width tensors (4 slots, the 8192-token view, bf16): one warm-up
+    run, then one run under a StageProfiler; the two outputs agree."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import methods
+    from repro_torch.core.pipeline import StageProfiler
+
+    cfg = get_arch(SERVE_ARCH)
+    mem = cfg.memory.replace(method=method)
+    g = torch.Generator(device=dev).manual_seed(5)
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    kc = torch.randn(SLOTS, VIEW, KV, hd, generator=g, device=dev).bfloat16()
+    vc = torch.randn(SLOTS, VIEW, KV, hd, generator=g, device=dev).bfloat16()
+    q = torch.randn(SLOTS, 1, cfg.padded_heads(16), hd, generator=g,
+                    device=dev).bfloat16()
+    init, _ = methods.get_sparse_method(method)
+    sp = init(cfg, mem, 3, stacked=False, device=dev)
+    outs, res = {}, {}
+    for fused in (False, True):
+        pipe = methods.module(method).build_pipeline(
+            cfg, mem, sp, fused=fused, **methods.sparse_kwargs(method, PAGE))
+        pipe.run((kc, vc), q)
+        prof = StageProfiler()
+        outs[fused] = pipe.run((kc, vc), q, profiler=prof)
+        sec = prof.stage_seconds[pipe.name]
+        res[pipe.name] = {"stage_ms": {s: 1e3 * v for s, v in sec.items()},
+                          "total_ms": 1e3 * sum(sec.values()),
+                          "breakdown": prof.breakdown(pipe.name)}
+    diff = float((outs[True] - outs[False]).abs().max())
+    log(f"  pipeline {method}: fused vs unfused max abs diff {diff:.3g} "
+        f"(tol {ATTN_TOL})")
+    if not diff <= ATTN_TOL:
+        raise AssertionError(f"pipeline {method}: fused != unfused ({diff})")
+    print(json.dumps({"pipeline": {
+        "method": method, "card": card_line(),
+        "shape": f"k/v [{SLOTS},{VIEW},{KV},{hd}] bf16, q [{SLOTS},1,"
+                 f"{cfg.padded_heads(16)},{hd}] bf16, one layer",
+        "fused_vs_unfused_max_abs_diff": diff, **res}}), flush=True)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,serve,compare")
+    ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    if not phases <= set(PHASES):
+        raise ValueError(f"unknown phases {sorted(phases - set(PHASES))}: "
+                         f"choose from {PHASES}")
 
     import torch
     if not torch.cuda.is_available():
@@ -623,16 +868,31 @@ def main(argv=None):
     kernels = []
     if "kernels" in phases:
         log("[2] kernels vs plain versions")
-        kernels = [check_relevancy(dev), check_paged_attention(dev)]
+        kernels = [check_relevancy(dev), check_paged_attention(dev),
+                   check_page_minmax(dev)]
     if "serve" in phases:
-        log("[3] serve llama3.2-1b bf16, DSA")
-        counts, profile = phase_serve(dev)
+        runs = {}
+        for r in RUNS:
+            log(f"[3] serve llama3.2-1b bf16, {r}")
+            runs[r] = phase_serve(dev, r)
         for k in kernels:
-            k["launches"] = counts[k["name"]]
-            k["ms_in_situ"] = profile["kernel_ms_in_situ"][k["name"]]
+            # launches: the count of the kernel's home path's own run
+            by_path = {m: c[k["name"]] for m, (c, _) in runs.items()}
+            k["launches"] = by_path[HOME_PATH[k["name"]]]
+            k["launches_by_path"] = by_path
+            k["ms_in_situ_by_path"] = {
+                m: p["kernel_ms_in_situ"][k["name"]]
+                for m, (_, p) in runs.items()
+                if k["name"] in p["kernel_ms_in_situ"]}
+            k["ms_in_situ"] = k["ms_in_situ_by_path"].get(HOME_PATH[k["name"]])
     if "compare" in phases:
-        log("[4] kernel path vs plain path, fp32")
-        phase_compare(dev)
+        for r in RUNS:
+            log(f"[4] {r}: kernel path vs plain path, fp32")
+            phase_compare(dev, r)
+    if "pipeline" in phases:
+        for m in METHODS:
+            log(f"[5] {m}: build_pipeline unfused vs fused")
+            phase_pipeline(dev, m)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

@@ -1,20 +1,40 @@
 """Memory-processing methods (twin of ``repro.core.methods``).
 ``get_sparse_method(name)`` returns (init_fn, make_sparse_fn) for the
-sparse-attention family; the port has DSA so far."""
-from repro_torch.core.methods import dsa
+sparse-attention family (dsa, seer, lserve); ``module(name)`` the method's
+module (its ``build_pipeline``); ``sparse_kwargs(name, page)`` the keywords
+its ``make_sparse_fn`` / ``build_pipeline`` take beyond the configs;
+``offload_stages(name)`` the pipeline stages a method may move off the
+KV-owning device."""
+from repro_torch.core.methods import dsa, lserve, seer
 
-SPARSE_METHODS = {
-    "dsa": (dsa.dsa_init, dsa.make_sparse_fn),
-}
-_NOT_PORTED = ("seer", "lserve")
+_METHOD_MODULES = {"dsa": dsa, "seer": seer, "lserve": lserve}
+
+SPARSE_METHODS = {name: (getattr(mod, f"{name}_init"), mod.make_sparse_fn)
+                  for name, mod in _METHOD_MODULES.items()}
+
+
+def module(name: str):
+    if name not in _METHOD_MODULES:
+        raise KeyError(f"unknown sparse method {name!r}: "
+                       f"{sorted(_METHOD_MODULES)}")
+    return _METHOD_MODULES[name]
 
 
 def get_sparse_method(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"sparse method {name!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 6)")
-    if name not in SPARSE_METHODS:
-        raise KeyError(f"unknown sparse method {name!r}: "
-                       f"{sorted(SPARSE_METHODS)}")
+    module(name)
     return SPARSE_METHODS[name]
+
+
+def sparse_kwargs(name: str, page: int) -> dict:
+    """Only DSA takes the micro-page size ``page``: Seer and LServe select
+    whole ``block_size`` blocks, as in the reference's signatures."""
+    return {"page": page} if name == "dsa" else {}
+
+
+def offload_stages(name: str) -> tuple:
+    """Stages of ``name`` that read only the compressed index (paper §5.2),
+    declared per method as ``OFFLOAD_STAGES``. Methods the port does not
+    have yet (rag, memagent, mac, ttt) and unknown names like 'none'
+    offload nothing."""
+    mod = _METHOD_MODULES.get(name)
+    return getattr(mod, "OFFLOAD_STAGES", ()) if mod else ()

@@ -7,7 +7,9 @@
   apply     attention restricted to the retrieved pages
 
 Relevancy + retrieve run in the fused relevancy kernel, apply in the paged
-decode attention kernel (``repro_torch.kernels``).
+decode attention kernel (``repro_torch.kernels``). ``build_pipeline`` gives
+the same method as a four-stage ``MemoryPipeline``, unfused (plain scores
+and a stable top-k) or fused (the relevancy kernel).
 
 PyTorch does not promote mixed dtypes in ``@``; JAX does. Every cast below
 that JAX's promotion made implicitly is written out.
@@ -20,10 +22,15 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, MemoryConfig
-from repro_torch.kernels import ops
+from repro_torch.core.pipeline import MemoryPipeline
+from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 
 Params = Dict
+
+# Stages that may leave the KV-owning device (paper §5.2): the indexer reads
+# only compressed index vectors; apply gathers raw KV pages and stays.
+OFFLOAD_STAGES = ("prepare", "relevancy", "retrieve")
 
 
 def dsa_init(cfg: ArchConfig, mem: MemoryConfig, seed: int = 0, *,
@@ -55,21 +62,25 @@ def _matmul_promoted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.to(dt) @ b.to(dt)
 
 
-def _index_qkw(sp: Params, q: torch.Tensor, k_cache: torch.Tensor,
-               mem: MemoryConfig):
-    """prepare: q [B,Hp,hd]; k_cache [B,S,KV,hd] -> index tensors
-    (q_idx [B,Hi,di], k_idx [B,S,di], w [B,Hi] fp32)."""
+def _index_qw(sp: Params, q: torch.Tensor):
+    """q [B,Hp,hd] -> (q_idx [B,Hi,di], w [B,Hi] fp32); the dead-head
+    columns of q are dropped first."""
     B = q.shape[0]
-    S = k_cache.shape[1]
-    n_in = sp["wq_idx"].shape[0]
-    qf = q.reshape(B, -1)[:, :n_in]
+    qf = q.reshape(B, -1)[:, : sp["wq_idx"].shape[0]]
     # qf is in the model dtype, wq_idx bf16: JAX promotes, torch must be told
     q_idx = _matmul_promoted(qf, sp["wq_idx"]).reshape(
         B, -1, sp["wk_idx"].shape[1])
-    k_idx = _matmul_promoted(k_cache.reshape(B, S, -1), sp["wk_idx"])
     # the weights are fp32; qf.float() is the reference's own cast
     w = torch.softmax(qf.float() @ sp["w_wgt"], dim=-1)
-    return q_idx, k_idx, w
+    return q_idx, w
+
+
+def _index_k(sp: Params, k_cache: torch.Tensor, page: int):
+    """k_cache [B,S,KV,hd] -> index keys mean-pooled per micro-page
+    [B, S/page, di]."""
+    B, S = k_cache.shape[:2]
+    k_idx = _matmul_promoted(k_cache.reshape(B, S, -1), sp["wk_idx"])
+    return k_idx.reshape(B, S // page, page, -1).mean(dim=2)
 
 
 def strip_dead_heads(q: torch.Tensor, cfg: ArchConfig):
@@ -92,12 +103,12 @@ def select_pages(sp: Params, q, kc, lb, mem: MemoryConfig, page: int):
     """prepare + relevancy + retrieve for one layer: q [B,1,Hp,hd], kc
     [B,S,KV,hd], lb [B] live lengths -> selected page ids [B, top_k // page]
     int32, -1 past each slot's live context."""
-    B, S = q.shape[0], kc.shape[1]
+    S = kc.shape[1]
     n_pages_sel = max(mem.top_k // page, 1)
-    # --- prepare: index projection of the query and the cached keys ---
-    q_idx, k_idx, w = _index_qkw(sp, q[:, 0], kc, mem)
-    # page-level scores through mean-pooled index keys per micro-page
-    kp = k_idx.reshape(B, S // page, page, -1).mean(dim=2)
+    # --- prepare: index projection of the query and the cached keys;
+    # page-level scores through mean-pooled index keys per micro-page ---
+    q_idx, w = _index_qw(sp, q[:, 0])
+    kp = _index_k(sp, kc, page)
     # --- fused relevancy + retrieve (kernel) ---
     _, pidx = ops.relevancy_topk(q_idx, kp, w, n_pages_sel,
                                  block=max(min(4096, S // page), n_pages_sel))
@@ -122,3 +133,48 @@ def make_sparse_fn(cfg: ArchConfig, mem: MemoryConfig, *, tp: int = 16,
 
     return sparse_fn
 
+
+def build_pipeline(cfg: ArchConfig, mem: MemoryConfig, sp: Params, *,
+                   page: int = 16, fused: bool = False) -> MemoryPipeline:
+    """The four stages over (memory=(kc, vc), query=q [B,1,Hp,hd]), one
+    layer's ``sp``. ``fused=False`` scores with the plain op and takes a
+    stable top-k (the paper's GPU baseline); ``fused=True`` runs relevancy +
+    retrieve in the relevancy kernel (the paper's Fig. 9 comparison)."""
+    n_pages_sel = max(mem.top_k // page, 1)
+
+    def prepare(M):
+        kc, _ = M
+        return _index_k(sp, kc, page)
+
+    def relevancy(kp, q):
+        q_idx, w = _index_qw(sp, q[:, 0])
+        if fused:
+            _, pidx = ops.relevancy_topk(
+                q_idx, kp, w, n_pages_sel,
+                block=max(min(4096, kp.shape[1]), n_pages_sel))
+            return ("fused", pidx)
+        return ("scores", ref.relevancy_scores(q_idx, kp, w))
+
+    def retrieve(M, S):
+        """The refined memory is (KV, selected page ids)."""
+        kc, vc = M
+        tag, val = S
+        if tag == "fused":
+            return (kc, vc, val)
+        _, pidx = ref.topk_stable(val, n_pages_sel)
+        return (kc, vc, pidx)
+
+    def apply(Mp, q):
+        kc, vc, pidx = Mp
+        length = torch.full((q.shape[0],), kc.shape[1], dtype=torch.int32,
+                            device=kc.device)
+        out, _ = ops.paged_decode_attention(q[:, 0], kc, vc,
+                                            pidx.to(torch.int32), length,
+                                            page_size=page)
+        return out
+
+    return MemoryPipeline(
+        name="dsa-fused" if fused else "dsa",
+        prepare=prepare, relevancy=relevancy, retrieve=retrieve, apply=apply,
+        fused={"relevancy": ("relevancy", "retrieve")} if fused else {},
+    )

@@ -18,7 +18,7 @@ import subprocess
 from typing import Dict, Iterable
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("relevancy_topk", "paged_decode_attention")
+SOURCES = ("relevancy_topk", "paged_decode_attention", "page_minmax")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

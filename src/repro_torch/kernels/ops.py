@@ -12,6 +12,7 @@ from typing import Dict
 
 import torch.nn.functional as F
 
+from repro_torch.kernels import page_pool as _pp
 from repro_torch.kernels import ref
 from repro_torch.kernels import relevancy_topk as _rt
 from repro_torch.kernels import sparse_decode_attention as _sda
@@ -22,6 +23,7 @@ _STATE = {"kernels": True}
 KERNELS = {
     "relevancy_topk_candidates": _rt.relevancy_topk_candidates,
     "paged_decode_attention": _sda.paged_decode_attention,
+    "page_minmax": _pp.page_minmax,
 }
 
 
@@ -81,3 +83,9 @@ def paged_decode_attention(q, k_cache, v_cache, page_ids, length, *,
 
 
 lse_merge = _sda.lse_merge
+
+
+def page_minmax(k_cache, *, page_size: int = 64):
+    if not _STATE["kernels"]:
+        return ref.page_minmax(k_cache, page_size)
+    return _pp.page_minmax(k_cache, page_size=page_size)

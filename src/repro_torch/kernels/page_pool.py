@@ -1,4 +1,5 @@
-"""Paged KV-pool access (twin of the pool ops in ``repro.kernels.page_pool``).
+"""Paged KV-pool access and LServe's page min/max (twin of
+``repro.kernels.page_pool``).
 
 The serving engine stores KV in a shared pool of fixed-size physical pages
 ``[n_pages, page_size, KV, dh]`` addressed through per-slot page tables.
@@ -8,10 +9,22 @@ zero and pooled decode equals per-request decode.
 
 The reference returns new arrays (and the engine donates the old buffers);
 here the scatters write the pool in place with ``index_put_`` and return it.
+
+``page_minmax`` (LServe's prepare stage) launches the CUDA kernel
+(``csrc/page_minmax.cu``) for CUDA tensors and runs ``page_minmax_plain``
+for CPU tensors; it never falls back from one to the other.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 
 
 def pool_gather(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -55,3 +68,54 @@ def pool_scatter_span(pages, page_table, start, values, n_valid):
     vals = values * valid[:, :, None, None].to(values.dtype)
     pages.index_put_((dest, tok_pos % ps), vals.to(pages.dtype))
     return pages
+
+
+def _check_page_size(k_cache, page_size: int):
+    if k_cache.dim() != 4:
+        raise ValueError(f"k_cache must be [B,S,KV,dh], got "
+                         f"{tuple(k_cache.shape)}")
+    S = k_cache.shape[1]
+    if page_size < 1 or S % page_size:
+        raise ValueError(f"S={S} is not a multiple of page_size={page_size}")
+
+
+def page_minmax_plain(k_cache, *, page_size: int = 64):
+    """Plain-torch version (``ref.page_minmax``): fp32 min and max of each
+    page's keys, per channel."""
+    _check_page_size(k_cache, page_size)
+    return ref.page_minmax(k_cache, page_size)
+
+
+def page_minmax(k_cache, *, page_size: int = 64):
+    """k_cache [B,S,KV,dh] (fp32 or bf16) -> (min, max) [B,S/ps,KV,dh]
+    fp32. Raises when S is not a multiple of ``page_size``."""
+    if not k_cache.is_cuda:
+        return page_minmax_plain(k_cache, page_size=page_size)
+    _check_page_size(k_cache, page_size)
+    if k_cache.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"k_cache must be fp32 or bf16, got {k_cache.dtype}")
+    B, S, KV, dh = k_cache.shape
+    k = k_cache.contiguous()
+    dev = k.device
+    mn = torch.empty((B, S // page_size, KV, dh), dtype=torch.float32,
+                     device=dev)
+    mx = torch.empty_like(mn)
+    if mn.numel() == 0:
+        return mn, mx
+    C = KV * dh
+    is_bf16 = k.dtype == torch.bfloat16
+    per_16b = 8 if is_bf16 else 4          # elements in one 16-byte load
+    wide = int(C % per_16b == 0 and k.data_ptr() % 16 == 0)
+    lib = _build.load("page_minmax")
+    fn = lib.page_minmax_cuda
+    fn.restype = _I
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(k.data_ptr(), mn.data_ptr(), mx.data_ptr(), B, S, C, page_size,
+             int(is_bf16), wide, stream)
+    _build.check(lib, err, "page_minmax")
+    page_minmax.launches += 1
+    return mn, mx
+
+
+page_minmax.launches = 0

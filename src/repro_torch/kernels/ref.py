@@ -1,4 +1,5 @@
-"""Plain-torch oracles for the ported kernels (twins of ``repro.kernels.ref``).
+"""Plain-torch oracles for the ported kernels and the plain ops beside them
+(twins of ``repro.kernels.ref``).
 
 All oracles use fp32 math. Top-k breaks ties by ascending index, as the
 reference's ``lax.top_k`` and bitonic network do: a stable descending sort
@@ -80,3 +81,29 @@ def paged_decode_attention(q, k_cache, v_cache, page_ids, page_size: int,
     out = out / l[..., None]
     lse = m + torch.log(l)
     return out.reshape(B, Hq, dh), lse.reshape(B, Hq)
+
+
+# ---------------------------------------------------------------------------
+# 3. LServe page-wise min/max pooling (prepare-memory stage) and its bound
+# ---------------------------------------------------------------------------
+
+
+def page_minmax(k_cache: torch.Tensor, page_size: int):
+    """[B, S, KV, dh] -> (min, max) [B, S/ps, KV, dh] fp32."""
+    B, S, KV, dh = k_cache.shape
+    kp = k_cache.reshape(B, S // page_size, page_size, KV, dh).float()
+    return kp.amin(dim=2), kp.amax(dim=2)
+
+
+def lserve_page_scores(q: torch.Tensor, pmin: torch.Tensor,
+                       pmax: torch.Tensor) -> torch.Tensor:
+    """LServe relevancy: per page, sum over channels of max(q*min, q*max).
+
+    q [B,Hq,dh]; pmin/pmax [B,P,KV,dh] -> scores [B, P]: the max over kv
+    heads, then the mean over all Hq query heads passed in.
+    """
+    qf = q.float()[:, :, None, None, :]                  # [B,H,1,1,dh]
+    prod_min = qf * pmin.float()[:, None]                # [B,H,P,KV,dh]
+    prod_max = qf * pmax.float()[:, None]
+    sc = torch.maximum(prod_min, prod_max).sum(-1)       # [B,H,P,KV]
+    return sc.amax(-1).mean(1)

@@ -1,6 +1,6 @@
 """Serving launcher for the port's main path (twin of ``repro.launch.serve``):
-random prompts through the paged continuous-batching engine, with the DSA
-memory pipeline when ``--method dsa``.
+random prompts through the paged continuous-batching engine, with the
+method's memory pipeline when ``--method`` is dsa, seer or lserve.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --method dsa --device cuda
 
@@ -21,7 +21,7 @@ from repro_torch.serving import Engine, Request, ServeConfig
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
-    ap.add_argument("--method", default="dsa", choices=["none", "dsa"])
+    ap.add_argument("--method", default="dsa", choices=["none", "dsa", "seer", "lserve"])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=8)

@@ -3,6 +3,9 @@ from repro_torch.models.model import (  # noqa: F401
     init_params,
     forward,
     last_logits,
+    make_cache,
+    prefill,
+    decode_step,
     make_page_pool,
     decode_step_paged,
     extend_paged,

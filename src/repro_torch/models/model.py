@@ -1,11 +1,14 @@
 """Model (twin of ``repro.models.model``), dense family only: init, forward,
-prefill over length buckets, chunked extend and decode over the paged pool.
+prefill and decode over a per-request cache, prefill over length buckets,
+chunked extend and decode over the paged pool.
 
 Parameters are nested dicts of tensors with layer-stacked ``[L, ...]``
 leaves, the reference's layout, so ``weights.from_jax_params`` carries a JAX
 parameter tree over unchanged. Layers run as a Python loop over the stack.
 The pool ops write the KV pages in place; the reference donated those
 buffers to its jitted steps instead (``repro/serving/engine.py:342-356``).
+``decode_step`` likewise writes the new token's K/V into the cache tensors
+it is given, where the reference returns updated copies.
 """
 from __future__ import annotations
 
@@ -117,6 +120,82 @@ def forward(params: Params, cfg: ArchConfig, tokens, *, positions=None,
 
 def last_logits(params, cfg: ArchConfig, x):
     return L.lm_head(params["lm_head"], x[:, -1:], cfg)[:, 0]
+
+
+def make_cache(cfg: ArchConfig, batch: int, max_len: int, tp: int = 16,
+               dtype=None, device="cuda") -> Dict:
+    """Per-request KV cache: k/v [L, B, max_len, KV, hd] zeros and the
+    shared ``length`` (a host int)."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    dt = dtype or L.dtype_of(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev), "length": 0}
+
+
+def prefill(params, cfg: ArchConfig, tokens, *, max_len=None, tp: int = 16):
+    """Full prompt pass -> (last logits [B, V], caches), the caches zero-
+    padded to ``max_len`` (>= S) so decode can continue in place."""
+    Sq = tokens.shape[1]
+    max_len = max_len or Sq
+    x, caches = forward(params, cfg, tokens, collect_cache=True, tp=tp)
+    if max_len > Sq:
+        pad = (0, 0, 0, 0, 0, max_len - Sq)      # the sequence axis, dim 2
+        caches["k"] = torch.nn.functional.pad(caches["k"], pad)
+        caches["v"] = torch.nn.functional.pad(caches["v"], pad)
+    return last_logits(params, cfg, x), caches
+
+
+def _stack_layers(trees):
+    """Per-layer parameter trees -> one layer-stacked tree."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_layers([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def decode_step(params, cfg: ArchConfig, token, caches, *, tp: int = 16,
+                sparse_fn=None, sparse_params=None, sparse_stateful=False):
+    """token [B] + caches -> (logits [B, V], caches), every row at the
+    shared ``caches["length"]``.
+
+    ``sparse_fn(q, kc, vc, length, sp_layer, k_new=)`` replaces dense
+    decode attention; ``sparse_params`` is layer-stacked. With
+    ``sparse_stateful=True`` the sparse_fn returns (attn, new sp_layer) and
+    this returns (logits, caches, new sparse_params). The new K/V are
+    written into ``caches["k"]`` / ``["v"]`` in place.
+    """
+    _require_dense(cfg)
+    B = token.shape[0]
+    length = int(caches["length"])
+    if length >= caches["k"].shape[2]:
+        raise ValueError(f"cache full: length {length} of "
+                         f"{caches['k'].shape[2]}")
+    x = L.embed(params["embed"], token[:, None])
+    positions = torch.full((B, 1), length, dtype=torch.long, device=x.device)
+    cos, sin = _rope_tables(cfg, positions)
+    sp_new = []
+    for i in range(cfg.n_layers):
+        lp = layer(params["layers"], i)
+        kc, vc = caches["k"][i], caches["v"][i]
+        sp = None if sparse_params is None else layer(sparse_params, i)
+        h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+        q, k, v = A.project_qkv(lp["attn"], h, cos, sin, cfg, tp)
+        kc[:, length] = k[:, 0].to(kc.dtype)
+        vc[:, length] = v[:, 0].to(vc.dtype)
+        if sparse_fn is not None:
+            res = sparse_fn(q, kc, vc, length + 1, sp, k_new=k)
+            attn, sp = res if isinstance(res, tuple) else (res, sp)
+        else:
+            attn = A.attention_decode(q, kc, vc, length + 1, cfg, tp=tp)
+        sp_new.append(sp)
+        x = _mlp_block(lp, x + _attn_out(lp["attn"], attn, cfg, tp), cfg)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    caches = dict(caches, length=length + 1)
+    logits = last_logits(params, cfg, x)
+    if sparse_stateful:
+        return logits, caches, _stack_layers(sp_new)
+    return logits, caches
 
 
 def make_page_pool(cfg: ArchConfig, n_slots: int, max_len: int, *,

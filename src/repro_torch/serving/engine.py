@@ -11,8 +11,10 @@
 * The paper's dynamic fallback: the reference takes a traced ``lax.cond`` on
   the max over the slots' lengths; here the host holds those lengths and
   picks the branch itself (``placement.use_sparse``), dense attention below
-  ``min_context`` and the DSA pipeline (relevancy-top-k + paged decode
-  attention kernels) inside the window.
+  ``min_context`` and the sparse method's pipeline inside the window: DSA
+  and SeerAttention-R through the relevancy-top-k and paged decode
+  attention kernels, LServe through the page-min/max and paged decode
+  attention kernels.
 
 The pool is updated in place; the reference donates the pool buffers to its
 jitted steps instead (``repro/serving/engine.py:342-356``).
@@ -31,7 +33,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, MemoryConfig
 from repro_torch.core import placement
-from repro_torch.core.methods import get_sparse_method
+from repro_torch.core.methods import get_sparse_method, sparse_kwargs
 from repro_torch.models import model as M
 from repro_torch.serving.api import Request, ResponseHandle
 from repro_torch.serving.events import StepEvents
@@ -51,7 +53,7 @@ class ServeConfig:
     ``NotImplementedError`` for any other value of those fields."""
     max_len: int = 4096
     n_slots: int = 8
-    method: str = "none"       # none | dsa
+    method: str = "none"       # none | dsa | seer | lserve
     tp: int = 16
     page: int = 16             # dsa micro-page size
     greedy: bool = True
@@ -109,18 +111,21 @@ class Engine:
                  seed: int = 0, mem: Optional[MemoryConfig] = None,
                  device="cuda", sparse_params=None):
         """``params`` from ``models.init_params`` or
-        ``weights.from_jax_params``. ``sparse_params`` (the DSA indexer
-        weights) default to ``dsa_init(seed)``; pass the reference engine's
-        to compare the two."""
+        ``weights.from_jax_params``. ``sparse_params`` (the method's
+        per-layer weights: DSA's indexer, Seer's gates) default to the
+        method's init at ``seed``; pass the reference engine's to compare
+        the two."""
         _check_supported(cfg, sc)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _to_device(params, self.device)
         self.mem = mem or cfg.memory.replace(method=sc.method)
-        # the sparse pipeline needs the view page-aligned, the pool kv-page
-        # aligned
-        gran = 1 if sc.method == "none" else max(sc.page,
-                                                 self.mem.block_size)
+        # the sparse pipeline needs the view page-aligned (LServe: whole
+        # physical pages), the pool kv-page aligned
+        gran = 1 if sc.method == "none" else max(
+            sc.page, self.mem.block_size,
+            self.mem.block_size * self.mem.pages_per_physical
+            if sc.method == "lserve" else 1)
         gran = math.lcm(gran, sc.kv_page_size)
         if sc.max_len % gran:
             sc = dataclasses.replace(
@@ -135,7 +140,8 @@ class Engine:
                 sparse_params if sparse_params is not None
                 else init_fn(cfg, self.mem, seed, device=self.device),
                 self.device)
-            self._sparse_fn = mk(cfg, self.mem, tp=sc.tp, page=sc.page)
+            self._sparse_fn = mk(cfg, self.mem, tp=sc.tp,
+                                 **sparse_kwargs(sc.method, sc.page))
 
         self.slots = SlotManager(sc.n_slots, sc.max_len)
         self.pool: Optional[PagedKVPool] = None

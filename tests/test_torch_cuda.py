@@ -3,13 +3,15 @@
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 fixture, never at import). Run on the card with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
-Tolerances as in ``chip_smoke.py``: both sides compute in fp32.
+Tolerances as in ``chip_smoke.py``: both sides compute in fp32; page
+min/max is exact (min and max of values cast exactly to fp32).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import page_pool as pp  # noqa: E402
 from repro_torch.kernels import relevancy_topk as rt  # noqa: E402
 from repro_torch.kernels import sparse_decode_attention as sda  # noqa: E402
 
@@ -40,8 +42,22 @@ def test_relevancy_topk_kernel(dev, dtype, S, block, k):
     assert torch.equal(ki, pi)
 
 
+def test_relevancy_topk_kernel_one_head(dev):
+    """Seer's shapes: one gated query head, dk 128, unit weight, 128
+    pooled blocks in one 128-block, top-64."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(4, 1, 128, generator=g, device=dev).bfloat16()
+    keys = torch.randn(4, 128, 128, generator=g, device=dev).bfloat16()
+    keys[2, 5:] = 0
+    w = torch.ones(4, 1, device=dev)
+    kv, ki = ops.relevancy_topk(q, keys, w, 64, block=128)
+    pv, pi = ref.relevancy_topk(q, keys, w, 64)
+    torch.testing.assert_close(kv, pv, rtol=TOL, atol=TOL)
+    assert torch.equal(ki, pi)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ps,nsel", [(16, 9), (4, 7), (128, 3)])
+@pytest.mark.parametrize("ps,nsel", [(16, 9), (4, 7), (128, 3), (64, 12)])
 def test_paged_decode_attention_kernel(dev, dtype, ps, nsel):
     g = torch.Generator(device=dev).manual_seed(1)
     B, KV, G, dh, S = 3, 8, 4, 64, 1024
@@ -61,3 +77,25 @@ def test_paged_decode_attention_kernel(dev, dtype, ps, nsel):
     po, pl_ = ref.paged_decode_attention(q, kc, vc, pages, ps, length)
     torch.testing.assert_close(ko, po, rtol=TOL, atol=TOL)
     torch.testing.assert_close(kl, pl_, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("channels", [(8, 64), (3, 5)])
+def test_page_minmax_kernel(dev, dtype, ps, channels):
+    """Bit-exact against the plain version, on mixed-sign values, with the
+    16-byte loads (KV x dh = 512) and the scalar ones (KV x dh = 15)."""
+    KV, dh = channels
+    g = torch.Generator(device=dev).manual_seed(3)
+    k = (torch.randn(3, 4 * ps, KV, dh, generator=g, device=dev) * 3
+         - 0.5).to(dtype)
+    k[1, ps:] = 0                                   # dead pages: 0 and 0
+    n0 = pp.page_minmax.launches
+    mn, mx = ops.page_minmax(k, page_size=ps)
+    assert pp.page_minmax.launches == n0 + 1
+    pmn, pmx = pp.page_minmax_plain(k, page_size=ps)
+    assert mn.dtype == torch.float32 and mn.shape == (3, 4, KV, dh)
+    assert torch.equal(mn.view(torch.int32), pmn.view(torch.int32))
+    assert torch.equal(mx.view(torch.int32), pmx.view(torch.int32))
+    with pytest.raises(ValueError):
+        pp.page_minmax(k[:, :ps + 1], page_size=ps)

@@ -1,11 +1,16 @@
-"""The port's serving engine on the CPU: the same greedy tokens as the JAX
-``Engine`` for a mixed batch (short bucketed prompts plus one chunked
-prompt, more requests than slots), for ``method="none"`` and ``"dsa"``, from
-the same JAX-initialized weights; pooled == one-at-a-time inside the port;
-the pool back at zero after release; unported features raise.
+"""The port's serving engine on the CPU: the same greedy tokens and the same
+aligned ``max_len`` as the JAX ``Engine`` for a mixed batch (short bucketed
+prompts plus one chunked prompt, more requests than slots), for
+``method="none"``, ``"dsa"``, ``"seer"`` (top-k and threshold) and
+``"lserve"``, from the same JAX-initialized weights; pooled == one-at-a-time
+inside the port; the pool back at zero after release; unported features
+raise.
 
-Smoke config at dtype float32. Tokens must be equal exactly.
+Smoke config at dtype float32. Tokens must be equal exactly. Seer runs at
+tp=4: with dead TP heads the reference's seer gate does not type-check.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -13,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from repro.configs import MemoryConfig as JMemoryConfig  # noqa: E402
 from repro.configs import get_arch as jget_arch  # noqa: E402
 from repro.models import init_params as jinit  # noqa: E402
 from repro.serving import Engine as JEngine  # noqa: E402
@@ -20,6 +26,7 @@ from repro.serving import OffloadConfig  # noqa: E402
 from repro.serving import Request as JRequest  # noqa: E402
 from repro.serving import ServeConfig as JServeConfig  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.base import MemoryConfig  # noqa: E402
 from repro_torch.serving import Engine, Request, ServeConfig  # noqa: E402
 from repro_torch.weights import from_jax_params  # noqa: E402
 
@@ -37,12 +44,17 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module")
-def weights():
+@functools.lru_cache(maxsize=None)
+def _weights(tp):
     jcfg = jget_arch("llama3.2-1b").smoke().replace(dtype="float32")
     tcfg = get_arch("llama3.2-1b").smoke().replace(dtype="float32")
-    jparams = jinit(jcfg, jax.random.PRNGKey(0), tp=TP)
+    jparams = jinit(jcfg, jax.random.PRNGKey(0), tp=tp)
     return jcfg, tcfg, jparams, from_jax_params(_np_tree(jparams), "cpu")
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return _weights(TP)
 
 
 def _prompts(vocab):
@@ -50,21 +62,42 @@ def _prompts(vocab):
     return [rng.integers(0, vocab, size=n).astype(np.int32) for n in LENS]
 
 
-def _port_engine(weights, method, jeng=None, **kw):
+def _port_engine(weights, method, jeng=None, mem=None, **kw):
     _, tcfg, _, tparams = weights
     sp = None
     if jeng is not None and jeng.sparse_params is not None:
         sp = from_jax_params(_np_tree(jeng.sparse_params), "cpu")
-    return Engine(tcfg, tparams, ServeConfig(method=method, **SC, **kw),
-                  device="cpu", sparse_params=sp)
+    return Engine(tcfg, tparams, ServeConfig(method=method, **dict(SC, **kw)),
+                  device="cpu", sparse_params=sp, mem=mem)
 
 
-@pytest.mark.parametrize("method", ["none", "dsa"])
-def test_engine_tokens_match_jax_engine(weights, method):
-    jcfg, _, jparams, _ = weights
-    jeng = JEngine(jcfg, jparams, JServeConfig(method=method, **SC),
-                   key=jax.random.PRNGKey(1))
-    teng = _port_engine(weights, method, jeng)
+# per case: ServeConfig overrides and MemoryConfig overrides. lserve's
+# max_len of 80 is not a multiple of its 32-token physical page, so the
+# engine must align it as the reference does (to 96).
+ENGINE_CASES = {
+    "none": ("none", {}, {}),
+    "dsa": ("dsa", {}, {}),
+    "seer": ("seer", {"tp": 4}, {}),
+    "seer-threshold": ("seer", {"tp": 4},
+                       {"selection": "threshold", "threshold": 0.3}),
+    "lserve": ("lserve", {"max_len": 80}, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_engine_tokens_match_jax_engine(case):
+    method, sc_kw, mem_kw = ENGINE_CASES[case]
+    weights = _weights(sc_kw.get("tp", TP))
+    jcfg, tcfg, jparams, _ = weights
+    jmem = tmem = None
+    if mem_kw:
+        fields = dict(vars(jcfg.memory), method=method, **mem_kw)
+        jmem, tmem = JMemoryConfig(**fields), MemoryConfig(**fields)
+    jeng = JEngine(jcfg, jparams, JServeConfig(method=method,
+                                               **dict(SC, **sc_kw)),
+                   key=jax.random.PRNGKey(1), mem=jmem)
+    teng = _port_engine(weights, method, jeng, mem=tmem, **sc_kw)
+    assert teng.sc.max_len == jeng.sc.max_len
     prompts = _prompts(jcfg.vocab_size)
     jh = [jeng.submit(JRequest(i, p, MAX_NEW)) for i, p in enumerate(prompts)]
     th = [teng.submit(Request(i, p, MAX_NEW)) for i, p in enumerate(prompts)]
@@ -74,7 +107,7 @@ def test_engine_tokens_match_jax_engine(weights, method):
         assert a.done and b.done
         np.testing.assert_array_equal(b.result(), a.result())
     assert teng.stats["decode_steps"] == jeng.stats["decode_steps"]
-    if method == "dsa":      # smoke min_context = 0: every step is sparse
+    if method != "none":     # smoke min_context = 0: every step is sparse
         assert teng.stats["sparse_steps"] == teng.stats["decode_steps"] > 0
 
 
@@ -97,7 +130,7 @@ def test_pooled_matches_one_at_a_time_and_pool_scrubbed(weights):
 @pytest.mark.parametrize("kw", [
     dict(offload="sync"), dict(offload_cfg=OffloadConfig(mode="sync")), dict(offload_shards=2),
     dict(main_mesh=2), dict(fused_steps=2), dict(retrieval=object()),
-    dict(paged=False), dict(method="seer"),
+    dict(paged=False),
 ])
 def test_unported_features_raise(weights, kw):
     kw = dict(kw)

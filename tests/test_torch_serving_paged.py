@@ -99,10 +99,11 @@ def test_pool_oversubscription_blocks_then_admits(setup):
     assert eng.pool.n_free() == 3
 
 
-@pytest.mark.parametrize("method", ["none", "dsa"])
+@pytest.mark.parametrize("method", ["none", "dsa", "seer", "lserve"])
 def test_chunked_prefill_matches_one_shot(setup, method):
     """A long prompt streamed in chunks (interleaved with another slot's
-    decode, forced by ``method_overrides``) == one-shot generate."""
+    decode, forced by ``method_overrides``) == one-shot generate: pooled
+    decode equals per-request decode under each sparse method."""
     cfg, _ = setup
     kw = dict(max_len=128, method=method, page=8, prefill_chunk=16,
               chunk_threshold=24)
