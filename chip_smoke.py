@@ -15,33 +15,44 @@ failure (the script then exits non-zero):
    attention at the DSA path's shapes (llama3.2-1b, 4 slots, an 8192-token
    view, 16-token pages, DSA top-2048) and at Seer's / LServe's (one gated
    head, 64-token blocks, a 4096-token budget), page min/max at LServe's
-   (k [4, 8192, 8, 64] bf16, 64-token pages), each also at edge cases (-1
-   holes, a length cut mid-page, an all-masked row, S not a multiple of the
-   block, all-zero scores, fp32 and bf16, a single page, scalar loads);
+   (k [4, 8192, 8, 64] bf16, 64-token pages), BM25 + top-k at RAG's (one
+   8-term query over a 250,000-doc corpus padded to 262,144, top 4) and at
+   the paper's Fig. 10 shape, each also at edge cases (-1 holes, a length
+   cut mid-page, an all-masked row, S or D not a multiple of the block,
+   all-zero scores, equal scores, fewer live docs than k, fp32 and bf16, a
+   single page, scalar loads);
 3. serve: full-width llama3.2-1b in bf16 with seeded random weights,
    ``ServeConfig(method=m, max_len=8192, n_slots=4)`` for m in dsa, lserve
-   and seer, seer in both its top-k and its threshold selection (``RUNS``),
-   2 prompts past ``min_context`` (chunked prefill) and 2 short
-   ones (bucketed prefill); every request completes and each kernel of the
-   method's path launches once per layer per sparse decode step, every
-   other kernel never; then the same requests again with four steady
+   and seer, seer in both its top-k and its threshold selection, and dsa
+   with the retrieval service, RAG over the corpus (``dsa-rag``) and MaC
+   memory banks (``dsa-mac``), FLARE firing in every slot (``RUNS``); 2
+   prompts past ``min_context`` (chunked prefill) and 2 short ones
+   (bucketed prefill); every request completes and each kernel of the
+   run's path launches once per layer per sparse decode step (bm25 once
+   per query), every other kernel never; every request retrieves in
+   dsa-rag, only the long ones (whose prompts fill MaC's 1024-token
+   segments) in dsa-mac; then the same requests again with four steady
    sparse decode polls under ``torch.profiler``, for the device's busy
    share and each kernel's in-situ time (tables under ``chiprun_out/``);
-   one ``serve`` line per run;
-4. compare: the same requests at float32 for each run, once through the
-   kernels and once through the plain versions (``ops.use_kernels(False)``):
-   the first sparse decode step's logits agree and the greedy tokens are
-   equal (or differ only where the plain top-2 margin is within the
-   tolerance);
-5. pipeline: each method's four-stage ``build_pipeline``, unfused and
-   fused, on one layer's full-width tensors: equal outputs, and a
-   ``{"pipeline": ...}`` line with the ``StageProfiler`` stage times and
-   shares (the paper's Fig. 3-5 breakdown);
-6. a ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``
+   one ``serve`` line per run, with the retrieval service's report;
+4. modes: dsa-rag with the service inline (the engine's stream), sync and
+   overlap (a stream of its own; both replaying every query): equal greedy
+   tokens and retrieval events, one ``modes`` line;
+5. compare: the same requests at float32 for each run but dsa-mac, once
+   through the kernels and once through the plain versions
+   (``ops.use_kernels(False)``): the first sparse decode step's logits
+   agree, the retrievals are equal, and the greedy tokens are equal (or
+   differ only where the plain top-2 margin is within the tolerance);
+6. pipeline: each method's four-stage ``build_pipeline``, unfused and
+   fused, on one layer's full-width tensors, and RAG's over the corpus:
+   equal outputs; MaC's at d = 2048, equal to ``segment_step``'s; a
+   ``{"pipeline": ...}`` line each with the ``StageProfiler`` stage times
+   and shares (the paper's Fig. 3-5 breakdown);
+7. a ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``
    as the last line.
 
-``--phases`` runs a subset of kernels, serve, compare and pipeline (the
-default is all four).
+``--phases`` runs a subset of kernels, serve, modes, compare and pipeline
+(the default is all five).
 """
 from __future__ import annotations
 
@@ -53,6 +64,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import dataclass, field
 from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -72,19 +84,43 @@ BLOCK = 64                               # Seer block / LServe logical page
 BUDGET = 4096                            # Seer / LServe token budget
 SLOTS = 4
 METHODS = ("dsa", "lserve", "seer")
-# the serve and compare runs: label -> (method, MemoryConfig overrides)
-RUNS = {"dsa": ("dsa", {}), "lserve": ("lserve", {}), "seer": ("seer", {}),
-        "seer-threshold": ("seer", {"selection": "threshold"})}
-PHASES = ("kernels", "serve", "compare", "pipeline")
-# the kernels each method's sparse decode step launches, once per layer
-PATH_KERNELS = {
-    "dsa": ("relevancy_topk_candidates", "paged_decode_attention"),
-    "seer": ("relevancy_topk_candidates", "paged_decode_attention"),
-    "lserve": ("page_minmax", "paged_decode_attention"),
-}
-# the path whose serve run gives a kernel's in-situ time in its row
-HOME_PATH = {"relevancy_topk_candidates": "dsa",
-             "paged_decode_attention": "dsa", "page_minmax": "lserve"}
+_DSA = ("relevancy_topk_candidates", "paged_decode_attention")
+
+
+@dataclass(frozen=True)
+class Run:
+    """A serve run: its method and MemoryConfig overrides, the retrieval
+    service's kind (None: no service), the kernels its path launches (once
+    per layer per sparse decode step, bm25 once per retrieval query) and
+    whether it joins the kernel-vs-plain compare at fp32."""
+    method: str
+    mem: dict = field(default_factory=dict)
+    retrieval: str | None = None
+    kernels: tuple = _DSA
+    compare: bool = True
+
+
+RUNS = {"dsa": Run("dsa"),
+        "lserve": Run("lserve", kernels=("page_minmax",
+                                         "paged_decode_attention")),
+        "seer": Run("seer"),
+        "seer-threshold": Run("seer", {"selection": "threshold"}),
+        "dsa-rag": Run("dsa", retrieval="rag",
+                       kernels=_DSA + ("bm25_topk_candidates",)),
+        # MaC's path adds no kernel
+        "dsa-mac": Run("dsa", retrieval="mac", compare=False)}
+PHASES = ("kernels", "serve", "modes", "compare", "pipeline")
+# the run whose serve phase gives a kernel's launches and in-situ time in
+# its row: the first run that launches it
+HOME_PATH = {name: label for label, run in reversed(RUNS.items())
+             for name in run.kernels}
+
+# the retrieval runs: the card corpus and the rag / mac knobs
+CORPUS_DOCS = 250_000
+RETRIEVAL_VOCAB = 1024                   # the reference CLI's
+DOC_MAX = 64
+RAG_K = 4
+_CACHE = {}
 
 # tolerances (kernel vs plain on the card); both sides compute in fp32, so
 # the differences are summation order only, at bf16 inputs as at fp32 ones
@@ -563,6 +599,187 @@ def check_page_minmax(dev):
     }
 
 
+def card_corpus(dev):
+    """The serving runs' corpus, built once per process: 250,000 synthetic
+    Zipf docs over the reference CLI's 1024-term retrieval vocab, up to 64
+    tokens each (``build_corpus``; the store pads it to 262,144 rows)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import build_corpus
+
+    if "corpus" not in _CACHE:
+        t0 = time.perf_counter()
+        _CACHE["corpus"] = build_corpus(
+            CORPUS_DOCS, retrieval_vocab=RETRIEVAL_VOCAB, doc_max=DOC_MAX,
+            gen_vocab=get_arch(SERVE_ARCH).vocab_size, seed=0, device=dev)
+        log(f"  corpus of {CORPUS_DOCS} docs built in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return _CACHE["corpus"]
+
+
+def check_bm25(dev):
+    """The BM25 kernel against its plain version at the serving shape (one
+    query of 8 terms over the card corpus's 262,144-row store, 250,000 live,
+    k = 4, block 4096), at the paper's Fig. 10 shape
+    (``benchmarks/bench_kernel_speedup.py:60``: D 16384, T 16, k 64) and at
+    edge cases."""
+    import numpy as np
+    import torch
+    from repro_torch.data import sample_queries
+    from repro_torch.kernels import bm25_topk as bm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.retrieval.select import _bm25_panel, make_retrieval_select
+
+    corpus = card_corpus(dev)
+    state = make_retrieval_select("rag", corpus=corpus, k=RAG_K).summary_init()
+    terms = sample_queries(corpus, 1, 8, seed=1)
+    tfq, idf, dln = _bm25_panel(state, terms)
+    nd = state["n_docs"]
+    D = tfq.shape[1]
+    blk = 4096
+    kv, ki = bm.bm25_topk_candidates(tfq, dln, idf, block=blk, c=RAG_K,
+                                     avgdl=1.0, valid=nd)
+    pv, pi = bm.bm25_topk_candidates_plain(tfq, dln, idf, block=blk, c=RAG_K,
+                                           avgdl=1.0, valid=nd)
+    err = _topk_check("bm25 serving shape", kv, ki, pv, pi)
+    a = ops.bm25_topk(tfq, dln, idf, RAG_K, block=blk, avgdl=1.0, valid=nd)
+    scores = ref.bm25_scores(tfq, dln, idf, avgdl=1.0)
+    live = torch.arange(D, device=dev)[None] < nd
+    b_ = ref.topk_stable(torch.where(live, scores, torch.full_like(
+        scores, float("-inf"))), RAG_K)
+    err = max(err, _topk_check("bm25 serving top-4", *a, *b_))
+
+    rng = np.random.default_rng(7)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    # Fig. 10 (right): tf ~ Poisson(1), doc lengths 20..199, idf in [0, 1)
+    F, FT, FK = 16384, 16, 64
+    f_tf = t(rng.poisson(1.0, (1, F, FT)))
+    f_dl = t(rng.integers(20, 200, (1, F)))
+    f_idf = t(rng.random((1, FT)))
+    fig = _topk_check("bm25 Fig. 10 shape",
+                      *bm.bm25_topk_candidates(f_tf, f_dl, f_idf, block=blk,
+                                               c=FK),
+                      *bm.bm25_topk_candidates_plain(f_tf, f_dl, f_idf,
+                                                     block=blk, c=FK))
+    fig = max(fig, _topk_check("bm25 Fig. 10 top-64",
+                               *ops.bm25_topk(f_tf, f_dl, f_idf, FK,
+                                              block=blk),
+                               *ref.bm25_topk(f_tf, f_dl, f_idf, FK)))
+
+    def panel(B, n, T, zero=False, dup=False):
+        tf = np.zeros((B, n, T)) if zero else rng.poisson(0.7, (B, n, T))
+        dl = rng.integers(16, 64, (B, n)).astype(np.float64)
+        if dup:             # rows in equal pairs: equal nonzero scores
+            tf[:, 1::2], dl[:, 1::2] = tf[:, ::2], dl[:, ::2]
+        return t(tf), t(dl), t(rng.random((B, T)) + 0.1)
+
+    # edge cases: (name, panel, k, block, valid, ties must match exactly)
+    cases = [("D=5000 padded to 8192", panel(1, 5000, 8), 16, blk, None,
+              False),
+             ("valid=0 means D", panel(2, 2048, 8), 8, 512, 0, False),
+             ("all-zero panel", panel(2, 1024, 8, zero=True), 8, 256, None,
+              True),
+             ("duplicated rows", panel(2, 1024, 8, dup=True), 32, 256, None,
+              False),
+             ("B=4, T=1", panel(4, 4096, 1), 16, 1024, None, False),
+             ("3 live docs < c", panel(1, 1024, 8), 8, 256, 3, True)]
+    for name, (a_tf, a_dl, a_idf), k, b, valid, exact in cases:
+        if valid is not None and a_tf.shape[1] % b == 0:
+            kc = bm.bm25_topk_candidates(a_tf, a_dl, a_idf, block=b, c=k,
+                                         valid=valid)
+            pc = bm.bm25_topk_candidates_plain(a_tf, a_dl, a_idf, block=b,
+                                               c=k, valid=valid)
+            err = max(err, _topk_check(f"bm25 {name} candidates", *kc, *pc))
+            if exact and not torch.equal(kc[1], pc[1]):
+                raise AssertionError(f"bm25 {name}: tie order differs")
+        v = None if valid == 0 else valid     # ops: None means all D
+        got = ops.bm25_topk(a_tf, a_dl, a_idf, k, block=b, valid=v)
+        want = ops_plain_bm25(a_tf, a_dl, a_idf, k, v)
+        err = max(err, _topk_check(f"bm25 {name}", *got, *want))
+        if name == "duplicated rows" and not bool(
+                (want[0][:, 1:] == want[0][:, :-1]).any()):
+            raise AssertionError("bm25 duplicated rows: no tie compared")
+        if exact and not torch.equal(got[1], want[1]):
+            raise AssertionError(f"bm25 {name}: tie order differs")
+        if name == "all-zero panel" and not torch.equal(
+                got[1].long(), torch.arange(k, device=dev).expand(2, k)):
+            raise AssertionError("bm25 all-zero panel: ids are not 0..k-1")
+
+    row = _bm25_timing(state, terms, tfq, dln, idf, nd, blk)
+    return {
+        "name": "bm25_topk_candidates", "route": "cuda",
+        "source": "src/repro_torch/csrc/bm25_topk.cu",
+        "replaces": "src/repro/kernels/bm25_topk.py:47",
+        "launches": None, "max_abs_err": err, **row, "library_ms": None,
+        "library": "none: no one PyTorch call computes BM25 and a top-k",
+        "tolerance": f"values {TOPK_VAL_TOL} x row max|score|; indices "
+                     f"equal outside the tie band, exactly equal in the tie "
+                     f"cases",
+        "shape": f"serving: tf panel [1,{D},8] fp32 (gathered from the "
+                 f"[{D},{RETRIEVAL_VOCAB}] int32 store), {int(nd)} live, "
+                 f"block {blk}, c {RAG_K}",
+        "other_shapes": [dict(
+            _bm25_kernel_times(f_tf, f_dl, f_idf, blk, FK, 100.0, 0),
+            path="Fig. 10", max_abs_err=fig, library_ms=None,
+            shape=f"tf [1,{F},{FT}] fp32, block {blk}, c {FK}, k {FK}")],
+    }
+
+
+def ops_plain_bm25(tf, dl, idf, k, valid):
+    """``ops.bm25_topk`` through the plain path (``use_kernels(False)``)."""
+    from repro_torch.kernels import ops
+
+    ops.use_kernels(False)
+    try:
+        return ops.bm25_topk(tf, dl, idf, k, valid=valid)
+    finally:
+        ops.use_kernels(True)
+
+
+def _bm25_kernel_times(tf, dl, idf, block, c, avgdl, valid):
+    """Kernel (L2-warm and cold) and plain times of one candidates call and
+    its bound. On the path the gather writes the panel just before the
+    kernel reads it, so ``ms`` is L2-warm; ``ms_cold`` rotates over copies
+    of the panel that together pass twice the L2."""
+    import torch
+    from repro_torch.kernels import bm25_topk as bm
+
+    kw = dict(block=block, c=c, avgdl=avgdl, valid=valid)
+    ms = time_ms(lambda: bm.bm25_topk_candidates(tf, dl, idf, **kw))
+    plain_ms = time_ms(lambda: bm.bm25_topk_candidates_plain(tf, dl, idf,
+                                                             **kw))
+    B, D, T = tf.shape
+    nb = D // block
+    nd = min(int(valid), D) if int(valid) > 0 else D
+    # the kernel reads tf and doc_len of the live docs only (a doc at or
+    # past nd scores -inf unread), idf, and writes the candidates
+    n_bytes = (B * nd * (T + 1) + idf.numel()) * 4 + B * nb * c * 8
+    n = cold_copies((tf.numel() + dl.numel()) * 4)
+    tfs = [tf] + [tf.clone() for _ in range(n - 1)]
+    dls = [dl] + [dl.clone() for _ in range(n - 1)]
+    ms_cold = time_ms([lambda x=x, y=y: bm.bm25_topk_candidates(x, y, idf,
+                                                                **kw)
+                       for x, y in zip(tfs, dls)])
+    del tfs, dls
+    # per live doc: 4 operations for the length norm, 5 per term (multiply,
+    # add, divide, fused multiply-add), one compare to select it
+    ops_n = B * nd * (4 + 5 * T + 1)
+    return {"ms": ms, "plain_ms": plain_ms, "ms_cold": ms_cold,
+            **_bound(n_bytes, [(ops_n, FP32_FLOP_PER_S)]),
+            "timing": f"ms and plain_ms L2-warm; ms_cold rotates over {n} "
+                      f"copies of the panel and doc lengths"}
+
+
+def _bm25_timing(state, terms, tfq, dln, idf, nd, block):
+    """The serving shape's kernel times, and the time of the panel gather
+    before it (plain torch, as in the reference: eight strided int32
+    columns of the 1 GB store)."""
+    from repro_torch.retrieval.select import _bm25_panel
+
+    row = _bm25_kernel_times(tfq, dln, idf, block, RAG_K, 1.0, nd)
+    row["gather_ms"] = time_ms(lambda: _bm25_panel(state, terms))
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: serving
 # ---------------------------------------------------------------------------
@@ -577,29 +794,53 @@ def _requests(vocab: int):
             for i, n in enumerate(PROMPT_LENS)]
 
 
+def retrieval_config(dev, run: str, mode: str = "overlap",
+                     validate: bool = False):
+    """The retrieval service of run ``run`` (None for the runs without):
+    every slot's FLARE trigger fires at tau 1.1, at most twice per request,
+    4 context tokens apart; rag retrieves 4 docs of the card corpus, mac
+    the paper's bank (MacConfig defaults: 1024-token segments, 64 bank
+    slots, top 8)."""
+    from repro_torch.core.methods.mac import MacConfig
+    from repro_torch.retrieval import RetrievalConfig
+
+    kind = RUNS[run].retrieval
+    if kind is None:
+        return None
+    kw = dict(kind=kind, mode=mode, trigger="flare", tau=1.1,
+              min_interval=4, max_retrievals=2, query_window=8,
+              validate=validate)
+    if kind == "rag":
+        return RetrievalConfig(corpus=card_corpus(dev), k=RAG_K, **kw)
+    return RetrievalConfig(mac=MacConfig(), **kw)
+
+
 def serve(dtype: str, dev, run: str, record: bool = False,
-          profile_polls: int = 0):
+          profile_polls: int = 0, mode: str = "overlap",
+          validate: bool = False):
     """Serve the requests as ``RUNS[run]`` says: the long ones first; the short
     ones join once the long ones decode, so all four share the sparse steps.
     Returns the engine, handles, wall seconds and (with ``record``) the
     logits row that produced each of a request's tokens after the first,
     plus the first sparse step's logits. ``profile_polls`` > 0 traces that
     many polls of steady sparse decode with ``torch.profiler``
-    (``profile``: see ``_Profile``)."""
+    (``profile``: see ``_Profile``). The retrieval runs serve with their
+    service in ``mode``."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import init_params
     from repro_torch.serving import Engine, ServeConfig
 
-    method, mem_kw = RUNS[run]
+    method, mem_kw = RUNS[run].method, RUNS[run].mem
     cfg = get_arch(SERVE_ARCH).replace(dtype=dtype)
     params = init_params(cfg, 0, device=dev)
     sc = ServeConfig(method=method, max_len=VIEW, n_slots=SLOTS,
-                     kv_page_size=PAGE, page=PAGE)
+                     kv_page_size=PAGE, page=PAGE,
+                     retrieval=retrieval_config(dev, run, mode, validate))
     eng = Engine(cfg, params, sc, seed=1, device=dev,
                  mem=cfg.memory.replace(method=method, **mem_kw))
     reqs = _requests(cfg.vocab_size)
-    rows, first_sparse = {r.rid: [] for r in reqs}, None
+    rows, first_sparse, slot_of = {r.rid: [] for r in reqs}, None, {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handles = [eng.submit(r) for r in reqs[:2]]
@@ -614,6 +855,8 @@ def serve(dtype: str, dev, run: str, record: bool = False,
                 and not eng.has_prefill_work()):
             prof = _Profile(profile_polls, run)   # steady, 4 slots
         ev = eng.poll()
+        for rid, slot, _tok in ev.emissions:
+            slot_of[rid] = slot
         if prof is not None:
             prof.tick()
         polls += 1
@@ -639,29 +882,53 @@ def serve(dtype: str, dev, run: str, record: bool = False,
         raise AssertionError(f"{run}: max_len {eng.sc.max_len} != {VIEW}")
     if profile_polls and (prof is None or prof.result is None):
         raise AssertionError("the profiled polls did not complete")
+    events = []
+    if eng.retrieval is not None:
+        events = [(e["slot"], tuple(e["ids"]), e["spliced"])
+                  for e in eng.retrieval.events]
+        _check_retrievals(run, events, slot_of)
     return SimpleNamespace(eng=eng, handles=handles, wall=wall, rows=rows,
                            first_sparse=first_sparse, cfg=cfg,
-                           profile=prof and prof.result)
+                           profile=prof and prof.result, events=events,
+                           slot_of=slot_of)
+
+
+def _check_retrievals(run: str, events, slot_of):
+    """dsa-rag: every request retrieved (twice at most); dsa-mac: the two
+    long requests retrieved from their banks, the short ones never (their
+    prompts fill no 1024-token segment: the bank gate holds)."""
+    per_slot = {}
+    for slot, _ids, spliced in events:
+        per_slot[slot] = per_slot.get(slot, 0) + 1
+        if spliced <= 0:
+            raise AssertionError(f"{run}: an empty splice in slot {slot}")
+    long_ = {slot_of[r] for r, n in enumerate(PROMPT_LENS) if n > 1024}
+    want = set(slot_of.values()) if RUNS[run].retrieval == "rag" else long_
+    if set(per_slot) != want or max(per_slot.values()) > 2:
+        raise AssertionError(f"{run}: retrievals per slot {per_slot}, "
+                             f"expected 1-2 for the slots {sorted(want)}")
 
 
 # the CUDA symbol of each kernel, as the profiler names it
 KERNEL_SYMBOLS = {"relevancy_topk_candidates": "relevancy_topk_kernel",
                   "paged_decode_attention": "paged_decode_kernel",
-                  "page_minmax": "page_minmax_kernel"}
+                  "page_minmax": "page_minmax_kernel",
+                  # both routes: bm25_topk_reg_kernel<C>, bm25_topk_sort_kernel
+                  "bm25_topk_candidates": "bm25_topk_"}
 
 
 class _Profile:
     """torch.profiler over the next ``n`` polls of serve run ``run``. On the
     last one, sets ``result`` (wall and device-busy time, the busy share, the
-    mean in-situ device time of each kernel of the method's path) and writes
-    the per-op table (device time first) and a chrome trace to
-    chiprun_out/profile_decode_<run>.*."""
+    mean in-situ device time of each kernel of the run's path) and writes
+    the per-op table (device time first) and a gzipped chrome trace to
+    chiprun_out/profile_decode_<run>.{txt,json.gz}."""
 
     def __init__(self, n: int, run: str):
         import torch
 
         self.n, self.polls, self.result = n, n, None
-        self.run, self.method = run, RUNS[run][0]
+        self.run = run
         self.prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA])
@@ -690,9 +957,10 @@ class _Profile:
                     f"busy {dev_us:.0f} us ({100 * dev_us / wall_us:.1f}%)\n")
             f.write(avgs.table(sort_by="self_device_time_total",
                                row_limit=40))
-        self.prof.export_chrome_trace(stem + ".json")
+        # the chrome trace, gzipped (each run's is tens of MB as JSON)
+        self.prof.export_chrome_trace(stem + ".json.gz")
         in_situ = {}
-        for name in PATH_KERNELS[self.method]:
+        for name in RUNS[self.run].kernels:
             sym = KERNEL_SYMBOLS[name]
             hits = [e for e in avgs if sym in e.key]
             if not hits:
@@ -713,29 +981,39 @@ def phase_serve(dev, label: str):
     after), then the same requests again with four profiled decode polls."""
     from repro_torch.kernels import ops
 
-    method = RUNS[label][0]
+    method = RUNS[label].method
     ops.reset_launch_counts()
     run = serve("bfloat16", dev, label)
     counts = ops.launch_counts()
     eng, handles, wall, cfg = run.eng, run.handles, run.wall, run.cfg
     want = cfg.n_layers * eng.stats["sparse_steps"]
+    queries = len(run.events)      # every launched query was collected
+    bm25 = "bm25_topk_candidates" in RUNS[label].kernels
     log(f"  launches {counts}, sparse steps {eng.stats['sparse_steps']} of "
         f"{eng.stats['decode_steps']}, expected {want} for "
-        f"{PATH_KERNELS[method]}, 0 for the rest")
+        f"{RUNS[label].kernels}"
+        + (f" ({queries} for bm25: the queries)" if bm25 else "")
+        + ", 0 for the rest")
     if set(counts) != set(KERNEL_SYMBOLS):
         raise AssertionError(f"counted kernels {sorted(counts)}")
     for name, n in counts.items():
-        expect = want if name in PATH_KERNELS[method] else 0
+        expect = want if name in RUNS[label].kernels else 0
+        if name == "bm25_topk_candidates" and expect:
+            expect = queries
         if n != expect:
             raise AssertionError(f"{label}: {name} launched {n} times, "
                                  f"expected {expect}")
     toks = sum(len(h.tokens) for h in handles)
     ttft = sorted(h.ttft_s() for h in handles)
     stats = eng.stats
+    retrieval = None if eng.retrieval is None else dict(
+        eng.retrieval.report(), events=[
+            {"slot": sl, "ids": [int(i) for i in ids], "spliced": n}
+            for sl, ids, n in run.events])
     del run, eng
     profile = serve("bfloat16", dev, label, profile_polls=4).profile
     summary = {
-        "run": label, "method": method, **RUNS[label][1],
+        "run": label, "method": method, **RUNS[label].mem,
         "card": card_line(), "arch": SERVE_ARCH,
         "dtype": "bfloat16", "requests": len(handles),
         "prompt_lens": list(PROMPT_LENS), "max_new": MAX_NEW,
@@ -750,6 +1028,8 @@ def phase_serve(dev, label: str):
         "prefill_s": stats["prefill_s"], "launches": counts,
         "profiled_decode": profile,
     }
+    if retrieval is not None:
+        summary["retrieval"] = retrieval
     print(json.dumps({"serve": summary}), flush=True)
     return counts, profile
 
@@ -760,7 +1040,7 @@ def phase_compare(dev, label: str):
 
     ops.use_kernels(True)
     k = serve("float32", dev, label, record=True)
-    k_h, k_first = k.handles, k.first_sparse
+    k_h, k_first, k_events = k.handles, k.first_sparse, k.events
     del k
     ops.use_kernels(False)
     try:
@@ -768,7 +1048,14 @@ def phase_compare(dev, label: str):
     finally:
         ops.use_kernels(True)
     p_h, p_rows, p_first = p.handles, p.rows, p.first_sparse
+    p_events = p.events
     del p
+    if k_events != p_events:
+        raise AssertionError(f"{label}: retrievals differ, kernels "
+                             f"{k_events} vs plain {p_events}")
+    if k_events:
+        log(f"  {label}: {len(k_events)} retrievals, doc ids and splices "
+            f"equal")
     err = float((k_first - p_first).abs().max())
     log(f"  {label} first sparse step logits: max abs diff {err:.3g} "
         f"(tol {LOGIT_TOL})")
@@ -793,6 +1080,102 @@ def phase_compare(dev, label: str):
                                  f"{LOGIT_TOL}")
     log(f"  {label} greedy tokens: {[len(h.tokens) for h in k_h]} compared")
     return err
+
+
+def phase_modes(dev, label: str = "dsa-rag"):
+    """The retrieval run in its three modes (bf16): inline on the engine's
+    stream, sync and overlap on the service's own stream, each of the two
+    replaying every consumed query. Greedy tokens and retrieval events
+    (slot, doc ids, spliced count) must be equal across the three."""
+    res = {}
+    for mode in ("inline", "sync", "overlap"):
+        r = serve("bfloat16", dev, label, mode=mode,
+                  validate=mode != "inline")
+        res[mode] = ([list(h.tokens) for h in r.handles], r.events, r.wall,
+                     r.eng.retrieval.report()["devices"])
+        del r
+    base = res["inline"]
+    for mode, (toks, events, wall, devs) in res.items():
+        if toks != base[0] or events != base[1]:
+            raise AssertionError(f"{label}: {mode} differs from inline")
+        log(f"  {label} {mode}: {len(events)} retrievals, wall {wall:.2f} s,"
+            f" side stream {devs['side_stream']}")
+    print(json.dumps({"modes": {
+        "run": label, "card": card_line(), "equal": True,
+        "retrievals": len(base[1]),
+        "wall_s": {m: r[2] for m, r in res.items()},
+        "greedy_tokens": base[0],
+        "events": [{"slot": sl, "ids": [int(i) for i in ids], "spliced": n}
+                   for sl, ids, n in base[1]]}}), flush=True)
+
+
+def _profile_pipeline(pipe, memory, query):
+    """One warm-up run, then one run under a StageProfiler: (output, the
+    stage ms / total / shares)."""
+    from repro_torch.core.pipeline import StageProfiler
+
+    pipe.run(memory, query)
+    prof = StageProfiler()
+    out = pipe.run(memory, query, profiler=prof)
+    sec = prof.stage_seconds[pipe.name]
+    return out, {"stage_ms": {s: 1e3 * v for s, v in sec.items()},
+                 "total_ms": 1e3 * sum(sec.values()),
+                 "breakdown": prof.breakdown(pipe.name)}
+
+
+def phase_pipeline_rag(dev):
+    """RAG's four-stage pipeline over the card corpus (250,000 docs, 8-term
+    queries, 4 queries, top 4), unfused (plain scores and a stable top-k)
+    and fused (the BM25 kernel): equal retrieved doc tokens."""
+    import torch
+    from repro_torch.core.methods import rag
+    from repro_torch.data import sample_queries
+
+    corpus = card_corpus(dev)
+    q = sample_queries(corpus, 4, 8, seed=3)
+    outs, res = {}, {}
+    for fused in (False, True):
+        pipe = rag.build_pipeline(corpus, RAG_K, fused=fused)
+        outs[fused], res[pipe.name] = _profile_pipeline(pipe, None, q)
+    if not torch.equal(outs[True], outs[False]):
+        raise AssertionError("pipeline rag: fused != unfused")
+    log("  pipeline rag: fused and unfused doc tokens equal")
+    print(json.dumps({"pipeline": {
+        "method": "rag", "card": card_line(),
+        "shape": f"{corpus.n_docs} docs x {RETRIEVAL_VOCAB} terms, queries "
+                 f"[4, 8], top {RAG_K}",
+        "fused_vs_unfused_equal": True, **res}}), flush=True)
+
+
+def phase_pipeline_mac(dev):
+    """MaC's pipeline at llama3.2-1b's width (d 2048), the paper's bank (64
+    slots, 1024-token segments, top 8), 4 slots, bf16 segments: one run
+    profiled, its output equal to ``segment_step``'s."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.methods import mac
+
+    cfg = get_arch(SERVE_ARCH)
+    mc = mac.MacConfig()
+    g = torch.Generator(device=dev).manual_seed(6)
+    d, S, M = cfg.d_model, mc.segment_len, mc.memory_slots
+    mp = mac.mac_init(cfg, 4, device=dev)
+    hidden = torch.randn(SLOTS, S, d, generator=g, device=dev).bfloat16()
+    seg = torch.randn(SLOTS, S, d, generator=g, device=dev).bfloat16()
+    bank = {"bank": torch.randn(SLOTS, M, d, generator=g, device=dev),
+            "count": torch.tensor(48, dtype=torch.int32, device=dev)}
+    out, res = _profile_pipeline(mac.build_pipeline(mp, mc), (hidden, bank),
+                                 seg)
+    want, _ = mac.segment_step(mp, bank, seg, mc)
+    if out.shape != (SLOTS, mc.retrieve_k + S, d) or not torch.equal(out,
+                                                                    want):
+        raise AssertionError("pipeline mac: output != segment_step")
+    log("  pipeline mac: output equals segment_step")
+    print(json.dumps({"pipeline": {
+        "method": "mac", "card": card_line(),
+        "shape": f"segments [{SLOTS},{S},{d}] bf16, bank [{SLOTS},{M},{d}] "
+                 f"fp32 (48 live), top {mc.retrieve_k}", "mac": res}}),
+          flush=True)
 
 
 def phase_pipeline(dev, method: str):
@@ -869,7 +1252,7 @@ def main(argv=None):
     if "kernels" in phases:
         log("[2] kernels vs plain versions")
         kernels = [check_relevancy(dev), check_paged_attention(dev),
-                   check_page_minmax(dev)]
+                   check_page_minmax(dev), check_bm25(dev)]
     if "serve" in phases:
         runs = {}
         for r in RUNS:
@@ -885,14 +1268,20 @@ def main(argv=None):
                 for m, (_, p) in runs.items()
                 if k["name"] in p["kernel_ms_in_situ"]}
             k["ms_in_situ"] = k["ms_in_situ_by_path"].get(HOME_PATH[k["name"]])
+    if "modes" in phases:
+        log("[4] dsa-rag: retrieval inline vs sync vs overlap")
+        phase_modes(dev)
     if "compare" in phases:
-        for r in RUNS:
-            log(f"[4] {r}: kernel path vs plain path, fp32")
+        for r in (r for r, run in RUNS.items() if run.compare):
+            log(f"[5] {r}: kernel path vs plain path, fp32")
             phase_compare(dev, r)
     if "pipeline" in phases:
         for m in METHODS:
-            log(f"[5] {m}: build_pipeline unfused vs fused")
+            log(f"[6] {m}: build_pipeline unfused vs fused")
             phase_pipeline(dev, m)
+        log("[6] rag: build_pipeline unfused vs fused; mac")
+        phase_pipeline_rag(dev)
+        phase_pipeline_mac(dev)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

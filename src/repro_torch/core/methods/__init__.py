@@ -4,24 +4,29 @@ sparse-attention family (dsa, seer, lserve); ``module(name)`` the method's
 module (its ``build_pipeline``); ``sparse_kwargs(name, page)`` the keywords
 its ``make_sparse_fn`` / ``build_pipeline`` take beyond the configs;
 ``offload_stages(name)`` the pipeline stages a method may move off the
-KV-owning device."""
-from repro_torch.core.methods import dsa, lserve, seer
+KV-owning device. rag and mac (the document-memory family) have their own
+application-level APIs and no sparse_fn."""
+from repro_torch.core.methods import dsa, lserve, mac, rag, seer
 
-_METHOD_MODULES = {"dsa": dsa, "seer": seer, "lserve": lserve}
+_METHOD_MODULES = {"dsa": dsa, "seer": seer, "lserve": lserve, "rag": rag,
+                   "mac": mac}
 
 SPARSE_METHODS = {name: (getattr(mod, f"{name}_init"), mod.make_sparse_fn)
-                  for name, mod in _METHOD_MODULES.items()}
+                  for name, mod in _METHOD_MODULES.items()
+                  if name in ("dsa", "seer", "lserve")}
 
 
 def module(name: str):
     if name not in _METHOD_MODULES:
-        raise KeyError(f"unknown sparse method {name!r}: "
+        raise KeyError(f"unknown method {name!r}: "
                        f"{sorted(_METHOD_MODULES)}")
     return _METHOD_MODULES[name]
 
 
 def get_sparse_method(name: str):
-    module(name)
+    if name not in SPARSE_METHODS:
+        raise KeyError(f"unknown sparse method {name!r}: "
+                       f"{sorted(SPARSE_METHODS)}")
     return SPARSE_METHODS[name]
 
 
@@ -34,7 +39,7 @@ def sparse_kwargs(name: str, page: int) -> dict:
 def offload_stages(name: str) -> tuple:
     """Stages of ``name`` that read only the compressed index (paper §5.2),
     declared per method as ``OFFLOAD_STAGES``. Methods the port does not
-    have yet (rag, memagent, mac, ttt) and unknown names like 'none'
-    offload nothing."""
+    have yet (memagent, ttt) and unknown names like 'none' offload
+    nothing."""
     mod = _METHOD_MODULES.get(name)
     return getattr(mod, "OFFLOAD_STAGES", ()) if mod else ()

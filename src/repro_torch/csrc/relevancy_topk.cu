@@ -3,7 +3,7 @@
 // Replaces: src/repro/kernels/relevancy_topk.py, relevancy_topk_candidates
 // (Pallas body `_kernel`, :32-48), and inside it the bitonic network of
 // src/repro/kernels/bitonic.py (`bitonic_sort_desc`, :41), which becomes the
-// __device__ function `bitonic_sort_desc` below.
+// __device__ function `bitonic_sort_desc` of topk.cuh.
 //
 // What bounds it on this card: per (b, block) the kernel reads block x dk
 // keys once and does 2 x Hq x dk FLOP per key. On the DSA main path
@@ -27,6 +27,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "topk.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -35,38 +37,6 @@ constexpr int kKeysPerPass = 8;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// True when pair (ka, ia) sorts before (kb, ib): key descending, then index
-// ascending. A strict total order over distinct indices.
-__device__ __forceinline__ bool goes_before(float ka, int ia, float kb, int ib) {
-  return ka > kb || (ka == kb && ia < ib);
-}
-
-// Sort n (a power of two) pairs in shared memory, descending. Runs with
-// (i & k) == 0 sort descending, the others ascending, so every merge sees a
-// bitonic sequence; the last stage (k == n) is one descending run.
-__device__ void bitonic_sort_desc(float* keys, int* vals, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int p = i ^ j;
-        if (p > i) {
-          const float ki = keys[i], kp = keys[p];
-          const int vi = vals[i], vp = vals[p];
-          const bool desc = (i & k) == 0;
-          const bool swap = desc ? goes_before(kp, vp, ki, vi) : goes_before(ki, vi, kp, vp);
-          if (swap) {
-            keys[i] = kp;
-            keys[p] = ki;
-            vals[i] = vp;
-            vals[p] = vi;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

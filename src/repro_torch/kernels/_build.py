@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``build/repro_torch/lib<name>-<hash>.so`` at the repository root
-(or under ``$REPRO_TORCH_BUILD_DIR``). The hash covers the source and the
-flags, so an edited source is rebuilt at its next use and an unchanged one
-is loaded as built. ``build()`` starts one nvcc per source, all at once, and
+(or under ``$REPRO_TORCH_BUILD_DIR``). The hash covers the source, every
+header of ``csrc/`` it includes (``#include "..."``, followed recursively)
+and the flags, so an edited source or shared header is rebuilt at its next
+use and an unchanged one is loaded as built. ``build()`` starts one nvcc per source, all at once, and
 waits for them together. Nothing is compiled or loaded on import.
 """
 from __future__ import annotations
@@ -13,12 +14,14 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 from typing import Dict, Iterable
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("relevancy_topk", "paged_decode_attention", "page_minmax")
+SOURCES = ("relevancy_topk", "paged_decode_attention", "page_minmax",
+           "bm25_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,9 +49,25 @@ def _nvcc() -> str:
                        "kernels of repro_torch are built at first use")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources_of(path: pathlib.Path, seen=None) -> list:
+    """``path`` and the ``csrc/`` headers it includes, recursively, each
+    once, in include order."""
+    seen = [] if seen is None else seen
+    if path not in seen:
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            _sources_of(path.parent / inc, seen)
+    return seen
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for f in _sources_of(CSRC / f"{name}.cu"):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,0 +1,119 @@
+"""Fused BM25 scoring + top-k over gathered term columns (twin of
+``repro.kernels.bm25_topk``), the RAG relevancy + retrieve stages.
+
+BM25's irregular per-term lookups stay outside the kernel: the caller
+gathers the query's term-frequency columns into a dense [B, D, T] panel.
+Per block of docs the kernel scores every doc and keeps the block's exact
+top-c, so only (c values, c indices) per block leave it;
+``relevancy_topk.merge_candidates`` then takes the global top-k.
+
+The live document count ``valid`` is a runtime value (a Python int or a
+0-d int32 tensor on the panel's device, read by the kernel itself), never a
+compile-time one: the serving corpus grows between queries. Docs at or past
+it score -inf; 0 means D.
+
+``bm25_topk_candidates`` launches the CUDA kernel (``csrc/bm25_topk.cu``)
+for CUDA tensors and runs ``bm25_topk_candidates_plain`` for CPU tensors; it
+never falls back from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def _check_args(tf, doc_len, idf, block, c):
+    B, D, T = tf.shape
+    if tuple(doc_len.shape) != (B, D) or tuple(idf.shape) != (B, T):
+        raise ValueError(f"shapes tf {tuple(tf.shape)} doc_len "
+                         f"{tuple(doc_len.shape)} idf {tuple(idf.shape)} do "
+                         f"not agree")
+    block = min(block, D)
+    if D % block:
+        raise ValueError(f"D={D} is not a multiple of block={block}")
+    return B, D, T, block, min(c, block)
+
+
+def _live_count(valid, D: int):
+    """The live count as the kernel reads it: ``valid``, or D where it is
+    0 (an int, or a tensor when ``valid`` is one)."""
+    if isinstance(valid, torch.Tensor):
+        return torch.where(valid > 0, valid, torch.full_like(valid, D))
+    return int(valid) if int(valid) > 0 else D
+
+
+def bm25_topk_candidates_plain(tf, doc_len, idf, *, block: int = 4096,
+                               c: int = 64, k1: float = 1.5, b: float = 0.75,
+                               avgdl: float = 100.0, valid=0):
+    """Plain-torch version: per-block candidates (vals [B,nb,c] fp32,
+    idx [B,nb,c] int32), each block sorted by (value desc, index asc)."""
+    B, D, _, block, c = _check_args(tf, doc_len, idf, block, c)
+    nb = D // block
+    scores = ref.bm25_scores(tf, doc_len, idf, k1=k1, b=b, avgdl=avgdl)
+    pos = torch.arange(D, device=tf.device)
+    scores = torch.where(pos < _live_count(valid, D), scores,
+                         torch.full_like(scores, float("-inf")))
+    vals, within = ref.topk_stable(scores.reshape(B, nb, block), c)
+    base = (torch.arange(nb, device=tf.device, dtype=torch.int32)
+            * block)[None, :, None]
+    return vals, within + base
+
+
+def bm25_topk_candidates(tf, doc_len, idf, *, block: int = 4096, c: int = 64,
+                         k1: float = 1.5, b: float = 0.75,
+                         avgdl: float = 100.0, valid=0):
+    """Per-block BM25 top-c: (vals [B, nb, c] fp32, idx [B, nb, c] int32).
+
+    tf [B,D,T], doc_len [B,D], idf [B,T], fp32. ``block`` must be a power of
+    two dividing D (``ops.bm25_topk`` pads); c is clamped to the block. A
+    block too large for one CTA's shared memory makes the launch fail, and
+    the call raises.
+    """
+    if not tf.is_cuda:
+        return bm25_topk_candidates_plain(tf, doc_len, idf, block=block, c=c,
+                                          k1=k1, b=b, avgdl=avgdl,
+                                          valid=valid)
+    B, D, T, block, c = _check_args(tf, doc_len, idf, block, c)
+    if block & (block - 1):
+        raise ValueError(f"block={block} must be a power of two")
+    for name, x in (("tf", tf), ("doc_len", doc_len), ("idf", idf)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.device != tf.device:
+            raise ValueError("tf, doc_len and idf must be on one CUDA device")
+    nd_ptr, nd = None, 0
+    if isinstance(valid, torch.Tensor):
+        if (valid.dtype != torch.int32 or valid.numel() != 1
+                or valid.device != tf.device):
+            raise ValueError("a tensor valid must be one int32 on tf's device")
+        valid = valid.contiguous()
+        nd_ptr = valid.data_ptr()
+    else:
+        nd = int(valid)
+    tf, doc_len, idf = tf.contiguous(), doc_len.contiguous(), idf.contiguous()
+    nb = D // block
+    vals = torch.empty((B, nb, c), dtype=torch.float32, device=tf.device)
+    idx = torch.empty((B, nb, c), dtype=torch.int32, device=tf.device)
+    lib = _build.load("bm25_topk")
+    fn = lib.bm25_topk_candidates_cuda
+    fn.restype = _I
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                   _F, _P]
+    stream = torch.cuda.current_stream(tf.device).cuda_stream
+    err = fn(tf.data_ptr(), doc_len.data_ptr(), idf.data_ptr(), nd_ptr,
+             vals.data_ptr(), idx.data_ptr(), B, D, T, block, c, nd, k1, b,
+             avgdl, stream)
+    _build.check(lib, err, "bm25_topk_candidates")
+    bm25_topk_candidates.launches += 1
+    return vals, idx
+
+
+bm25_topk_candidates.launches = 0

@@ -10,8 +10,10 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import bm25_topk as _bm
 from repro_torch.kernels import page_pool as _pp
 from repro_torch.kernels import ref
 from repro_torch.kernels import relevancy_topk as _rt
@@ -24,6 +26,7 @@ KERNELS = {
     "relevancy_topk_candidates": _rt.relevancy_topk_candidates,
     "paged_decode_attention": _sda.paged_decode_attention,
     "page_minmax": _pp.page_minmax,
+    "bm25_topk_candidates": _bm.bm25_topk_candidates,
 }
 
 
@@ -89,3 +92,33 @@ def page_minmax(k_cache, *, page_size: int = 64):
     if not _STATE["kernels"]:
         return ref.page_minmax(k_cache, page_size)
     return _pp.page_minmax(k_cache, page_size=page_size)
+
+
+def bm25_topk(tf, doc_len, idf, k: int, *, block: int = 4096, c: int = 0,
+              k1: float = 1.5, b: float = 0.75, avgdl: float = 100.0,
+              valid=None):
+    """Fused BM25 score + top-k. ``valid`` (an int or a 0-d int32 tensor)
+    restricts scoring to the first ``valid`` documents, so the serving
+    corpus store passes its live count; None scores all D docs.
+
+    Pads D to a power-of-two block multiple (tf with 0, doc_len with 1.0);
+    k is clamped to D.
+    """
+    B, D, T = tf.shape
+    if not _STATE["kernels"]:
+        if valid is None:
+            return ref.bm25_topk(tf, doc_len, idf, k, k1=k1, b=b, avgdl=avgdl)
+        scores = ref.bm25_scores(tf, doc_len, idf, k1=k1, b=b, avgdl=avgdl)
+        scores = torch.where(torch.arange(D, device=tf.device)[None] < valid,
+                             scores, torch.full_like(scores, float("-inf")))
+        return ref.topk_stable(scores, min(k, D))
+    blk = _pow2_block(max(D, 2), block)
+    pad = (-D) % blk
+    if pad:
+        tf = F.pad(tf, (0, 0, 0, pad))
+        doc_len = F.pad(doc_len, (0, pad), value=1.0)
+    c = c or min(k, blk)
+    vals, idx = _bm.bm25_topk_candidates(
+        tf.float(), doc_len.float(), idf.float(), block=blk, c=c, k1=k1, b=b,
+        avgdl=avgdl, valid=D if valid is None else valid)
+    return _rt.merge_candidates(vals, idx, min(k, D))

@@ -107,3 +107,23 @@ def lserve_page_scores(q: torch.Tensor, pmin: torch.Tensor,
     prod_max = qf * pmax.float()[:, None]
     sc = torch.maximum(prod_min, prod_max).sum(-1)       # [B,H,P,KV]
     return sc.amax(-1).mean(1)
+
+
+# ---------------------------------------------------------------------------
+# 4. BM25 scoring + top-k (RAG relevancy + retrieval)
+# ---------------------------------------------------------------------------
+
+
+def bm25_scores(tf: torch.Tensor, doc_len: torch.Tensor, idf: torch.Tensor,
+                *, k1: float = 1.5, b: float = 0.75, avgdl: float = 100.0):
+    """tf [B, D, T] term counts; doc_len [B, D]; idf [B, T] -> scores [B, D]
+    fp32."""
+    tff = tf.float()
+    denom = tff + k1 * (1.0 - b + b * doc_len.float()[..., None] / avgdl)
+    return torch.einsum("bt,bdt->bd", idf.float(), tff * (k1 + 1.0) / denom)
+
+
+def bm25_topk(tf, doc_len, idf, k: int, **kw):
+    """Exact oracle: (vals [B,k], idx [B,k]), k clamped to D."""
+    scores = bm25_scores(tf, doc_len, idf, **kw)
+    return topk_stable(scores, min(k, scores.shape[-1]))

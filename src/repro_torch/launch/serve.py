@@ -1,19 +1,28 @@
-"""Serving launcher for the port's main path (twin of ``repro.launch.serve``):
-random prompts through the paged continuous-batching engine, with the
-method's memory pipeline when ``--method`` is dsa, seer or lserve.
+"""Serving launcher for the port (twin of ``repro.launch.serve``): random
+prompts through the paged continuous-batching engine, with the method's
+memory pipeline when ``--method`` is dsa, seer or lserve, and the retrieval
+service with ``--retrieval``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --method dsa --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --retrieval on \\
+        --retrieval-kind rag --device cuda
 
 Like the reference CLI it serves the architecture's ``.smoke()`` config with
 seeded random weights. ``--device cpu`` runs the plain PyTorch path.
+``--retrieval on`` (= overlap; inline and sync also) turns on per-slot FLARE
+triggers over the decode logits and splices retrieved documents (``rag``,
+over a synthetic ``--docs``-document corpus) or MaC memory embeddings
+(``mac``) into the paged pool, and prints the service's report.
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 import numpy as np
 
 from repro_torch.configs import get_arch
+from repro_torch.hetero import resolve_cli_retrieval
 from repro_torch.models import init_params
 from repro_torch.serving import Engine, Request, ServeConfig
 
@@ -27,14 +36,41 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--tp", type=int, default=4)
+    ap.add_argument("--retrieval", default="off",
+                    choices=["on", "off", "inline", "sync", "overlap"],
+                    help="document-memory service (on = overlap)")
+    ap.add_argument("--retrieval-kind", default="rag", choices=["rag", "mac"])
+    ap.add_argument("--docs", type=int, default=2048,
+                    help="synthetic corpus size for --retrieval-kind rag")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    try:
+        ret_mode = resolve_cli_retrieval(args.retrieval)
+    except ValueError as e:
+        ap.error(str(e))
 
     cfg = get_arch(args.arch).smoke()
     params = init_params(cfg, 0, tp=args.tp, device=args.device)
-    sc = ServeConfig(max_len=args.prompt_len + args.max_new + 16,
+    retrieval = None
+    if ret_mode:
+        from repro_torch.core.methods.mac import MacConfig
+        from repro_torch.retrieval import RetrievalConfig
+        if args.retrieval_kind == "rag":
+            from repro_torch.data import build_corpus
+            corpus = build_corpus(args.docs, retrieval_vocab=1024,
+                                  doc_max=16, gen_vocab=cfg.vocab_size,
+                                  seed=0, device=args.device)
+            retrieval = RetrievalConfig(kind="rag", mode=ret_mode,
+                                        corpus=corpus, k=2, min_interval=4,
+                                        max_retrievals=2)
+        else:
+            retrieval = RetrievalConfig(
+                kind="mac", mode=ret_mode, min_interval=4, max_retrievals=2,
+                mac=MacConfig(segment_len=16, memory_slots=8, retrieve_k=2))
+    extra = 96 if retrieval is not None else 16
+    sc = ServeConfig(max_len=args.prompt_len + args.max_new + extra,
                      n_slots=args.slots, method=args.method, tp=args.tp,
-                     page=8)
+                     page=8, retrieval=retrieval)
     eng = Engine(cfg, params, sc, seed=1, device=args.device)
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, size=args.prompt_len),
@@ -43,12 +79,16 @@ def main(argv=None):
     done = eng.drain()
     toks = sum(len(h.tokens) for h in handles)
     ttft = [h.ttft_s() for h in handles if h.ttft_s() is not None]
-    print(f"method={args.method} device={eng.device}: "
+    print(f"method={args.method} retrieval={ret_mode or 'off'} "
+          f"device={eng.device}: "
           f"{len(done)}/{args.requests} requests, {toks} tokens, "
           f"{eng.throughput_tokens_per_s():.1f} tok/s, "
           f"p50 TTFT {1e3 * float(np.median(ttft)):.1f}ms, "
           f"{eng.stats['sparse_steps']}/{eng.stats['decode_steps']} decode "
           f"steps sparse")
+    if eng.retrieval is not None:
+        print("retrieval service report:")
+        print(json.dumps(eng.retrieval.report(), indent=2, sort_keys=True))
 
 
 if __name__ == "__main__":

@@ -256,19 +256,26 @@ def decode_step_paged(params, cfg: ArchConfig, token, pool, live, *,
 
 
 def extend_paged(params, cfg: ArchConfig, tokens, pool, n_valid, *,
-                 tp: int = 16):
+                 tp: int = 16, x_embeds=None, emb_rows=None):
     """Chunked prefill: append a span of C tokens per slot to the paged pool.
 
     tokens [B, C] (rows padded past ``n_valid[b]``); n_valid [B] (0 = slot not
     prefilling this step). Queries attend causally to the existing prefix
     plus the chunk. Returns (logits [B, V] at each row's last valid token,
     pool with lengths advanced); the pages are written in place.
+
+    ``x_embeds [B, C, d]`` + ``emb_rows [B]`` feed rows with pre-embedded
+    context instead of token ids (cast to the model dtype): the MaC
+    retrieval service splices retrieved memory embeddings into a slot's
+    context through the same chunked path its documents would take.
     """
     _require_dense(cfg)
     B, C = tokens.shape
     lengths = pool["lengths"]
     table = pool["page_table"]
     x = L.embed(params["embed"], tokens)
+    if x_embeds is not None:
+        x = torch.where(emb_rows[:, None, None], x_embeds.to(x.dtype), x)
     positions = lengths.long()[:, None] + torch.arange(C, device=x.device)
     cos, sin = _rope_tables(cfg, positions)
     for i in range(cfg.n_layers):

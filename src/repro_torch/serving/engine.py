@@ -15,6 +15,10 @@
   and SeerAttention-R through the relevancy-top-k and paged decode
   attention kernels, LServe through the page-min/max and paged decode
   attention kernels.
+* ``ServeConfig(retrieval=RetrievalConfig(...))`` adds the retrieval service
+  (``repro_torch.retrieval``): dynamic RAG over a BM25 corpus store (the
+  BM25 kernel) or MaC memory banks, FLARE/DRAGIN triggers per slot after
+  each decode step, retrieved payloads spliced through chunked extend.
 
 The pool is updated in place; the reference donates the pool buffers to its
 jitted steps instead (``repro/serving/engine.py:342-356``).
@@ -49,7 +53,7 @@ def _next_pow2(n: int) -> int:
 @dataclasses.dataclass
 class ServeConfig:
     """The reference's fields. The port serves the paged pool with stepped
-    decode and no offload or retrieval; ``Engine`` raises
+    decode and no offload, with or without retrieval; ``Engine`` raises
     ``NotImplementedError`` for any other value of those fields."""
     max_len: int = 4096
     n_slots: int = 8
@@ -67,7 +71,7 @@ class ServeConfig:
     offload_validate: bool = False
     offload_shards: int = 1
     main_mesh: int = 1
-    retrieval: Optional[object] = None
+    retrieval: Optional[object] = None   # retrieval.RetrievalConfig
     offload_cfg: Optional[object] = None
     fused_steps: int = 1
 
@@ -87,8 +91,6 @@ def _check_supported(cfg: ArchConfig, sc: ServeConfig) -> None:
          "Queue 1 item 10"),
         (sc.fused_steps > 1, "fused decode (fused_steps > 1)",
          "Queue 1 item 7"),
-        (sc.retrieval is not None, "the retrieval service (retrieval)",
-         "Queue 1 item 9"),
         (not sc.paged, "the legacy dense pool (paged=False)",
          "Queue 1 item 5b"),
         (cfg.family not in POOL_FAMILIES, f"the {cfg.family!r} family",
@@ -109,12 +111,13 @@ def _to_device(tree, device):
 class Engine:
     def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
                  seed: int = 0, mem: Optional[MemoryConfig] = None,
-                 device="cuda", sparse_params=None):
+                 device="cuda", sparse_params=None, retrieval_params=None):
         """``params`` from ``models.init_params`` or
         ``weights.from_jax_params``. ``sparse_params`` (the method's
-        per-layer weights: DSA's indexer, Seer's gates) default to the
-        method's init at ``seed``; pass the reference engine's to compare
-        the two."""
+        per-layer weights: DSA's indexer, Seer's gates) and
+        ``retrieval_params`` (MaC's projections, for
+        ``RetrievalConfig(kind="mac")``) default to their inits at
+        ``seed``; pass the reference engine's to compare the two."""
         _check_supported(cfg, sc)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -142,10 +145,18 @@ class Engine:
                 self.device)
             self._sparse_fn = mk(cfg, self.mem, tp=sc.tp,
                                  **sparse_kwargs(sc.method, sc.page))
+        self.retrieval = None
+        if sc.retrieval is not None:
+            from repro_torch.retrieval import RetrievalExecutor
+            self.retrieval = RetrievalExecutor(
+                cfg, self.sc, sc.retrieval, self.params,
+                mac_params=retrieval_params, seed=seed, device=self.device)
 
         self.slots = SlotManager(sc.n_slots, sc.max_len)
         self.pool: Optional[PagedKVPool] = None
-        # chunked-prefill state: slot -> [request_id, prompt np, next_pos]
+        # chunked-prefill state, admission prompts and retrieval splices:
+        # slot -> [request_id, payload (tokens or embedding rows), next_pos,
+        # is_embeddings]
         self._chunks: Dict[int, list] = {}
         self._table_view_cache = None  # ((npv, table_version), view)
         # step_s: wall seconds of the latest decode steps (bounded)
@@ -209,7 +220,8 @@ class Engine:
             req = self.queue[0]
             plen = len(req)
             if req.override("chunked", plen > self.sc.chunk_threshold):
-                if not self._admit_chunked(req.rid, req.tokens, req.max_new):
+                if not self._admit_chunked(req.rid, req.tokens, req.max_new,
+                                           retrieval=req.retrieval):
                     break
                 self.queue.popleft()
                 self._mark_admitted(req)
@@ -221,7 +233,8 @@ class Engine:
             budget -= plen
         if not batch:
             return
-        oks = self._admit_many([(r.rid, r.tokens, r.max_new) for r in batch])
+        oks = self._admit_many([(r.rid, r.tokens, r.max_new) for r in batch],
+                               retrieval=[r.retrieval for r in batch])
         for r, ok in zip(reversed(batch), reversed(oks)):
             if ok:
                 self._mark_admitted(r)
@@ -261,8 +274,9 @@ class Engine:
             ev = self.poll()
             steps += max(1, ev.steps)
             if not ev and not self._polled_prefill:
-                if self.has_prefill_work():
-                    continue
+                if self.has_retrieval_work() or self.has_prefill_work():
+                    continue   # retrieval in flight, or a splice chunk
+                               # was queued during this step's decode
                 if not self.queue or not self._inflight_h:
                     break      # idle, or the head request can never admit
         return dict(self.done)
@@ -287,7 +301,8 @@ class Engine:
                              f"max_len {self.sc.max_len}")
         if self.busy() or self.slots.live_mask().any():
             raise RuntimeError("generate() needs an idle engine")
-        handles = [self.submit(Request(self._next_rid(), row, max_new))
+        handles = [self.submit(Request(self._next_rid(), row, max_new,
+                                       retrieval=False))
                    for row in prompts_np]
         self.drain()
         for h in handles:
@@ -317,14 +332,15 @@ class Engine:
         b = ((b + ps - 1) // ps) * ps
         return min(b, self.sc.max_len)
 
-    def _admit_many(self, requests: List[Tuple[int, np.ndarray, int]]
-                    ) -> List[bool]:
+    def _admit_many(self, requests: List[Tuple[int, np.ndarray, int]],
+                    retrieval: Optional[List] = None) -> List[bool]:
         """Admit a batch of (request_id, prompt, max_new): one bucketed
-        prefill per distinct bucket length."""
+        prefill per distinct bucket length. ``retrieval[i]`` opts request i
+        in or out of the retrieval service (None: on when configured)."""
         self._ensure_pool()
         admitted: Dict[int, List] = {}   # bucket_len -> [(slot, prompt)]
         ok: List[bool] = []
-        for rid, prompt, max_new in requests:
+        for i, (rid, prompt, max_new) in enumerate(requests):
             prompt = np.asarray(prompt)
             total = len(prompt) + max_new
             if total > self.sc.max_len or not self.pool.can_alloc(total):
@@ -338,6 +354,10 @@ class Engine:
             admitted.setdefault(self._bucket_len(len(prompt)), []).append(
                 (slot, prompt))
             ok.append(True)
+            if self.retrieval is not None:
+                self.retrieval.on_admit(
+                    slot, prompt,
+                    retrieval[i] if retrieval is not None else None)
         ok.extend([False] * (len(requests) - len(ok)))
         t0 = time.perf_counter()
         for Sb, group in admitted.items():
@@ -374,7 +394,8 @@ class Engine:
             self._pending[slot] = nxt[i]
 
     def _admit_chunked(self, request_id: int, prompt: np.ndarray,
-                       max_new: int) -> bool:
+                       max_new: int, retrieval: Optional[bool] = None
+                       ) -> bool:
         """Allocate slot + pages now; ``prefill_step`` streams the prompt in
         ``prefill_chunk`` spans interleaved with decode."""
         self._ensure_pool()
@@ -387,15 +408,19 @@ class Engine:
             return False
         self.pool.alloc(slot, total)
         self.slots.slots[slot].length = 0      # grows as chunks land
-        self._chunks[slot] = [request_id, prompt, 0]
+        self._chunks[slot] = [request_id, prompt, 0, False]
+        if self.retrieval is not None:
+            self.retrieval.on_admit(slot, prompt, retrieval)
         return True
 
     def has_prefill_work(self) -> bool:
         return bool(self._chunks)
 
     def prefill_step(self) -> bool:
-        """Advance every mid-prefill slot by one chunk. Returns True if any
-        chunk work was done."""
+        """Advance every mid-prefill slot by one chunk: admission prompts
+        and retrieval splices alike (retrieved documents / MaC embeddings
+        take the same chunked extend under the same budget). Returns True
+        if any chunk work was done."""
         if not self._chunks:
             return False
         self._ensure_pool()
@@ -403,9 +428,17 @@ class Engine:
         n = self.sc.n_slots
         toks = np.zeros((n, C), np.int32)
         n_valid = np.zeros((n,), np.int32)
-        for slot, (_rid, prompt, pos) in self._chunks.items():
-            take = min(C, len(prompt) - pos)
-            toks[slot, :take] = prompt[pos: pos + take]
+        emb_rows = np.zeros((n,), bool)
+        x_embeds = None
+        for slot, (_rid, payload, pos, is_emb) in self._chunks.items():
+            take = min(C, len(payload) - pos)
+            if is_emb:
+                if x_embeds is None:
+                    x_embeds = np.zeros((n, C, self.cfg.d_model), np.float32)
+                x_embeds[slot, :take] = payload[pos: pos + take]
+                emb_rows[slot] = True
+            else:
+                toks[slot, :take] = payload[pos: pos + take]
             n_valid[slot] = take
         lengths = np.asarray([s.length for s in self.slots.slots], np.int32)
         lengths = np.where(n_valid > 0, lengths, 0)
@@ -414,17 +447,20 @@ class Engine:
         pool = dict(self.pool.device,
                     page_table=self._table_view(lengths, extra=C),
                     lengths=torch.as_tensor(lengths, device=dev))
+        emb = {} if x_embeds is None else {
+            "x_embeds": torch.as_tensor(x_embeds, device=dev),
+            "emb_rows": torch.as_tensor(emb_rows, device=dev)}
         logits, _ = M.extend_paged(self.params, self.cfg,
                                    torch.as_tensor(toks, device=dev), pool,
                                    torch.as_tensor(n_valid, device=dev),
-                                   tp=self.sc.tp)
+                                   tp=self.sc.tp, **emb)
         nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()
         self.stats["prefill_s"] += time.perf_counter() - t0
         for slot in list(self._chunks):
-            _rid, prompt, pos = self._chunks[slot]
+            _rid, payload, pos, _is_emb = self._chunks[slot]
             take = int(n_valid[slot])
             self.slots.slots[slot].length += take
-            if pos + take >= len(prompt):
+            if pos + take >= len(payload):
                 self._pending[slot] = nxt[slot]
                 del self._chunks[slot]
             else:
@@ -456,10 +492,13 @@ class Engine:
         return self._table_view_cache[1]
 
     def _decode_live(self) -> np.ndarray:
-        """Slots that decode this step: live and not mid-prefill."""
+        """Slots that decode this step: live, not mid-prefill, and not
+        paused awaiting a retrieval result."""
         live = self.slots.live_mask()
         for slot in self._chunks:
             live[slot] = False
+        if self.retrieval is not None:
+            live &= ~self.retrieval.waiting_mask()
         return live
 
     def step_pool(self) -> StepEvents:
@@ -467,6 +506,8 @@ class Engine:
         self._ensure_pool()
         live = self._decode_live()
         if not live.any():
+            if self.retrieval is not None:
+                self._retrieval_idle()
             return StepEvents()
         lengths = np.where(live, self.slots.lengths(), 0).astype(np.int32)
         # the reference's fallback cond, on the host: lengths + 1 is the
@@ -494,6 +535,8 @@ class Engine:
         for i in np.flatnonzero(live):
             rid = self.slots.slots[i].request_id
             ev.emissions.append((rid, int(i), int(self._pending[i])))
+            if self.retrieval is not None:
+                self.retrieval.note_token(int(i), int(self._pending[i]))
             self._pending[i] = nxt[i]
         self.stats["tokens"] += len(ev.emissions)
         self.slots.step(live)
@@ -501,4 +544,66 @@ class Engine:
             if self.slots.slots[i].done:
                 ev.finished.append(int(i))
                 self.pool.release(int(i))
+                if self.retrieval is not None:
+                    self.retrieval.on_release(int(i))
+        if self.retrieval is not None:
+            ev.fired.extend(self._retrieval_step(logits, live, lengths))
         return ev
+
+    # -- retrieval service hooks (repro_torch.retrieval) ----------------
+
+    def has_retrieval_work(self) -> bool:
+        """True while a retrieval is in flight or a slot awaits its result
+        (the drain loop must keep stepping an otherwise idle pool)."""
+        return self.retrieval is not None and self.retrieval.busy()
+
+    def _retrieval_idle(self) -> None:
+        """No decodable slot this step: still age and drain the queries in
+        flight, so paused slots get their splice queued."""
+        rx = self.retrieval
+        rx.tick()
+        for job in rx.collect_ready(min_age=1):
+            self._queue_splice(*job)
+
+    def _retrieval_step(self, logits, live_np: np.ndarray,
+                        lengths_np: np.ndarray) -> List[int]:
+        """Post-decode retrieval phase: consume the queries launched on
+        earlier steps (the fired slot pauses exactly one step in every
+        mode), then evaluate this step's triggers, reserve pages and
+        launch. Returns the slots whose queries launched this step."""
+        rx = self.retrieval
+        rx.tick()
+        for job in rx.collect_ready(min_age=1):
+            self._queue_splice(*job)
+        launched: List[int] = []
+        for slot in rx.trigger_slots(logits, live_np, lengths_np,
+                                     self.slots.slots):
+            if not self._reserve_splice(slot):
+                rx.note_suppressed(slot)
+                continue
+            rx.launch(slot)
+            launched.append(slot)
+        return launched
+
+    def _reserve_splice(self, slot: int) -> bool:
+        """Grow the slot's page reservation for the retrieval upper bound at
+        the trigger step, so the pool accounting is the same in every
+        mode."""
+        s = self.slots.slots[slot]
+        need = s.length + self.retrieval.splice_bound() + \
+            (s.max_new - s.generated)
+        if need > self.sc.max_len:
+            return False
+        return self.pool.grow(slot, need)
+
+    def _queue_splice(self, slot: int, tokens, embeds, ids) -> None:
+        """Queue a retrieved payload for chunked extend; the slot rejoins
+        decode once the splice drains, its pending token regenerated from
+        the augmented context (FLARE semantics)."""
+        payload = tokens if tokens is not None else embeds
+        if payload is None or len(payload) == 0:
+            return
+        s = self.slots.slots[slot]
+        self._chunks[slot] = [s.request_id, payload, 0, embeds is not None]
+        self.retrieval.note_splice(
+            slot, tokens if tokens is not None else len(embeds))

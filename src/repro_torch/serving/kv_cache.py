@@ -118,6 +118,26 @@ class PagedKVPool:
         self._push_table()
         return True
 
+    def grow(self, slot: int, n_tokens: int) -> bool:
+        """Extend a LIVE slot's reservation to cover ``n_tokens`` logical
+        tokens (a retrieval splice needs room for the retrieved payload on
+        top of the admission-time reservation). Existing pages are kept;
+        False when the arena or the per-slot page table cannot take it."""
+        need = self.pages_needed(n_tokens)
+        have = len(self.owned[slot])
+        if not have:
+            raise RuntimeError(f"slot {slot} holds no pages")
+        extra = need - have
+        if extra <= 0:
+            return True
+        if extra > len(self.free) or need > self.pages_per_slot:
+            return False
+        got = [self.free.pop() for _ in range(extra)]
+        self.owned[slot].extend(got)
+        self.table[slot, have:need] = got
+        self._push_table()
+        return True
+
     def release(self, slot: int) -> None:
         """Return a slot's pages to the free list and scrub them to zero
         (in place; the reference zeroes a donated copy)."""

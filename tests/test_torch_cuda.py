@@ -1,15 +1,18 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card, and
+one engine run with the retrieval service on its own stream.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 fixture, never at import). Run on the card with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 Tolerances as in ``chip_smoke.py``: both sides compute in fp32; page
-min/max is exact (min and max of values cast exactly to fp32).
+min/max is exact (min and max of values cast exactly to fp32); BM25 ids
+equal, exactly where scores tie.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import bm25_topk as bm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import page_pool as pp  # noqa: E402
 from repro_torch.kernels import relevancy_topk as rt  # noqa: E402
@@ -99,3 +102,82 @@ def test_page_minmax_kernel(dev, dtype, ps, channels):
     assert torch.equal(mx.view(torch.int32), pmx.view(torch.int32))
     with pytest.raises(ValueError):
         pp.page_minmax(k[:, :ps + 1], page_size=ps)
+
+
+def _bm25_panel(dev, B, D, T, seed, dup=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tf = torch.poisson(torch.full((B, D, T), 0.7, device=dev), generator=g)
+    dl = torch.randint(16, 64, (B, D), generator=g, device=dev).float()
+    if dup:                           # rows in equal pairs: exact ties
+        tf[:, 1::2], dl[:, 1::2] = tf[:, ::2], dl[:, ::2]
+    idf = torch.rand(B, T, generator=g, device=dev) + 0.1
+    return tf, dl, idf
+
+
+@pytest.mark.parametrize("B,D,T,block,k,valid,dup", [
+    (1, 262144, 8, 4096, 4, 250000, False),  # the serving shape
+    (1, 16384, 16, 4096, 64, None, False),   # the paper's Fig. 10 shape
+    (2, 4096, 8, 1024, 8, 3000, True),       # valid < D, ties
+    (4, 4096, 1, 1024, 16, None, True),
+    (2, 1024, 8, 256, 32, 5, False),         # fewer live docs than k
+])
+def test_bm25_topk_kernel(dev, B, D, T, block, k, valid, dup):
+    tf, dl, idf = _bm25_panel(dev, B, D, T, seed=D + k, dup=dup)
+    n0 = bm.bm25_topk_candidates.launches
+    kv, ki = ops.bm25_topk(tf, dl, idf, k, block=block, avgdl=40.0,
+                           valid=valid)
+    assert bm.bm25_topk_candidates.launches == n0 + 1
+    cv, ci = bm.bm25_topk_candidates(tf, dl, idf, block=block, c=k,
+                                     avgdl=40.0, valid=valid or 0)
+    pcv, pci = bm.bm25_topk_candidates_plain(tf, dl, idf, block=block, c=k,
+                                             avgdl=40.0, valid=valid or 0)
+    assert torch.equal(torch.isfinite(cv), torch.isfinite(pcv))
+    fin = torch.isfinite(pcv)
+    torch.testing.assert_close(cv[fin], pcv[fin], rtol=TOL, atol=TOL)
+    ops.use_kernels(False)
+    try:
+        pv, pi = ops.bm25_topk(tf, dl, idf, k, block=block, avgdl=40.0,
+                               valid=valid)
+    finally:
+        ops.use_kernels(True)
+    fin = torch.isfinite(pv)
+    torch.testing.assert_close(kv[fin], pv[fin], rtol=TOL, atol=TOL)
+    assert torch.equal(ki, pi)
+    assert torch.equal(ci, pci)
+
+
+def test_engine_serves_rag_on_a_side_stream(dev):
+    """Smoke-width engine with the RAG service in overlap mode on the card:
+    the BM25 kernel launches once per query, and the tokens and doc ids
+    equal the inline mode's."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.data import build_corpus
+    from repro_torch.models import init_params
+    from repro_torch.retrieval import RetrievalConfig
+    from repro_torch.serving import Engine, Request, ServeConfig
+
+    cfg = get_arch("llama3.2-1b").smoke()
+    params = init_params(cfg, 0, tp=4, device=dev)
+    corpus = build_corpus(3000, retrieval_vocab=1024, doc_max=16,
+                          gen_vocab=cfg.vocab_size, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (40, 24, 9)]
+    out = {}
+    for mode in ("inline", "overlap"):
+        rcfg = RetrievalConfig(kind="rag", mode=mode, corpus=corpus, k=2,
+                               tau=1.1, min_interval=3, max_retrievals=2,
+                               validate=mode == "overlap")
+        eng = Engine(cfg, params, ServeConfig(
+            max_len=256, n_slots=3, method="dsa", tp=4, page=8,
+            retrieval=rcfg), device=dev)
+        n0 = bm.bm25_topk_candidates.launches
+        hs = [eng.submit(Request(i, p, 8)) for i, p in enumerate(prompts)]
+        eng.drain()
+        events = [(e["slot"], e["ids"]) for e in eng.retrieval.events]
+        assert events and all(h.done for h in hs)
+        launches = bm.bm25_topk_candidates.launches - n0
+        # validate replays each query through the kernel once more
+        assert launches == len(events) * (2 if mode == "overlap" else 1)
+        out[mode] = ([h.tokens for h in hs], events)
+    assert out["inline"] == out["overlap"]

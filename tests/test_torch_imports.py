@@ -36,6 +36,9 @@ def test_no_jax_or_reference_imports(path):
 @pytest.mark.parametrize("mod", [
     "repro_torch", "repro_torch.kernels.ops", "repro_torch.serving",
     "repro_torch.launch.serve", "repro_torch.weights",
+    "repro_torch.retrieval", "repro_torch.data", "repro_torch.hetero",
+    "repro_torch.kernels.bm25_topk", "repro_torch.core.methods.rag",
+    "repro_torch.core.methods.mac",
 ])
 def test_port_imports_without_cuda_toolchain(mod):
     importlib.import_module(mod)

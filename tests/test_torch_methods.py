@@ -291,9 +291,9 @@ def test_profiler_attribution():
 
 
 def test_offload_stages_and_methods_match_reference():
-    for name in ("dsa", "seer", "lserve", "none", "nope"):
+    for name in ("dsa", "seer", "lserve", "rag", "mac", "memagent", "ttt",
+                 "none", "nope"):
         assert tmethods.offload_stages(name) == jmethods.offload_stages(name)
-    assert tmethods.offload_stages("rag") == ()      # not ported yet
     assert sorted(tmethods.SPARSE_METHODS) == sorted(jmethods.SPARSE_METHODS)
     for name in ("seer", "lserve"):
         init, mk = tmethods.get_sparse_method(name)

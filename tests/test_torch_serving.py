@@ -27,6 +27,7 @@ from repro.serving import Request as JRequest  # noqa: E402
 from repro.serving import ServeConfig as JServeConfig  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import MemoryConfig  # noqa: E402
+from repro_torch.retrieval import RetrievalConfig  # noqa: E402
 from repro_torch.serving import Engine, Request, ServeConfig  # noqa: E402
 from repro_torch.weights import from_jax_params  # noqa: E402
 
@@ -129,7 +130,8 @@ def test_pooled_matches_one_at_a_time_and_pool_scrubbed(weights):
 
 @pytest.mark.parametrize("kw", [
     dict(offload="sync"), dict(offload_cfg=OffloadConfig(mode="sync")), dict(offload_shards=2),
-    dict(main_mesh=2), dict(fused_steps=2), dict(retrieval=object()),
+    dict(main_mesh=2), dict(fused_steps=2),
+    dict(retrieval=RetrievalConfig(kind="mac"), fused_steps=2),
     dict(paged=False),
 ])
 def test_unported_features_raise(weights, kw):
