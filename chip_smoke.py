@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch/CUDA port serves its paths on one GPU.
+"""Quickest proof that the PyTorch/CUDA port serves and trains on one GPU.
 
     python3 chip_smoke.py
 
@@ -17,11 +17,23 @@ failure (the script then exits non-zero):
    head, 64-token blocks, a 4096-token budget), page min/max at LServe's
    (k [4, 8192, 8, 64] bf16, 64-token pages), BM25 + top-k at RAG's (one
    8-term query over a 250,000-doc corpus padded to 262,144, top 4) and at
-   the paper's Fig. 10 shape, each also at edge cases (-1 holes, a length
-   cut mid-page, an all-masked row, S or D not a multiple of the block,
-   all-zero scores, equal scores, fewer live docs than k, fp32 and bf16, a
-   single page, scalar loads);
-3. serve: full-width llama3.2-1b in bf16 with seeded random weights,
+   the paper's Fig. 10 shape, flash attention at the training shape
+   (llama3.2-1b, B 4, S 2048, bf16), the serve runs' bucketed prefill
+   (B 2, S 512) and mixtral's (S 8192, dh 128, window 4096; kernel level
+   only), and its gradients at fp32; each also at edge cases (-1 holes, a
+   length cut mid-page, an all-masked row, S or D not a multiple of the
+   block, S below the tile, a window below the tile, G = 1, all-zero
+   scores, equal scores, fewer live docs than k, fp32 and bf16, a single
+   page, scalar loads);
+3. train: full-width llama3.2-1b in bf16 with seeded random weights,
+   ``TokenStream`` data, remat, B 4 x S 2048, lr 3e-3 with 5 warm-up steps:
+   6 steps with finite, falling loss and 2 flash launches per layer per
+   step (forward and remat recompute), a checkpoint at step 3 that a fresh
+   ``Trainer`` restores to reproduce step 4's loss, two steps under
+   ``torch.profiler`` (busy share, the flash kernel in situ, the attention
+   backward's plain recompute), a step with accum 2, and one fp32 step (B 1
+   x S 1024) through the kernel against the plain path; one ``train`` line;
+4. serve: full-width llama3.2-1b in bf16 with seeded random weights,
    ``ServeConfig(method=m, max_len=8192, n_slots=4)`` for m in dsa, lserve
    and seer, seer in both its top-k and its threshold selection, and dsa
    with the retrieval service, RAG over the corpus (``dsa-rag``) and MaC
@@ -29,30 +41,31 @@ failure (the script then exits non-zero):
    prompts past ``min_context`` (chunked prefill) and 2 short ones
    (bucketed prefill); every request completes and each kernel of the
    run's path launches once per layer per sparse decode step (bm25 once
-   per query), every other kernel never; every request retrieves in
-   dsa-rag, only the long ones (whose prompts fill MaC's 1024-token
-   segments) in dsa-mac; then the same requests again with four steady
-   sparse decode polls under ``torch.profiler``, for the device's busy
-   share and each kernel's in-situ time (tables under ``chiprun_out/``);
-   one ``serve`` line per run, with the retrieval service's report;
-4. modes: dsa-rag with the service inline (the engine's stream), sync and
+   per query, flash once per layer per bucketed prefill), every other
+   kernel never; every request retrieves in dsa-rag, only the long ones
+   (whose prompts fill MaC's 1024-token segments) in dsa-mac; then the
+   same requests again with four steady sparse decode polls under
+   ``torch.profiler``, for the device's busy share and each kernel's
+   in-situ time (tables under ``chiprun_out/``); one ``serve`` line per
+   run, with the retrieval service's report;
+5. modes: dsa-rag with the service inline (the engine's stream), sync and
    overlap (a stream of its own; both replaying every query): equal greedy
    tokens and retrieval events, one ``modes`` line;
-5. compare: the same requests at float32 for each run but dsa-mac, once
+6. compare: the same requests at float32 for each run but dsa-mac, once
    through the kernels and once through the plain versions
    (``ops.use_kernels(False)``): the first sparse decode step's logits
    agree, the retrievals are equal, and the greedy tokens are equal (or
    differ only where the plain top-2 margin is within the tolerance);
-6. pipeline: each method's four-stage ``build_pipeline``, unfused and
+7. pipeline: each method's four-stage ``build_pipeline``, unfused and
    fused, on one layer's full-width tensors, and RAG's over the corpus:
    equal outputs; MaC's at d = 2048, equal to ``segment_step``'s; a
    ``{"pipeline": ...}`` line each with the ``StageProfiler`` stage times
    and shares (the paper's Fig. 3-5 breakdown);
-7. a ``{"kernels": [...]}`` line, the card line, and ``{"ok": true, ...}``
-   as the last line.
+8. a ``{"kernels": [...]}`` line (flash's ``launches`` from the train
+   phase), the card line, and ``{"ok": true, ...}`` as the last line.
 
-``--phases`` runs a subset of kernels, serve, modes, compare and pipeline
-(the default is all five).
+``--phases`` runs a subset of kernels, train, serve, modes, compare and
+pipeline (the default is all six).
 """
 from __future__ import annotations
 
@@ -77,6 +90,10 @@ FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
 L2_BYTES = 50 * 2**20
 SERVE_ARCH = "llama3.2-1b"
 PROMPT_LENS = (4500, 4400, 300, 260)     # two past min_context, two short
+SHORT_LENS = tuple(n for n in PROMPT_LENS if n < 1024)
+PREFILL_BUCKET = 512     # the short prompts' length bucket (Engine._bucket_len)
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 6
 MAX_NEW = 16
 VIEW = 8192
 PAGE = 16                                # DSA micro-page, kv pool page
@@ -109,7 +126,7 @@ RUNS = {"dsa": Run("dsa"),
                        kernels=_DSA + ("bm25_topk_candidates",)),
         # MaC's path adds no kernel
         "dsa-mac": Run("dsa", retrieval="mac", compare=False)}
-PHASES = ("kernels", "serve", "modes", "compare", "pipeline")
+PHASES = ("kernels", "train", "serve", "modes", "compare", "pipeline")
 # the run whose serve phase gives a kernel's launches and in-situ time in
 # its row: the first run that launches it
 HOME_PATH = {name: label for label, run in reversed(RUNS.items())
@@ -126,6 +143,7 @@ _CACHE = {}
 # the differences are summation order only, at bf16 inputs as at fp32 ones
 TOPK_VAL_TOL = 1e-4          # relative to the largest |score| of the row
 ATTN_TOL = 1e-4              # abs, on out (|out| <= max|v|) and on lse
+BF16_ULP = (2.0 ** -7, 2.0 ** -8)   # (rtol, atol): one bf16 ulp
 LOGIT_TOL = 2e-3             # abs, fp32 logits after 16 layers
 
 
@@ -780,6 +798,418 @@ def _bm25_timing(state, terms, tfq, dln, idf, nd, block):
     return row
 
 
+def _pairs(S: int, window: int) -> int:
+    """(query, key) pairs the causal band keeps, under a window if given."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def _flash_check(name, got, want):
+    """fp32: within ATTN_TOL; bf16: within one bf16 ulp of the plain version
+    (both round an fp32 result to bf16)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    diff = (got.float() - want.float()).abs()
+    rtol, atol = (0.0, ATTN_TOL) if got.dtype == torch.float32 else BF16_ULP
+    bad = diff > atol + rtol * want.float().abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: {int(bad.sum())} values off, max abs "
+                             f"err {err}")
+    log(f"  {name}: max abs err {err:.3g} "
+        f"({'abs ' + str(ATTN_TOL) if rtol == 0 else 'one bf16 ulp'})")
+    return err
+
+
+def ops_plain_flash(q, k, v, window):
+    """``ops.flash_attention`` through the plain path (``use_kernels(False)``:
+    ``ref.flash_attention``)."""
+    from repro_torch.kernels import ops
+
+    ops.use_kernels(False)
+    try:
+        return ops.flash_attention(q, k, v, window=window)
+    finally:
+        ops.use_kernels(True)
+
+
+def _kernel_names(fn):
+    """The CUDA kernels one call of ``fn`` launches (torch.profiler)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    return sorted({e.key[:120] for e in prof.key_averages()
+                   if e.device_type != cpu})
+
+
+def _flash_timing(q, k, v, window, plain_n=20):
+    """Kernel (cold and L2-warm), plain and library times of one call, the
+    bound, and the kernels the library call lands on. Cold: copies of q, k,
+    v rotated past twice the L2; the plain version and SDPA are timed on
+    the same copies."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    B, S, H, dh = q.shape
+    in_bytes = (q.numel() + 2 * k.numel()) * q.element_size()
+    n = cold_copies(in_bytes)
+    cp = [(q, k, v)] + [tuple(t.clone() for t in (q, k, v))
+                        for _ in range(n - 1)]
+    ms = time_ms([lambda a=a: fa.flash_attention(*a, window=window)
+                  for a in cp])
+    ms_warm = time_ms(lambda: fa.flash_attention(q, k, v, window=window))
+    plain_ms = time_ms([lambda a=a: ops_plain_flash(*a, window) for a in cp],
+                       n=plain_n)
+    # SDPA on the [B, H, S, dh] views; a boolean band mask under a window
+    mask = None
+    if window:
+        pos = torch.arange(S, device=q.device)
+        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :]
+                                                 < window)
+
+    def lib(a):
+        qt, kt, vt = (t.transpose(1, 2) for t in a)
+        if mask is None:
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib_err = float((lib(cp[0]).transpose(1, 2).float()
+                     - ops_plain_flash(q, k, v, window).float()).abs().max())
+    log(f"  SDPA yardstick vs plain: max abs err {lib_err:.3g}")
+    library_ms = time_ms([lambda a=a: lib(a) for a in cp])
+    backend = _kernel_names(lambda: lib(cp[0]))
+    del cp
+    out_bytes = q.numel() * q.element_size()
+    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            **_bound(in_bytes + out_bytes,
+                     [(4 * B * H * dh * _pairs(S, window), rate)]),
+            "ms_l2_warm": ms_warm, "library_kernels": backend,
+            "library": "scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True)" if not window else
+                       "scaled_dot_product_attention(attn_mask=bool band, "
+                       "enable_gqa=True)",
+            "timing": f"cold L2: ms, plain_ms and library_ms rotate over {n} "
+                      f"copies of q/k/v; ms_l2_warm on one copy"}
+
+
+def check_flash_attention(dev):
+    """The flash kernel against its plain version at the training shape,
+    the serve runs' bucketed-prefill shape, mixtral's attention (kernel
+    level only: its ~47 B parameters do not fit one card) and edge cases;
+    its gradients (``FlashAttention``) against autograd through the plain
+    version at fp32."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def qkv(B, S, H, KV, dh, dt=torch.bfloat16):
+        return [torch.randn(B, S, n, dh, generator=g, device=dev).to(dt)
+                for n in (H, KV, KV)]
+
+    shapes = {  # path: (B, S, H, KV, dh, window, plain timing calls)
+        "train": (TRAIN_B, TRAIN_S, 32, 8, 64, 0, 20),
+        "serve bucketed prefill": (len(SHORT_LENS), PREFILL_BUCKET, 32, 8,
+                                   64, 0, 20),
+        "mixtral attention": (1, 8192, 32, 8, 128, 4096, 2),
+    }
+    rows, err = {}, 0.0
+    for path, (B, S, H, KV, dh, w, pn) in shapes.items():
+        q, k, v = qkv(B, S, H, KV, dh)
+        e = _flash_check(f"flash {path} bf16",
+                         fa.flash_attention(q, k, v, window=w),
+                         ops_plain_flash(q, k, v, w))
+        err = max(err, e)
+        rows[path] = dict(_flash_timing(q, k, v, w, plain_n=pn),
+                          path=path, max_abs_err=e,
+                          shape=f"q [{B},{S},{H},{dh}] bf16, k/v [{B},{S},"
+                                f"{KV},{dh}] bf16, window {w or 'none'}")
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # edge cases through the public op: ragged S, S below the tile, a
+    # window below the tile, G = 1, fp32, dh 32 and 128
+    f32 = torch.float32
+    for name, B, S, H, KV, dh, w, dt in [
+            ("S=200 ragged", 2, 200, 8, 2, 64, 0, torch.bfloat16),
+            ("S=37 below the tile", 2, 37, 8, 8, 128, 0, f32),
+            ("window 48 below the tile", 2, 256, 8, 2, 64, 48,
+             torch.bfloat16),
+            ("G=1", 1, 300, 4, 4, 32, 0, f32),
+            ("fp32 training heads", 1, 1024, 32, 8, 64, 0, f32),
+            ("fp32 window 96", 1, 700, 8, 2, 128, 96, f32)]:
+        q, k, v = qkv(B, S, H, KV, dh, dt)
+        err = max(err, _flash_check(f"flash {name}",
+                                    ops.flash_attention(q, k, v, window=w),
+                                    ops_plain_flash(q, k, v, w)))
+
+    # gradients: B 1, S 1024, llama's heads, fp32, a random cotangent
+    q, k, v = qkv(1, 1024, 32, 8, 64, f32)
+    cot = torch.randn(q.shape, generator=g, device=dev)
+    grads = []
+    for fn in (lambda *a: fa.FlashAttention.apply(*a, 0),
+               lambda *a: ref.flash_attention(*a)):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*ts).backward(cot)
+        grads.append([t.grad for t in ts])
+    grad_err = 0.0
+    for name, a, b in zip("qkv", *grads):
+        e = float((a - b).abs().max())
+        tol = ATTN_TOL * max(1.0, float(b.abs().max()))
+        if not e <= tol:
+            raise AssertionError(f"flash d{name}: err {e} > {tol}")
+        grad_err = max(grad_err, e)
+    log(f"  flash gradients fp32 [1,1024,32,64]: dq/dk/dv max abs err "
+        f"{grad_err:.3g} (tol {ATTN_TOL} x max(1, max|g|))")
+
+    head = rows.pop("train")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:70",
+        "launches": None, **head, "max_abs_err": err,
+        "grad_max_abs_err": grad_err,
+        "tolerance": f"fp32 out abs {ATTN_TOL}; bf16 out within one bf16 "
+                     f"ulp (rtol {BF16_ULP[0]}, atol {BF16_ULP[1]}); "
+                     f"gradients abs {ATTN_TOL} x max(1, max|g|)",
+        "other_shapes": list(rows.values()),
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 3: training
+# ---------------------------------------------------------------------------
+
+
+def _train_batches(cfg, dev, n: int, B: int, S: int, seed: int = 0):
+    """n ``TokenStream`` batches on the card."""
+    import torch
+    from repro_torch.data import TokenStream
+
+    it = iter(TokenStream(cfg.vocab_size, S, B, seed=seed))
+    return [{k: torch.as_tensor(v, device=dev) for k, v in next(it).items()}
+            for _ in range(n)]
+
+
+def _profile_steps(tr, batches):
+    """Train steps under torch.profiler: wall and device-busy time, the flash
+    kernel's mean in-situ time, and the device time of the attention
+    backward's plain recompute (the ``flash_attention.backward`` ranges).
+    Writes chiprun_out/profile_train.{txt,json.gz}."""
+    import torch
+
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    t0 = time.perf_counter()
+    for b in batches:
+        tr.train_step(b)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    prof.stop()
+    cpu = torch.autograd.DeviceType.CPU
+    rng = "flash_attention.backward"
+    # kernels, copies and sets; the device side of a record_function range
+    # is a span over kernels counted already
+    dev_us = sum(e.self_device_time_total for e in prof.events()
+                 if e.device_type != cpu and e.name != rng
+                 and not getattr(e, "is_user_annotation", False))
+    avgs = prof.key_averages()
+    hits = [e for e in avgs if KERNEL_SYMBOLS["flash_attention"] in e.key]
+    if not hits:
+        raise AssertionError("profile: no flash kernel in the train steps")
+    flash_ms = sum(e.self_device_time_total for e in hits) / sum(
+        e.count for e in hits) / 1e3
+    # the host-side ranges: the device time of the kernels under them
+    bwd = [e for e in prof.events() if e.name == rng and e.device_type == cpu]
+    if not bwd:
+        raise AssertionError(f"profile: no {rng} range")
+    bwd_us = sum(e.device_time_total for e in bwd)
+    out = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    stem = os.path.join(out, "profile_train")
+    with open(stem + ".txt", "w") as f:
+        f.write(f"card: {card_line()}\n{len(batches)} steps: wall "
+                f"{wall_us:.0f} us, device busy {dev_us:.0f} us "
+                f"({100 * dev_us / wall_us:.1f}%), attention backward "
+                f"recompute {bwd_us:.0f} us\n")
+        f.write(avgs.table(sort_by="self_device_time_total", row_limit=40))
+    prof.export_chrome_trace(stem + ".json.gz")
+    return {"steps": len(batches), "wall_us": wall_us,
+            "device_busy_us": dev_us, "device_busy_share": dev_us / wall_us,
+            "flash_ms_in_situ": flash_ms,
+            "attn_backward_recompute_us": bwd_us,
+            "attn_backward_recompute_share_of_busy": bwd_us / dev_us}
+
+
+def phase_train(dev):
+    """Full-width llama3.2-1b in bf16 (seeded random weights, ``TokenStream``
+    data, remat, B 4 x S 2048, lr 3e-3 with 5 warm-up steps): 6 steps with
+    finite, falling loss and 2 flash launches per layer per step (forward and
+    remat recompute; counts reset just before and read just after); a
+    checkpoint at step 3 restored by a fresh Trainer reproduces step 4's
+    loss; two profiled steps; one step with accum 2; then at fp32, B 1 x S
+    1024, one step's loss and gradients through the kernel against the plain
+    path. Returns the flash launches of the 6 steps."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.train import (OptConfig, Trainer, TrainConfig,
+                                   make_train_step)
+
+    cfg = get_arch(TRAIN_ARCH)
+    B, S, L = TRAIN_B, TRAIN_S, cfg.n_layers
+    batches = _train_batches(cfg, dev, TRAIN_STEPS + 3, B, S)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tc = TrainConfig(opt=OptConfig(lr=3e-3, warmup_steps=5,
+                                       total_steps=TRAIN_STEPS),
+                         remat=True, tp=16, ckpt_dir=ckdir, ckpt_every=10**9)
+        tr = Trainer(cfg, tc, init_params(cfg, 0, device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s, per_step, save_s = [], [], [], None
+        ops.reset_launch_counts()
+        for i in range(TRAIN_STEPS):
+            n0 = ops.launch_counts()["flash_attention"]
+            t0 = time.perf_counter()
+            losses.append(tr.train_step(batches[i])["loss"])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append(ops.launch_counts()["flash_attention"] - n0)
+            if tr.step == 3:
+                t0 = time.perf_counter()
+                tr.save()
+                save_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  losses {[round(x, 4) for x in losses]}, step s "
+            f"{[round(x, 3) for x in step_s]}, flash launches per step "
+            f"{per_step} (expected {L} layers x 1 microbatch x 2)")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train: loss did not fall: {losses}")
+        if per_step != [2 * L] * TRAIN_STEPS:
+            raise AssertionError(f"train: flash launches per step {per_step}")
+        if any(n for name, n in counts.items() if name != "flash_attention"):
+            raise AssertionError(f"train: other kernels launched {counts}")
+
+        profile = _profile_steps(tr, batches[TRAIN_STEPS:TRAIN_STEPS + 2])
+        n0 = ops.launch_counts()["flash_attention"]
+        accum_step = make_train_step(cfg, dataclasses.replace(tc, accum=2))
+        mb = {k: v.reshape(2, B // 2, S) for k, v in batches[-1].items()}
+        _, _, st = accum_step(tr.params, tr.opt_state, mb)
+        accum_launches = ops.launch_counts()["flash_attention"] - n0
+        if not math.isfinite(float(st["loss"])) or accum_launches != 4 * L:
+            raise AssertionError(f"train accum=2: loss {float(st['loss'])}, "
+                                 f"{accum_launches} flash launches")
+        log(f"  accum=2 step: loss {float(st['loss']):.4f}, flash launches "
+            f"{accum_launches} (= {L} x 2 microbatches x 2)")
+        del tr, st, accum_step
+        torch.cuda.empty_cache()
+
+        # resume: a fresh Trainer (other init) restores step 3 on
+        # construction; its step 4 on step 4's batch reproduces the loss
+        t0 = time.perf_counter()
+        tr2 = Trainer(cfg, tc, init_params(cfg, 1, device=dev))
+        restore_s = time.perf_counter() - t0
+        if tr2.step != 3:
+            raise AssertionError(f"restored step {tr2.step}, expected 3")
+        resumed = tr2.train_step(batches[3])["loss"]
+        rel = abs(resumed - losses[3]) / abs(losses[3])
+        log(f"  resume from step 3: step 4 loss {resumed:.6f} vs "
+            f"{losses[3]:.6f} (rel {rel:.3g}, tol 1e-3); save "
+            f"{save_s:.1f} s, restore {restore_s:.1f} s")
+        if not rel <= 1e-3:
+            raise AssertionError(f"resumed loss {resumed} != {losses[3]}")
+        del tr2
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    compare = _train_compare(dev, cfg)
+    toks = B * S
+    step_med = statistics.median(step_s)
+    print(json.dumps({"train": {
+        "card": card_line(), "arch": TRAIN_ARCH, "dtype": "bfloat16",
+        "batch": B, "seq": S, "remat": True, "steps": TRAIN_STEPS,
+        "lr": 3e-3, "warmup_steps": 5, "losses": losses, "step_s": step_s,
+        "step_ms_median": 1e3 * step_med, "tokens_per_s": toks / step_med,
+        "peak_memory_bytes": peak,
+        "flash_launches": counts["flash_attention"],
+        "flash_launches_per_step": per_step,
+        "accum2_flash_launches": accum_launches,
+        "ckpt_save_s": save_s, "ckpt_restore_s": restore_s,
+        "resume_step4_loss": resumed, "resume_rel_err": rel,
+        "profiled_steps": profile, "fp32_compare": compare}}), flush=True)
+    return counts["flash_attention"], profile["flash_ms_in_situ"]
+
+
+def _train_compare(dev, cfg):
+    """One fp32 step's loss and gradients (B 1 x S 1024) through the flash
+    kernel and through the plain path: loss within 1e-5 relative, each
+    gradient leaf within 1e-4 of its largest |g|, the gradient norm within
+    1e-4 relative."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.train import TrainConfig, loss_and_grads
+    from repro_torch.train.optimizer import global_norm, leaves
+
+    cfg32 = cfg.replace(dtype="float32")
+    params = init_params(cfg32, 2, device=dev)
+    batch = _train_batches(cfg32, dev, 1, 1, 1024, seed=1)[0]
+    tc = TrainConfig(remat=True, tp=16)
+    n0 = ops.launch_counts()["flash_attention"]
+    loss_k, g_k = loss_and_grads(params, cfg32, tc, batch)
+    launched = ops.launch_counts()["flash_attention"] - n0
+    if launched != 2 * cfg.n_layers:
+        raise AssertionError(f"train fp32: {launched} flash launches")
+    ops.use_kernels(False)
+    try:
+        loss_p, g_p = loss_and_grads(params, cfg32, tc, batch)
+    finally:
+        ops.use_kernels(True)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    leaf_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(leaves(g_k), leaves(g_p)))
+    nk, np_ = float(global_norm(g_k)), float(global_norm(g_p))
+    norm_rel = abs(nk - np_) / np_
+    log(f"  fp32 kernel vs plain step: loss rel {loss_rel:.3g} (tol 1e-5), "
+        f"worst leaf {leaf_rel:.3g} of its max|g| (tol 1e-4), grad norm rel "
+        f"{norm_rel:.3g} (tol 1e-4)")
+    if not (loss_rel <= 1e-5 and leaf_rel <= 1e-4 and norm_rel <= 1e-4):
+        raise AssertionError("train fp32: kernel path != plain path")
+    return {"batch": 1, "seq": 1024, "flash_launches": launched,
+            "loss_kernel": float(loss_k),
+            "loss_plain": float(loss_p), "loss_rel_err": loss_rel,
+            "worst_leaf_err_of_max": leaf_rel, "grad_norm_kernel": nk,
+            "grad_norm_plain": np_, "grad_norm_rel_err": norm_rel}
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: serving
 # ---------------------------------------------------------------------------
@@ -914,7 +1344,8 @@ KERNEL_SYMBOLS = {"relevancy_topk_candidates": "relevancy_topk_kernel",
                   "paged_decode_attention": "paged_decode_kernel",
                   "page_minmax": "page_minmax_kernel",
                   # both routes: bm25_topk_reg_kernel<C>, bm25_topk_sort_kernel
-                  "bm25_topk_candidates": "bm25_topk_"}
+                  "bm25_topk_candidates": "bm25_topk_",
+                  "flash_attention": "flash_attention_kernel"}
 
 
 class _Profile:
@@ -988,21 +1419,23 @@ def phase_serve(dev, label: str):
     eng, handles, wall, cfg = run.eng, run.handles, run.wall, run.cfg
     want = cfg.n_layers * eng.stats["sparse_steps"]
     queries = len(run.events)      # every launched query was collected
-    bm25 = "bm25_topk_candidates" in RUNS[label].kernels
+    # flash: once per layer per bucketed (admission) prefill
+    expect = {name: want if name in RUNS[label].kernels else 0
+              for name in counts}
+    expect["flash_attention"] = cfg.n_layers * eng.stats["bucket_prefills"]
+    if "bm25_topk_candidates" in RUNS[label].kernels:
+        expect["bm25_topk_candidates"] = queries
     log(f"  launches {counts}, sparse steps {eng.stats['sparse_steps']} of "
-        f"{eng.stats['decode_steps']}, expected {want} for "
-        f"{RUNS[label].kernels}"
-        + (f" ({queries} for bm25: the queries)" if bm25 else "")
-        + ", 0 for the rest")
+        f"{eng.stats['decode_steps']}, bucketed prefills "
+        f"{eng.stats['bucket_prefills']}; expected {expect}")
     if set(counts) != set(KERNEL_SYMBOLS):
         raise AssertionError(f"counted kernels {sorted(counts)}")
+    if not eng.stats["bucket_prefills"]:
+        raise AssertionError(f"{label}: no bucketed prefill ran")
     for name, n in counts.items():
-        expect = want if name in RUNS[label].kernels else 0
-        if name == "bm25_topk_candidates" and expect:
-            expect = queries
-        if n != expect:
+        if n != expect[name]:
             raise AssertionError(f"{label}: {name} launched {n} times, "
-                                 f"expected {expect}")
+                                 f"expected {expect[name]}")
     toks = sum(len(h.tokens) for h in handles)
     ttft = sorted(h.ttft_s() for h in handles)
     stats = eng.stats
@@ -1025,7 +1458,8 @@ def phase_serve(dev, label: str):
         "decode_steps": stats["decode_steps"],
         "sparse_steps": stats["sparse_steps"],
         "decode_step_ms_median": 1e3 * statistics.median(stats["step_s"]),
-        "prefill_s": stats["prefill_s"], "launches": counts,
+        "prefill_s": stats["prefill_s"],
+        "bucket_prefills": stats["bucket_prefills"], "launches": counts,
         "profiled_decode": profile,
     }
     if retrieval is not None:
@@ -1252,13 +1686,20 @@ def main(argv=None):
     if "kernels" in phases:
         log("[2] kernels vs plain versions")
         kernels = [check_relevancy(dev), check_paged_attention(dev),
-                   check_page_minmax(dev), check_bm25(dev)]
+                   check_page_minmax(dev), check_bm25(dev),
+                   check_flash_attention(dev)]
+    flash = None
+    if "train" in phases:
+        log("[3] train llama3.2-1b bf16")
+        flash = phase_train(dev)
     if "serve" in phases:
         runs = {}
         for r in RUNS:
-            log(f"[3] serve llama3.2-1b bf16, {r}")
+            log(f"[4] serve llama3.2-1b bf16, {r}")
             runs[r] = phase_serve(dev, r)
         for k in kernels:
+            if k["name"] == "flash_attention":
+                continue
             # launches: the count of the kernel's home path's own run
             by_path = {m: c[k["name"]] for m, (c, _) in runs.items()}
             k["launches"] = by_path[HOME_PATH[k["name"]]]
@@ -1268,18 +1709,28 @@ def main(argv=None):
                 for m, (_, p) in runs.items()
                 if k["name"] in p["kernel_ms_in_situ"]}
             k["ms_in_situ"] = k["ms_in_situ_by_path"].get(HOME_PATH[k["name"]])
+    for k in kernels:
+        if k["name"] != "flash_attention":
+            continue
+        # the train phase is its home path; serve runs prefill through it
+        by_path = {m: c["flash_attention"] for m, (c, _) in runs.items()} \
+            if "serve" in phases else {}
+        if flash is not None:
+            k["launches"], k["ms_in_situ"] = flash
+            by_path["train"] = flash[0]
+        k["launches_by_path"] = by_path
     if "modes" in phases:
-        log("[4] dsa-rag: retrieval inline vs sync vs overlap")
+        log("[5] dsa-rag: retrieval inline vs sync vs overlap")
         phase_modes(dev)
     if "compare" in phases:
         for r in (r for r, run in RUNS.items() if run.compare):
-            log(f"[5] {r}: kernel path vs plain path, fp32")
+            log(f"[6] {r}: kernel path vs plain path, fp32")
             phase_compare(dev, r)
     if "pipeline" in phases:
         for m in METHODS:
-            log(f"[6] {m}: build_pipeline unfused vs fused")
+            log(f"[7] {m}: build_pipeline unfused vs fused")
             phase_pipeline(dev, m)
-        log("[6] rag: build_pipeline unfused vs fused; mac")
+        log("[7] rag: build_pipeline unfused vs fused; mac")
         phase_pipeline_rag(dev)
         phase_pipeline_mac(dev)
     torch.cuda.synchronize()

@@ -1,5 +1,6 @@
-"""Synthetic data for the port (twin of ``repro.data``): the retrieval
-corpus only."""
-from repro_torch.data.pipeline import build_corpus, sample_queries
+"""Synthetic data for the port (twin of ``repro.data``): the training token
+stream, document packing and the retrieval corpus."""
+from repro_torch.data.pipeline import (TokenStream, build_corpus,
+                                       pack_documents, sample_queries)
 
-__all__ = ["build_corpus", "sample_queries"]
+__all__ = ["TokenStream", "build_corpus", "pack_documents", "sample_queries"]

@@ -1,16 +1,79 @@
-"""Synthetic retrieval corpus for RAG (twin of ``repro.data.pipeline``'s
-``build_corpus`` and ``sample_queries``; the token stream and packing wait
-for ROADMAP Queue 1 item 14).
+"""Deterministic synthetic data (twin of ``repro.data.pipeline``).
 
-Both functions make the reference's numpy RNG calls in the reference's
+* ``TokenStream`` — seeded Zipf-ish token sequences with local structure
+  (Markov bigram mixing) so losses decrease measurably in smoke training;
+  per-host sharding by (host_index, num_hosts). Batches are numpy arrays.
+* ``pack_documents`` — greedy packing of documents into fixed-length rows.
+* ``build_corpus`` / ``sample_queries`` — the synthetic retrieval corpus of
+  the RAG methods.
+
+Every function makes the reference's numpy RNG calls in the reference's
 order, so one seed gives bit-identical arrays on either side.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+
+
+@dataclasses.dataclass
+class TokenStream:
+    vocab_size: int
+    seq_len: int
+    batch_size: int
+    seed: int = 0
+    host_index: int = 0
+    num_hosts: int = 1
+    zipf_a: float = 1.2
+
+    def __post_init__(self):
+        self._rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, self.host_index]))
+        v = self.vocab_size
+        ranks = np.arange(1, v + 1, dtype=np.float64)
+        self._probs = ranks ** (-self.zipf_a)
+        self._probs /= self._probs.sum()
+        # bigram structure: token t prefers (t*7+3) % v next — learnable signal
+        self._next = (np.arange(v) * 7 + 3) % v
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.next_batch()
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        B, S, v = self.batch_size, self.seq_len, self.vocab_size
+        base = self._rng.choice(v, size=(B, S), p=self._probs)
+        toks = base.copy()
+        # 60% of positions follow the deterministic bigram of the previous tok
+        follow = self._rng.random((B, S)) < 0.6
+        toks[:, 1:] = np.where(follow[:, 1:], self._next[toks[:, :-1]],
+                               base[:, 1:])
+        labels = np.roll(toks, -1, axis=1)
+        labels[:, -1] = toks[:, 0]
+        return {"tokens": toks.astype(np.int32),
+                "labels": labels.astype(np.int32)}
+
+
+def pack_documents(docs, seq_len: int, pad_id: int = 0) -> np.ndarray:
+    """Greedy packing of variable-length docs into fixed seq_len rows."""
+    rows, cur = [], []
+    for d in docs:
+        d = list(d)
+        while d:
+            space = seq_len - len(cur)
+            cur.extend(d[:space])
+            d = d[space:]
+            if len(cur) == seq_len:
+                rows.append(cur)
+                cur = []
+    if cur:
+        rows.append(cur + [pad_id] * (seq_len - len(cur)))
+    return np.asarray(rows, dtype=np.int32)
 
 
 def build_corpus(n_docs: int, retrieval_vocab: int = 2048,

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import bm25_topk as _bm
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import page_pool as _pp
 from repro_torch.kernels import ref
 from repro_torch.kernels import relevancy_topk as _rt
@@ -27,6 +28,7 @@ KERNELS = {
     "paged_decode_attention": _sda.paged_decode_attention,
     "page_minmax": _pp.page_minmax,
     "bm25_topk_candidates": _bm.bm25_topk_candidates,
+    "flash_attention": _fa.flash_attention,
 }
 
 
@@ -86,6 +88,16 @@ def paged_decode_attention(q, k_cache, v_cache, page_ids, length, *,
 
 
 lse_merge = _sda.lse_merge
+
+
+def flash_attention(q, k, v, *, window: int = 0, bq: int = 512,
+                    bk: int = 512):
+    """Causal GQA attention, differentiable. ``bq`` / ``bk`` are the
+    reference's tile sizes, kept for its signature: the CUDA kernel tiles
+    at 64 x 64 whatever they are, and the result does not depend on them."""
+    if not _STATE["kernels"]:
+        return ref.flash_attention(q, k, v, window=window or None)
+    return _fa.FlashAttention.apply(q, k, v, window)
 
 
 def page_minmax(k_cache, *, page_size: int = 64):

@@ -127,3 +127,26 @@ def bm25_topk(tf, doc_len, idf, k: int, **kw):
     """Exact oracle: (vals [B,k], idx [B,k]), k clamped to D."""
     scores = bm25_scores(tf, doc_len, idf, **kw)
     return topk_stable(scores, min(k, scores.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
+# 5. Causal flash attention (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window=None) -> torch.Tensor:
+    """q [B,S,H,dh]; k/v [B,S,KV,dh] -> [B,S,H,dh] in q's dtype: one exact
+    fp32 softmax over the [S, S] scores, masked causally (and to the last
+    ``window`` keys when given); query head h reads kv head h // (H // KV)."""
+    B, S, H, dh = q.shape
+    G = H // k.shape[2]
+    kexp = k.repeat_interleave(G, dim=2).float()
+    vexp = v.repeat_interleave(G, dim=2).float()
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float() / math.sqrt(dh), kexp)
+    pos = torch.arange(S, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if window:
+        mask &= pos[:, None] - pos[None, :] < window
+    p = torch.softmax(sc.masked_fill(~mask[None, None], NEG_INF), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vexp).to(q.dtype)

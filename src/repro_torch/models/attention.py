@@ -1,8 +1,10 @@
 """GQA attention (twin of ``repro.models.attention``), in plain PyTorch.
 
 The reference computes these in XLA, outside any Pallas kernel; so does the
-port. Query heads are padded to a multiple of ``tp`` with dead heads whose
-q rows and o-proj columns are zero (``head_mask`` zeroes their outputs).
+port, but for ``attention_full`` on the card, which runs the flash kernel
+(the twin of ``repro.kernels.flash_attention``: the same function). Query
+heads are padded to a multiple of ``tp`` with dead heads whose q rows and
+o-proj columns are zero (``head_mask`` zeroes their outputs).
 
   * ``attention_full``         causal attention over a prompt (query chunks);
   * ``attention_decode``       one query token vs a KV view (dense decode);
@@ -17,6 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.models import layers as L
 
 Params = Dict[str, torch.Tensor]
@@ -102,14 +106,15 @@ def _softmax_attend(sc, mask, vexp):
     return torch.einsum("bhqk,bkhd->bqhd", p, vexp)
 
 
-def attention_full(q, k, v, cfg: ArchConfig, *, q_chunk: int = 256,
-                   window: Optional[int] = None, tp: int = 16):
-    """Causal attention; q [B,S,Hp,hd], k/v [B,S,KV,hd] -> [B,S,Hp,hd].
-    Query chunks of ``q_chunk`` bound the score tile to [B,Hp,q_chunk,S]."""
-    B, S, HP, hd = q.shape
-    window = window if window is not None else (cfg.sliding_window or None)
-    kexp = expand_kv(k, cfg, tp).float()
-    vexp = expand_kv(v, cfg, tp).float()
+def attend_causal(q, kexp, vexp, *, window: Optional[int] = None,
+                  q_chunk: int = 256):
+    """Plain causal attention over expanded heads: q [B,S,H,hd], kexp/vexp
+    [B,S,H,hd] -> [B,S,H,hd] in q's dtype, fp32 math. Query chunks of
+    ``q_chunk`` bound the score tile to [B,H,q_chunk,S]. Differentiable: the
+    flash kernel's backward (``kernels.flash_attention.FlashAttention``)
+    recomputes through it."""
+    S, hd = q.shape[1], q.shape[-1]
+    kexp, vexp = kexp.float(), vexp.float()
     bq = min(q_chunk, S)
     q32 = q.float() * (1.0 / np.sqrt(hd))
     kpos = torch.arange(S, device=q.device)
@@ -123,6 +128,33 @@ def attention_full(q, k, v, cfg: ArchConfig, *, q_chunk: int = 256,
             mask &= qpos[:, None] - kpos[None, :] < window
         outs.append(_softmax_attend(sc, mask[None, None], vexp))
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def attention_full(q, k, v, cfg: ArchConfig, *, q_chunk: int = 256,
+                   window: Optional[int] = None, tp: int = 16):
+    """Causal attention; q [B,S,Hp,hd], k/v [B,S,KV,hd] -> [B,S,Hp,hd].
+    A CUDA tensor with kernels on goes through the flash kernel
+    (``attention_full_flash``), anything else through the plain chunked
+    ``attend_causal``."""
+    window = window if window is not None else (cfg.sliding_window or None)
+    if q.is_cuda and ops.kernels_enabled():
+        return attention_full_flash(q, k, v, cfg, window=window, tp=tp)
+    return attend_causal(q, expand_kv(k, cfg, tp), expand_kv(v, cfg, tp),
+                         window=window, q_chunk=q_chunk)
+
+
+def attention_full_flash(q, k, v, cfg: ArchConfig, *,
+                         window: Optional[int] = None, tp: int = 16):
+    """``attention_full`` through ``FlashAttention`` (the kernel on the card,
+    its plain version on the CPU), with ``expand_kv``'s head mapping: G = Hp
+    // KV when KV divides Hp, else k/v gathered to Hp heads first and G = 1.
+    Dead padded heads need no care: their zero q rows average v uniformly,
+    and ``head_mask`` zeroes them after, as on the plain path."""
+    hp, kv = cfg.padded_heads(tp), cfg.n_kv_heads
+    if hp % kv:
+        idx = torch.as_tensor(head_to_kv(cfg, tp), device=k.device).long()
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return FlashAttention.apply(q, k, v, window or 0)
 
 
 def attention_decode(q, k_cache, v_cache, length, cfg: ArchConfig, *,

@@ -1,5 +1,6 @@
 """Core layers (twin of ``repro.models.layers``): RMSNorm, RoPE, SwiGLU MLP,
-embedding and LM head, as plain functions over parameter dicts.
+embedding, LM head and the cross-entropy loss, as plain functions over
+parameter dicts.
 
 Weights are stored in ``cfg.dtype`` (bf16 by default); norms and RoPE run in
 fp32 and cast back, matmuls run in the weights' dtype.
@@ -83,3 +84,10 @@ def lm_head(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         mask[cfg.vocab_size:] = torch.finfo(torch.float32).min
         logits = logits + mask
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, fp32 logsumexp."""
+    lf = logits.float()
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return (torch.logsumexp(lf, dim=-1) - gold).mean()

@@ -1,6 +1,7 @@
-"""Model (twin of ``repro.models.model``), dense family only: init, forward,
-prefill and decode over a per-request cache, prefill over length buckets,
-chunked extend and decode over the paged pool.
+"""Model (twin of ``repro.models.model``), dense family only: init, forward
+(with per-layer remat), the training loss, prefill and decode over a
+per-request cache, prefill over length buckets, chunked extend and decode
+over the paged pool.
 
 Parameters are nested dicts of tensors with layer-stacked ``[L, ...]``
 leaves, the reference's layout, so ``weights.from_jax_params`` carries a JAX
@@ -16,6 +17,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -91,10 +93,30 @@ def _mlp_block(lp, x, cfg):
     return x + L.mlp(lp["mlp"], L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps))
 
 
+def _unstack(tree, n: int):
+    """A layer-stacked tree -> n per-layer trees of views (``torch.unbind``:
+    under autograd the layers' gradients meet in one stack, not in n
+    full-size scatters into the stacked leaf)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return torch.unbind(tree, 0)
+
+
+def _layer_full(lp, x, cos, sin, cfg: ArchConfig, tp: int):
+    """One full-sequence transformer layer -> (x, k, v)."""
+    h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+    q, k, v = A.project_qkv(lp["attn"], h, cos, sin, cfg, tp)
+    attn = A.attention_full(q, k, v, cfg, tp=tp)
+    return _mlp_block(lp, x + _attn_out(lp["attn"], attn, cfg, tp), cfg), k, v
+
+
 def forward(params: Params, cfg: ArchConfig, tokens, *, positions=None,
-            collect_cache: bool = False, tp: int = 16):
+            collect_cache: bool = False, remat: bool = False, tp: int = 16):
     """tokens [B, S] -> (hidden [B,S,d], caches-or-None); caches hold the
-    stacked k/v [L, B, S, KV, hd]."""
+    stacked k/v [L, B, S, KV, hd]. ``remat`` runs each layer under
+    ``torch.utils.checkpoint`` (the twin of the reference's
+    ``jax.checkpoint``): its activations are recomputed in the backward."""
     _require_dense(cfg)
     B, Sq = tokens.shape
     x = L.embed(params["embed"], tokens)
@@ -102,12 +124,12 @@ def forward(params: Params, cfg: ArchConfig, tokens, *, positions=None,
         positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
     cos, sin = _rope_tables(cfg, positions)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = layer(params["layers"], i)
-        h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
-        q, k, v = A.project_qkv(lp["attn"], h, cos, sin, cfg, tp)
-        attn = A.attention_full(q, k, v, cfg, tp=tp)
-        x = _mlp_block(lp, x + _attn_out(lp["attn"], attn, cfg, tp), cfg)
+    for lp in _unstack(params["layers"], cfg.n_layers):
+        if remat:
+            x, k, v = checkpoint(_layer_full, lp, x, cos, sin, cfg, tp,
+                                 use_reentrant=False)
+        else:
+            x, k, v = _layer_full(lp, x, cos, sin, cfg, tp)
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -116,6 +138,15 @@ def forward(params: Params, cfg: ArchConfig, tokens, *, positions=None,
     if collect_cache:
         caches = {"k": torch.stack(ks), "v": torch.stack(vs), "length": Sq}
     return x, caches
+
+
+def train_loss(params: Params, cfg: ArchConfig, batch: Dict, *,
+               remat: bool = True, tp: int = 16) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"} [B,
+    S]); the reference's MoE aux term is 0 for the dense family."""
+    x, _ = forward(params, cfg, batch["tokens"], remat=remat, tp=tp)
+    logits = L.lm_head(params["lm_head"], x, cfg)
+    return L.cross_entropy(logits, batch["labels"])
 
 
 def last_logits(params, cfg: ArchConfig, x):

@@ -159,9 +159,11 @@ class Engine:
         # is_embeddings]
         self._chunks: Dict[int, list] = {}
         self._table_view_cache = None  # ((npv, table_version), view)
-        # step_s: wall seconds of the latest decode steps (bounded)
+        # step_s: wall seconds of the latest decode steps (bounded);
+        # bucket_prefills: admission prefills run (one per length bucket)
         self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "tokens": 0,
                       "host_steps": 0, "decode_steps": 0, "sparse_steps": 0,
+                      "bucket_prefills": 0,
                       "step_s": collections.deque(maxlen=4096)}
         # logits of the latest decode step and whether it took the sparse
         # branch (read by chip_smoke's kernel-vs-plain comparison)
@@ -378,6 +380,7 @@ class Engine:
         logits, k, v = M.prefill_bucketed(
             self.params, self.cfg, torch.as_tensor(toks, device=dev),
             torch.as_tensor(lens, device=dev), tp=self.sc.tp)
+        self.stats["bucket_prefills"] += 1
         n_pages = Sb // ps
         dest = np.stack([self.pool.table[slot, :n_pages]
                          for slot, _ in group]).reshape(-1)

@@ -1,0 +1,102 @@
+"""AdamW with a cosine schedule, global-norm clipping, and fp32 moments over
+bf16 params (twin of ``repro.train.optimizer``).
+
+Parameters, gradients and moments are nested dicts of tensors with the
+parameters' nesting; leaves are visited in sorted-key order, as
+``jax.tree.leaves`` visits a dict. The step arithmetic is the reference's,
+in fp32. Unlike the reference, which returns new arrays, ``adamw_update``
+writes the parameters and the moments IN PLACE under ``torch.no_grad()``
+(one model's worth of fp32 temporaries at most, one leaf at a time) and
+returns the same tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+class OptState(NamedTuple):
+    step: int
+    m: Any
+    v: Any
+    residual: Any  # gradient-compression error feedback (or None)
+
+
+def leaves(tree):
+    """The tensors of a nested dict, in sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def init_opt_state(params, compress: str = "none") -> OptState:
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device)
+    residual = tree_map(zeros, params) if compress == "int8" else None
+    return OptState(step=0, m=tree_map(zeros, params),
+                    v=tree_map(zeros, params), residual=residual)
+
+
+def schedule(oc: OptConfig, step: int) -> float:
+    """Linear warm-up, then cosine decay to ``min_lr_frac`` of ``lr``; fp32
+    arithmetic, as the reference's."""
+    f = np.float32
+    s = f(step)
+    warm = np.minimum(s / f(max(oc.warmup_steps, 1)), f(1.0))
+    prog = np.clip((s - f(oc.warmup_steps))
+                   / f(max(oc.total_steps - oc.warmup_steps, 1)), f(0), f(1))
+    cos = f(0.5) * (f(1) + np.cos(f(math.pi) * prog))
+    return float(f(oc.lr) * warm
+                 * (f(oc.min_lr_frac) + f(1 - oc.min_lr_frac) * cos))
+
+
+def global_norm(tree) -> torch.Tensor:
+    """fp32 L2 norm over every leaf (a 0-d tensor on the leaves' device)."""
+    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves(tree)))
+
+
+@torch.no_grad()
+def adamw_update(grads, state: OptState, params, oc: OptConfig):
+    """Returns (params, new_state, stats): ``params`` and the moments are
+    updated in place. stats: {"lr": float, "grad_norm": 0-d tensor}."""
+    step = state.step + 1
+    lr = schedule(oc, step)
+    gnorm = global_norm(grads)
+    scale = torch.clamp(oc.clip_norm / (gnorm + 1e-9), max=1.0)
+    f = np.float32
+    bc1 = float(f(1) - f(oc.b1) ** f(step))
+    bc2 = float(f(1) - f(oc.b2) ** f(step))
+    for g, m, v, p in zip(leaves(grads), leaves(state.m), leaves(state.v),
+                          leaves(params)):
+        g = g.float() * scale
+        m.mul_(oc.b1).add_((1 - oc.b1) * g)
+        v.mul_(oc.b2).add_((1 - oc.b2) * g * g)
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + oc.eps)
+        if p.dim() >= 2:  # decoupled weight decay on matrices only
+            delta += oc.weight_decay * p.float()
+        p.copy_((p.float() - lr * delta).to(p.dtype))
+    stats = {"lr": lr, "grad_norm": gnorm}
+    return params, state._replace(step=step), stats

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card, and
-one engine run with the retrieval service on its own stream.
+"""The port's CUDA kernels against their plain versions, on the card, one
+engine run with the retrieval service on its own stream, and one
+smoke-width training step through the flash kernel against the plain path.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 fixture, never at import). Run on the card with
@@ -181,3 +182,96 @@ def test_engine_serves_rag_on_a_side_stream(dev):
         assert launches == len(events) * (2 if mode == "overlap" else 1)
         out[mode] = ([h.tokens for h in hs], events)
     assert out["inline"] == out["overlap"]
+
+
+@pytest.mark.parametrize("B,S,H,KV,dh,window", [
+    (1, 128, 4, 4, 32, 0),
+    (2, 200, 8, 2, 64, 0),      # GQA + ragged tile
+    (2, 256, 4, 4, 32, 48),     # sliding window below the tile
+    (1, 37, 4, 1, 128, 0),      # S below the tile, one kv head
+    (2, 1, 4, 2, 64, 0),        # one token
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(dev, dtype, B, S, H, KV, dh, window):
+    """Kernel against the plain version: fp32 within TOL; bf16 outputs
+    within one bf16 ulp of the plain version's (both round an fp32
+    result)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(B, S, n, dh, generator=g, device=dev).to(dtype)
+               for n in (H, KV, KV))
+    n0 = fa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, window=window)
+    assert fa.flash_attention.launches == n0 + 1
+    want = ref.flash_attention(q, k, v, window=window or None)
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = (TOL, TOL) if dtype == torch.float32 else (2.0 ** -7,
+                                                            2.0 ** -8)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_flash_attention_kernel_reads_strides(dev):
+    """q, k, v as views of one packed [B, S, H + 2 KV, dh] projection (not
+    contiguous): the kernel reads them through their strides and equals
+    the plain version on contiguous copies."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, S, H, KV, dh = 2, 130, 8, 2, 64
+    qkv = torch.randn(B, S, H + 2 * KV, dh, generator=g, device=dev)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not q.is_contiguous()
+    got = fa.flash_attention(q, k, v, window=50)
+    want = ref.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), window=50)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+def test_flash_attention_gradients(dev):
+    """``FlashAttention``'s dq/dk/dv against autograd through the plain
+    version, fp32, GQA and a window."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(2, 150, n, 64, generator=g, device=dev)
+               for n in (8, 2, 2))
+    cot = torch.randn(2, 150, 8, 64, generator=g, device=dev)
+    grads = []
+    for fn in (lambda *a: fa.FlashAttention.apply(*a, 40),
+               lambda *a: ref.flash_attention(*a, window=40)):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*ts).backward(cot)
+        grads.append([t.grad for t in ts])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+
+
+def test_train_step_kernel_matches_plain(dev):
+    """Smoke-width fp32 loss and gradients through the flash kernel equal
+    the plain path's; remat runs the kernel twice per layer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params
+    from repro_torch.train import TrainConfig, loss_and_grads
+    from repro_torch.train.optimizer import leaves
+
+    cfg = get_arch("llama3.2-1b").smoke().replace(dtype="float32")
+    params = init_params(cfg, 0, tp=4, device=dev)
+    b = TokenStream(cfg.vocab_size, 96, 2, seed=0).next_batch()
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+    tc = TrainConfig(tp=4, remat=True)
+    n0 = fa.flash_attention.launches
+    loss, grads = loss_and_grads(params, cfg, tc, batch)
+    assert fa.flash_attention.launches - n0 == 2 * cfg.n_layers
+    ops.use_kernels(False)
+    try:
+        ploss, pgrads = loss_and_grads(params, cfg, tc, batch)
+    finally:
+        ops.use_kernels(True)
+    assert float(loss) == pytest.approx(float(ploss), rel=1e-5)
+    for a, b_ in zip(leaves(grads), leaves(pgrads)):
+        scale = max(float(b_.abs().max()), 1e-30)
+        assert float((a - b_).abs().max()) <= 1e-4 * scale

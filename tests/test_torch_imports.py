@@ -38,7 +38,8 @@ def test_no_jax_or_reference_imports(path):
     "repro_torch.launch.serve", "repro_torch.weights",
     "repro_torch.retrieval", "repro_torch.data", "repro_torch.hetero",
     "repro_torch.kernels.bm25_topk", "repro_torch.core.methods.rag",
-    "repro_torch.core.methods.mac",
+    "repro_torch.core.methods.mac", "repro_torch.kernels.flash_attention",
+    "repro_torch.train", "repro_torch.distributed", "repro_torch.launch.train",
 ])
 def test_port_imports_without_cuda_toolchain(mod):
     importlib.import_module(mod)
