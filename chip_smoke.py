@@ -24,11 +24,19 @@ failure (the script then exits non-zero):
    length cut mid-page, an all-masked row, S or D not a multiple of the
    block, S below the tile, a window below the tile, G = 1, all-zero
    scores, equal scores, fewer live docs than k, fp32 and bf16, a single
-   page, scalar loads);
+   page, scalar loads); paged attention also at one slot, a selection
+   that is no multiple of its split, and a slot whose selected pages all
+   lie past its length in splits of unequal size (the mean of v over every
+   loaded token); flash attention on both routes (bf16 at head dim 64 and
+   128 through the tensor cores, including a view that TMA cannot read in
+   place; fp32 and head dim 32 through the CUDA cores), with the route each
+   shape took, the HGMMA instructions in the tensor-core library's SASS
+   and each new kernel's ptxas registers, shared memory and spills;
 3. train: full-width llama3.2-1b in bf16 with seeded random weights,
    ``TokenStream`` data, remat, B 4 x S 2048, lr 3e-3 with 5 warm-up steps:
    6 steps with finite, falling loss and 2 flash launches per layer per
-   step (forward and remat recompute), a checkpoint at step 3 that a fresh
+   step (forward and remat recompute), every one on the tensor-core
+   route, a checkpoint at step 3 that a fresh
    ``Trainer`` restores to reproduce step 4's loss, two steps under
    ``torch.profiler`` (busy share, the flash kernel in situ, the attention
    backward's plain recompute), a step with accum 2, and one fp32 step (B 1
@@ -41,9 +49,10 @@ failure (the script then exits non-zero):
    prompts past ``min_context`` (chunked prefill) and 2 short ones
    (bucketed prefill); every request completes and each kernel of the
    run's path launches once per layer per sparse decode step (bm25 once
-   per query, flash once per layer per bucketed prefill), every other
-   kernel never; every request retrieves in dsa-rag, only the long ones
-   (whose prompts fill MaC's 1024-token segments) in dsa-mac; then the
+   per query, flash once per layer per bucketed prefill, on the
+   tensor-core route), every other kernel never; every request retrieves
+   in dsa-rag, only the long ones (whose prompts fill MaC's 1024-token
+   segments) in dsa-mac; then the
    same requests again with four steady sparse decode polls under
    ``torch.profiler``, for the device's busy share and each kernel's
    in-situ time (tables under ``chiprun_out/``); one ``serve`` line per
@@ -375,6 +384,41 @@ def _bound(n_bytes, terms):
             "bytes": n_bytes, "operations": sum(n for n, _ in terms)}
 
 
+def _ptxas(source):
+    """Each kernel of a source's build: its registers, shared memory and
+    spills as ptxas reported them, and any performance warning
+    (``_build.BUILD_LOGS``; empty when the library was built by an earlier
+    run and only loaded)."""
+    from repro_torch.kernels import _build
+
+    out, name = [], None
+    for line in _build.BUILD_LOGS.get(source, "").splitlines():
+        if "Potential Performance Loss" in line:   # e.g. wgmma serialised
+            out.append({"warning": line.strip()})
+        elif "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes stack frame" in line and name:
+            out.append({"kernel": name, "spills": line.strip()})
+        elif "Used" in line and "registers" in line and out:
+            out[-1]["usage"] = line.split(":", 1)[1].strip()
+    return out
+
+
+def _hgmma_count(source):
+    """HGMMA (wgmma) instructions in a built library's SASS
+    (``cuobjdump -sass``)."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(source))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sum(line.count("HGMMA") for line in sass.splitlines())
+
+
 def _selected_pages(lengths, n_sel, ps, g, dev):
     """Selections as the sparse methods make them: distinct live pages of
     ``ps`` tokens in score order, -1 where a slot has fewer live pages than
@@ -406,7 +450,8 @@ def check_paged_attention(dev):
     # DSA: 128 pages of 16; Seer / LServe: 64 pages of 64 (a 4096 budget)
     dsa_pages = _selected_pages(lengths, 2048 // PAGE, PAGE, g, dev)
     blk_pages = _selected_pages(lengths, BUDGET // BLOCK, BLOCK, g, dev)
-    errs = {}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    errs, plans = {}, {}
     for name, pages, ps in [("DSA", dsa_pages, PAGE),
                             ("Seer/LServe", blk_pages, BLOCK)]:
         ko, kl = sda.paged_decode_attention(q, kc, vc, pages, lens,
@@ -415,7 +460,44 @@ def check_paged_attention(dev):
                                                    page_size=ps)
         errs[name] = _attn_check(f"paged attention {name} shape bf16", ko,
                                  kl, po, pl_)
+        pps, n_split = sda.split_plan(B, KV, G, pages.shape[1], ps, n_sm)
+        plans[name] = {"pages_per_split": pps, "splits": n_split,
+                       "ctas": B * KV * n_split}
     err, blk_err = errs["DSA"], errs["Seer/LServe"]
+
+    # the split's own edges at the DSA shape: one slot; a selection that is
+    # no multiple of the split (100 pages in splits of 14)
+    for name, rows, n_sel in [("one slot", [0], 2048 // PAGE),
+                              ("100 pages, ragged split", [0, 1, 2, 3],
+                               100)]:
+        pp = dsa_pages[rows, :n_sel].contiguous()
+        ll = lens[rows].contiguous()
+        a = sda.paged_decode_attention(q[rows], kc[rows], vc[rows], pp, ll,
+                                       page_size=PAGE)
+        r = sda.paged_decode_attention_plain(q[rows], kc[rows], vc[rows], pp,
+                                             ll, page_size=PAGE)
+        err = max(err, _attn_check(f"paged attention {name}", *a, *r))
+    # a slot whose selected pages all lie at or past its length, in splits
+    # of unequal size: out is the mean of v over every loaded token
+    n_sel = 13
+    pps, n_split = sda.split_plan(3, KV, G, n_sel, PAGE, n_sm)
+    if n_sel % pps == 0:
+        raise AssertionError(f"all-masked case: splits of {pps} pages are "
+                             f"not ragged")
+    pp = torch.arange(20, 20 + n_sel, dtype=torch.int32,
+                      device=dev).repeat(3, 1)
+    ll = torch.tensor([100, 0, 20 * PAGE], dtype=torch.int32, device=dev)
+    a = sda.paged_decode_attention(q[:3], kc[:3], vc[:3], pp, ll,
+                                   page_size=PAGE)
+    r = sda.paged_decode_attention_plain(q[:3], kc[:3], vc[:3], pp, ll,
+                                         page_size=PAGE)
+    err = max(err, _attn_check(f"paged attention all masked, splits of "
+                               f"{pps} pages and {n_sel % pps}", *a, *r))
+    want = vc[:3, 20 * PAGE:(20 + n_sel) * PAGE].float().mean(1)
+    got = a[0].reshape(3, KV, G, dh)
+    if float((got - want[:, :, None]).abs().max()) > ATTN_TOL:
+        raise AssertionError("all-masked slot in ragged splits is not the "
+                             "mean of v over its loaded tokens")
 
     # edge cases: fp32, a hole, an all-masked row, a length cut mid-page,
     # pages larger than the kernel's token tile, a ragged last tile
@@ -453,6 +535,7 @@ def check_paged_attention(dev):
         "replaces": "src/repro/kernels/sparse_decode_attention.py:66",
         "launches": None, "max_abs_err": err, **row,
         "tolerance": f"out abs {ATTN_TOL}, lse rel {ATTN_TOL}",
+        "split_plan": plans, "ptxas": _ptxas("paged_decode_attention"),
         "library": "scaled_dot_product_attention over the pre-gathered "
                    "selected pages with the validity mask (gather not timed)",
         "shape": f"DSA: q [{B},{Hq},{dh}] bf16, k/v [{B},{VIEW},{KV},{dh}] "
@@ -928,35 +1011,73 @@ def check_flash_attention(dev):
                                    64, 0, 20),
         "mixtral attention": (1, 8192, 32, 8, 128, 4096, 2),
     }
-    rows, err = {}, 0.0
+    def routed(name, fn, want_route):
+        """``fn()``, checked to launch once on ``want_route``."""
+        n0 = ops.flash_route_counts()
+        out = fn()
+        n1 = ops.flash_route_counts()
+        took = [r for r in n1 if n1[r] != n0[r]]
+        if took != [want_route] or n1[want_route] != n0[want_route] + 1:
+            raise AssertionError(f"flash {name}: routes {n0} -> {n1}, "
+                                 f"expected one {want_route} launch")
+        return out
+
+    rows, err, routes = {}, 0.0, {}
     for path, (B, S, H, KV, dh, w, pn) in shapes.items():
         q, k, v = qkv(B, S, H, KV, dh)
-        e = _flash_check(f"flash {path} bf16",
-                         fa.flash_attention(q, k, v, window=w),
+        got = routed(path, lambda: fa.flash_attention(q, k, v, window=w),
+                     fa.TENSOR_CORES)
+        routes[path] = fa.TENSOR_CORES
+        e = _flash_check(f"flash {path} bf16", got,
                          ops_plain_flash(q, k, v, w))
         err = max(err, e)
         rows[path] = dict(_flash_timing(q, k, v, w, plain_n=pn),
-                          path=path, max_abs_err=e,
+                          path=path, max_abs_err=e, route=fa.TENSOR_CORES,
                           shape=f"q [{B},{S},{H},{dh}] bf16, k/v [{B},{S},"
                                 f"{KV},{dh}] bf16, window {w or 'none'}")
         del q, k, v
         torch.cuda.empty_cache()
 
     # edge cases through the public op: ragged S, S below the tile, a
-    # window below the tile, G = 1, fp32, dh 32 and 128
-    f32 = torch.float32
+    # window below the tile, G = 1, fp32, dh 32 and 128; bf16 at dh 64 and
+    # 128 on the tensor cores, the rest on the CUDA cores
+    f32, bf16 = torch.float32, torch.bfloat16
     for name, B, S, H, KV, dh, w, dt in [
-            ("S=200 ragged", 2, 200, 8, 2, 64, 0, torch.bfloat16),
+            ("S=200 ragged", 2, 200, 8, 2, 64, 0, bf16),
             ("S=37 below the tile", 2, 37, 8, 8, 128, 0, f32),
-            ("window 48 below the tile", 2, 256, 8, 2, 64, 48,
-             torch.bfloat16),
+            ("bf16 S=37 below the tile", 2, 37, 8, 8, 128, 0, bf16),
+            ("window 48 below the tile", 2, 256, 8, 2, 64, 48, bf16),
             ("G=1", 1, 300, 4, 4, 32, 0, f32),
+            ("bf16 G=1", 1, 300, 4, 4, 64, 0, bf16),
+            ("bf16 dh 32", 1, 300, 4, 2, 32, 0, bf16),
             ("fp32 training heads", 1, 1024, 32, 8, 64, 0, f32),
-            ("fp32 window 96", 1, 700, 8, 2, 128, 96, f32)]:
+            ("fp32 window 96", 1, 700, 8, 2, 128, 96, f32),
+            ("bf16 window 96", 1, 700, 8, 2, 128, 96, bf16)]:
         q, k, v = qkv(B, S, H, KV, dh, dt)
-        err = max(err, _flash_check(f"flash {name}",
-                                    ops.flash_attention(q, k, v, window=w),
+        routes[name] = fa._route(dt, dh)
+        got = routed(name, lambda: ops.flash_attention(q, k, v, window=w),
+                     routes[name])
+        err = max(err, _flash_check(f"flash {name} ({routes[name]})", got,
                                     ops_plain_flash(q, k, v, w)))
+    # a bf16 view TMA cannot read in place (base 2 bytes off 16): copied
+    B, S, H, KV, dh = 2, 130, 8, 2, 64
+    qkv_ = torch.randn(B * S * (H + 2 * KV) * dh + 1, generator=g,
+                       device=dev).bfloat16()[1:].view(B, S, H + 2 * KV, dh)
+    q, k, v = qkv_[:, :, :H], qkv_[:, :, H:H + KV], qkv_[:, :, H + KV:]
+    if q.data_ptr() % 16 == 0:
+        raise AssertionError("the misaligned view is aligned")
+    got = routed("misaligned view", lambda: fa.flash_attention(
+        q, k, v, window=50), fa.TENSOR_CORES)
+    routes["bf16 view 2 bytes off 16"] = fa.TENSOR_CORES
+    err = max(err, _flash_check("flash bf16 view 2 bytes off 16", got,
+                                ops_plain_flash(q.contiguous(),
+                                                k.contiguous(),
+                                                v.contiguous(), 50)))
+    hgmma = _hgmma_count("flash_attention_sm90")
+    log(f"  flash tensor-core library: {hgmma} HGMMA instructions in its "
+        f"SASS")
+    if not hgmma:
+        raise AssertionError("no HGMMA in the tensor-core flash library")
 
     # gradients: B 1, S 1024, llama's heads, fp32, a random cotangent
     q, k, v = qkv(1, 1024, 32, 8, 64, f32)
@@ -980,10 +1101,16 @@ def check_flash_attention(dev):
     head = rows.pop("train")
     return {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:70",
         "launches": None, **head, "max_abs_err": err,
-        "grad_max_abs_err": grad_err,
+        "grad_max_abs_err": grad_err, "routes": routes,
+        "sources_by_route": {
+            fa.TENSOR_CORES: "src/repro_torch/csrc/flash_attention_sm90.cu",
+            fa.CUDA_CORES: "src/repro_torch/csrc/flash_attention.cu"},
+        "hgmma_instructions": hgmma,
+        "ptxas": {src: _ptxas(src) for src in ("flash_attention_sm90",
+                                               "flash_attention")},
         "tolerance": f"fp32 out abs {ATTN_TOL}; bf16 out within one bf16 "
                      f"ulp (rtol {BF16_ULP[0]}, atol {BF16_ULP[1]}); "
                      f"gradients abs {ATTN_TOL} x max(1, max|g|)",
@@ -1104,6 +1231,7 @@ def phase_train(dev):
                 tr.save()
                 save_s = time.perf_counter() - t0
         counts = ops.launch_counts()
+        routes = ops.flash_route_counts()
         peak = torch.cuda.max_memory_allocated()
         log(f"  losses {[round(x, 4) for x in losses]}, step s "
             f"{[round(x, 3) for x in step_s]}, flash launches per step "
@@ -1114,6 +1242,9 @@ def phase_train(dev):
             raise AssertionError(f"train: loss did not fall: {losses}")
         if per_step != [2 * L] * TRAIN_STEPS:
             raise AssertionError(f"train: flash launches per step {per_step}")
+        if routes != {"tensor_cores": counts["flash_attention"],
+                      "cuda_cores": 0}:
+            raise AssertionError(f"train bf16: flash routes {routes}")
         if any(n for name, n in counts.items() if name != "flash_attention"):
             raise AssertionError(f"train: other kernels launched {counts}")
 
@@ -1160,12 +1291,13 @@ def phase_train(dev):
         "step_ms_median": 1e3 * step_med, "tokens_per_s": toks / step_med,
         "peak_memory_bytes": peak,
         "flash_launches": counts["flash_attention"],
+        "flash_launches_by_route": routes,
         "flash_launches_per_step": per_step,
         "accum2_flash_launches": accum_launches,
         "ckpt_save_s": save_s, "ckpt_restore_s": restore_s,
         "resume_step4_loss": resumed, "resume_rel_err": rel,
         "profiled_steps": profile, "fp32_compare": compare}}), flush=True)
-    return counts["flash_attention"], profile["flash_ms_in_situ"]
+    return counts["flash_attention"], profile["flash_ms_in_situ"], routes
 
 
 def _train_compare(dev, cfg):
@@ -1345,7 +1477,11 @@ KERNEL_SYMBOLS = {"relevancy_topk_candidates": "relevancy_topk_kernel",
                   "page_minmax": "page_minmax_kernel",
                   # both routes: bm25_topk_reg_kernel<C>, bm25_topk_sort_kernel
                   "bm25_topk_candidates": "bm25_topk_",
-                  "flash_attention": "flash_attention_kernel"}
+                  # both routes: flash_attention_kernel<T, DH>,
+                  # flash_attention_sm90_kernel<DH>
+                  "flash_attention": "flash_attention_"}
+# a kernel a call launches after its first, counted in its in-situ time
+FOLLOWERS = {"paged_decode_attention": "paged_decode_combine_kernel"}
 
 
 class _Profile:
@@ -1396,7 +1532,9 @@ class _Profile:
             hits = [e for e in avgs if sym in e.key]
             if not hits:
                 raise AssertionError(f"profile: no {sym} in the decode polls")
-            n = sum(e.count for e in hits)
+            n = sum(e.count for e in hits)   # one per call
+            if name in FOLLOWERS:
+                hits += [e for e in avgs if FOLLOWERS[name] in e.key]
             in_situ[name] = sum(e.self_device_time_total for e in hits) \
                 / n / 1e3
         self.result = {"polls": self.polls, "wall_us": wall_us,
@@ -1416,6 +1554,7 @@ def phase_serve(dev, label: str):
     ops.reset_launch_counts()
     run = serve("bfloat16", dev, label)
     counts = ops.launch_counts()
+    routes = ops.flash_route_counts()
     eng, handles, wall, cfg = run.eng, run.handles, run.wall, run.cfg
     want = cfg.n_layers * eng.stats["sparse_steps"]
     queries = len(run.events)      # every launched query was collected
@@ -1436,6 +1575,8 @@ def phase_serve(dev, label: str):
         if n != expect[name]:
             raise AssertionError(f"{label}: {name} launched {n} times, "
                                  f"expected {expect[name]}")
+    if routes != {"tensor_cores": counts["flash_attention"], "cuda_cores": 0}:
+        raise AssertionError(f"{label}: bf16 flash routes {routes}")
     toks = sum(len(h.tokens) for h in handles)
     ttft = sorted(h.ttft_s() for h in handles)
     stats = eng.stats
@@ -1460,12 +1601,13 @@ def phase_serve(dev, label: str):
         "decode_step_ms_median": 1e3 * statistics.median(stats["step_s"]),
         "prefill_s": stats["prefill_s"],
         "bucket_prefills": stats["bucket_prefills"], "launches": counts,
+        "flash_launches_by_route": routes,
         "profiled_decode": profile,
     }
     if retrieval is not None:
         summary["retrieval"] = retrieval
     print(json.dumps({"serve": summary}), flush=True)
-    return counts, profile
+    return counts, profile, routes
 
 
 def phase_compare(dev, label: str):
@@ -1701,24 +1843,27 @@ def main(argv=None):
             if k["name"] == "flash_attention":
                 continue
             # launches: the count of the kernel's home path's own run
-            by_path = {m: c[k["name"]] for m, (c, _) in runs.items()}
+            by_path = {m: c[k["name"]] for m, (c, _, _) in runs.items()}
             k["launches"] = by_path[HOME_PATH[k["name"]]]
             k["launches_by_path"] = by_path
             k["ms_in_situ_by_path"] = {
                 m: p["kernel_ms_in_situ"][k["name"]]
-                for m, (_, p) in runs.items()
+                for m, (_, p, _) in runs.items()
                 if k["name"] in p["kernel_ms_in_situ"]}
             k["ms_in_situ"] = k["ms_in_situ_by_path"].get(HOME_PATH[k["name"]])
     for k in kernels:
         if k["name"] != "flash_attention":
             continue
         # the train phase is its home path; serve runs prefill through it
-        by_path = {m: c["flash_attention"] for m, (c, _) in runs.items()} \
+        by_path = {m: c["flash_attention"] for m, (c, _, _) in runs.items()} \
+            if "serve" in phases else {}
+        by_route = {m: r for m, (_, _, r) in runs.items()} \
             if "serve" in phases else {}
         if flash is not None:
-            k["launches"], k["ms_in_situ"] = flash
+            k["launches"], k["ms_in_situ"], by_route["train"] = flash
             by_path["train"] = flash[0]
         k["launches_by_path"] = by_path
+        k["launches_by_route_by_path"] = by_route
     if "modes" in phases:
         log("[5] dsa-rag: retrieval inline vs sync vs overlap")
         phase_modes(dev)

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("relevancy_topk", "paged_decode_attention", "page_minmax",
-           "bm25_topk", "flash_attention")
+           "bm25_topk", "flash_attention", "flash_attention_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -3,9 +3,14 @@
 
 Causal softmax attention with GQA (query head h reads kv head h // G, G =
 H // KV) and an optional sliding window, in fp32, output in q's dtype.
-``flash_attention`` launches the CUDA kernel (``csrc/flash_attention.cu``)
-for CUDA tensors and runs ``flash_attention_plain`` for CPU tensors; it never
-falls back from one to the other.
+``flash_attention`` launches a CUDA kernel for CUDA tensors and runs
+``flash_attention_plain`` for CPU tensors; it never falls back from one to
+the other. On the card ``_route`` picks the kernel by dtype and head dim
+alone: bf16 at head dim 64 or 128 goes to the tensor-core kernel
+(``csrc/flash_attention_sm90.cu``: TMA loads, wgmma, P split into bf16 high
+and low parts), everything else to the CUDA-core kernel
+(``csrc/flash_attention.cu``: every product an fp32 FMA), the exact route.
+``ROUTE_LAUNCHES`` counts the launches of each route.
 
 ``FlashAttention`` makes it differentiable. The JAX package has no backward
 kernel: its training differentiates XLA's ``attention_full`` outside any
@@ -25,7 +30,11 @@ from repro_torch.kernels import ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-HEAD_DIMS = (32, 64, 128)     # the kernel's template cases
+HEAD_DIMS = (32, 64, 128)     # the CUDA-core kernel's template cases
+TC_HEAD_DIMS = (64, 128)      # the tensor-core kernel's
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
+#: launches of each route since the last reset (``ops.reset_launch_counts``)
+ROUTE_LAUNCHES = {TENSOR_CORES: 0, CUDA_CORES: 0}
 
 
 def flash_attention_plain(q, k, v, *, window: int = 0):
@@ -34,13 +43,28 @@ def flash_attention_plain(q, k, v, *, window: int = 0):
     return ref.flash_attention(q, k, v, window=window or None)
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x`` if the kernel can read it through its strides (channel stride 1,
-    every stride and the base a multiple of 4 elements), else a contiguous
-    copy."""
-    ok = (x.stride(-1) == 1 and all(s % 4 == 0 for s in x.stride()[:-1])
-          and x.data_ptr() % (4 * x.element_size()) == 0)
-    return x if ok else x.clone(memory_format=torch.contiguous_format)
+def _route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel a CUDA call takes, by dtype and head dim only."""
+    if dtype == torch.bfloat16 and dh in TC_HEAD_DIMS:
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def _readable(strides, ptr: int, itemsize: int, route: str) -> bool:
+    """Whether a kernel can read a tensor in place: channel stride 1, and
+    the base and every other stride a multiple of 16 bytes for the
+    tensor-core route (TMA's rule), of 4 elements for the CUDA-core one."""
+    align = 16 if route == TENSOR_CORES else 4 * itemsize
+    return (strides[-1] == 1 and ptr % align == 0
+            and all(s * itemsize % align == 0 for s in strides[:-1]))
+
+
+def _aligned(x: torch.Tensor, route: str) -> torch.Tensor:
+    """``x`` if the route's kernel can read it through its strides, else a
+    contiguous copy."""
+    if _readable(x.stride(), x.data_ptr(), x.element_size(), route):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention(q, k, v, *, window: int = 0):
@@ -66,20 +90,30 @@ def flash_attention(q, k, v, *, window: int = 0):
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    route = _route(q.dtype, dh)
+    q, k, v = (_aligned(t, route) for t in (q, k, v))
     strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, out)
                                          for s in t.stride()[:3]])
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_cuda
-    fn.restype = _I
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                   _I, _P, _P]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-             H, H // KV, dh, window, 1.0 / math.sqrt(dh),
-             int(q.dtype == torch.bfloat16), strides, stream)
-    _build.check(lib, err, "flash_attention")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, H // KV, dh, window, 1.0 / math.sqrt(dh))
+    if route == TENSOR_CORES:
+        lib = _build.load("flash_attention_sm90")
+        fn = lib.flash_attention_sm90_cuda
+        fn.restype = _I
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _P, _P]
+        err = fn(*args, strides, stream)
+    else:
+        lib = _build.load("flash_attention")
+        fn = lib.flash_attention_cuda
+        fn.restype = _I
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _I, _P, _P]
+        err = fn(*args, int(q.dtype == torch.bfloat16), strides, stream)
+    _build.check(lib, err, f"flash_attention ({route})")
     flash_attention.launches += 1
+    ROUTE_LAUNCHES[route] += 1
     return out
 
 

@@ -47,6 +47,13 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for route in _fa.ROUTE_LAUNCHES:
+        _fa.ROUTE_LAUNCHES[route] = 0
+
+
+def flash_route_counts() -> Dict[str, int]:
+    """``flash_attention``'s launches by route (tensor cores, CUDA cores)."""
+    return dict(_fa.ROUTE_LAUNCHES)
 
 
 def _pow2_block(n: int, want: int) -> int:

@@ -7,12 +7,16 @@ online softmax, and returns (out, lse) so partial results can be LSE-merged.
 ``paged_decode_attention`` launches the CUDA kernel
 (``csrc/paged_decode_attention.cu``) for CUDA tensors and runs
 ``paged_decode_attention_plain`` for CPU tensors; it never falls back from one
-to the other.
+to the other. The kernel cuts each slot's selection into runs of whole pages
+(``split_plan``), one CTA each, and folds the runs' (m, l, acc) partials in
+a second pass; ``paged_decode_attention_split`` is that algorithm in plain
+torch, held against the reference by the tests.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -21,6 +25,107 @@ from repro_torch.kernels import ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+#: tokens a split aims at: 2 x 8 KB of bf16 K/V rows at head dim 64
+SPLIT_TOKENS = 256
+HEADS_PER_CTA = 4      # the kernel's kGT
+_SM_COUNT = {}
+
+
+def split_plan(B: int, KV: int, G: int, n_sel: int, ps: int,
+               n_sm: int) -> Tuple[int, int]:
+    """(pages per split, splits) for ``n_sel`` selected pages of ``ps``
+    tokens: about SPLIT_TOKENS tokens a split, and at least enough splits
+    that B x KV x head groups x splits CTAs fill ``n_sm`` SMs once, at most
+    one split a page. Every split holds at least one page; the last may hold
+    fewer than the others."""
+    n_sel = max(n_sel, 1)
+    ctas = B * KV * -(-G // HEADS_PER_CTA)
+    want = max(-(-n_sel * ps // SPLIT_TOKENS), -(-n_sm // max(ctas, 1)))
+    pps = max(n_sel // want, 1)
+    return pps, -(-n_sel // pps)
+
+
+def split_partials(q, k_cache, v_cache, page_ids, length, *, page_size: int,
+                   pages_per_split: int):
+    """Per split of ``pages_per_split`` pages: (m, l, acc) of each query
+    head, m the max masked score, l = sum e^(s - m), acc = sum e^(s - m) v,
+    all fp32: m, l [N, B, Hq], acc [N, B, Hq, dh]. Masks as the reference:
+    -1e30 for a -1 page (which reads page 0) or a token at or past
+    ``length``."""
+    B, S, KV, dh = k_cache.shape
+    Hq = q.shape[1]
+    G, ps = Hq // KV, page_size
+    n_sel = page_ids.shape[1]
+    qg = q.reshape(B, KV, G, dh).float() / math.sqrt(dh)
+    lb = torch.as_tensor(length, device=q.device).reshape(-1).expand(B)
+    rows = torch.arange(B, device=q.device)[:, None]
+    out = []
+    for p0 in range(0, n_sel, pages_per_split):
+        ids = page_ids[:, p0:p0 + pages_per_split]
+        safe = ids.clamp(min=0).long()
+        n = ids.shape[1] * ps
+        kg = k_cache.reshape(B, S // ps, ps, KV, dh)[rows, safe] \
+            .reshape(B, n, KV, dh).float()
+        vg = v_cache.reshape(B, S // ps, ps, KV, dh)[rows, safe] \
+            .reshape(B, n, KV, dh).float()
+        pos = (safe[:, :, None] * ps + torch.arange(ps, device=q.device)) \
+            .reshape(B, n)
+        valid = (ids[:, :, None] >= 0).expand(-1, -1, ps).reshape(B, n) \
+            & (pos < lb[:, None])
+        sc = torch.einsum("bkgd,bnkd->bkgn", qg, kg)
+        sc = torch.where(valid[:, None, None], sc,
+                         torch.full_like(sc, ref.NEG_INF))
+        m = sc.amax(-1)
+        p = torch.exp(sc - m[..., None])
+        acc = torch.einsum("bkgn,bnkd->bkgd", p, vg)
+        out.append((m.reshape(B, Hq), p.sum(-1).reshape(B, Hq),
+                    acc.reshape(B, Hq, dh)))
+    m, l, acc = (torch.stack(t) for t in zip(*out))
+    return m, l, acc
+
+
+def combine_partials(m, l, acc):
+    """Fold split partials (``split_partials``) in split order: M = max m_i,
+    L = sum l_i e^(m_i - M), out = sum acc_i e^(m_i - M) / max(L, 1e-30),
+    lse = M + log(max(L, 1e-30)). The counts stay in l, so a slot with no
+    valid token gets the mean of v over every token it loaded, as the
+    reference does; an (out, lse) merge (``lse_merge``) would not."""
+    M = m.amax(0)
+    w = torch.exp(m - M[None])
+    L = (l * w).sum(0).clamp(min=1e-30)
+    out = (acc * w[..., None]).sum(0) / L[..., None]
+    return out, M + torch.log(L)
+
+
+def paged_decode_attention_split(q, k_cache, v_cache, page_ids, length, *,
+                                 page_size: int = 64,
+                                 pages_per_split: int = 1):
+    """The kernel's algorithm in plain torch: per-split (m, l, acc), then the
+    combine. -> (out [B,Hq,dh] fp32, lse [B,Hq] fp32)."""
+    return combine_partials(*split_partials(
+        q, k_cache, v_cache, page_ids, length, page_size=page_size,
+        pages_per_split=pages_per_split))
+
+
+def _sm_count(dev) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def _row_chunks_ok(dh: int, itemsize: int) -> bool:
+    """The kernel reads a token row as 16-byte chunks, at most 32 of them."""
+    return dh * itemsize % 16 == 0 and dh * itemsize <= 512
+
+
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous with a 16-byte-aligned base (cp.async's rule)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _lengths(length, B: int, device) -> torch.Tensor:
@@ -58,24 +163,32 @@ def paged_decode_attention(q, k_cache, v_cache, page_ids, length, *,
             and q.dtype in (torch.float32, torch.bfloat16)):
         raise TypeError(f"q/k/v must share fp32 or bf16, got {q.dtype}/"
                         f"{k_cache.dtype}/{v_cache.dtype}")
+    if not _row_chunks_ok(dh, q.element_size()):
+        raise ValueError(f"head dim {dh} x {q.element_size()} bytes must be "
+                         f"a multiple of 16 bytes, at most 512")
     dev = k_cache.device
     if not (q.device == v_cache.device == page_ids.device == dev):
         raise ValueError("q, k, v and page_ids must be on one CUDA device")
-    q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), \
-        v_cache.contiguous()
+    q, k_cache, v_cache = (_aligned16(t) for t in (q, k_cache, v_cache))
     pages = page_ids.to(torch.int32).contiguous()
+    n_sel = pages.shape[1]
     lens = _lengths(length, B, dev)
+    pps, n_split = split_plan(B, KV, Hq // KV, n_sel, ps, _sm_count(dev))
     out = torch.empty((B, Hq, dh), dtype=torch.float32, device=dev)
     lse = torch.empty((B, Hq), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((B, Hq, n_split, 2), dtype=torch.float32,
+                          device=dev)
+    part_acc = torch.empty((B, Hq, n_split, dh), dtype=torch.float32,
+                           device=dev)
     lib = _build.load("paged_decode_attention")
     fn = lib.paged_decode_attention_cuda
     fn.restype = _I
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   ctypes.c_float, _I, _P]
+    fn.argtypes = [_P] * 9 + [_I] * 9 + [ctypes.c_float, _I, _P]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             pages.data_ptr(), lens.data_ptr(), out.data_ptr(), lse.data_ptr(),
-             B, S, KV, Hq // KV, dh, ps, pages.shape[1], math.sqrt(dh),
+             pages.data_ptr(), lens.data_ptr(), part_ml.data_ptr(),
+             part_acc.data_ptr(), out.data_ptr(), lse.data_ptr(),
+             B, S, KV, Hq // KV, dh, ps, n_sel, pps, n_split, math.sqrt(dh),
              int(q.dtype == torch.bfloat16), stream)
     _build.check(lib, err, "paged_decode_attention")
     paged_decode_attention.launches += 1

@@ -7,7 +7,8 @@ fixture, never at import). Run on the card with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 Tolerances as in ``chip_smoke.py``: both sides compute in fp32; page
 min/max is exact (min and max of values cast exactly to fp32); BM25 ids
-equal, exactly where scores tie.
+equal, exactly where scores tie; bf16 flash outputs within one bf16 ulp of
+the plain version's (both round an fp32 result).
 """
 import pytest
 
@@ -246,6 +247,125 @@ def test_flash_attention_gradients(dev):
         grads.append([t.grad for t in ts])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+
+
+def _bf16_close(got, want):
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=2.0 ** -8)
+
+
+@pytest.mark.parametrize("B,S,H,KV,dh,window", [
+    (4, 2048, 32, 8, 64, 0),      # training (llama3.2-1b)
+    (2, 512, 32, 8, 64, 0),       # bucketed prefill
+    (1, 8192, 32, 8, 128, 4096),  # mixtral's window
+    (2, 200, 8, 2, 64, 0),        # ragged S
+    (2, 37, 8, 8, 128, 0),        # S below the tile
+    (2, 256, 8, 2, 64, 48),       # a window below the tile
+    (1, 300, 4, 4, 64, 0),        # G = 1
+    (1, 700, 8, 2, 128, 96),
+])
+def test_flash_attention_tensor_core_route(dev, B, S, H, KV, dh, window):
+    """bf16 at head dim 64 and 128 takes the tensor-core kernel, within one
+    bf16 ulp of the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn(B, S, n, dh, generator=g, device=dev).bfloat16()
+               for n in (H, KV, KV))
+    n0 = dict(fa.ROUTE_LAUNCHES)
+    got = fa.flash_attention(q, k, v, window=window)
+    assert fa.ROUTE_LAUNCHES[fa.TENSOR_CORES] == n0[fa.TENSOR_CORES] + 1
+    assert fa.ROUTE_LAUNCHES[fa.CUDA_CORES] == n0[fa.CUDA_CORES]
+    _bf16_close(got, ref.flash_attention(q, k, v, window=window or None))
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 64),
+                                      (torch.float32, 128),
+                                      (torch.bfloat16, 32)])
+def test_flash_attention_cuda_core_route(dev, dtype, dh):
+    """fp32, and bf16 at a head dim the tensor-core kernel does not take,
+    stay on the CUDA-core kernel."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn(1, 150, n, dh, generator=g, device=dev).to(dtype)
+               for n in (4, 2, 2))
+    n0 = dict(fa.ROUTE_LAUNCHES)
+    got = fa.flash_attention(q, k, v)
+    assert fa.ROUTE_LAUNCHES[fa.CUDA_CORES] == n0[fa.CUDA_CORES] + 1
+    assert fa.ROUTE_LAUNCHES[fa.TENSOR_CORES] == n0[fa.TENSOR_CORES]
+    want = ref.flash_attention(q, k, v)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    else:
+        _bf16_close(got, want)
+
+
+def test_flash_attention_tensor_core_copies_misaligned_views(dev):
+    """bf16 views whose base is 2 bytes off 16 (no TMA) are copied, and the
+    result equals the plain version on contiguous copies."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    B, S, H, KV, dh = 2, 130, 8, 2, 64
+    qkv = torch.randn(B, S, H + 2 * KV + 1, dh, generator=g,
+                      device=dev).bfloat16().reshape(-1)[1:]
+    qkv = qkv[:B * S * (H + 2 * KV) * dh].view(B, S, H + 2 * KV, dh)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert q.data_ptr() % 16 != 0
+    n0 = fa.ROUTE_LAUNCHES[fa.TENSOR_CORES]
+    got = fa.flash_attention(q, k, v, window=50)
+    assert fa.ROUTE_LAUNCHES[fa.TENSOR_CORES] == n0 + 1
+    _bf16_close(got, ref.flash_attention(q.contiguous(), k.contiguous(),
+                                         v.contiguous(), window=50))
+
+
+@pytest.mark.parametrize("B,n_sel,ps", [
+    (4, 128, 16),     # DSA on llama3.2-1b: 8 splits of 16 pages
+    (4, 64, 64),      # Seer / LServe: 16 splits of 4 pages
+    (1, 128, 16),     # one slot: 19 splits, the last of 2 pages
+    (4, 100, 16),     # n_sel x ps not a multiple of the split
+])
+def test_paged_decode_attention_split_shapes(dev, B, n_sel, ps):
+    g = torch.Generator(device=dev).manual_seed(10)
+    KV, G, dh, S = 8, 4, 64, 8192
+    q = torch.randn(B, KV * G, dh, generator=g, device=dev).bfloat16()
+    kc = torch.randn(B, S, KV, dh, generator=g, device=dev).bfloat16()
+    vc = torch.randn(B, S, KV, dh, generator=g, device=dev).bfloat16()
+    pages = torch.stack([torch.randperm(S // ps, generator=g, device=dev)
+                         [:n_sel] for _ in range(B)]).to(torch.int32)
+    length = torch.full((B,), S - 100, dtype=torch.int32, device=dev)
+    ko, kl = sda.paged_decode_attention(q, kc, vc, pages, length,
+                                        page_size=ps)
+    po, pl_ = ref.paged_decode_attention(q, kc, vc, pages, ps, length)
+    torch.testing.assert_close(ko, po, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(kl, pl_, rtol=TOL, atol=TOL)
+
+
+def test_paged_decode_attention_all_masked_ragged_split(dev):
+    """A slot whose selected pages all lie at or past its length, in splits
+    of unequal size: the output is the mean of v over every loaded token
+    (an (out, lse) merge of the splits would weight the splits equally)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, KV, G, dh, S, ps, n_sel = 3, 8, 4, 64, 1024, 16, 13
+    pps, n_split = sda.split_plan(B, KV, G, n_sel, ps, n_sm=torch.cuda
+                                  .get_device_properties(dev)
+                                  .multi_processor_count)
+    assert n_sel % pps != 0, (pps, n_split)      # a ragged last split
+    q = torch.randn(B, KV * G, dh, generator=g, device=dev).bfloat16()
+    kc = torch.randn(B, S, KV, dh, generator=g, device=dev).bfloat16()
+    vc = torch.randn(B, S, KV, dh, generator=g, device=dev).bfloat16()
+    pages = torch.arange(20, 20 + n_sel, dtype=torch.int32,
+                         device=dev).repeat(B, 1)
+    length = torch.tensor([100, 0, 320], dtype=torch.int32, device=dev)
+    ko, kl = sda.paged_decode_attention(q, kc, vc, pages, length,
+                                        page_size=ps)
+    want = vc[:, 20 * ps:(20 + n_sel) * ps].float().mean(1)  # [B,KV,dh]
+    torch.testing.assert_close(ko.reshape(B, KV, G, dh),
+                               want[:, :, None].expand(B, KV, G, dh),
+                               rtol=TOL, atol=TOL)
+    po, pl_ = ref.paged_decode_attention(q, kc, vc, pages, ps, length)
+    torch.testing.assert_close(kl, pl_, rtol=TOL, atol=TOL)
 
 
 def test_train_step_kernel_matches_plain(dev):
