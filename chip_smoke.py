@@ -32,6 +32,11 @@ failure (the script then exits non-zero):
    place; fp32 and head dim 32 through the CUDA cores), with the route each
    shape took, the HGMMA instructions in the tensor-core library's SASS
    and each new kernel's ptxas registers, shared memory and spills;
+   relevancy and BM25 with each timed shape's cluster split (CTAs a block,
+   the scoring route), the HMMA instructions in the relevancy library's
+   SASS, both sources' ptxas reports, and the split's own edges (nb > 1
+   with B > 1, valid_len inside a chunk, c below the block, a live count
+   inside a cluster's first CTA);
 3. train: full-width llama3.2-1b in bf16 with seeded random weights,
    ``TokenStream`` data, remat, B 4 x S 2048, lr 3e-3 with 5 warm-up steps:
    6 steps with finite, falling loss and 2 flash launches per layer per
@@ -303,6 +308,26 @@ def check_relevancy(dev):
         err = max(err, _topk_check(f"relevancy {name}", a[0], a[1], b[0],
                                    b[1]))
 
+    # the cluster split's own edges, through the candidates: nb > 1 with
+    # B > 1, valid_len inside a chunk, c below the block (a CTA's run
+    # shorter than c), each at fp32 and bf16
+    for name, b, s, blk, c, vl in [("nb 4 x B 3", 3, 2048, 512, 0, 0),
+                                   ("valid_len mid-chunk", 2, 512, 512, 0,
+                                    300),
+                                   ("c 40 < block", 2, 1024, 512, 40, 700)]:
+        for dt in (torch.bfloat16, torch.float32):
+            qq = torch.randn(b, Hq, dk, generator=g, device=dev).to(dt)
+            kk = torch.randn(b, s, dk, generator=g, device=dev).to(dt)
+            kk[-1, s // 4:] = 0                  # exact ties at zero
+            ww = torch.softmax(torch.randn(b, Hq, generator=g, device=dev), -1)
+            a = rt.relevancy_topk_candidates(qq, kk, ww, block=blk, c=c,
+                                             valid_len=vl)
+            r = rt.relevancy_topk_candidates_plain(qq, kk, ww, block=blk, c=c,
+                                                   valid_len=vl)
+            err = max(err, _topk_check(f"relevancy {name} {dt}, "
+                                       f"{_relevancy_plan(kk, blk, c)}",
+                                       *a, *r))
+
     # Seer's shape: one gated query head (dk = index_dim 128), unit weight,
     # the view's 128 pooled 64-token blocks (zero past the live length),
     # top-64 of one 128-key block
@@ -324,6 +349,14 @@ def check_relevancy(dev):
     # the ops just before the kernel
     row = _relevancy_timing(q, keys, w, block)
     seer = _relevancy_timing(qs, ks, ws, sblk)
+    plans = {"DSA": _relevancy_plan(keys, block, 0),
+             "Seer": _relevancy_plan(ks, sblk, 0)}
+    for name, plan in plans.items():
+        log(f"  relevancy split plan at {name}'s shape: {plan}")
+    hmma = _sass_count("relevancy_topk", "HMMA")
+    log(f"  relevancy library: {hmma} HMMA instructions in its SASS")
+    if not hmma:
+        raise AssertionError("no HMMA in the relevancy library")
     return {
         "name": "relevancy_topk_candidates", "route": "cuda",
         "source": "src/repro_torch/csrc/relevancy_topk.cu",
@@ -332,6 +365,8 @@ def check_relevancy(dev):
         "timing": "L2-warm (on the path its inputs are written just before)",
         "tolerance": f"values {TOPK_VAL_TOL} x row max|score|; indices "
                      f"equal outside the tie band",
+        "split_plan": plans, "ptxas": _ptxas("relevancy_topk"),
+        "hmma_in_sass": hmma,
         "shape": f"DSA: q [{B},{Hq},{dk}] bf16, keys [{B},{S},{dk}] bf16, "
                  f"block {block}, c {block}",
         "other_shapes": [dict(
@@ -339,6 +374,27 @@ def check_relevancy(dev):
             shape=f"q [{B},1,{dk}] bf16, keys [{B},{nblk},{dk}] bf16, "
                   f"w ones, block {sblk}, c {sblk}, top-{n_sel}")],
     }
+
+
+def _split(x, block, c):
+    """The cluster split of a top-c kernel's call on x [B, S or D, ...]."""
+    import torch
+    from repro_torch.kernels import relevancy_topk as rt
+
+    B, S = x.shape[:2]
+    nb = S // block
+    n = rt.split_plan(B, nb, block, c, n_sm=torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    return {"n_cta": n, "ctas": B * nb * n, "chunk": block // n}
+
+
+def _relevancy_plan(keys, block, c):
+    """The relevancy kernel's cluster split and scoring route for a call."""
+    from repro_torch.kernels import relevancy_topk as rt
+
+    tc = rt.uses_tensor_cores(keys.dtype, keys.shape[2])
+    return dict(_split(keys, block, c or block),
+                route="tensor cores (mma.sync bf16)" if tc else "CUDA cores")
 
 
 def _relevancy_timing(q, keys, w, block):
@@ -353,13 +409,13 @@ def _relevancy_timing(q, keys, w, block):
     B, Hq, dk = q.shape
     S = keys.shape[1]
     nb, c = S // block, block
-    L2 = int(math.log2(block))
     n_bytes = (q.numel() + keys.numel()) * q.element_size() \
         + w.numel() * 4 + B * nb * c * 8
     # q.k products of bf16 inputs: exact on the tensor cores (bf16 products,
-    # fp32 accumulation); relu.w terms and compare-exchanges on fp32 cores
+    # fp32 accumulation); on fp32 cores the relu.w terms and the log2(block)
+    # compares a key that ordering a block by comparisons needs at least
     dots = 2 * B * S * Hq * dk
-    rest = 2 * B * S * Hq + B * nb * (block // 2) * L2 * (L2 + 1) // 2
+    rest = 2 * B * S * Hq + B * S * max(1, int(math.log2(block)))
     return {"ms": ms, "plain_ms": plain_ms,
             **_bound(n_bytes, [(dots, _dot_rate(q, keys)),
                                (rest, FP32_FLOP_PER_S)])}
@@ -404,9 +460,9 @@ def _ptxas(source):
     return out
 
 
-def _hgmma_count(source):
-    """HGMMA (wgmma) instructions in a built library's SASS
-    (``cuobjdump -sass``)."""
+def _sass_count(source, mnemonic):
+    """Instructions of a mnemonic (HGMMA: wgmma, HMMA: mma.sync) in a built
+    library's SASS (``cuobjdump -sass``)."""
     import shutil
 
     from repro_torch.kernels import _build
@@ -416,7 +472,7 @@ def _hgmma_count(source):
     sass = subprocess.run([tool, "-sass", str(_build.library_path(source))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    return sum(line.count("HGMMA") for line in sass.splitlines())
+    return sum(line.count(mnemonic) for line in sass.splitlines())
 
 
 def _selected_pages(lengths, n_sel, ps, g, dev):
@@ -782,7 +838,10 @@ def check_bm25(dev):
              ("duplicated rows", panel(2, 1024, 8, dup=True), 32, 256, None,
               False),
              ("B=4, T=1", panel(4, 4096, 1), 16, 1024, None, False),
-             ("3 live docs < c", panel(1, 1024, 8), 8, 256, 3, True)]
+             ("3 live docs < c", panel(1, 1024, 8), 8, 256, 3, True),
+             # 8192 + 100 live: the count falls in block 2's first CTA
+             ("nd in a cluster's first CTA", panel(1, 16384, 8), 16, blk,
+              8292, False)]
     for name, (a_tf, a_dl, a_idf), k, b, valid, exact in cases:
         if valid is not None and a_tf.shape[1] % b == 0:
             kc = bm.bm25_topk_candidates(a_tf, a_dl, a_idf, block=b, c=k,
@@ -806,6 +865,10 @@ def check_bm25(dev):
             raise AssertionError("bm25 all-zero panel: ids are not 0..k-1")
 
     row = _bm25_timing(state, terms, tfq, dln, idf, nd, blk)
+    plans = {"serving": _split(tfq, blk, RAG_K),
+             "Fig. 10": _split(f_tf, blk, FK)}
+    for name, plan in plans.items():
+        log(f"  bm25 split plan at the {name} shape: {plan}")
     return {
         "name": "bm25_topk_candidates", "route": "cuda",
         "source": "src/repro_torch/csrc/bm25_topk.cu",
@@ -815,6 +878,7 @@ def check_bm25(dev):
         "tolerance": f"values {TOPK_VAL_TOL} x row max|score|; indices "
                      f"equal outside the tie band, exactly equal in the tie "
                      f"cases",
+        "split_plan": plans, "ptxas": _ptxas("bm25_topk"),
         "shape": f"serving: tf panel [1,{D},8] fp32 (gathered from the "
                  f"[{D},{RETRIEVAL_VOCAB}] int32 store), {int(nd)} live, "
                  f"block {blk}, c {RAG_K}",
@@ -1073,7 +1137,7 @@ def check_flash_attention(dev):
                                 ops_plain_flash(q.contiguous(),
                                                 k.contiguous(),
                                                 v.contiguous(), 50)))
-    hgmma = _hgmma_count("flash_attention_sm90")
+    hgmma = _sass_count("flash_attention_sm90", "HGMMA")
     log(f"  flash tensor-core library: {hgmma} HGMMA instructions in its "
         f"SASS")
     if not hgmma:
@@ -1475,8 +1539,7 @@ def _check_retrievals(run: str, events, slot_of):
 KERNEL_SYMBOLS = {"relevancy_topk_candidates": "relevancy_topk_kernel",
                   "paged_decode_attention": "paged_decode_kernel",
                   "page_minmax": "page_minmax_kernel",
-                  # both routes: bm25_topk_reg_kernel<C>, bm25_topk_sort_kernel
-                  "bm25_topk_candidates": "bm25_topk_",
+                  "bm25_topk_candidates": "bm25_topk_kernel",
                   # both routes: flash_attention_kernel<T, DH>,
                   # flash_attention_sm90_kernel<DH>
                   "flash_attention": "flash_attention_"}

@@ -1,11 +1,13 @@
 """Plain-torch bitonic compare-exchange network (twin of
 ``repro.kernels.bitonic``).
 
-The CUDA relevancy kernel sorts its block of (score, index) pairs in shared
-memory with the same network (``csrc/relevancy_topk.cu``,
-``bitonic_sort_desc``); this module is its oracle. The compare rule is a
-strict total order, key descending then payload ascending, so exchanges stay
-consistent and no payload is duplicated or dropped.
+The CUDA top-c kernels (``csrc/relevancy_topk.cu``, ``csrc/bm25_topk.cu``)
+run the same network only on a warp's 128 pairs, in registers and shuffles
+(``csrc/topk.cuh`` ``warp_sort_desc``), and merge the warps' and CTAs' runs
+by rank; this module is the reference's network and the tests' oracle. The
+compare rule is a strict total order, key descending then payload
+ascending, so exchanges stay consistent and no payload is duplicated or
+dropped.
 """
 from __future__ import annotations
 

@@ -14,7 +14,9 @@ it score -inf; 0 means D.
 
 ``bm25_topk_candidates`` launches the CUDA kernel (``csrc/bm25_topk.cu``)
 for CUDA tensors and runs ``bm25_topk_candidates_plain`` for CPU tensors; it
-never falls back from one to the other.
+never falls back from one to the other. The kernel runs each block as a
+thread-block cluster of ``relevancy_topk.split_plan`` CTAs, as the relevancy
+kernel does; ``bm25_topk_candidates_split`` is that schedule in plain torch.
 """
 from __future__ import annotations
 
@@ -24,6 +26,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
+from repro_torch.kernels.relevancy_topk import split_plan, split_topk
+from repro_torch.kernels.sparse_decode_attention import _aligned16, _sm_count
+
+#: threads of the BM25 kernel's CTA (``kThreads``)
+THREADS = 512
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,14 +64,32 @@ def bm25_topk_candidates_plain(tf, doc_len, idf, *, block: int = 4096,
     idx [B,nb,c] int32), each block sorted by (value desc, index asc)."""
     B, D, _, block, c = _check_args(tf, doc_len, idf, block, c)
     nb = D // block
-    scores = ref.bm25_scores(tf, doc_len, idf, k1=k1, b=b, avgdl=avgdl)
-    pos = torch.arange(D, device=tf.device)
-    scores = torch.where(pos < _live_count(valid, D), scores,
-                         torch.full_like(scores, float("-inf")))
+    scores = _masked_scores(tf, doc_len, idf, k1, b, avgdl, valid)
     vals, within = ref.topk_stable(scores.reshape(B, nb, block), c)
     base = (torch.arange(nb, device=tf.device, dtype=torch.int32)
             * block)[None, :, None]
     return vals, within + base
+
+
+def _masked_scores(tf, doc_len, idf, k1, b, avgdl, valid):
+    D = tf.shape[1]
+    scores = ref.bm25_scores(tf, doc_len, idf, k1=k1, b=b, avgdl=avgdl)
+    pos = torch.arange(D, device=tf.device)
+    return torch.where(pos < _live_count(valid, D), scores,
+                       torch.full_like(scores, float("-inf")))
+
+
+def bm25_topk_candidates_split(tf, doc_len, idf, *, block: int = 4096,
+                               c: int = 64, k1: float = 1.5, b: float = 0.75,
+                               avgdl: float = 100.0, valid=0, n: int = 0):
+    """The kernel's schedule (``relevancy_topk.split_topk``) in plain torch,
+    on the plain version's scores: clusters of ``n`` CTAs a block (0:
+    ``split_plan`` on a 132-SM card). Same result as
+    ``bm25_topk_candidates_plain``."""
+    B, D, _, block, c = _check_args(tf, doc_len, idf, block, c)
+    n = n or split_plan(B, D // block, block, c)
+    return split_topk(_masked_scores(tf, doc_len, idf, k1, b, avgdl, valid),
+                      block, c, n, THREADS)
 
 
 def bm25_topk_candidates(tf, doc_len, idf, *, block: int = 4096, c: int = 64,
@@ -74,7 +99,7 @@ def bm25_topk_candidates(tf, doc_len, idf, *, block: int = 4096, c: int = 64,
 
     tf [B,D,T], doc_len [B,D], idf [B,T], fp32. ``block`` must be a power of
     two dividing D (``ops.bm25_topk`` pads); c is clamped to the block. A
-    block too large for one CTA's shared memory makes the launch fail, and
+    chunk too large for one CTA's shared memory makes the launch fail, and
     the call raises.
     """
     if not tf.is_cuda:
@@ -98,19 +123,20 @@ def bm25_topk_candidates(tf, doc_len, idf, *, block: int = 4096, c: int = 64,
         nd_ptr = valid.data_ptr()
     else:
         nd = int(valid)
-    tf, doc_len, idf = tf.contiguous(), doc_len.contiguous(), idf.contiguous()
+    tf, doc_len = _aligned16(tf), _aligned16(doc_len)
+    idf = idf.contiguous()
     nb = D // block
+    n_cta = split_plan(B, nb, block, c, n_sm=_sm_count(tf.device))
     vals = torch.empty((B, nb, c), dtype=torch.float32, device=tf.device)
     idx = torch.empty((B, nb, c), dtype=torch.int32, device=tf.device)
     lib = _build.load("bm25_topk")
     fn = lib.bm25_topk_candidates_cuda
     fn.restype = _I
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                   _F, _P]
+    fn.argtypes = [_P] * 6 + [_I] * 6 + [_F] * 3 + [_I, _P]
     stream = torch.cuda.current_stream(tf.device).cuda_stream
     err = fn(tf.data_ptr(), doc_len.data_ptr(), idf.data_ptr(), nd_ptr,
              vals.data_ptr(), idx.data_ptr(), B, D, T, block, c, nd, k1, b,
-             avgdl, stream)
+             avgdl, n_cta, stream)
     _build.check(lib, err, "bm25_topk_candidates")
     bm25_topk_candidates.launches += 1
     return vals, idx

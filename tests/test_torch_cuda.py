@@ -148,6 +148,90 @@ def test_bm25_topk_kernel(dev, B, D, T, block, k, valid, dup):
     assert torch.equal(ci, pci)
 
 
+def _equal_outside_ties(kv, ki, pv, pi):
+    """Candidate values within TOL of the plain version's (relative to the
+    row's largest |score|); indices equal wherever the plain value is
+    isolated by more than that from its neighbours, or exactly tied."""
+    scale = pv.abs().nan_to_num(posinf=0.0, neginf=0.0).amax(
+        -1, keepdim=True).clamp(min=1.0)
+    assert torch.equal(torch.isfinite(kv), torch.isfinite(pv))
+    fin = torch.isfinite(pv)
+    err = ((kv - pv).abs() / scale)[fin]
+    assert err.numel() == 0 or float(err.max()) <= TOL
+    d = (pv[..., 1:] - pv[..., :-1]).abs().nan_to_num(nan=0.0)
+    gap = torch.full_like(pv, float("inf"))
+    gap[..., 1:] = torch.minimum(gap[..., 1:], d)
+    gap[..., :-1] = torch.minimum(gap[..., :-1], d)
+    tied = (pv == pv.roll(1, -1)) | (pv == pv.roll(-1, -1))
+    keep = (gap > TOL * scale) | tied
+    assert torch.equal(ki[keep], pi[keep])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,B,S,block,c,valid_len", [
+    ("nb > 1 under a cluster split", 3, 2048, 512, 0, 0),
+    ("valid_len inside a chunk", 2, 512, 512, 0, 300),
+    ("c < block", 2, 1024, 512, 40, 700),
+])
+def test_relevancy_candidates_cluster_split(dev, dtype, name, B, S, block,
+                                            c, valid_len):
+    """DSA's index heads (64 x 128) on the tensor cores (bf16) or the CUDA
+    cores (fp32), each block a cluster of split_plan CTAs; one launch."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(B, 64, 128, generator=g, device=dev).to(dtype)
+    keys = torch.randn(B, S, 128, generator=g, device=dev).to(dtype)
+    keys[-1, S // 4:] = 0                        # exact ties at zero
+    w = torch.softmax(torch.randn(B, 64, generator=g, device=dev), -1)
+    n_cta = rt.split_plan(B, S // block, block, c or block)
+    assert n_cta > 1, name
+    n0 = rt.relevancy_topk_candidates.launches
+    kv, ki = rt.relevancy_topk_candidates(q, keys, w, block=block, c=c,
+                                          valid_len=valid_len)
+    assert rt.relevancy_topk_candidates.launches == n0 + 1
+    pv, pi = rt.relevancy_topk_candidates_plain(q, keys, w, block=block,
+                                                c=c, valid_len=valid_len)
+    _equal_outside_ties(kv, ki, pv, pi)
+    tied = pv[-1] == 0                           # the all-zero keys' rows
+    assert bool(tied.any()) or c, "no tie compared"
+    assert torch.equal(ki[-1][tied], pi[-1][tied])
+
+
+@pytest.mark.parametrize("name,D,T,block,k,valid,min_chunk,dup", [
+    # 8192 + 100 live: the count falls in the first CTA of block 2's cluster
+    ("live count in a cluster's first CTA", 16384, 8, 4096, 16, 8292, None,
+     False),
+    # chunks of 2 docs (threads copy the slab): docs 0-1 | 2 | none | none
+    ("3 live docs over two CTAs", 64, 8, 8, 8, 3, 2, False),
+    # chunks of 4 docs (bulk copies, the second rounded up to 4 docs)
+    ("6 live docs over two CTAs", 64, 8, 16, 8, 6, 4, False),
+    ("c 64 at the Fig. 10 shape, duplicated rows", 16384, 16, 4096, 64,
+     None, None, True),
+])
+def test_bm25_candidates_cluster_split(dev, monkeypatch, name, D, T, block,
+                                       k, valid, min_chunk, dup):
+    """Exact against the plain version, -inf entries and ties included;
+    one launch a call."""
+    if min_chunk:          # small chunks, so a few live docs span CTAs
+        monkeypatch.setattr(rt, "MIN_CHUNK", min_chunk)
+    n_cta = rt.split_plan(1, D // block, block, k)
+    assert n_cta > 1, name
+    tf, dl, idf = _bm25_panel(dev, 1, D, T, seed=D + k, dup=dup)
+    n0 = bm.bm25_topk_candidates.launches
+    cv, ci = bm.bm25_topk_candidates(tf, dl, idf, block=block, c=k,
+                                     avgdl=40.0, valid=valid or 0)
+    assert bm.bm25_topk_candidates.launches == n0 + 1
+    pcv, pci = bm.bm25_topk_candidates_plain(tf, dl, idf, block=block, c=k,
+                                             avgdl=40.0, valid=valid or 0)
+    assert torch.equal(ci, pci)
+    _equal_outside_ties(cv, ci, pcv, pci)
+    if dup:
+        assert bool((pcv[..., 1:] == pcv[..., :-1]).any()), "no tie compared"
+    nd = torch.tensor(valid or 0, dtype=torch.int32, device=dev)
+    cv2, ci2 = bm.bm25_topk_candidates(tf, dl, idf, block=block, c=k,
+                                       avgdl=40.0, valid=nd)
+    assert torch.equal(ci2, ci) and torch.equal(cv2, cv)
+
+
 def test_engine_serves_rag_on_a_side_stream(dev):
     """Smoke-width engine with the RAG service in overlap mode on the card:
     the BM25 kernel launches once per query, and the tokens and doc ids
