@@ -50,18 +50,32 @@ failure (the script then exits non-zero):
    ``ServeConfig(method=m, max_len=8192, n_slots=4)`` for m in dsa, lserve
    and seer, seer in both its top-k and its threshold selection, and dsa
    with the retrieval service, RAG over the corpus (``dsa-rag``) and MaC
-   memory banks (``dsa-mac``), FLARE firing in every slot (``RUNS``); 2
-   prompts past ``min_context`` (chunked prefill) and 2 short ones
-   (bucketed prefill); every request completes and each kernel of the
-   run's path launches once per layer per sparse decode step (bm25 once
-   per query, flash once per layer per bucketed prefill, on the
-   tensor-core route), every other kernel never; every request retrieves
-   in dsa-rag, only the long ones (whose prompts fill MaC's 1024-token
-   segments) in dsa-mac; then the
-   same requests again with four steady sparse decode polls under
+   memory banks (``dsa-mac``), FLARE firing in every slot; then dsa and
+   dsa-rag with 8 decode steps per host dispatch (``dsa-fused8``,
+   ``dsa-rag-fused8``: every window a CUDA graph replay, the trigger in
+   the graph), and dsa through the hetero offload executor, its offload
+   side on a CUDA stream of its own, in sync, in overlap, in overlap with
+   8-step windows, and in that with every consumed selection replayed
+   (``dsa-offload-*``; ``RUNS``); 2 prompts past ``min_context`` (chunked
+   prefill) and 2 short ones (bucketed prefill); every request completes
+   and each kernel of the run's path launches once per layer per sparse
+   decode step the device computes (a window's masked steps and its
+   graph's warm-up included; the launches inside graph replays counted;
+   the offload runs launch paged attention only, their selection is plain
+   tensor code), bm25 once per query, flash once per layer per bucketed
+   prefill, on the tensor-core route, every other kernel never; every
+   request retrieves in the rag runs, only the long ones (whose prompts
+   fill MaC's 1024-token segments) in dsa-mac; then the same requests
+   again with four steady sparse decode polls (host dispatches) under
    ``torch.profiler``, for the device's busy share and each kernel's
    in-situ time (tables under ``chiprun_out/``); one ``serve`` line per
-   run, with the retrieval service's report;
+   run, with the retrieval service's report, the host dispatches, steps
+   per dispatch, graph captures and their seconds, the steady decode ms
+   per step, and the offload's lookahead hits / cold starts / patches,
+   offload and local steps and (sync) select and apply seconds; then one
+   ``equal_runs`` line: each fused run's greedy tokens and retrieval
+   events equal its stepped run's, overlap equals sync, the validate run
+   equals overlap;
 5. modes: dsa-rag with the service inline (the engine's stream), sync and
    overlap (a stream of its own; both replaying every query): equal greedy
    tokens and retrieval events, one ``modes`` line;
@@ -79,7 +93,7 @@ failure (the script then exits non-zero):
    phase), the card line, and ``{"ok": true, ...}`` as the last line.
 
 ``--phases`` runs a subset of kernels, train, serve, modes, compare and
-pipeline (the default is all six).
+pipeline (the default is all six); ``--runs`` a subset of the serve runs.
 """
 from __future__ import annotations
 
@@ -122,15 +136,25 @@ _DSA = ("relevancy_topk_candidates", "paged_decode_attention")
 class Run:
     """A serve run: its method and MemoryConfig overrides, the retrieval
     service's kind (None: no service), the kernels its path launches (once
-    per layer per sparse decode step, bm25 once per retrieval query) and
-    whether it joins the kernel-vs-plain compare at fp32."""
+    per layer per sparse decode step the device computes, bm25 once per
+    retrieval query), whether it joins the kernel-vs-plain compare at fp32,
+    its decode steps per host dispatch (``fused``: each window a CUDA graph
+    replay), its hetero offload mode and validation, and the run whose
+    greedy tokens (and retrieval events) it must equal (``equals``)."""
     method: str
     mem: dict = field(default_factory=dict)
     retrieval: str | None = None
     kernels: tuple = _DSA
     compare: bool = True
+    fused: int = 1
+    offload: str = "off"
+    validate: bool = False
+    equals: str | None = None
 
 
+# the offload runs select with plain tensor ops on the offload stream: the
+# main stream's apply launches paged attention only
+_APPLY = ("paged_decode_attention",)
 RUNS = {"dsa": Run("dsa"),
         "lserve": Run("lserve", kernels=("page_minmax",
                                          "paged_decode_attention")),
@@ -139,7 +163,23 @@ RUNS = {"dsa": Run("dsa"),
         "dsa-rag": Run("dsa", retrieval="rag",
                        kernels=_DSA + ("bm25_topk_candidates",)),
         # MaC's path adds no kernel
-        "dsa-mac": Run("dsa", retrieval="mac", compare=False)}
+        "dsa-mac": Run("dsa", retrieval="mac", compare=False),
+        "dsa-fused8": Run("dsa", compare=False, fused=8, equals="dsa"),
+        "dsa-rag-fused8": Run("dsa", retrieval="rag",
+                              kernels=_DSA + ("bm25_topk_candidates",),
+                              compare=False, fused=8, equals="dsa-rag"),
+        "dsa-offload-sync": Run("dsa", kernels=_APPLY, compare=False,
+                                offload="sync"),
+        "dsa-offload-overlap": Run("dsa", kernels=_APPLY, compare=False,
+                                   offload="overlap",
+                                   equals="dsa-offload-sync"),
+        "dsa-offload-overlap-fused8": Run(
+            "dsa", kernels=_APPLY, compare=False, fused=8,
+            offload="overlap", equals="dsa-offload-overlap"),
+        # every consumed selection replayed and bit-checked
+        "dsa-offload-validate": Run(
+            "dsa", kernels=_APPLY, compare=False, fused=8, offload="overlap",
+            validate=True, equals="dsa-offload-overlap")}
 PHASES = ("kernels", "train", "serve", "modes", "compare", "pipeline")
 # the run whose serve phase gives a kernel's launches and in-situ time in
 # its row: the first run that launches it
@@ -1444,46 +1484,92 @@ def retrieval_config(dev, run: str, mode: str = "overlap",
 def serve(dtype: str, dev, run: str, record: bool = False,
           profile_polls: int = 0, mode: str = "overlap",
           validate: bool = False):
-    """Serve the requests as ``RUNS[run]`` says: the long ones first; the short
-    ones join once the long ones decode, so all four share the sparse steps.
-    Returns the engine, handles, wall seconds and (with ``record``) the
-    logits row that produced each of a request's tokens after the first,
-    plus the first sparse step's logits. ``profile_polls`` > 0 traces that
-    many polls of steady sparse decode with ``torch.profiler``
-    (``profile``: see ``_Profile``). The retrieval runs serve with their
-    service in ``mode``."""
+    """Serve the requests as ``RUNS[run]`` says: the long ones first; the
+    short ones join in the poll of the long ones' last prefill chunk, so
+    all four share the sparse steps, and the step at which they join is
+    the same whatever the run's decode steps per dispatch. Returns the
+    engine, handles, wall seconds and (with ``record``) the logits row that
+    produced each of a request's tokens after the first, plus the first
+    sparse step's logits. ``profile_polls`` > 0 traces that many polls of
+    steady sparse decode with ``torch.profiler`` (``profile``: see
+    ``_Profile``); a fused run first serves the requests once untraced, so
+    its graphs are captured before the traced pass. The retrieval runs
+    serve with their service in ``mode``."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import init_params
-    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving import Engine, OffloadConfig, ServeConfig
 
-    method, mem_kw = RUNS[run].method, RUNS[run].mem
+    r = RUNS[run]
+    method, mem_kw = r.method, r.mem
     cfg = get_arch(SERVE_ARCH).replace(dtype=dtype)
     params = init_params(cfg, 0, device=dev)
     sc = ServeConfig(method=method, max_len=VIEW, n_slots=SLOTS,
                      kv_page_size=PAGE, page=PAGE,
-                     retrieval=retrieval_config(dev, run, mode, validate))
+                     retrieval=retrieval_config(dev, run, mode, validate),
+                     fused_steps=r.fused,
+                     offload_cfg=OffloadConfig(mode=r.offload,
+                                               validate=r.validate))
     eng = Engine(cfg, params, sc, seed=1, device=dev,
                  mem=cfg.memory.replace(method=method, **mem_kw))
     reqs = _requests(cfg.vocab_size)
+    if profile_polls and r.fused > 1:
+        _drive(eng, reqs, run)                  # captures the graphs
+    n_ev0 = 0 if eng.retrieval is None else len(eng.retrieval.events)
+    res = _drive(eng, reqs, run, record=record, profile_polls=profile_polls)
+    for h in res.handles:
+        if not h.done or len(h.tokens) != MAX_NEW:
+            raise AssertionError(f"request {h.rid} incomplete: {h.tokens}")
+        if not all(0 <= t < cfg.vocab_size for t in h.tokens):
+            raise AssertionError(f"request {h.rid}: token out of vocab")
+    if eng.last_logits is not None and \
+            not torch.isfinite(eng.last_logits).all():
+        raise AssertionError("non-finite logits")
+    if r.fused > 1 and eng.stats["graph_captures"] == 0:
+        raise AssertionError(f"{run}: no CUDA graph was captured")
+    if eng.stats["sparse_steps"] == 0:
+        raise AssertionError(f"{run}: no decode step crossed min_context")
+    if eng.sc.max_len != VIEW:
+        raise AssertionError(f"{run}: max_len {eng.sc.max_len} != {VIEW}")
+    if profile_polls and res.profile is None:
+        raise AssertionError("the profiled polls did not complete")
+    res.events = []
+    if eng.retrieval is not None:
+        res.events = [(e["slot"], tuple(e["ids"]), e["spliced"])
+                      for e in eng.retrieval.events[n_ev0:]]
+        _check_retrievals(run, res.events, res.slot_of)
+    res.eng, res.cfg = eng, cfg
+    return res
+
+
+# the poll of the long prompts' last prefill chunk (ServeConfig's
+# prefill_chunk of 128 tokens a poll): the short prompts join then
+LATE_POLL = -(-max(PROMPT_LENS) // 128) - 1
+
+
+def _drive(eng, reqs, run: str, record: bool = False,
+           profile_polls: int = 0):
+    """One pass of the requests through ``eng`` (see ``serve``)."""
+    import torch
+
     rows, first_sparse, slot_of = {r.rid: [] for r in reqs}, None, {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handles = [eng.submit(r) for r in reqs[:2]]
     late = reqs[2:]
-    polls, prof = 0, None
+    polls, prof, sparse0 = 0, None, eng.stats["sparse_steps"]
     while eng.busy() or late:
-        if late and not eng.has_prefill_work() and eng.queue_depth() == 0:
+        if late and polls >= LATE_POLL:
             handles += [eng.submit(r) for r in late]
             late = []
-        if (profile_polls and prof is None and eng.stats["sparse_steps"]
-                and not late and not eng.queue_depth()
+        if (profile_polls and prof is None
+                and eng.stats["sparse_steps"] > sparse0 and not late and not eng.queue_depth()
                 and not eng.has_prefill_work()):
             prof = _Profile(profile_polls, run)   # steady, 4 slots
         ev = eng.poll()
         for rid, slot, _tok in ev.emissions:
             slot_of[rid] = slot
-        if prof is not None:
+        if prof is not None and prof.result is None:
             prof.tick()
         polls += 1
         if polls > 1000:
@@ -1495,28 +1581,11 @@ def serve(dtype: str, dev, run: str, record: bool = False,
                 first_sparse = eng.last_logits.clone()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    for h in handles:
-        if not h.done or len(h.tokens) != MAX_NEW:
-            raise AssertionError(f"request {h.rid} incomplete: {h.tokens}")
-        if not all(0 <= t < cfg.vocab_size for t in h.tokens):
-            raise AssertionError(f"request {h.rid}: token out of vocab")
-    if not torch.isfinite(eng.last_logits).all():
-        raise AssertionError("non-finite logits")
-    if eng.stats["sparse_steps"] == 0:
-        raise AssertionError(f"{run}: no decode step crossed min_context")
-    if eng.sc.max_len != VIEW:
-        raise AssertionError(f"{run}: max_len {eng.sc.max_len} != {VIEW}")
-    if profile_polls and (prof is None or prof.result is None):
-        raise AssertionError("the profiled polls did not complete")
-    events = []
-    if eng.retrieval is not None:
-        events = [(e["slot"], tuple(e["ids"]), e["spliced"])
-                  for e in eng.retrieval.events]
-        _check_retrievals(run, events, slot_of)
-    return SimpleNamespace(eng=eng, handles=handles, wall=wall, rows=rows,
-                           first_sparse=first_sparse, cfg=cfg,
-                           profile=prof and prof.result, events=events,
-                           slot_of=slot_of)
+    if prof is not None and prof.result is None:
+        prof.finish()          # a fused run may end inside the profile
+    return SimpleNamespace(handles=handles, wall=wall, rows=rows,
+                           first_sparse=first_sparse, slot_of=slot_of,
+                           profile=prof and prof.result)
 
 
 def _check_retrievals(run: str, events, slot_of):
@@ -1548,10 +1617,12 @@ FOLLOWERS = {"paged_decode_attention": "paged_decode_combine_kernel"}
 
 
 class _Profile:
-    """torch.profiler over the next ``n`` polls of serve run ``run``. On the
-    last one, sets ``result`` (wall and device-busy time, the busy share, the
-    mean in-situ device time of each kernel of the run's path) and writes
-    the per-op table (device time first) and a gzipped chrome trace to
+    """torch.profiler over the next ``n`` polls of serve run ``run`` (fewer
+    when a fused run ends first: ``finish``). On the last one, sets
+    ``result`` (wall and device-busy time, the busy share, the mean in-situ
+    device time of each kernel of the run's path; a kernel replayed inside
+    a CUDA graph that the trace does not show is None) and writes the
+    per-op table (device time first) and a gzipped chrome trace to
     chiprun_out/profile_decode_<run>.{txt,json.gz}."""
 
     def __init__(self, n: int, run: str):
@@ -1567,11 +1638,13 @@ class _Profile:
         self.t0 = time.perf_counter()
 
     def tick(self):
+        self.n -= 1
+        if not self.n:
+            self.finish()
+
+    def finish(self):
         import torch
 
-        self.n -= 1
-        if self.n:
-            return
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - self.t0) * 1e6
         self.prof.stop()
@@ -1593,6 +1666,9 @@ class _Profile:
         for name in RUNS[self.run].kernels:
             sym = KERNEL_SYMBOLS[name]
             hits = [e for e in avgs if sym in e.key]
+            if not hits and RUNS[self.run].fused > 1:
+                in_situ[name] = None
+                continue
             if not hits:
                 raise AssertionError(f"profile: no {sym} in the decode polls")
             n = sum(e.count for e in hits)   # one per call
@@ -1600,7 +1676,7 @@ class _Profile:
                 hits += [e for e in avgs if FOLLOWERS[name] in e.key]
             in_situ[name] = sum(e.self_device_time_total for e in hits) \
                 / n / 1e3
-        self.result = {"polls": self.polls, "wall_us": wall_us,
+        self.result = {"polls": self.polls - self.n, "wall_us": wall_us,
                        "device_busy_us": dev_us,
                        "device_busy_share": dev_us / wall_us,
                        "kernel_ms_in_situ": in_situ}
@@ -1608,9 +1684,37 @@ class _Profile:
             f"{dev_us:.0f} us")
 
 
+def _fused_offload_summary(eng):
+    """A run's host dispatches, graphs and, under the offload, the hetero
+    executor's lookahead, step split and (sync) phase seconds."""
+    st = eng.stats
+    steady = st["decode_s"] - st["graph_capture_s"]
+    d = {"host_dispatches": st["host_steps"],
+         "steps_per_dispatch": st["decode_steps"] / max(st["host_steps"], 1),
+         "device_steps": st["device_steps"],
+         "sparse_device_steps": st["sparse_device_steps"],
+         "graph_captures": st["graph_captures"],
+         "graph_capture_s": st["graph_capture_s"],
+         "decode_s": st["decode_s"],
+         "window_ms": [1e3 * w for w in st["window_s"]],
+         "decode_ms_per_step_steady": 1e3 * steady / max(
+             st["decode_steps"], 1),
+         "decode_tok_per_s_steady": st["tokens"] / steady
+         if steady > 0 else None}
+    if eng.hetero is not None:
+        rep = eng.hetero.report()
+        d["hetero"] = {k: rep[k] for k in (
+            "mode", "lookahead", "offload_steps", "local_fallback_steps",
+            "fused", "apply_s", "devices", "transfer")}
+        if "select_s" in rep:
+            d["hetero"]["select_s"] = rep["select_s"]
+    return d
+
+
 def phase_serve(dev, label: str):
     """The run's path (launch counts reset just before it and read just
-    after), then the same requests again with four profiled decode polls."""
+    after), then the same requests again with four profiled decode polls
+    (host dispatches under fused decode)."""
     from repro_torch.kernels import ops
 
     method = RUNS[label].method
@@ -1619,7 +1723,9 @@ def phase_serve(dev, label: str):
     counts = ops.launch_counts()
     routes = ops.flash_route_counts()
     eng, handles, wall, cfg = run.eng, run.handles, run.wall, run.cfg
-    want = cfg.n_layers * eng.stats["sparse_steps"]
+    # per sparse step the device computed: a fused window's masked steps
+    # and its graph's warm-up launch too (the replays' launches are counted)
+    want = cfg.n_layers * eng.stats["sparse_device_steps"]
     queries = len(run.events)      # every launched query was collected
     # flash: once per layer per bucketed (admission) prefill
     expect = {name: want if name in RUNS[label].kernels else 0
@@ -1628,8 +1734,9 @@ def phase_serve(dev, label: str):
     if "bm25_topk_candidates" in RUNS[label].kernels:
         expect["bm25_topk_candidates"] = queries
     log(f"  launches {counts}, sparse steps {eng.stats['sparse_steps']} of "
-        f"{eng.stats['decode_steps']}, bucketed prefills "
-        f"{eng.stats['bucket_prefills']}; expected {expect}")
+        f"{eng.stats['decode_steps']} ({eng.stats['sparse_device_steps']} "
+        f"computed), bucketed prefills {eng.stats['bucket_prefills']}; "
+        f"expected {expect}")
     if set(counts) != set(KERNEL_SYMBOLS):
         raise AssertionError(f"counted kernels {sorted(counts)}")
     if not eng.stats["bucket_prefills"]:
@@ -1643,10 +1750,13 @@ def phase_serve(dev, label: str):
     toks = sum(len(h.tokens) for h in handles)
     ttft = sorted(h.ttft_s() for h in handles)
     stats = eng.stats
+    fo = _fused_offload_summary(eng)
     retrieval = None if eng.retrieval is None else dict(
         eng.retrieval.report(), events=[
             {"slot": sl, "ids": [int(i) for i in ids], "spliced": n}
             for sl, ids, n in run.events])
+    out = {"tokens": [list(h.tokens) for h in handles],
+           "events": run.events}
     del run, eng
     profile = serve("bfloat16", dev, label, profile_polls=4).profile
     summary = {
@@ -1655,6 +1765,9 @@ def phase_serve(dev, label: str):
         "dtype": "bfloat16", "requests": len(handles),
         "prompt_lens": list(PROMPT_LENS), "max_new": MAX_NEW,
         "tokens": toks, "wall_s": wall, "tok_per_s": toks / wall,
+        # the wall without the graph captures (a server captures a window
+        # once and replays it for every later request)
+        "tok_per_s_steady": toks / (wall - fo["graph_capture_s"]),
         "greedy_tokens": {str(h.rid): [int(t) for t in h.tokens]
                           for h in handles},
         "ttft_s": {str(h.rid): h.ttft_s() for h in handles},
@@ -1666,11 +1779,34 @@ def phase_serve(dev, label: str):
         "bucket_prefills": stats["bucket_prefills"], "launches": counts,
         "flash_launches_by_route": routes,
         "profiled_decode": profile,
+        "fused_steps": RUNS[label].fused, "offload": RUNS[label].offload,
+        **fo,
     }
     if retrieval is not None:
         summary["retrieval"] = retrieval
     print(json.dumps({"serve": summary}), flush=True)
-    return counts, profile, routes
+    return counts, profile, routes, out
+
+
+def check_equal_runs(runs):
+    """Each run with ``equals`` set against that run: equal greedy tokens
+    and retrieval events (a fused run against its stepped run, overlap
+    against sync, the validate run against overlap). One ``equal_runs``
+    line."""
+    pairs = {}
+    for label, r in RUNS.items():
+        if r.equals is None or label not in runs or r.equals not in runs:
+            continue
+        got, want = runs[label][3], runs[r.equals][3]
+        if got["tokens"] != want["tokens"] or \
+                got["events"] != want["events"]:
+            raise AssertionError(f"{label} differs from {r.equals}: "
+                                 f"{got} vs {want}")
+        pairs[label] = r.equals
+        log(f"  {label} == {r.equals}: tokens and "
+            f"{len(got['events'])} retrieval events equal")
+    print(json.dumps({"equal_runs": {"card": card_line(), "pairs": pairs}}),
+          flush=True)
 
 
 def phase_compare(dev, label: str):
@@ -1862,11 +1998,17 @@ def phase_pipeline(dev, method: str):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--runs", default=",".join(RUNS),
+                    help="the serve phase's runs (default: all of RUNS)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES):
         raise ValueError(f"unknown phases {sorted(phases - set(PHASES))}: "
                          f"choose from {PHASES}")
+    serve_runs = args.runs.split(",")
+    if not set(serve_runs) <= set(RUNS):
+        raise ValueError(f"unknown runs {sorted(set(serve_runs) - set(RUNS))}"
+                         f": choose from {list(RUNS)}")
 
     import torch
     if not torch.cuda.is_available():
@@ -1899,28 +2041,30 @@ def main(argv=None):
         flash = phase_train(dev)
     if "serve" in phases:
         runs = {}
-        for r in RUNS:
+        for r in serve_runs:
             log(f"[4] serve llama3.2-1b bf16, {r}")
             runs[r] = phase_serve(dev, r)
+        check_equal_runs(runs)
         for k in kernels:
             if k["name"] == "flash_attention":
                 continue
             # launches: the count of the kernel's home path's own run
-            by_path = {m: c[k["name"]] for m, (c, _, _) in runs.items()}
-            k["launches"] = by_path[HOME_PATH[k["name"]]]
+            by_path = {m: c[k["name"]] for m, (c, _, _, _) in runs.items()}
+            k["launches"] = by_path.get(HOME_PATH[k["name"]])
             k["launches_by_path"] = by_path
             k["ms_in_situ_by_path"] = {
                 m: p["kernel_ms_in_situ"][k["name"]]
-                for m, (_, p, _) in runs.items()
-                if k["name"] in p["kernel_ms_in_situ"]}
+                for m, (_, p, _, _) in runs.items()
+                if p["kernel_ms_in_situ"].get(k["name"]) is not None}
             k["ms_in_situ"] = k["ms_in_situ_by_path"].get(HOME_PATH[k["name"]])
     for k in kernels:
         if k["name"] != "flash_attention":
             continue
         # the train phase is its home path; serve runs prefill through it
-        by_path = {m: c["flash_attention"] for m, (c, _, _) in runs.items()} \
+        by_path = {m: c["flash_attention"]
+                   for m, (c, _, _, _) in runs.items()} \
             if "serve" in phases else {}
-        by_route = {m: r for m, (_, _, r) in runs.items()} \
+        by_route = {m: r for m, (_, _, r, _) in runs.items()} \
             if "serve" in phases else {}
         if flash is not None:
             k["launches"], k["ms_in_situ"], by_route["train"] = flash

@@ -1,8 +1,27 @@
-"""Device placement helpers of the port (twin of parts of ``repro.hetero``):
-the transfer ledger and the device / CLI policy the retrieval subsystem
-uses. The offload executor waits for ROADMAP Queue 1 item 8."""
-from repro_torch.hetero.policy import pick_devices, resolve_cli_retrieval
+"""Heterogeneous offload subsystem of the port (twin of ``repro.hetero``,
+paper §4-§5).
+
+The sparse, memory-bound memory-processing stages (prepare / relevancy /
+retrieve) run on the offload side, one step of lookahead ahead, and
+exchange only page indices with the main side, which keeps the KV pool and
+the compute-dense decode (apply + rest). The offload side is a second CUDA
+device when there is one, else a CUDA stream of its own on the engine's
+card; on the CPU both sides run in program order. One selection shard; the
+sharded executor is ROADMAP Queue 1 item 10.
+"""
+from repro_torch.hetero.executor import HeteroExecutor
+from repro_torch.hetero.policy import (OffloadPlan, dynamic_mode, pick_devices,
+                                       plan_stage_placement,
+                                       resolve_cli_offload,
+                                       resolve_cli_retrieval)
+from repro_torch.hetero.profiler import HeteroProfiler
+from repro_torch.hetero.select import (OffloadSelect, make_offload_select,
+                                       merge_shard_topk)
 from repro_torch.hetero.transfer import TransferLedger, pytree_bytes
 
-__all__ = ["TransferLedger", "pick_devices", "pytree_bytes",
-           "resolve_cli_retrieval"]
+__all__ = [
+    "HeteroExecutor", "HeteroProfiler", "OffloadPlan", "OffloadSelect",
+    "TransferLedger", "dynamic_mode", "make_offload_select",
+    "merge_shard_topk", "pick_devices", "plan_stage_placement",
+    "pytree_bytes", "resolve_cli_offload", "resolve_cli_retrieval",
+]

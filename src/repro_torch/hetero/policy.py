@@ -1,12 +1,80 @@
-"""Device and CLI policy of the retrieval subsystem (twin of
-``repro.hetero.policy``'s ``pick_devices`` and ``resolve_cli_retrieval``;
-the placement policy of the offload executor waits for ROADMAP Queue 1
-item 8)."""
+"""Placement policy of the heterogeneous offload subsystem (twin of
+``repro.hetero.policy``, paper §4 Table 2 + §5.2).
+
+Per memory-pipeline stage, which side runs it. Two rules compose:
+
+  1. KV ownership: a stage that reads the raw KV values (apply) stays with
+     the device that owns the KV pool; shipping pages over the link is what
+     the paper's index-only design avoids (``core.methods.offload_stages``).
+  2. Roofline: among the offloadable stages only the memory-bound ones move
+     (``placement.StageCost`` on the card's constants).
+
+On top of the static plan sits the dynamic fallback: outside
+``[min_context, fallback_context]`` the step runs dense on the main side and
+the executor launches no offload work. ``dynamic_mode`` reads the one owner
+of that window, ``placement.in_sparse_window``.
+
+Devices: the offload role takes a second CUDA device when there is one,
+else a CUDA stream of its own on the engine's card; on the CPU both roles
+run on the CPU.
+"""
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig, MemoryConfig
+from repro_torch.core import placement
+from repro_torch.core.methods import offload_stages
+
+MAIN = "main"
+OFFLOAD = "offload"
+
+
+@dataclasses.dataclass(frozen=True)
+class OffloadPlan:
+    """Static stage -> side plan plus the roofline evidence behind it."""
+
+    method: str
+    stages: Dict[str, str]            # stage -> MAIN | OFFLOAD
+    intensity: Dict[str, float]       # stage -> FLOP/byte
+    memory_bound: Dict[str, bool]
+
+    def offloaded(self) -> Tuple[str, ...]:
+        return tuple(s for s, d in self.stages.items() if d == OFFLOAD)
+
+
+def plan_stage_placement(cfg: ArchConfig, mem: MemoryConfig, context: int,
+                         batch: int = 1) -> OffloadPlan:
+    """Static placement for the sparse-attention pipeline at ``context``."""
+    costs = placement.sparse_attention_stage_costs(cfg, mem, context, batch)
+    allowed = set(offload_stages(mem.method))
+    stages, intensity, membound = {}, {}, {}
+    for name, c in costs.items():
+        intensity[name] = c.intensity
+        membound[name] = c.memory_bound
+        stages[name] = OFFLOAD if (name in allowed and c.memory_bound) \
+            else MAIN
+    return OffloadPlan(mem.method, stages, intensity, membound)
+
+
+def dynamic_mode(context: int, mem: MemoryConfig) -> str:
+    """'offload' | 'local'. ``context`` is the max live context of the step
+    including the token being decoded (``lengths.max() + 1``)."""
+    return "offload" if placement.in_sparse_window(context, mem) else "local"
+
+
+def resolve_cli_offload(value: str, method: str) -> str:
+    """Map ``--offload on|off|sync|overlap`` to an ``OffloadConfig.mode``.
+    Raises ValueError when offload is asked for without a sparse method."""
+    mode = {"on": "overlap", "off": "off"}.get(value, value)
+    if mode != "off" and method == "none":
+        raise ValueError(
+            "--offload needs a sparse --method (dsa | seer | lserve)")
+    return mode
 
 
 def resolve_cli_retrieval(value: str) -> str:
@@ -24,8 +92,8 @@ def pick_devices(device="cuda"):
 
     With a second CUDA device the offload side gets it, as the reference
     takes its second JAX device; on one card (or the CPU) both are the
-    engine's device, and the retrieval service keeps its work apart on a
-    CUDA stream of its own instead."""
+    engine's device, and the offload executor and the retrieval service
+    keep their work apart on CUDA streams of their own instead."""
     dev = resolve_device(device)
     if dev.type == "cuda" and torch.cuda.device_count() >= 2:
         return torch.device("cuda", 0), torch.device("cuda", 1)

@@ -44,6 +44,14 @@ def launch_counts() -> Dict[str, int]:
     return {n: fn.launches for n, fn in KERNELS.items()}
 
 
+def add_launches(counts: Dict[str, int], sign: int = 1) -> None:
+    """Add (``sign=-1``: take back) launches that did not pass through the
+    wrappers: the kernels of a CUDA graph's replay, the launches a capture
+    recorded without running them (``serving.fused.GraphRunner``)."""
+    for n, c in counts.items():
+        KERNELS[n].launches += sign * c
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0

@@ -6,6 +6,8 @@ service with ``--retrieval``.
     PYTHONPATH=src python -m repro_torch.launch.serve --method dsa --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --retrieval on \\
         --retrieval-kind rag --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --offload on \\
+        --fused-steps 8 --device cuda
 
 Like the reference CLI it serves the architecture's ``.smoke()`` config with
 seeded random weights. ``--device cpu`` runs the plain PyTorch path.
@@ -13,6 +15,11 @@ seeded random weights. ``--device cpu`` runs the plain PyTorch path.
 triggers over the decode logits and splices retrieved documents (``rag``,
 over a synthetic ``--docs``-document corpus) or MaC memory embeddings
 (``mac``) into the paged pool, and prints the service's report.
+``--offload on`` (= overlap; sync also) routes selection through the hetero
+offload executor and prints its per-stage report (``--offload-validate``
+replays every consumed selection); ``--fused-steps K`` runs up to K decode
+steps per host dispatch (CUDA graphs on the card) and prints the steps per
+dispatch.
 """
 from __future__ import annotations
 
@@ -22,9 +29,9 @@ import json
 import numpy as np
 
 from repro_torch.configs import get_arch
-from repro_torch.hetero import resolve_cli_retrieval
+from repro_torch.hetero import resolve_cli_offload, resolve_cli_retrieval
 from repro_torch.models import init_params
-from repro_torch.serving import Engine, Request, ServeConfig
+from repro_torch.serving import Engine, OffloadConfig, Request, ServeConfig
 
 
 def main(argv=None):
@@ -36,6 +43,15 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--tp", type=int, default=4)
+    ap.add_argument("--offload", default="off",
+                    choices=["on", "off", "sync", "overlap"],
+                    help="hetero offload executor (on = overlap)")
+    ap.add_argument("--offload-validate", action="store_true",
+                    help="replay every consumed lookahead selection "
+                         "synchronously and bit-check it")
+    ap.add_argument("--fused-steps", type=int, default=1,
+                    help="decode steps per host dispatch (1 = stepped "
+                         "loop; CUDA graphs on the card)")
     ap.add_argument("--retrieval", default="off",
                     choices=["on", "off", "inline", "sync", "overlap"],
                     help="document-memory service (on = overlap)")
@@ -45,6 +61,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     try:
+        offload = resolve_cli_offload(args.offload, args.method)
         ret_mode = resolve_cli_retrieval(args.retrieval)
     except ValueError as e:
         ap.error(str(e))
@@ -70,7 +87,10 @@ def main(argv=None):
     extra = 96 if retrieval is not None else 16
     sc = ServeConfig(max_len=args.prompt_len + args.max_new + extra,
                      n_slots=args.slots, method=args.method, tp=args.tp,
-                     page=8, retrieval=retrieval)
+                     page=8, retrieval=retrieval,
+                     offload_cfg=OffloadConfig(
+                         mode=offload, validate=args.offload_validate),
+                     fused_steps=args.fused_steps)
     eng = Engine(cfg, params, sc, seed=1, device=args.device)
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, size=args.prompt_len),
@@ -79,13 +99,21 @@ def main(argv=None):
     done = eng.drain()
     toks = sum(len(h.tokens) for h in handles)
     ttft = [h.ttft_s() for h in handles if h.ttft_s() is not None]
-    print(f"method={args.method} retrieval={ret_mode or 'off'} "
-          f"device={eng.device}: "
+    print(f"method={args.method} offload={offload} "
+          f"retrieval={ret_mode or 'off'} device={eng.device}: "
           f"{len(done)}/{args.requests} requests, {toks} tokens, "
           f"{eng.throughput_tokens_per_s():.1f} tok/s, "
           f"p50 TTFT {1e3 * float(np.median(ttft)):.1f}ms, "
           f"{eng.stats['sparse_steps']}/{eng.stats['decode_steps']} decode "
           f"steps sparse")
+    if args.fused_steps > 1:
+        hs, ds = eng.stats["host_steps"], eng.stats["decode_steps"]
+        print(f"fused decode: {ds} device steps in {hs} host dispatches "
+              f"({ds / max(hs, 1):.1f} steps/dispatch), "
+              f"{eng.stats['graph_captures']} CUDA graphs captured")
+    if eng.hetero is not None:
+        print("hetero per-stage breakdown (Fig. 3 style):")
+        print(json.dumps(eng.hetero.report(), indent=2, sort_keys=True))
     if eng.retrieval is not None:
         print("retrieval service report:")
         print(json.dumps(eng.retrieval.report(), indent=2, sort_keys=True))

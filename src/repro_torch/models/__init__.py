@@ -8,6 +8,7 @@ from repro_torch.models.model import (  # noqa: F401
     decode_step,
     make_page_pool,
     decode_step_paged,
+    decode_step_paged_presel,
     extend_paged,
     prefill_bucketed,
 )

@@ -13,6 +13,7 @@ o-proj columns are zero (``head_mask`` zeroes their outputs).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -56,8 +57,16 @@ def attn_init(gen, cfg: ArchConfig, tp: int = 16, n: int = 1) -> Params:
 
 
 def head_mask(cfg: ArchConfig, tp: int = 16, device=None) -> torch.Tensor:
-    hp = cfg.padded_heads(tp)
-    return torch.as_tensor((np.arange(hp) < cfg.n_heads).astype(np.float32),
+    """[Hp] fp32: 1 for live heads, 0 for the TP padding. Made once per
+    (width, device) and shared: callers only read it (a copy from the host
+    per layer would stall decode and cannot be captured in a CUDA graph)."""
+    return _head_mask_on(cfg.padded_heads(tp), cfg.n_heads,
+                         torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=16)
+def _head_mask_on(hp: int, n_heads: int, device) -> torch.Tensor:
+    return torch.as_tensor((np.arange(hp) < n_heads).astype(np.float32),
                            device=device)
 
 
@@ -68,6 +77,12 @@ def head_to_kv(cfg: ArchConfig, tp: int = 16) -> np.ndarray:
     m = np.minimum(np.arange(hp) // g, kv - 1)
     m[h:] = 0
     return m.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def _head_to_kv_on(cfg: ArchConfig, tp: int, device) -> torch.Tensor:
+    """``head_to_kv`` as a long tensor on ``device``, made once."""
+    return torch.as_tensor(head_to_kv(cfg, tp), device=device).long()
 
 
 def project_qkv(p: Params, x, cos, sin, cfg: ArchConfig, tp: int = 16):
@@ -95,8 +110,7 @@ def expand_kv(kv_arr: torch.Tensor, cfg: ArchConfig, tp: int = 16):
     hp, kv = cfg.padded_heads(tp), cfg.n_kv_heads
     if hp % kv == 0:
         return kv_arr.repeat_interleave(hp // kv, dim=-2)
-    idx = torch.as_tensor(head_to_kv(cfg, tp), device=kv_arr.device).long()
-    return kv_arr.index_select(-2, idx)
+    return kv_arr.index_select(-2, _head_to_kv_on(cfg, tp, kv_arr.device))
 
 
 def _softmax_attend(sc, mask, vexp):
@@ -152,7 +166,7 @@ def attention_full_flash(q, k, v, cfg: ArchConfig, *,
     and ``head_mask`` zeroes them after, as on the plain path."""
     hp, kv = cfg.padded_heads(tp), cfg.n_kv_heads
     if hp % kv:
-        idx = torch.as_tensor(head_to_kv(cfg, tp), device=k.device).long()
+        idx = _head_to_kv_on(cfg, tp, k.device)
         k, v = k.index_select(2, idx), v.index_select(2, idx)
     return FlashAttention.apply(q, k, v, window or 0)
 

@@ -7,6 +7,7 @@ fp32 and cast back, matmuls run in the weights' dtype.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -44,11 +45,19 @@ def rope_freqs(head_dim: int, theta: float, rotary_dim: Optional[int] = None):
     return 1.0 / (theta ** (np.arange(0, rd, 2, dtype=np.float32) / rd))
 
 
+@functools.lru_cache(maxsize=16)
+def _inv_freq_on(head_dim: int, theta: float, rotary_dim, device):
+    """``rope_freqs`` as a tensor on ``device``, made once: a copy from the
+    host inside a decode step would stall it, and cannot be captured in a
+    CUDA graph. Callers only read it."""
+    return torch.as_tensor(rope_freqs(head_dim, theta, rotary_dim),
+                           device=device)
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
                  rotary_dim: Optional[int] = None):
     """positions [..., S] -> cos/sin [..., S, rd//2] in fp32."""
-    inv = torch.as_tensor(rope_freqs(head_dim, theta, rotary_dim),
-                          device=positions.device)
+    inv = _inv_freq_on(head_dim, theta, rotary_dim, positions.device)
     ang = positions.float()[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 

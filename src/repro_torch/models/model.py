@@ -104,39 +104,48 @@ def _unstack(tree, n: int):
 
 
 def _layer_full(lp, x, cos, sin, cfg: ArchConfig, tp: int):
-    """One full-sequence transformer layer -> (x, k, v)."""
+    """One full-sequence transformer layer -> (x, k, v, q)."""
     h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
     q, k, v = A.project_qkv(lp["attn"], h, cos, sin, cfg, tp)
     attn = A.attention_full(q, k, v, cfg, tp=tp)
-    return _mlp_block(lp, x + _attn_out(lp["attn"], attn, cfg, tp), cfg), k, v
+    x = _mlp_block(lp, x + _attn_out(lp["attn"], attn, cfg, tp), cfg)
+    return x, k, v, q
 
 
 def forward(params: Params, cfg: ArchConfig, tokens, *, positions=None,
-            collect_cache: bool = False, remat: bool = False, tp: int = 16):
+            collect_cache: bool = False, collect_q: bool = False,
+            remat: bool = False, tp: int = 16):
     """tokens [B, S] -> (hidden [B,S,d], caches-or-None); caches hold the
-    stacked k/v [L, B, S, KV, hd]. ``remat`` runs each layer under
-    ``torch.utils.checkpoint`` (the twin of the reference's
-    ``jax.checkpoint``): its activations are recomputed in the backward."""
+    stacked k/v [L, B, S, KV, hd], and with ``collect_q`` the per-layer
+    queries ``caches["q"]`` [L, B, S, Hp, hd] (prefill only: the hetero
+    offload executor seeds its lookahead query with them). ``remat`` runs
+    each layer under ``torch.utils.checkpoint`` (the twin of the
+    reference's ``jax.checkpoint``): its activations are recomputed in the
+    backward."""
     _require_dense(cfg)
     B, Sq = tokens.shape
     x = L.embed(params["embed"], tokens)
     if positions is None:
         positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
     cos, sin = _rope_tables(cfg, positions)
-    ks, vs = [], []
+    ks, vs, qs = [], [], []
     for lp in _unstack(params["layers"], cfg.n_layers):
         if remat:
-            x, k, v = checkpoint(_layer_full, lp, x, cos, sin, cfg, tp,
-                                 use_reentrant=False)
+            x, k, v, q = checkpoint(_layer_full, lp, x, cos, sin, cfg, tp,
+                                    use_reentrant=False)
         else:
-            x, k, v = _layer_full(lp, x, cos, sin, cfg, tp)
+            x, k, v, q = _layer_full(lp, x, cos, sin, cfg, tp)
         if collect_cache:
             ks.append(k)
             vs.append(v)
+            if collect_q:
+                qs.append(q)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     caches = None
     if collect_cache:
         caches = {"k": torch.stack(ks), "v": torch.stack(vs), "length": Sq}
+        if collect_q:
+            caches["q"] = torch.stack(qs)
     return x, caches
 
 
@@ -251,7 +260,8 @@ def make_page_pool(cfg: ArchConfig, n_slots: int, max_len: int, *,
 
 
 def decode_step_paged(params, cfg: ArchConfig, token, pool, live, *,
-                      tp: int = 16, sparse_fn=None, sparse_params=None):
+                      tp: int = 16, sparse_fn=None, sparse_params=None,
+                      collect_qk: bool = False):
     """One decode step over the paged pool with PER-SLOT lengths.
 
     token [B]; pool from ``make_page_pool`` (``lengths`` pre-masked to 0 for
@@ -259,7 +269,9 @@ def decode_step_paged(params, cfg: ArchConfig, token, pool, live, *,
     bool. ``sparse_fn(q, kc, vc, length, sp_layer, k_new=)`` replaces dense
     attention; the engine passes it only when the sparse window holds (the
     reference's fallback cond, decided on the host). Writes the new K/V into
-    the pool in place; returns (logits [B, V], pool with lengths advanced).
+    the pool in place; returns (logits [B, V], pool with lengths advanced),
+    and with ``collect_qk`` this step's per-layer queries [L, B, Hp, hd] and
+    keys [L, B, KV, hd] (the hetero offload's index inputs).
     """
     _require_dense(cfg)
     lengths = pool["lengths"]
@@ -267,6 +279,7 @@ def decode_step_paged(params, cfg: ArchConfig, token, pool, live, *,
     live = live.bool()
     x = L.embed(params["embed"], token[:, None])
     cos, sin = _rope_tables(cfg, lengths[:, None])
+    qs, ks = [], []
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)
         kp, vp = pool["k_pages"][i], pool["v_pages"][i]
@@ -281,19 +294,80 @@ def decode_step_paged(params, cfg: ArchConfig, token, pool, live, *,
         else:
             attn = A.attention_decode(q, kc, vc, lengths + 1, cfg, tp=tp)
         x = _mlp_block(lp, x + _attn_out(lp["attn"], attn, cfg, tp), cfg)
+        if collect_qk:
+            qs.append(q[:, 0])
+            ks.append(k[:, 0])
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     pool = dict(pool, lengths=lengths + live.to(lengths.dtype))
-    return last_logits(params, cfg, x), pool
+    if not collect_qk:
+        return last_logits(params, cfg, x), pool
+    return last_logits(params, cfg, x), pool, torch.stack(qs), torch.stack(ks)
+
+
+def decode_step_paged_presel(params, cfg: ArchConfig, token, pool, live,
+                             pidx, *, sparse: bool, page_size: int,
+                             tp: int = 16):
+    """Apply-phase decode over the paged pool with PRE-SELECTED pages (the
+    hetero offload split, paper §5): prepare / relevancy / retrieve ran on
+    the offload side one step ahead and handed back page indices only.
+    ``pidx [L, B, n_sel]`` holds per-layer selected page ids in logical
+    (per-slot) space, -1 = no selection.
+
+    Semantics, as the reference's:
+      * the page being written (``lengths // page_size``) is always
+        included, so the newest tokens are never invisible to a stale
+        selection; a stale pick of the same page is dropped (no double
+        softmax mass);
+      * indices outside the live region are dropped;
+      * ``sparse=False`` (the dynamic fallback) runs dense attention and
+        ignores the selection.
+
+    The reference takes that branch with a traced ``lax.cond`` on the
+    lengths; here the caller decides it on the host (``use_sparse``), as
+    ``decode_step_paged``'s caller does.
+
+    Returns (logits [B, V], pool with lengths advanced, q_layers [L, B, Hp,
+    hd], k_layers [L, B, KV, hd]): this step's per-layer query and key feed
+    the next lookahead selection and the offload-side index.
+    """
+    from repro_torch.core.methods.dsa import (repad_dead_heads,
+                                              strip_dead_heads)
+    from repro_torch.kernels import ops
+
+    ps = page_size
+
+    def presel_attention(q, kc, vc, lb, sp, k_new=None):
+        sel = sp["pidx"]
+        cur_page = ((lb - 1) // ps).to(torch.int32)
+        neg = torch.full_like(sel, -1)
+        s = torch.where(sel == cur_page[:, None], neg, sel)
+        s = torch.where(s.long() * ps < lb.long()[:, None], s, neg)
+        s_full = torch.cat([s, cur_page[:, None]], dim=1)
+        out, _ = ops.paged_decode_attention(
+            strip_dead_heads(q, cfg), kc, vc, s_full.to(torch.int32), lb,
+            page_size=ps)
+        return repad_dead_heads(out, q, cfg)
+
+    return decode_step_paged(
+        params, cfg, token, pool, live, tp=tp,
+        sparse_fn=presel_attention if sparse else None,
+        sparse_params={"pidx": pidx}, collect_qk=True)
 
 
 def extend_paged(params, cfg: ArchConfig, tokens, pool, n_valid, *,
-                 tp: int = 16, x_embeds=None, emb_rows=None):
+                 tp: int = 16, collect_kq: bool = False, x_embeds=None,
+                 emb_rows=None):
     """Chunked prefill: append a span of C tokens per slot to the paged pool.
 
     tokens [B, C] (rows padded past ``n_valid[b]``); n_valid [B] (0 = slot not
     prefilling this step). Queries attend causally to the existing prefix
     plus the chunk. Returns (logits [B, V] at each row's last valid token,
     pool with lengths advanced); the pages are written in place.
+
+    With ``collect_kq`` two more outputs follow: k_span [L, B, C, KV, hd]
+    (the span's new keys, unmasked past ``n_valid``; consumers mask) and
+    q_last [L, B, Hp, hd] (the query at each row's last valid token), which
+    keep the hetero offload executor's index coherent with the pool.
 
     ``x_embeds [B, C, d]`` + ``emb_rows [B]`` feed rows with pre-embedded
     context instead of token ids (cast to the model dtype): the MaC
@@ -302,6 +376,7 @@ def extend_paged(params, cfg: ArchConfig, tokens, pool, n_valid, *,
     """
     _require_dense(cfg)
     B, C = tokens.shape
+    ks, qs = [], []
     lengths = pool["lengths"]
     table = pool["page_table"]
     x = L.embed(params["embed"], tokens)
@@ -319,30 +394,42 @@ def extend_paged(params, cfg: ArchConfig, tokens, pool, n_valid, *,
         kc, vc = pool_gather(kp, table), pool_gather(vp, table)
         attn = A.attention_decode_chunk(q, kc, vc, lengths, cfg, tp=tp)
         x = _mlp_block(lp, x + _attn_out(lp["attn"], attn, cfg, tp), cfg)
+        if collect_kq:
+            ks.append(k)
+            qs.append(q)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     last = (n_valid.long() - 1).clamp(0, C - 1)
-    xg = x[torch.arange(B, device=x.device), last][:, None]     # [B, 1, d]
+    rows = torch.arange(B, device=x.device)
+    xg = x[rows, last][:, None]                                  # [B, 1, d]
     logits = L.lm_head(params["lm_head"], xg, cfg)[:, 0]
     pool = dict(pool, lengths=lengths + n_valid.to(lengths.dtype))
-    return logits, pool
+    if not collect_kq:
+        return logits, pool
+    return logits, pool, torch.stack(ks), torch.stack(qs)[:, rows, last]
 
 
 def prefill_bucketed(params, cfg: ArchConfig, tokens, true_lens, *,
-                     tp: int = 16):
+                     tp: int = 16, collect_q: bool = False):
     """Batched admission prefill over a length bucket.
 
     tokens [B, Sb] right-padded prompts; true_lens [B]. Returns (logits [B, V]
     at each row's last REAL token, k, v) with k/v [L, B, Sb, KV, hd] zeroed
     past ``true_lens``, so splicing them into the pool leaves the dead region
-    exactly zero.
+    exactly zero. With ``collect_q`` a fourth output q_last [L, B, Hp, hd]
+    holds each row's queries at its last real token: the hetero offload
+    executor's first lookahead selects with it.
     """
     B, Sb = tokens.shape
-    x, caches = forward(params, cfg, tokens, collect_cache=True, tp=tp)
+    x, caches = forward(params, cfg, tokens, collect_cache=True,
+                        collect_q=collect_q, tp=tp)
     last = (true_lens.long() - 1).clamp(0, Sb - 1)
-    xg = x[torch.arange(B, device=x.device), last][:, None]
+    rows = torch.arange(B, device=x.device)
+    xg = x[rows, last][:, None]
     logits = L.lm_head(params["lm_head"], xg, cfg)[:, 0]
     mask = torch.arange(Sb, device=x.device)[None, :] < true_lens[:, None]
     m = mask[None, :, :, None, None]
     k = caches["k"] * m.to(caches["k"].dtype)
     v = caches["v"] * m.to(caches["v"].dtype)
-    return logits, k, v
+    if not collect_q:
+        return logits, k, v
+    return logits, k, v, caches["q"][:, rows, last]

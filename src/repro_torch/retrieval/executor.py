@@ -24,10 +24,13 @@ chunked ``extend_paged`` path; this module decides when to fire, runs the
 queries and keeps the per-slot bookkeeping deterministic, so every mode
 emits identical tokens.
 
-Not ported: ``traced_trigger`` and ``fused_gates`` serve only fused
-multi-step decode and wait for it (ROADMAP Queue 1 item 7); so does the
-reference's ``service=`` field (a service shared by the replicas of a
-fleet, ROADMAP Queue 1 item 11).
+For fused multi-step decode (``serving/fused.py``) the trigger runs on the
+device: ``traced_trigger`` is the predicate on tensors, and
+``fused_gates`` compiles the host gates into per-slot scalars a window
+evaluates without a host turn.
+
+Not ported: the reference's ``service=`` field (a service shared by the
+replicas of a fleet, ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -47,6 +50,20 @@ from repro_torch.retrieval.bank import MacBankService
 from repro_torch.retrieval.service import RetrievalService
 
 MODES = ("inline", "sync", "overlap")
+
+
+def traced_trigger(kind: str, tau: float, logits: torch.Tensor, lengths):
+    """FLARE/DRAGIN trigger predicate on tensors, with no host read: the
+    per-step evaluation inside a fused window. ``lengths`` is the pre-step
+    masked length vector (the array the host ``trigger_slots`` gets), so
+    the DRAGIN context weight is the stepped path's."""
+    if kind == "flare":
+        return rag_m.flare_trigger(logits, tau=tau)
+    if kind == "dragin":
+        ent_w = torch.log1p(torch.as_tensor(lengths, dtype=torch.float32,
+                                            device=logits.device))
+        return rag_m.dragin_trigger(logits, ent_w, tau=tau)
+    raise KeyError(f"unknown trigger {kind!r}")
 
 
 @dataclasses.dataclass
@@ -183,16 +200,9 @@ class RetrievalExecutor:
         logits, after the deterministic host-side gates (enabled, cooldown,
         retrieval budget, bank occupancy, not already in flight)."""
         r = self.rcfg
-        if r.trigger == "flare":
-            fire = rag_m.flare_trigger(logits, tau=r.tau)
-        elif r.trigger == "dragin":
-            # attention-statistics proxy: the log-context weight
-            ent_w = torch.log1p(torch.as_tensor(
-                lengths_np, dtype=torch.float32, device=logits.device))
-            fire = rag_m.dragin_trigger(logits, ent_w, tau=r.tau)
-        else:
-            raise KeyError(f"unknown trigger {r.trigger!r}")
-        fire = fire.cpu().numpy()
+        # DRAGIN's attention-statistics proxy is the log-context weight
+        fire = traced_trigger(r.trigger, r.tau, logits,
+                              lengths_np).cpu().numpy()
         out = []
         for i in np.flatnonzero(fire & live_np & self._enabled):
             s = slots[i]
@@ -206,6 +216,36 @@ class RetrievalExecutor:
                 continue
             out.append(int(i))
         return out
+
+    def fused_gates(self):
+        """The host gates of ``trigger_slots`` as per-slot scalars a fused
+        window evaluates on the device.
+
+        ``armed [B] bool`` folds the static gates (enabled, not waiting,
+        retrieval budget, not in flight); the countdown gates become
+        ``arm_after [B] int32``, the in-window emitted-token count at which
+        they open. That holds because a slot's history grows by exactly one
+        token per emitted token while no splice lands (the engine opens a
+        window only with the service quiescent):
+
+          cooldown   len(hist) - last_len >= min_interval
+                     -> emitted >= min_interval - (len(hist0) - last_len)
+          mac bank   counts[i] > 0 after the next segment push
+                     -> emitted >= segment_len - (len(hist0) - pushed)
+        """
+        r = self.rcfg
+        armed = (self._enabled & ~self._waiting
+                 & (self._n_ret < r.max_retrievals))
+        for i in self._inflight:
+            armed[i] = False
+        h0 = np.asarray([len(h) for h in self._hist], np.int64)
+        arm_after = (r.min_interval - (h0 - self._last_len)).astype(np.int32)
+        if self.bank is not None:
+            bank_need = np.where(
+                self.bank.counts > 0, np.int32(-(1 << 30)),
+                (self.mc.segment_len - (h0 - self._pushed)).astype(np.int32))
+            arm_after = np.maximum(arm_after, bank_need)
+        return armed, arm_after
 
     def splice_bound(self) -> int:
         """Upper bound on spliced tokens per retrieval: pages are reserved

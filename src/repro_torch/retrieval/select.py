@@ -12,12 +12,10 @@ data placement), but their offload-resident state is not a KV-page summary:
   mac : per-slot Titans/HMT memory banks, FIFO segment-summary embeddings
         plus live counts.
 
-Both are ``OffloadSelect`` bundles (the reference's type of
-``repro.hetero.select``, kept here as a small NamedTuple: the
-sparse-attention bundles wait for ROADMAP Queue 1 item 8). The callables
-keep the reference's roles and signatures; the stateful wrappers that place
-them on a device and a stream are ``retrieval.service`` and
-``retrieval.bank``.
+Both are ``hetero.select.OffloadSelect`` bundles, the type the
+sparse-attention bundles share. The callables keep the reference's roles
+and signatures; the stateful wrappers that place them on a device and a
+stream are ``retrieval.service`` and ``retrieval.bank``.
 
 Where the reference returns a new state, rag's ``ingest`` writes the
 doc-axis arrays of the store in place (the reference's jitted update copies
@@ -29,7 +27,7 @@ was launched on.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Optional
 
 import torch
 
@@ -38,25 +36,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.methods.mac import (MacConfig, compute_relevancy,
                                           prepare_memory)
 from repro_torch.core.methods.rag import Corpus, idf_from_df
+from repro_torch.hetero.select import OffloadSelect
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
-
-
-class OffloadSelect(NamedTuple):
-    """Per-method offload-side implementation bundle."""
-
-    method: str
-    page: int                 # selection granularity
-    n_sel: int                # width of the final index vector
-    n_pages: int              # capacity (rag) / bank slots (mac)
-    summary_init: Callable    # () -> state
-    reset: Callable           # (state, slot_ids) -> state
-    ingest: Callable          # family-specific, see the builders
-    ingest_span: Optional[Callable]
-    select: Callable          # family-specific, see the builders
 
 
 def _next_pow2(n: int) -> int:

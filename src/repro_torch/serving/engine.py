@@ -1,5 +1,5 @@
 """Paged continuous-batching engine with the memory pipeline (twin of
-``repro.serving.engine``), stepped decode only.
+``repro.serving.engine``).
 
 * Requests enter through ``submit(Request)``; ``poll`` admits from the queue
   (short prompts batched per pow2 length bucket, long prompts in chunks
@@ -19,6 +19,14 @@
   (``repro_torch.retrieval``): dynamic RAG over a BM25 corpus store (the
   BM25 kernel) or MaC memory banks, FLARE/DRAGIN triggers per slot after
   each decode step, retrieved payloads spliced through chunked extend.
+* ``ServeConfig(offload_cfg=OffloadConfig(mode="sync"|"overlap"))`` routes
+  the memory-processing stages through the hetero offload executor
+  (``repro_torch.hetero``): lookahead selection on the offload side (a
+  second card, or a CUDA stream of its own), overlapped with decode,
+  exchanging page indices only.
+* ``ServeConfig(fused_steps=K)`` runs up to K decode steps per host
+  dispatch (``serving/fused.py``), replayed as CUDA graphs on the card,
+  with or without retrieval and offload.
 
 The pool is updated in place; the reference donates the pool buffers to its
 jitted steps instead (``repro/serving/engine.py:342-356``).
@@ -29,6 +37,7 @@ import collections
 import dataclasses
 import math
 import time
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -39,6 +48,7 @@ from repro_torch.configs.base import ArchConfig, MemoryConfig
 from repro_torch.core import placement
 from repro_torch.core.methods import get_sparse_method, sparse_kwargs
 from repro_torch.models import model as M
+from repro_torch.serving import fused as F
 from repro_torch.serving.api import Request, ResponseHandle
 from repro_torch.serving.events import StepEvents
 from repro_torch.serving.kv_cache import PagedKVPool, SlotManager
@@ -51,10 +61,53 @@ def _next_pow2(n: int) -> int:
 
 
 @dataclasses.dataclass
+class OffloadConfig:
+    """Heterogeneous-offload topology as one nested config
+    (``ServeConfig(offload_cfg=OffloadConfig(...))``).
+
+    mode       "off" = inline sparse pipeline; "sync" = two-phase
+               select -> apply on the offload side, serialized; "overlap" =
+               double-buffered lookahead selection overlapped with decode
+               (the paper's heterogeneous execution).
+    validate   replay each consumed selection and check it bit for bit.
+    shards     >1 = one offload device per KV-sequence shard.
+    main_mesh  >1 = an N-device main mesh running the apply phase.
+    The port serves shards = main_mesh = 1 (``Engine`` raises otherwise:
+    ROADMAP Queue 1 item 10).
+    """
+    mode: str = "off"
+    validate: bool = False
+    shards: int = 1
+    main_mesh: int = 1
+
+    def __post_init__(self):
+        if self.mode not in ("off", "sync", "overlap"):
+            raise ValueError(
+                f"offload mode must be 'off', 'sync' or 'overlap', "
+                f"got {self.mode!r}")
+        if self.shards < 1:
+            raise ValueError(f"offload shards must be >= 1, "
+                             f"got {self.shards}")
+        if self.main_mesh < 1:
+            raise ValueError(f"main_mesh must be >= 1, got {self.main_mesh}")
+        if self.mode == "off" and (self.shards > 1 or self.main_mesh > 1):
+            raise ValueError("shards/main_mesh need "
+                             "OffloadConfig(mode='sync'|'overlap')")
+
+
+@dataclasses.dataclass
 class ServeConfig:
-    """The reference's fields. The port serves the paged pool with stepped
-    decode and no offload, with or without retrieval; ``Engine`` raises
-    ``NotImplementedError`` for any other value of those fields."""
+    """The reference's fields. The port serves the paged pool, stepped or
+    fused (``fused_steps``), with or without retrieval and the hetero
+    offload (``offload_cfg``, one shard); ``Engine`` raises
+    ``NotImplementedError`` for ``paged=False``, ``offload_shards > 1`` and
+    ``main_mesh > 1``.
+
+    ``offload_cfg`` is the offload topology's surface; the flat
+    ``offload`` / ``offload_validate`` / ``offload_shards`` / ``main_mesh``
+    fields are deprecated aliases that warn when set. Flat non-default
+    values win; otherwise the nested config fills the flat fields, and
+    ``dataclasses.replace`` on either surface keeps the two in step."""
     max_len: int = 4096
     n_slots: int = 8
     method: str = "none"       # none | dsa | seer | lserve
@@ -72,25 +125,54 @@ class ServeConfig:
     offload_shards: int = 1
     main_mesh: int = 1
     retrieval: Optional[object] = None   # retrieval.RetrievalConfig
-    offload_cfg: Optional[object] = None
+    offload_cfg: Optional[OffloadConfig] = None
+    # decode steps per host dispatch (serving/fused.py); 1 = stepped loop
     fused_steps: int = 1
+
+    _FLAT_OFFLOAD_DEFAULT = ("off", False, 1, 1)
+
+    def __post_init__(self):
+        flat = (self.offload, self.offload_validate, self.offload_shards,
+                self.main_mesh)
+        if self.offload_cfg is not None and flat == self._FLAT_OFFLOAD_DEFAULT:
+            oc = self.offload_cfg
+            self.offload = oc.mode
+            self.offload_validate = oc.validate
+            self.offload_shards = oc.shards
+            self.main_mesh = oc.main_mesh
+        else:
+            nested = None if self.offload_cfg is None else (
+                self.offload_cfg.mode, self.offload_cfg.validate,
+                self.offload_cfg.shards, self.offload_cfg.main_mesh)
+            if flat != self._FLAT_OFFLOAD_DEFAULT and nested != flat:
+                # an explicitly set flat kwarg (not the mirror of a coherent
+                # nested config carried through replace())
+                warnings.warn(
+                    "flat ServeConfig offload kwargs (offload=, "
+                    "offload_validate=, offload_shards=, main_mesh=) are "
+                    "deprecated; use ServeConfig(offload_cfg="
+                    "OffloadConfig(mode=..., validate=..., shards=..., "
+                    "main_mesh=...))", DeprecationWarning, stacklevel=3)
+            # (re)derive the nested view; this validates the flat fields
+            self.offload_cfg = OffloadConfig(
+                mode=self.offload, validate=self.offload_validate,
+                shards=self.offload_shards, main_mesh=self.main_mesh)
+        if self.fused_steps < 1:
+            raise ValueError(
+                f"fused_steps must be >= 1, got {self.fused_steps}")
+        if self.fused_steps > 1 and not self.paged:
+            raise ValueError("fused_steps > 1 fuses the PAGED decode loop "
+                             "(ServeConfig(paged=True))")
 
 
 def _check_supported(cfg: ArchConfig, sc: ServeConfig) -> None:
-    oc = sc.offload_cfg
-    nested = None if oc is None else (
-        getattr(oc, "mode", "off"), getattr(oc, "validate", False),
-        getattr(oc, "shards", 1), getattr(oc, "main_mesh", 1))
+    if sc.offload != "off" and sc.method not in ("dsa", "seer", "lserve"):
+        raise ValueError("hetero offload needs a sparse memory-processing "
+                         "method (dsa | seer | lserve)")
     todo = [
-        (sc.offload != "off" or sc.offload_validate
-         or nested not in (None, ("off", False, 1, 1)),
-         "hetero offload (offload / offload_validate / offload_cfg)",
-         "Queue 1 item 8"),
         (sc.offload_shards > 1 or sc.main_mesh > 1,
          "multi-device serving (offload_shards / main_mesh)",
          "Queue 1 item 10"),
-        (sc.fused_steps > 1, "fused decode (fused_steps > 1)",
-         "Queue 1 item 7"),
         (not sc.paged, "the legacy dense pool (paged=False)",
          "Queue 1 item 5b"),
         (cfg.family not in POOL_FAMILIES, f"the {cfg.family!r} family",
@@ -145,6 +227,12 @@ class Engine:
                 self.device)
             self._sparse_fn = mk(cfg, self.mem, tp=sc.tp,
                                  **sparse_kwargs(sc.method, sc.page))
+        self.hetero = None
+        if sc.offload != "off":
+            from repro_torch.hetero import HeteroExecutor
+            self.hetero = HeteroExecutor(
+                cfg, self.mem, self.sc, self.sparse_params, mode=sc.offload,
+                validate=sc.offload_validate, device=self.device)
         self.retrieval = None
         if sc.retrieval is not None:
             from repro_torch.retrieval import RetrievalExecutor
@@ -159,12 +247,25 @@ class Engine:
         # is_embeddings]
         self._chunks: Dict[int, list] = {}
         self._table_view_cache = None  # ((npv, table_version), view)
-        # step_s: wall seconds of the latest decode steps (bounded);
-        # bucket_prefills: admission prefills run (one per length bucket)
+        # host_steps: host dispatches of the decode loop; decode_steps /
+        # sparse_steps: the device steps behind them that ran (all / the
+        # sparse branch); device_steps / sparse_device_steps: the steps the
+        # device computed, with a fused window's masked no-op steps and its
+        # graph's warm-up; step_s: wall seconds of the latest decode steps
+        # (a window's wall less a capture in it, spread over its steps;
+        # bounded); window_s: the
+        # walls of the fused windows; bucket_prefills: admission prefills
+        # run (one per length bucket); graph_captures / graph_capture_s:
+        # CUDA graphs captured, and the seconds their warm-ups and captures
+        # took
         self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "tokens": 0,
                       "host_steps": 0, "decode_steps": 0, "sparse_steps": 0,
-                      "bucket_prefills": 0,
-                      "step_s": collections.deque(maxlen=4096)}
+                      "device_steps": 0, "sparse_device_steps": 0,
+                      "bucket_prefills": 0, "graph_captures": 0,
+                      "graph_capture_s": 0.0,
+                      "step_s": collections.deque(maxlen=4096),
+                      "window_s": collections.deque(maxlen=4096)}
+        self._runner = F.GraphRunner(self.device, self.stats)
         # logits of the latest decode step and whether it took the sparse
         # branch (read by chip_smoke's kernel-vs-plain comparison)
         self.last_logits: Optional[torch.Tensor] = None
@@ -377,9 +478,13 @@ class Engine:
             toks[i, : len(prompt)] = prompt
             lens[i] = len(prompt)
         dev = self.device
-        logits, k, v = M.prefill_bucketed(
+        out = M.prefill_bucketed(
             self.params, self.cfg, torch.as_tensor(toks, device=dev),
-            torch.as_tensor(lens, device=dev), tp=self.sc.tp)
+            torch.as_tensor(lens, device=dev), tp=self.sc.tp,
+            collect_q=self.hetero is not None)
+        logits, k, v = out[:3]
+        if self.hetero is not None:
+            self.hetero.on_admit([slot for slot, _ in group], k, lens, out[3])
         self.stats["bucket_prefills"] += 1
         n_pages = Sb // ps
         dest = np.stack([self.pool.table[slot, :n_pages]
@@ -412,6 +517,8 @@ class Engine:
         self.pool.alloc(slot, total)
         self.slots.slots[slot].length = 0      # grows as chunks land
         self._chunks[slot] = [request_id, prompt, 0, False]
+        if self.hetero is not None:
+            self.hetero.on_admit_slot(slot)
         if self.retrieval is not None:
             self.retrieval.on_admit(slot, prompt, retrieval)
         return True
@@ -453,21 +560,27 @@ class Engine:
         emb = {} if x_embeds is None else {
             "x_embeds": torch.as_tensor(x_embeds, device=dev),
             "emb_rows": torch.as_tensor(emb_rows, device=dev)}
-        logits, _ = M.extend_paged(self.params, self.cfg,
-                                   torch.as_tensor(toks, device=dev), pool,
-                                   torch.as_tensor(n_valid, device=dev),
-                                   tp=self.sc.tp, **emb)
-        nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()
+        out = M.extend_paged(self.params, self.cfg,
+                             torch.as_tensor(toks, device=dev), pool,
+                             torch.as_tensor(n_valid, device=dev),
+                             tp=self.sc.tp,
+                             collect_kq=self.hetero is not None, **emb)
+        nxt = out[0].argmax(-1).to(torch.int32).cpu().numpy()
         self.stats["prefill_s"] += time.perf_counter() - t0
-        for slot in list(self._chunks):
+        finished: List[int] = []   # slots whose payload (admission prompt
+        for slot in list(self._chunks):          # or splice) completed
             _rid, payload, pos, _is_emb = self._chunks[slot]
             take = int(n_valid[slot])
             self.slots.slots[slot].length += take
             if pos + take >= len(payload):
                 self._pending[slot] = nxt[slot]
                 del self._chunks[slot]
+                finished.append(slot)
             else:
                 self._chunks[slot][2] = pos + take
+        if self.hetero is not None:
+            # only the finishing slots' lookahead rows go dirty
+            self.hetero.on_extend(out[2], out[3], lengths, n_valid, finished)
         return True
 
     # ------------------------------------------------------------------
@@ -504,36 +617,72 @@ class Engine:
             live &= ~self.retrieval.waiting_mask()
         return live
 
+    def _sparse_at(self, context: int) -> bool:
+        """The branch of a step whose longest live context (this step's
+        token included) is ``context``: the reference's fallback cond, on
+        the host."""
+        return (self._sparse_fn is not None
+                and placement.use_sparse(context, self.mem))
+
+    def _fused_window(self) -> int:
+        """Width of the next fused decode window; 1 = the stepped loop.
+        Windows open only when the host has nothing to interleave: no
+        chunked prefill pending and the retrieval service quiescent
+        (queries in flight and waiting slots need per-step host turns)."""
+        K = self.sc.fused_steps
+        if K <= 1 or self._chunks:
+            return 1
+        if self.retrieval is not None and self.retrieval.busy():
+            return 1
+        return K
+
+    def _window_budget(self, lmax: int, K: int) -> int:
+        """Steps a window entered at longest live length ``lmax`` may run
+        before the stepped loop would take the other branch or a wider
+        table view (every slot live at entry stays live until the window
+        stops, so step j's longest context is lmax + j + 1)."""
+        def at(j):
+            ctx = lmax + j + 1
+            return self._sparse_at(ctx), self._view_len(ctx)
+        first = at(0)
+        return next((j for j in range(1, K) if at(j) != first), K)
+
     def step_pool(self) -> StepEvents:
-        """One decode step for every live slot, each at its own length."""
+        """One host dispatch of the decode loop: one decode step for every
+        live slot, each at its own length, or (``fused_steps`` K > 1) up to
+        K steps in one fused window whose event log the host replays."""
         self._ensure_pool()
         live = self._decode_live()
         if not live.any():
             if self.retrieval is not None:
                 self._retrieval_idle()
             return StepEvents()
+        K = self._fused_window()
+        if K > 1:
+            return self._step_pool_fused(live, K)
         lengths = np.where(live, self.slots.lengths(), 0).astype(np.int32)
-        # the reference's fallback cond, on the host: lengths + 1 is the
-        # context each slot attends over this step
-        sparse = (self._sparse_fn is not None
-                  and placement.use_sparse(lengths + 1, self.mem))
+        sparse = self._sparse_at(int(lengths.max()) + 1)
         dev = self.device
         t0 = time.perf_counter()
-        pool = dict(self.pool.device, page_table=self._table_view(lengths),
-                    lengths=torch.as_tensor(lengths, device=dev))
-        logits, _ = M.decode_step_paged(
-            self.params, self.cfg, torch.as_tensor(self._pending, device=dev),
-            pool, torch.as_tensor(live, device=dev), tp=self.sc.tp,
-            sparse_fn=self._sparse_fn if sparse else None,
-            sparse_params=self.sparse_params)
+        table = self._table_view(lengths)
+        tok = torch.as_tensor(self._pending, device=dev)
+        if self.hetero is not None:
+            logits = self.hetero.decode(self.params, tok, self.pool.device,
+                                        table, lengths, live)
+        else:
+            pool = dict(self.pool.device, page_table=table,
+                        lengths=torch.as_tensor(lengths, device=dev))
+            logits, _ = M.decode_step_paged(
+                self.params, self.cfg, tok, pool,
+                torch.as_tensor(live, device=dev), tp=self.sc.tp,
+                sparse_fn=self._sparse_fn if sparse else None,
+                sparse_params=self.sparse_params)
         nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()
         dt = time.perf_counter() - t0
         self.last_logits, self.last_sparse = logits, sparse
         self.stats["decode_s"] += dt
         self.stats["step_s"].append(dt)
-        self.stats["host_steps"] += 1
-        self.stats["decode_steps"] += 1
-        self.stats["sparse_steps"] += int(sparse)
+        self._count_steps(1, 1, sparse)
         ev = StepEvents(steps=1)
         for i in np.flatnonzero(live):
             rid = self.slots.slots[i].request_id
@@ -551,6 +700,103 @@ class Engine:
                     self.retrieval.on_release(int(i))
         if self.retrieval is not None:
             ev.fired.extend(self._retrieval_step(logits, live, lengths))
+        return ev
+
+    def _count_steps(self, ran: int, computed: int, sparse: bool) -> None:
+        st = self.stats
+        st["host_steps"] += 1
+        st["decode_steps"] += ran
+        st["sparse_steps"] += ran * sparse
+        st["device_steps"] += computed
+        st["sparse_device_steps"] += computed * sparse
+
+    # -- fused multi-step decode (serving/fused.py) ---------------------
+
+    def _decode_fused_inline(self, ins, K: int, sparse: bool, trigger):
+        fn = F.make_fused_paged(
+            self.cfg, self.sc, K=K, trigger=trigger,
+            sparse_fn=self._sparse_fn if sparse else None,
+            sparse_params=self.sparse_params, params=self.params,
+            pool_device=self.pool.device)
+        key = ("inline", sparse, int(ins["table"].shape[1]), K, trigger)
+        host, _ = self._runner.run(key, fn, ins)
+        return F.unpack_host(host, K, self.sc.n_slots)
+
+    def _step_pool_fused(self, live: np.ndarray, K: int) -> StepEvents:
+        """Run up to K decode steps in one window, then replay its per-step
+        event log through the stepped path's bookkeeping: the same
+        emissions, finish order, retrieval launches and pool accounting,
+        token for token. The window stops early (masked no-ops; ``nsteps``
+        is the real count) when a slot finishes or fires a trigger, handing
+        the host the step boundary the stepped loop would have had."""
+        sl = self.slots.slots
+        lengths = np.where(live, self.slots.lengths(), 0).astype(np.int32)
+        gen = np.asarray([s.generated for s in sl], np.int32)
+        maxnew = np.asarray([s.max_new for s in sl], np.int32)
+        rx = self.retrieval
+        if rx is not None:
+            armed, arm_after = rx.fused_gates()
+            trigger = (rx.rcfg.trigger, rx.rcfg.tau)
+        else:
+            armed = np.zeros((self.sc.n_slots,), bool)
+            arm_after = np.zeros((self.sc.n_slots,), np.int32)
+            trigger = None
+        lmax = int(lengths.max())
+        budget = self._window_budget(lmax, K)
+        sparse = self._sparse_at(lmax + 1)
+        captures = self.stats["graph_captures"]
+        capture_s = self.stats["graph_capture_s"]
+        t0 = time.perf_counter()
+        ins = {k: torch.as_tensor(np.asarray(a, np.int32)) for k, a in (
+            ("tok", self._pending), ("lengths", lengths), ("live", live),
+            ("gen", gen), ("maxnew", maxnew), ("armed", armed),
+            ("arm_after", arm_after), ("budget", budget))}
+        ins["table"] = self._table_view(lengths)
+        if self.hetero is not None:
+            nsteps, pending, emits, fired = self.hetero.decode_fused(
+                self._runner, self.params, self.pool.device, ins, lengths,
+                live, K, trigger)
+        else:
+            nsteps, pending, emits, fired = self._decode_fused_inline(
+                ins, K, sparse, trigger)
+        self._pending = np.asarray(pending, np.int32).copy()
+        dt = time.perf_counter() - t0
+        st = self.stats
+        st["decode_s"] += dt
+        st["window_s"].append(dt)
+        # per-step walls of the steady state: a capture's seconds apart
+        steady = dt - (st["graph_capture_s"] - capture_s)
+        st["step_s"].extend([steady / nsteps] * nsteps)
+        # a capture's warm-up computes K (dead) steps too
+        self._count_steps(
+            nsteps, K * (1 + st["graph_captures"] - captures), sparse)
+        self.last_logits, self.last_sparse = None, sparse
+        ev = StepEvents(steps=nsteps)
+        for j in range(nsteps):
+            step_live = emits[j] >= 0
+            for i in np.flatnonzero(step_live):
+                ev.emissions.append((sl[i].request_id, int(i),
+                                     int(emits[j, i])))
+                if rx is not None:
+                    rx.note_token(int(i), int(emits[j, i]))
+            st["tokens"] += int(step_live.sum())
+            self.slots.step(step_live)
+            for i in np.flatnonzero(step_live):
+                if sl[i].done:
+                    ev.finished.append(int(i))
+                    self.pool.release(int(i))
+                    if rx is not None:
+                        rx.on_release(int(i))
+            if rx is not None:
+                rx.tick()
+                for job in rx.collect_ready(min_age=1):
+                    self._queue_splice(*job)
+                for i in np.flatnonzero(fired[j]):
+                    if not self._reserve_splice(int(i)):
+                        rx.note_suppressed(int(i))
+                        continue
+                    rx.launch(int(i))
+                    ev.fired.append(int(i))
         return ev
 
     # -- retrieval service hooks (repro_torch.retrieval) ----------------

@@ -479,3 +479,116 @@ def test_train_step_kernel_matches_plain(dev):
     for a, b_ in zip(leaves(grads), leaves(pgrads)):
         scale = max(float(b_.abs().max()), 1e-30)
         assert float((a - b_).abs().max()) <= 1e-4 * scale
+
+
+def _smoke_engine(dev, **sc_kw):
+    """Smoke-width llama3.2-1b engine on the card (fp32: the comparisons
+    below are bitwise), seeded weights."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = get_arch("llama3.2-1b").smoke().replace(dtype="float32")
+    params = init_params(cfg, 0, tp=4, device=dev)
+    sc = ServeConfig(**dict(dict(max_len=256, n_slots=3, tp=4, page=8,
+                                 kv_page_size=16), **sc_kw))
+    return Engine(cfg, params, sc, device=dev, seed=1)
+
+
+def _smoke_prompts(eng, lens=(40, 24, 9)):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, eng.cfg.vocab_size, size=n) for n in lens]
+
+
+@pytest.mark.parametrize("method", ["dsa", "seer", "lserve"])
+def test_fused_graph_window_equals_stepped(dev, method):
+    """A window replayed as a CUDA graph equals K stepped calls: after the
+    same number of device steps the emitted tokens, the pending tokens and
+    the KV pool pages are equal bit for bit; every window replays a graph
+    (captures counted, no eager window), and the kernel launches counted
+    for the replays are n_layers per sparse step the device computed."""
+    import numpy as np
+    from repro_torch.serving import Request
+
+    engs = {K: _smoke_engine(dev, method=method, fused_steps=K)
+            for K in (1, 8)}
+    fused = engs[8]
+    name = ("page_minmax" if method == "lserve"
+            else "relevancy_topk_candidates")
+    streams = {}
+    for K, eng in engs.items():
+        for i, p in enumerate(_smoke_prompts(eng)):
+            eng.submit(Request(i, p, 24))
+        streams[K] = {}
+    n0 = ops.launch_counts()[name]
+    s0 = fused.stats["sparse_device_steps"]
+    while fused.busy():
+        ev = fused.poll()
+        for rid, _s, tok in ev:
+            streams[8].setdefault(rid, []).append(tok)
+        ref = engs[1]
+        while ref.stats["decode_steps"] < fused.stats["decode_steps"]:
+            for rid, _s, tok in ref.poll():
+                streams[1].setdefault(rid, []).append(tok)
+        assert streams[1] == streams[8]
+        assert np.array_equal(ref._pending, fused._pending)
+        for k in ("k_pages", "v_pages"):
+            assert torch.equal(ref.pool.device[k], fused.pool.device[k])
+    st = fused.stats
+    assert st["host_steps"] < st["decode_steps"]
+    assert st["graph_captures"] >= 1 and st["graph_capture_s"] > 0
+    n_layers = fused.cfg.n_layers
+    assert ops.launch_counts()[name] - n0 >= n_layers * (
+        st["sparse_device_steps"] - s0) > 0
+
+
+@pytest.mark.parametrize("method", ["dsa", "seer", "lserve"])
+@pytest.mark.parametrize("fused_steps", [1, 4])
+def test_offload_overlap_two_streams_equals_sync(dev, method, fused_steps):
+    """The offload side on a CUDA stream of its own: overlap (select on
+    the offload stream under apply on the main stream) equals sync token
+    for token, and every consumed selection replays bit for bit
+    (validate)."""
+    from repro_torch.serving import OffloadConfig, Request
+
+    out = {}
+    for mode in ("sync", "overlap"):
+        eng = _smoke_engine(dev, method=method, fused_steps=fused_steps,
+                            offload_cfg=OffloadConfig(
+                                mode=mode, validate=mode == "overlap"))
+        assert eng.hetero.report()["devices"]["offload_stream"]
+        hs = [eng.submit(Request(i, p, 12))
+              for i, p in enumerate(_smoke_prompts(eng))]
+        eng.drain()
+        assert all(h.done for h in hs)
+        assert eng.hetero.profiler.offload_steps > 0
+        out[mode] = [h.tokens for h in hs]
+    assert out["sync"] == out["overlap"]
+
+
+def test_fused_capture_failure_raises(dev, monkeypatch):
+    """A window whose capture fails (a host read inside the captured
+    region) raises out of ``poll``; nothing steps eagerly in its place."""
+    from repro_torch.serving import Request
+    from repro_torch.serving import fused as F
+
+    real = F.make_fused_paged
+
+    def syncing(*a, **kw):
+        fn = real(*a, **kw)
+
+        def window(ins):
+            out = fn(ins)
+            int(out["host"][0])          # a device->host read: uncapturable
+            return out
+        return window
+
+    monkeypatch.setattr(F, "make_fused_paged", syncing)
+    eng = _smoke_engine(dev, method="dsa", fused_steps=4)
+    eng.submit(Request(0, _smoke_prompts(eng)[0], 8))
+    with pytest.raises(RuntimeError):
+        eng.poll()
+    assert eng.stats["decode_steps"] == 0
+    assert eng.stats["graph_captures"] == 0

@@ -4,7 +4,7 @@ prompts plus one chunked prompt, more requests than slots), for
 ``method="none"``, ``"dsa"``, ``"seer"`` (top-k and threshold) and
 ``"lserve"``, from the same JAX-initialized weights; pooled == one-at-a-time
 inside the port; the pool back at zero after release; unported features
-raise.
+(more than one offload shard, a main mesh, the legacy dense pool) raise.
 
 Smoke config at dtype float32. Tokens must be equal exactly. Seer runs at
 tp=4: with dead TP heads the reference's seer gate does not type-check.
@@ -22,13 +22,12 @@ from repro.configs import MemoryConfig as JMemoryConfig  # noqa: E402
 from repro.configs import get_arch as jget_arch  # noqa: E402
 from repro.models import init_params as jinit  # noqa: E402
 from repro.serving import Engine as JEngine  # noqa: E402
-from repro.serving import OffloadConfig  # noqa: E402
 from repro.serving import Request as JRequest  # noqa: E402
 from repro.serving import ServeConfig as JServeConfig  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import MemoryConfig  # noqa: E402
-from repro_torch.retrieval import RetrievalConfig  # noqa: E402
-from repro_torch.serving import Engine, Request, ServeConfig  # noqa: E402
+from repro_torch.serving import (Engine, OffloadConfig, Request,  # noqa: E402
+                                 ServeConfig)
 from repro_torch.weights import from_jax_params  # noqa: E402
 
 torch.set_num_threads(2)
@@ -129,9 +128,8 @@ def test_pooled_matches_one_at_a_time_and_pool_scrubbed(weights):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(offload="sync"), dict(offload_cfg=OffloadConfig(mode="sync")), dict(offload_shards=2),
-    dict(main_mesh=2), dict(fused_steps=2),
-    dict(retrieval=RetrievalConfig(kind="mac"), fused_steps=2),
+    dict(offload_cfg=OffloadConfig(mode="sync", shards=2)),
+    dict(offload_cfg=OffloadConfig(mode="sync", main_mesh=2)),
     dict(paged=False),
 ])
 def test_unported_features_raise(weights, kw):
