@@ -19,8 +19,10 @@ failure (the script then exits non-zero):
    8-term query over a 250,000-doc corpus padded to 262,144, top 4) and at
    the paper's Fig. 10 shape, flash attention at the training shape
    (llama3.2-1b, B 4, S 2048, bf16), the serve runs' bucketed prefill
-   (B 2, S 512) and mixtral's (S 8192, dh 128, window 4096; kernel level
-   only), and its gradients at fp32; each also at edge cases (-1 holes, a
+   (B 2, S 512), mixtral's at S 8192 (dh 128, window 4096) and the
+   families' prefills (granite's bucketed one at G = 2, the legacy pool's
+   whole 4500-token prompt, mixtral's and qwen2-vl's bucketed ones at dh
+   128, zamba2's at dh 112), and its gradients at fp32; each also at edge cases (-1 holes, a
    length cut mid-page, an all-masked row, S or D not a multiple of the
    block, S below the tile, a window below the tile, G = 1, all-zero
    scores, equal scores, fewer live docs than k, fp32 and bf16, a single
@@ -89,11 +91,29 @@ failure (the script then exits non-zero):
    equal outputs; MaC's at d = 2048, equal to ``segment_step``'s; a
    ``{"pipeline": ...}`` line each with the ``StageProfiler`` stage times
    and shares (the paper's Fig. 3-5 breakdown);
-8. a ``{"kernels": [...]}`` line (flash's ``launches`` from the train
-   phase), the card line, and ``{"ok": true, ...}`` as the last line.
+8. families: the rest of the model zoo through the entry points a user
+   calls (``FAMILY_RUNS``), bf16, seeded weights, the serve phase's
+   ``ServeConfig`` and requests: granite-moe-1b-a400m at full width with
+   DSA on the paged pool, stepped (``granite-dsa``, also in the fp32
+   compare) and in 8-step windows (``granite-dsa-fused8``, equal to it);
+   musicgen-medium at full width (paged attention at G = 1); llama3.2-1b
+   on the legacy dense pool (``paged=False``: the shared watermark);
+   zamba2-7b (81 Mamba2 layers, the shared block's 13 sites at dh 112) and
+   xlstm-125m at full width through ``Engine.generate`` (2 prompts of 4480
+   and of 512 tokens); mixtral-8x7b and qwen2-vl-72b at their published
+   widths cut to 2 layers (neither fits the card at full depth; MoE with
+   a 4096-token window, M-RoPE at sections (16, 24, 24)). Launch counts as in
+   the serve phase, per attention layer (the hybrid's sites; none for
+   xLSTM), flash per bucketed or unpaged prefill on the route its head
+   dim takes; one ``serve`` line per run;
+9. a ``{"kernels": [...]}`` line (flash's ``launches`` from the train
+   phase; paged attention and flash also at the families' shapes: G = 1,
+   2, 4 and 8, dh 112 and 128), the card line, and ``{"ok": true, ...}``
+   as the last line.
 
-``--phases`` runs a subset of kernels, train, serve, modes, compare and
-pipeline (the default is all six); ``--runs`` a subset of the serve runs.
+``--phases`` runs a subset of kernels, train, serve, modes, compare,
+pipeline and families (the default is all seven); ``--runs`` a subset of
+the serve runs, ``--family-runs`` of the families phase's.
 """
 from __future__ import annotations
 
@@ -136,11 +156,15 @@ _DSA = ("relevancy_topk_candidates", "paged_decode_attention")
 class Run:
     """A serve run: its method and MemoryConfig overrides, the retrieval
     service's kind (None: no service), the kernels its path launches (once
-    per layer per sparse decode step the device computes, bm25 once per
-    retrieval query), whether it joins the kernel-vs-plain compare at fp32,
-    its decode steps per host dispatch (``fused``: each window a CUDA graph
-    replay), its hetero offload mode and validation, and the run whose
-    greedy tokens (and retrieval events) it must equal (``equals``)."""
+    per attention layer per sparse decode step the device computes, bm25
+    once per retrieval query), whether it joins the kernel-vs-plain compare
+    at fp32, its decode steps per host dispatch (``fused``: each window a
+    CUDA graph replay), its hetero offload mode and validation, and the run
+    whose greedy tokens (and retrieval events) it must equal (``equals``);
+    the architecture (``arch``, at its published widths; ``layers`` > 0
+    cuts its depth to that many layers), the pool (``paged=False``: the
+    legacy dense pool), and for a run through ``Engine.generate`` (the
+    batched dense-cache loop) its batch and prompt length (``generate``)."""
     method: str
     mem: dict = field(default_factory=dict)
     retrieval: str | None = None
@@ -150,6 +174,10 @@ class Run:
     offload: str = "off"
     validate: bool = False
     equals: str | None = None
+    arch: str = SERVE_ARCH
+    layers: int = 0
+    paged: bool = True
+    generate: tuple | None = None
 
 
 # the offload runs select with plain tensor ops on the offload stream: the
@@ -180,7 +208,34 @@ RUNS = {"dsa": Run("dsa"),
         "dsa-offload-validate": Run(
             "dsa", kernels=_APPLY, compare=False, fused=8, offload="overlap",
             validate=True, equals="dsa-offload-overlap")}
-PHASES = ("kernels", "train", "serve", "modes", "compare", "pipeline")
+# the families phase: the rest of the model zoo on the card, each run at
+# its published widths, at full depth but mixtral's and qwen2-vl's (cut to
+# 2 layers: 47 B and 73 B parameters do not fit 80 GB in bf16)
+GRANITE, ZAMBA2 = "granite-moe-1b-a400m", "zamba2-7b"
+FAMILY_RUNS = {
+    "granite-dsa": Run("dsa", arch=GRANITE),
+    "granite-dsa-fused8": Run("dsa", arch=GRANITE, compare=False, fused=8,
+                              equals="granite-dsa"),
+    # 24 heads over 24 KV heads: paged attention at G = 1
+    "musicgen-dsa": Run("dsa", arch="musicgen-medium", compare=False),
+    # the watermark differs from per-slot lengths by design: no equals
+    "llama-dsa-legacy": Run("dsa", compare=False, paged=False),
+    # 35 x 128 tokens (Mamba2's chunk), past min_context; flash, relevancy
+    # and paged attention at each of the 13 shared-block sites, dh 112
+    "zamba2-dsa-generate": Run("dsa", arch=ZAMBA2, compare=False,
+                               generate=(2, 4480)),
+    # attention-free: the method does not apply, no kernel on the path
+    "xlstm-generate": Run("none", arch="xlstm-125m", kernels=(),
+                          compare=False, generate=(2, 512)),
+    # top-2 of 8 experts at ff 14336, window 4096 (the long prompts decode
+    # past it), flash on the tensor cores at dh 128
+    "mixtral-dsa": Run("dsa", arch="mixtral-8x7b", layers=2, compare=False),
+    # M-RoPE at its published sections (16, 24, 24), 64 heads over 8 KV
+    "qwen2vl-dsa": Run("dsa", arch="qwen2-vl-72b", layers=2,
+                       compare=False)}
+ALL_RUNS = {**RUNS, **FAMILY_RUNS}
+PHASES = ("kernels", "train", "serve", "modes", "compare", "pipeline",
+          "families")
 # the run whose serve phase gives a kernel's launches and in-situ time in
 # its row: the first run that launches it
 HOME_PATH = {name: label for label, run in reversed(RUNS.items())
@@ -623,6 +678,33 @@ def check_paged_attention(dev):
         if float((got - want[:, None]).abs().max()) > ATTN_TOL:
             raise AssertionError("all-masked row is not the page-0 mean of v")
 
+    # the families' shapes on their main paths, DSA's 128 pages of 16:
+    # granite's 16 heads over 8 KV heads (G = 2), musicgen's 24 over 24
+    # (G = 1), mixtral's 32 over 8 and qwen2-vl's 64 over 8 at head dim 128,
+    # zamba2's 32 over 32 at head dim 112 (2 rows, its generate batch)
+    family_rows = []
+    for path, b, hq_n, kv_n, dh_n in [
+            ("granite-dsa: G = 2", SLOTS, 16, 8, 64),
+            ("musicgen-dsa: G = 1", SLOTS, 24, 24, 64),
+            ("mixtral-dsa: G = 4, dh 128", SLOTS, 32, 8, 128),
+            ("qwen2vl-dsa: G = 8, dh 128", SLOTS, 64, 8, 128),
+            ("zamba2-dsa-generate: G = 1, dh 112", 2, 32, 32, 112)]:
+        qn = torch.randn(b, hq_n, dh_n, generator=g, device=dev).bfloat16()
+        kn, vn = (torch.randn(b, VIEW, kv_n, dh_n, generator=g,
+                              device=dev).bfloat16() for _ in range(2))
+        pn, ln = dsa_pages[:b].contiguous(), lens[:b].contiguous()
+        e = _attn_check(f"paged attention {path}", *sda.paged_decode_attention(
+            qn, kn, vn, pn, ln, page_size=PAGE),
+            *sda.paged_decode_attention_plain(qn, kn, vn, pn, ln,
+                                              page_size=PAGE))
+        err = max(err, e)
+        family_rows.append(dict(
+            _paged_timing(qn, kn, vn, pn, ln, PAGE), path=path,
+            max_abs_err=e,
+            shape=f"q [{b},{hq_n},{dh_n}] bf16, k/v [{b},{VIEW},{kv_n},"
+                  f"{dh_n}] bf16, {2048 // PAGE} pages of {PAGE}"))
+        del qn, kn, vn
+
     row = _paged_timing(q, kc, vc, dsa_pages, lens, PAGE)
     blk = _paged_timing(q, kc, vc, blk_pages, lens, BLOCK)
     return {
@@ -639,7 +721,7 @@ def check_paged_attention(dev):
         "other_shapes": [dict(
             blk, path="seer, lserve", max_abs_err=blk_err,
             shape=f"q [{B},{Hq},{dh}] bf16, k/v [{B},{VIEW},{KV},{dh}] bf16,"
-                  f" {BUDGET // BLOCK} pages of {BLOCK}")],
+                  f" {BUDGET // BLOCK} pages of {BLOCK}")] + family_rows,
     }
 
 
@@ -1095,8 +1177,8 @@ def _flash_timing(q, k, v, window, plain_n=20):
 
 def check_flash_attention(dev):
     """The flash kernel against its plain version at the training shape,
-    the serve runs' bucketed-prefill shape, mixtral's attention (kernel
-    level only: its ~47 B parameters do not fit one card) and edge cases;
+    the serve runs' bucketed-prefill shape, mixtral's attention at S 8192,
+    the families' prefill shapes and edge cases;
     its gradients (``FlashAttention``) against autograd through the plain
     version at fp32."""
     import torch
@@ -1114,6 +1196,21 @@ def check_flash_attention(dev):
         "serve bucketed prefill": (len(SHORT_LENS), PREFILL_BUCKET, 32, 8,
                                    64, 0, 20),
         "mixtral attention": (1, 8192, 32, 8, 128, 4096, 2),
+        # the families' prefills on their main paths: granite's bucketed
+        # one (G = 2); the legacy pool's whole prompt (B 1, the longest);
+        # mixtral's and qwen2-vl's bucketed ones (dh 128, mixtral's window
+        # passed to the kernel, G = 4 and 8); zamba2's shared block at its
+        # generate prefill (dh 112, G = 1, on the CUDA-core route: the
+        # tensor-core kernel takes 64 and 128)
+        "granite prefill": (len(SHORT_LENS), PREFILL_BUCKET, 16, 8, 64, 0,
+                            20),
+        "legacy whole-prompt prefill": (1, max(PROMPT_LENS), 32, 8, 64, 0,
+                                        2),
+        "mixtral bucketed prefill": (len(SHORT_LENS), PREFILL_BUCKET, 32, 8,
+                                     128, 4096, 20),
+        "qwen2-vl bucketed prefill": (len(SHORT_LENS), PREFILL_BUCKET, 64,
+                                      8, 128, 0, 20),
+        "zamba2 prefill": (2, 4480, 32, 32, 112, 0, 2),
     }
     def routed(name, fn, want_route):
         """``fn()``, checked to launch once on ``want_route``."""
@@ -1129,14 +1226,14 @@ def check_flash_attention(dev):
     rows, err, routes = {}, 0.0, {}
     for path, (B, S, H, KV, dh, w, pn) in shapes.items():
         q, k, v = qkv(B, S, H, KV, dh)
+        routes[path] = fa._route(torch.bfloat16, dh)
         got = routed(path, lambda: fa.flash_attention(q, k, v, window=w),
-                     fa.TENSOR_CORES)
-        routes[path] = fa.TENSOR_CORES
+                     routes[path])
         e = _flash_check(f"flash {path} bf16", got,
                          ops_plain_flash(q, k, v, w))
         err = max(err, e)
         rows[path] = dict(_flash_timing(q, k, v, w, plain_n=pn),
-                          path=path, max_abs_err=e, route=fa.TENSOR_CORES,
+                          path=path, max_abs_err=e, route=routes[path],
                           shape=f"q [{B},{S},{H},{dh}] bf16, k/v [{B},{S},"
                                 f"{KV},{dh}] bf16, window {w or 'none'}")
         del q, k, v
@@ -1156,7 +1253,9 @@ def check_flash_attention(dev):
             ("bf16 dh 32", 1, 300, 4, 2, 32, 0, bf16),
             ("fp32 training heads", 1, 1024, 32, 8, 64, 0, f32),
             ("fp32 window 96", 1, 700, 8, 2, 128, 96, f32),
-            ("bf16 window 96", 1, 700, 8, 2, 128, 96, bf16)]:
+            ("bf16 window 96", 1, 700, 8, 2, 128, 96, bf16),
+            ("bf16 dh 112 G=1 ragged", 1, 300, 4, 4, 112, 0, bf16),
+            ("fp32 dh 112 window 96", 1, 700, 8, 2, 112, 96, f32)]:
         q, k, v = qkv(B, S, H, KV, dh, dt)
         routes[name] = fa._route(dt, dh)
         got = routed(name, lambda: ops.flash_attention(q, k, v, window=w),
@@ -1470,7 +1569,7 @@ def retrieval_config(dev, run: str, mode: str = "overlap",
     from repro_torch.core.methods.mac import MacConfig
     from repro_torch.retrieval import RetrievalConfig
 
-    kind = RUNS[run].retrieval
+    kind = ALL_RUNS[run].retrieval
     if kind is None:
         return None
     kw = dict(kind=kind, mode=mode, trigger="flare", tau=1.1,
@@ -1479,6 +1578,90 @@ def retrieval_config(dev, run: str, mode: str = "overlap",
     if kind == "rag":
         return RetrievalConfig(corpus=card_corpus(dev), k=RAG_K, **kw)
     return RetrievalConfig(mac=MacConfig(), **kw)
+
+
+def run_config(r: Run, dtype: str):
+    """The run's architecture config at ``dtype``, its depth cut to
+    ``r.layers`` where that is set."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(r.arch).replace(dtype=dtype)
+    return cfg.replace(n_layers=r.layers) if r.layers else cfg
+
+
+def attention_layers(cfg) -> int:
+    """Layers that run attention (and so the attention kernels) once per
+    step: every layer of a transformer, the shared block's sites of the
+    hybrid, none of xLSTM."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return 0 if cfg.xlstm_pattern else cfg.n_layers
+
+
+def _engine(dev, run: str, dtype: str, **sc_kw):
+    """The run's engine: seeded weights at its config, the serve phase's
+    ``ServeConfig`` with ``sc_kw`` on top. Returns (engine, config)."""
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, ServeConfig
+
+    r = ALL_RUNS[run]
+    cfg = run_config(r, dtype)
+    sc = ServeConfig(method=r.method, max_len=VIEW, n_slots=SLOTS,
+                     kv_page_size=PAGE, page=PAGE, **sc_kw)
+    eng = Engine(cfg, init_params(cfg, 0, device=dev), sc, seed=1,
+                 device=dev, mem=cfg.memory.replace(method=r.method, **r.mem))
+    return eng, cfg
+
+
+def _check_served(run: str, eng, cfg, tokens):
+    """Every request's ``MAX_NEW`` tokens (``tokens``: rid -> tokens) lie in
+    the vocab, the last logits are finite, and a run with kernels on its
+    path took a sparse decode step."""
+    import torch
+
+    for rid, toks in tokens.items():
+        if len(toks) != MAX_NEW:
+            raise AssertionError(f"{run}: request {rid} incomplete: {toks}")
+        if not all(0 <= int(t) < cfg.vocab_size for t in toks):
+            raise AssertionError(f"{run}: request {rid}: token out of vocab")
+    # the padded vocab's columns are -inf by design (lm_head's mask)
+    if eng.last_logits is not None and not torch.isfinite(
+            eng.last_logits[:, :cfg.vocab_size]).all():
+        raise AssertionError(f"{run}: non-finite logits")
+    if ALL_RUNS[run].kernels and eng.stats["sparse_steps"] == 0:
+        raise AssertionError(f"{run}: no decode step crossed min_context")
+
+
+def serve_generate(dtype: str, dev, run: str, profile_polls: int = 0):
+    """A ``generate`` run (the hybrid and ssm families: the batched
+    dense-cache loop): ``Engine.generate`` on its batch of seeded prompts,
+    ``MAX_NEW`` new tokens each. With ``profile_polls`` > 0, a fresh prefill
+    and that many decode steps (after one untraced) under torch.profiler
+    instead (``_Profile``)."""
+    import numpy as np
+    import torch
+
+    eng, cfg = _engine(dev, run, dtype)
+    n, S = ALL_RUNS[run].generate
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (n, S))
+    if profile_polls:
+        logits, caches = eng._prefill(torch.as_tensor(prompts, device=dev))
+        logits, caches = eng._decode(logits.argmax(-1), caches)
+        prof = _Profile(profile_polls, run)
+        for _ in range(profile_polls):
+            logits, caches = eng._decode(logits.argmax(-1), caches)
+            prof.tick()
+        return SimpleNamespace(profile=prof.result)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = eng.generate(prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if gen.shape != (n, MAX_NEW):
+        raise AssertionError(f"{run}: generated {gen.shape}")
+    _check_served(run, eng, cfg, dict(enumerate(gen)))
+    return SimpleNamespace(gen=gen, wall=wall, eng=eng, cfg=cfg, events=[],
+                           prompt_lens=[S] * n, profile=None)
 
 
 def serve(dtype: str, dev, run: str, record: bool = False,
@@ -1495,40 +1678,24 @@ def serve(dtype: str, dev, run: str, record: bool = False,
     ``_Profile``); a fused run first serves the requests once untraced, so
     its graphs are captured before the traced pass. The retrieval runs
     serve with their service in ``mode``."""
-    import torch
-    from repro_torch.configs import get_arch
-    from repro_torch.models import init_params
-    from repro_torch.serving import Engine, OffloadConfig, ServeConfig
+    from repro_torch.serving import OffloadConfig
 
-    r = RUNS[run]
-    method, mem_kw = r.method, r.mem
-    cfg = get_arch(SERVE_ARCH).replace(dtype=dtype)
-    params = init_params(cfg, 0, device=dev)
-    sc = ServeConfig(method=method, max_len=VIEW, n_slots=SLOTS,
-                     kv_page_size=PAGE, page=PAGE,
-                     retrieval=retrieval_config(dev, run, mode, validate),
-                     fused_steps=r.fused,
-                     offload_cfg=OffloadConfig(mode=r.offload,
-                                               validate=r.validate))
-    eng = Engine(cfg, params, sc, seed=1, device=dev,
-                 mem=cfg.memory.replace(method=method, **mem_kw))
+    r = ALL_RUNS[run]
+    eng, cfg = _engine(dev, run, dtype, paged=r.paged,
+                       retrieval=retrieval_config(dev, run, mode, validate),
+                       fused_steps=r.fused,
+                       offload_cfg=OffloadConfig(mode=r.offload,
+                                                 validate=r.validate))
     reqs = _requests(cfg.vocab_size)
     if profile_polls and r.fused > 1:
         _drive(eng, reqs, run)                  # captures the graphs
     n_ev0 = 0 if eng.retrieval is None else len(eng.retrieval.events)
     res = _drive(eng, reqs, run, record=record, profile_polls=profile_polls)
-    for h in res.handles:
-        if not h.done or len(h.tokens) != MAX_NEW:
-            raise AssertionError(f"request {h.rid} incomplete: {h.tokens}")
-        if not all(0 <= t < cfg.vocab_size for t in h.tokens):
-            raise AssertionError(f"request {h.rid}: token out of vocab")
-    if eng.last_logits is not None and \
-            not torch.isfinite(eng.last_logits).all():
-        raise AssertionError("non-finite logits")
+    if not all(h.done for h in res.handles):
+        raise AssertionError(f"{run}: a request did not finish")
+    _check_served(run, eng, cfg, {h.rid: h.tokens for h in res.handles})
     if r.fused > 1 and eng.stats["graph_captures"] == 0:
         raise AssertionError(f"{run}: no CUDA graph was captured")
-    if eng.stats["sparse_steps"] == 0:
-        raise AssertionError(f"{run}: no decode step crossed min_context")
     if eng.sc.max_len != VIEW:
         raise AssertionError(f"{run}: max_len {eng.sc.max_len} != {VIEW}")
     if profile_polls and res.profile is None:
@@ -1539,11 +1706,15 @@ def serve(dtype: str, dev, run: str, record: bool = False,
                       for e in eng.retrieval.events[n_ev0:]]
         _check_retrievals(run, res.events, res.slot_of)
     res.eng, res.cfg = eng, cfg
+    res.prompt_lens = list(PROMPT_LENS)
     return res
 
 
 # the poll of the long prompts' last prefill chunk (ServeConfig's
-# prefill_chunk of 128 tokens a poll): the short prompts join then
+# prefill_chunk of 128 tokens a poll): the short prompts join then. The
+# legacy pool prefills a whole prompt at its admission, in poll 0, and the
+# long ones finish their 16 tokens before poll 35: there all four join at
+# once, so that they share the sparse steps there too
 LATE_POLL = -(-max(PROMPT_LENS) // 128) - 1
 
 
@@ -1555,11 +1726,12 @@ def _drive(eng, reqs, run: str, record: bool = False,
     rows, first_sparse, slot_of = {r.rid: [] for r in reqs}, None, {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    late_poll = LATE_POLL if eng.sc.paged else 0
     handles = [eng.submit(r) for r in reqs[:2]]
     late = reqs[2:]
     polls, prof, sparse0 = 0, None, eng.stats["sparse_steps"]
     while eng.busy() or late:
-        if late and polls >= LATE_POLL:
+        if late and polls >= late_poll:
             handles += [eng.submit(r) for r in late]
             late = []
         if (profile_polls and prof is None
@@ -1598,7 +1770,8 @@ def _check_retrievals(run: str, events, slot_of):
         if spliced <= 0:
             raise AssertionError(f"{run}: an empty splice in slot {slot}")
     long_ = {slot_of[r] for r, n in enumerate(PROMPT_LENS) if n > 1024}
-    want = set(slot_of.values()) if RUNS[run].retrieval == "rag" else long_
+    want = set(slot_of.values()) if ALL_RUNS[run].retrieval == "rag" \
+        else long_
     if set(per_slot) != want or max(per_slot.values()) > 2:
         raise AssertionError(f"{run}: retrievals per slot {per_slot}, "
                              f"expected 1-2 for the slots {sorted(want)}")
@@ -1663,10 +1836,10 @@ class _Profile:
         # the chrome trace, gzipped (each run's is tens of MB as JSON)
         self.prof.export_chrome_trace(stem + ".json.gz")
         in_situ = {}
-        for name in RUNS[self.run].kernels:
+        for name in ALL_RUNS[self.run].kernels:
             sym = KERNEL_SYMBOLS[name]
             hits = [e for e in avgs if sym in e.key]
-            if not hits and RUNS[self.run].fused > 1:
+            if not hits and ALL_RUNS[self.run].fused > 1:
                 in_situ[name] = None
                 continue
             if not hits:
@@ -1714,72 +1887,97 @@ def _fused_offload_summary(eng):
 def phase_serve(dev, label: str):
     """The run's path (launch counts reset just before it and read just
     after), then the same requests again with four profiled decode polls
-    (host dispatches under fused decode)."""
+    (host dispatches under fused decode; decode steps for a generate
+    run)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
-    method = RUNS[label].method
+    r = ALL_RUNS[label]
+    drive = serve_generate if r.generate else serve
     ops.reset_launch_counts()
-    run = serve("bfloat16", dev, label)
+    run = drive("bfloat16", dev, label)
     counts = ops.launch_counts()
     routes = ops.flash_route_counts()
-    eng, handles, wall, cfg = run.eng, run.handles, run.wall, run.cfg
+    eng, wall, cfg = run.eng, run.wall, run.cfg
+    stats = eng.stats
+    n_attn = attention_layers(cfg)
+    prefills = stats["bucket_prefills"] + stats["dense_prefills"]
     # per sparse step the device computed: a fused window's masked steps
     # and its graph's warm-up launch too (the replays' launches are counted)
-    want = cfg.n_layers * eng.stats["sparse_device_steps"]
+    want = n_attn * stats["sparse_device_steps"]
     queries = len(run.events)      # every launched query was collected
-    # flash: once per layer per bucketed (admission) prefill
-    expect = {name: want if name in RUNS[label].kernels else 0
-              for name in counts}
-    expect["flash_attention"] = cfg.n_layers * eng.stats["bucket_prefills"]
-    if "bm25_topk_candidates" in RUNS[label].kernels:
+    # flash: once per attention layer per prefill (bucketed, or unpaged)
+    expect = {name: want if name in r.kernels else 0 for name in counts}
+    expect["flash_attention"] = n_attn * prefills
+    if "bm25_topk_candidates" in r.kernels:
         expect["bm25_topk_candidates"] = queries
-    log(f"  launches {counts}, sparse steps {eng.stats['sparse_steps']} of "
-        f"{eng.stats['decode_steps']} ({eng.stats['sparse_device_steps']} "
-        f"computed), bucketed prefills {eng.stats['bucket_prefills']}; "
-        f"expected {expect}")
+    log(f"  launches {counts}, sparse steps {stats['sparse_steps']} of "
+        f"{stats['decode_steps']} ({stats['sparse_device_steps']} "
+        f"computed), prefills {stats['bucket_prefills']} bucketed, "
+        f"{stats['dense_prefills']} unpaged; expected {expect}")
     if set(counts) != set(KERNEL_SYMBOLS):
         raise AssertionError(f"counted kernels {sorted(counts)}")
-    if not eng.stats["bucket_prefills"]:
-        raise AssertionError(f"{label}: no bucketed prefill ran")
+    if not prefills or (r.paged and not r.generate
+                        and not stats["bucket_prefills"]):
+        raise AssertionError(f"{label}: no bucketed or unpaged prefill ran")
     for name, n in counts.items():
         if n != expect[name]:
             raise AssertionError(f"{label}: {name} launched {n} times, "
                                  f"expected {expect[name]}")
-    if routes != {"tensor_cores": counts["flash_attention"], "cuda_cores": 0}:
-        raise AssertionError(f"{label}: bf16 flash routes {routes}")
-    toks = sum(len(h.tokens) for h in handles)
-    ttft = sorted(h.ttft_s() for h in handles)
-    stats = eng.stats
+    route = fa._route(torch.bfloat16, cfg.hd)
+    want_routes = {rt: counts["flash_attention"] if rt == route else 0
+                   for rt in (fa.TENSOR_CORES, fa.CUDA_CORES)}
+    if routes != want_routes:
+        raise AssertionError(f"{label}: bf16 flash routes {routes}, "
+                             f"expected {want_routes}")
     fo = _fused_offload_summary(eng)
+    if r.generate:
+        gen = run.gen
+        toks = int(gen.size)
+        tokens = {str(i): [int(t) for t in row] for i, row in enumerate(gen)}
+        # every row's first token comes out of the one batched prefill
+        ttft = {k: stats["prefill_s"] for k in tokens}
+        out = {"tokens": [list(v) for v in tokens.values()], "events": []}
+    else:
+        handles = run.handles
+        toks = sum(len(h.tokens) for h in handles)
+        tokens = {str(h.rid): [int(t) for t in h.tokens] for h in handles}
+        ttft = {str(h.rid): h.ttft_s() for h in handles}
+        out = {"tokens": [list(h.tokens) for h in handles],
+               "events": run.events}
     retrieval = None if eng.retrieval is None else dict(
         eng.retrieval.report(), events=[
             {"slot": sl, "ids": [int(i) for i in ids], "spliced": n}
             for sl, ids, n in run.events])
-    out = {"tokens": [list(h.tokens) for h in handles],
-           "events": run.events}
+    prompt_lens = run.prompt_lens
     del run, eng
-    profile = serve("bfloat16", dev, label, profile_polls=4).profile
+    profile = drive("bfloat16", dev, label, profile_polls=4).profile
     summary = {
-        "run": label, "method": method, **RUNS[label].mem,
-        "card": card_line(), "arch": SERVE_ARCH,
-        "dtype": "bfloat16", "requests": len(handles),
-        "prompt_lens": list(PROMPT_LENS), "max_new": MAX_NEW,
+        "run": label, "method": r.method, **r.mem,
+        "card": card_line(), "arch": r.arch,
+        "width": "full", "family": cfg.family,
+        "layers": cfg.n_layers, "attention_layers": n_attn,
+        "pool": "generate (batched dense-cache loop)" if r.generate
+        else "paged" if r.paged else "legacy dense (watermark)",
+        "kernels_on_path": list(r.kernels),
+        "dtype": "bfloat16", "requests": len(tokens),
+        "prompt_lens": prompt_lens, "max_new": MAX_NEW,
         "tokens": toks, "wall_s": wall, "tok_per_s": toks / wall,
         # the wall without the graph captures (a server captures a window
         # once and replays it for every later request)
         "tok_per_s_steady": toks / (wall - fo["graph_capture_s"]),
-        "greedy_tokens": {str(h.rid): [int(t) for t in h.tokens]
-                          for h in handles},
-        "ttft_s": {str(h.rid): h.ttft_s() for h in handles},
-        "ttft_p50_s": statistics.median(ttft),
+        "greedy_tokens": tokens, "ttft_s": ttft,
+        "ttft_p50_s": statistics.median(ttft.values()),
         "decode_steps": stats["decode_steps"],
         "sparse_steps": stats["sparse_steps"],
         "decode_step_ms_median": 1e3 * statistics.median(stats["step_s"]),
         "prefill_s": stats["prefill_s"],
-        "bucket_prefills": stats["bucket_prefills"], "launches": counts,
+        "bucket_prefills": stats["bucket_prefills"],
+        "dense_prefills": stats["dense_prefills"], "launches": counts,
         "flash_launches_by_route": routes,
         "profiled_decode": profile,
-        "fused_steps": RUNS[label].fused, "offload": RUNS[label].offload,
+        "fused_steps": r.fused, "offload": r.offload,
         **fo,
     }
     if retrieval is not None:
@@ -1794,7 +1992,7 @@ def check_equal_runs(runs):
     against sync, the validate run against overlap). One ``equal_runs``
     line."""
     pairs = {}
-    for label, r in RUNS.items():
+    for label, r in ALL_RUNS.items():
         if r.equals is None or label not in runs or r.equals not in runs:
             continue
         got, want = runs[label][3], runs[r.equals][3]
@@ -2000,6 +2198,9 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--runs", default=",".join(RUNS),
                     help="the serve phase's runs (default: all of RUNS)")
+    ap.add_argument("--family-runs", default=",".join(FAMILY_RUNS),
+                    help="the families phase's runs (default: all of "
+                         "FAMILY_RUNS)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES):
@@ -2009,6 +2210,11 @@ def main(argv=None):
     if not set(serve_runs) <= set(RUNS):
         raise ValueError(f"unknown runs {sorted(set(serve_runs) - set(RUNS))}"
                          f": choose from {list(RUNS)}")
+    family_runs = args.family_runs.split(",")
+    if not set(family_runs) <= set(FAMILY_RUNS):
+        raise ValueError(f"unknown family runs "
+                         f"{sorted(set(family_runs) - set(FAMILY_RUNS))}: "
+                         f"choose from {list(FAMILY_RUNS)}")
 
     import torch
     if not torch.cuda.is_available():
@@ -2039,11 +2245,18 @@ def main(argv=None):
     if "train" in phases:
         log("[3] train llama3.2-1b bf16")
         flash = phase_train(dev)
+    runs = {}
     if "serve" in phases:
-        runs = {}
         for r in serve_runs:
             log(f"[4] serve llama3.2-1b bf16, {r}")
             runs[r] = phase_serve(dev, r)
+    if "families" in phases:
+        for r in family_runs:
+            run = FAMILY_RUNS[r]
+            cut = f" ({run.layers} layers)" if run.layers else ""
+            log(f"[8] {r}: {run.arch}{cut} bf16, method {run.method}")
+            runs[r] = phase_serve(dev, r)
+    if runs:
         check_equal_runs(runs)
         for k in kernels:
             if k["name"] == "flash_attention":
@@ -2062,10 +2275,8 @@ def main(argv=None):
             continue
         # the train phase is its home path; serve runs prefill through it
         by_path = {m: c["flash_attention"]
-                   for m, (c, _, _, _) in runs.items()} \
-            if "serve" in phases else {}
-        by_route = {m: r for m, (_, _, r, _) in runs.items()} \
-            if "serve" in phases else {}
+                   for m, (c, _, _, _) in runs.items()}
+        by_route = {m: r for m, (_, _, r, _) in runs.items()}
         if flash is not None:
             k["launches"], k["ms_in_situ"], by_route["train"] = flash
             by_path["train"] = flash[0]
@@ -2075,7 +2286,7 @@ def main(argv=None):
         log("[5] dsa-rag: retrieval inline vs sync vs overlap")
         phase_modes(dev)
     if "compare" in phases:
-        for r in (r for r, run in RUNS.items() if run.compare):
+        for r in (r for r, run in ALL_RUNS.items() if run.compare):
             log(f"[6] {r}: kernel path vs plain path, fp32")
             phase_compare(dev, r)
     if "pipeline" in phases:

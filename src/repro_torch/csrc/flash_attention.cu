@@ -97,7 +97,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int LQ = DH + 4;        // padded rows: conflict-free float4 reads
   constexpr int LP = kBK + 4;
   constexpr int OC = DH / 16;       // output channels per thread
-  constexpr int CW = OC < 4 ? OC : 4;
+  // channels a thread reads as one vector: 4 (dh 64, 128), 2 (dh 32), 1
+  // (dh 112: 7 channels, each thread's a stride of 16 apart)
+  constexpr int CW = OC % 4 == 0 ? 4 : OC % 2 == 0 ? 2 : 1;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                 // [kBQ][LQ], pre-scaled
   float* Ks = Qs + kBQ * LQ;        // [kBK][LQ]
@@ -205,10 +207,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             vv[e + 1] = w.y;
             vv[e + 2] = w.z;
             vv[e + 3] = w.w;
-          } else {
+          } else if constexpr (CW == 2) {
             const float2 w = *reinterpret_cast<const float2*>(vr + (e / CW) * 16 * CW);
             vv[e] = w.x;
             vv[e + 1] = w.y;
+          } else {
+            vv[e] = vr[e * 16];
           }
         }
 #pragma unroll
@@ -255,6 +259,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B, int 
   switch (dh) {
     case 32: return launch<T, 32>(q, k, v, out, B, S, H, G, window, scale, st, stream);
     case 64: return launch<T, 64>(q, k, v, out, B, S, H, G, window, scale, st, stream);
+    case 112: return launch<T, 112>(q, k, v, out, B, S, H, G, window, scale, st, stream);
     case 128: return launch<T, 128>(q, k, v, out, B, S, H, G, window, scale, st, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -266,7 +271,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B, int 
 // out [B,S,H,dh] in the same dtype. strides: 12 element strides, (batch,
 // seq, head) of q, k, v and out in turn; the channel stride is 1, and every
 // stride and base pointer is a multiple of 4 elements (16 bytes fp32, 8
-// bytes bf16). dh is 32, 64 or 128 (else cudaErrorInvalidValue). window 0:
+// bytes bf16). dh is 32, 64, 112 or 128 (else cudaErrorInvalidValue). window 0:
 // causal only. scale: 1/sqrt(dh). Returns cudaGetLastError() after the
 // launch.
 extern "C" int flash_attention_cuda(const void* q, const void* k, const void* v, void* out,

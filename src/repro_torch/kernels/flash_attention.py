@@ -30,7 +30,7 @@ from repro_torch.kernels import ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-HEAD_DIMS = (32, 64, 128)     # the CUDA-core kernel's template cases
+HEAD_DIMS = (32, 64, 112, 128)  # the CUDA-core kernel's template cases
 TC_HEAD_DIMS = (64, 128)      # the tensor-core kernel's
 TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 #: launches of each route since the last reset (``ops.reset_launch_counts``)

@@ -1,9 +1,16 @@
 """Serving launcher for the port (twin of ``repro.launch.serve``): random
 prompts through the paged continuous-batching engine, with the method's
 memory pipeline when ``--method`` is dsa, seer or lserve, and the retrieval
-service with ``--retrieval``.
+service with ``--retrieval``. ``--arch`` takes every name of
+``repro_torch.configs.ARCHS``; the hybrid (zamba2) and ssm (xLSTM) families
+have no KV pool and serve through ``Engine.generate``'s batched dense-cache
+loop (xLSTM ignores the method).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --method dsa --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-1b-a400m --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --retrieval on \\
         --retrieval-kind rag --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --offload on \\
@@ -25,18 +32,20 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import numpy as np
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCHS, get_arch
 from repro_torch.hetero import resolve_cli_offload, resolve_cli_retrieval
 from repro_torch.models import init_params
 from repro_torch.serving import Engine, OffloadConfig, Request, ServeConfig
+from repro_torch.serving.engine import POOL_FAMILIES
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--arch", default="llama3.2-1b", choices=sorted(ARCHS))
     ap.add_argument("--method", default="dsa", choices=["none", "dsa", "seer", "lserve"])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -95,6 +104,17 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, size=args.prompt_len),
                     args.max_new) for i in range(args.requests)]
+    if cfg.family not in POOL_FAMILIES:
+        t0 = time.perf_counter()
+        gen = eng.generate(np.stack([r.tokens for r in reqs]), args.max_new)
+        wall = time.perf_counter() - t0
+        print(f"arch={args.arch} ({cfg.family}, generate: batched "
+              f"dense-cache loop) method={args.method} device={eng.device}: "
+              f"{len(gen)}/{args.requests} requests, {gen.size} tokens, "
+              f"{gen.size / wall:.1f} tok/s, "
+              f"{eng.stats['sparse_steps']}/{eng.stats['decode_steps']} "
+              f"decode steps sparse")
+        return
     handles = [eng.submit(r) for r in reqs]
     done = eng.drain()
     toks = sum(len(h.tokens) for h in handles)

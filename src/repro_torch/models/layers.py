@@ -1,6 +1,6 @@
-"""Core layers (twin of ``repro.models.layers``): RMSNorm, RoPE, SwiGLU MLP,
-embedding, LM head and the cross-entropy loss, as plain functions over
-parameter dicts.
+"""Core layers (twin of ``repro.models.layers``): RMSNorm, RoPE and M-RoPE,
+SwiGLU MLP, embedding, LM head and the cross-entropy loss, as plain
+functions over parameter dicts.
 
 Weights are stored in ``cfg.dtype`` (bf16 by default); norms and RoPE run in
 fp32 and cast back, matmuls run in the weights' dtype.
@@ -59,6 +59,32 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
     """positions [..., S] -> cos/sin [..., S, rd//2] in fp32."""
     inv = _inv_freq_on(head_dim, theta, rotary_dim, positions.device)
     ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+@functools.lru_cache(maxsize=16)
+def _mrope_owner_on(sections: Tuple[int, int, int], device):
+    """[hd//2] long: the position stream (0 temporal, 1 height, 2 width)
+    that owns each frequency channel, made once per device like
+    ``_inv_freq_on``."""
+    return torch.as_tensor(np.repeat(np.arange(3), np.asarray(sections)),
+                           device=device).long()
+
+
+def mrope_cos_sin(positions3: torch.Tensor, head_dim: int, theta: float,
+                  sections: Tuple[int, int, int]):
+    """Qwen2-VL M-RoPE. positions3 [3, B, S] (temporal, height, width) ->
+    cos/sin [B, S, hd//2] fp32: each stream owns a contiguous slice of the
+    frequency channels (``sections`` sum to hd//2)."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"mrope sections {sections} do not sum to "
+                         f"head_dim // 2 = {head_dim // 2}")
+    inv = _inv_freq_on(head_dim, theta, None, positions3.device)
+    ang = positions3.float()[..., None] * inv           # [3, B, S, hd//2]
+    owner = _mrope_owner_on(tuple(sections), positions3.device)
+    ang = torch.gather(ang.movedim(0, -1), -1,
+                       owner[:, None].expand(ang.shape[1:]
+                                             + (1,)))[..., 0]
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -1,15 +1,30 @@
-"""Model (twin of ``repro.models.model``), dense family only: init, forward
-(with per-layer remat), the training loss, prefill and decode over a
-per-request cache, prefill over length buckets, chunked extend and decode
-over the paged pool.
+"""Model (twin of ``repro.models.model``) for all ten architectures: init,
+forward (with per-layer remat), the training loss, prefill and decode over a
+per-request cache; and, for the transformer families, prefill over length
+buckets, chunked extend and decode over the paged pool.
+
+Families:
+  dense | moe | audio | vlm : transformer (GQA attention + SwiGLU or MoE
+                              FFN; vlm with M-RoPE)
+  hybrid (zamba2)           : n_super x (``shared_attn_every`` Mamba2 layers
+                              + one weight-shared attention/MLP block), then
+                              the tail's Mamba2 layers
+  ssm (xlstm)               : (mLSTM, sLSTM) pairs
 
 Parameters are nested dicts of tensors with layer-stacked ``[L, ...]``
-leaves, the reference's layout, so ``weights.from_jax_params`` carries a JAX
-parameter tree over unchanged. Layers run as a Python loop over the stack.
-The pool ops write the KV pages in place; the reference donated those
-buffers to its jitted steps instead (``repro/serving/engine.py:342-356``).
-``decode_step`` likewise writes the new token's K/V into the cache tensors
-it is given, where the reference returns updated copies.
+leaves, the reference's layout (the hybrid's body double-stacked ``[n_super,
+per, ...]``), so ``weights.from_jax_params`` carries a JAX parameter tree
+over unchanged. Layers run as a Python loop over the stack. The pool ops
+write the KV pages in place; the reference donated those buffers to its
+jitted steps instead (``repro/serving/engine.py:342-356``). ``decode_step``
+likewise writes the new token's K/V into the cache tensors it is given,
+where the reference returns updated copies; recurrent states come back as
+new tensors, as in the reference.
+
+M-RoPE without ``positions3`` uses the 1-D positions on all three streams
+(a text token's rule in Qwen2-VL). The reference does so in its decode and
+extend steps and asserts in ``forward``; the port applies the rule in
+``forward`` too, so the bucketed prefill serves the vlm family.
 """
 from __future__ import annotations
 
@@ -25,45 +40,82 @@ from repro_torch.kernels.page_pool import (pool_gather, pool_scatter_span,
                                            pool_scatter_token)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
 
 Params = Dict
 
+MOE_AUX_COEF = 0.01
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"repro_torch serves the dense family only; {cfg.name} is "
-            f"{cfg.family!r} (ROADMAP Queue 1 item 13)")
+
+def _hybrid_shape(cfg: ArchConfig):
+    """(n_super, per, tail) of the hybrid: n_super applications of the
+    shared block, each after ``per`` Mamba2 layers, then ``tail`` more."""
+    per = cfg.shared_attn_every
+    n_super = cfg.n_layers // per
+    return n_super, per, cfg.n_layers - n_super * per
+
+
+def _tf_layers_init(gen, cfg: ArchConfig, tp: int, n: int) -> Params:
+    """n stacked transformer layers: attention, norms, SwiGLU or MoE."""
+    d, ff = cfg.d_model, cfg.d_ff
+    dt = L.dtype_of(cfg)
+    ones = lambda *shape: torch.ones(shape, dtype=torch.float32,
+                                     device=gen.device)
+    lead = (n,)
+    p = {"attn": A.attn_init(gen, cfg, tp, n), "attn_norm": {"w": ones(n, d)},
+         "mlp_norm": {"w": ones(n, d)}}
+    if cfg.n_experts:
+        p["moe"] = MOE.moe_init(gen, cfg, lead)
+    else:
+        p["mlp"] = {
+            "w1": L.dense_init(gen, d, ff, dt, lead=lead),
+            "w3": L.dense_init(gen, d, ff, dt, lead=lead),
+            "w2": L.dense_init(gen, ff, d, dt, lead=lead,
+                               scale=1.0 / np.sqrt(2 * cfg.n_layers * ff)),
+        }
+    return p
+
+
+def _mamba_layers_init(gen, cfg: ArchConfig, lead) -> Params:
+    return {"norm": {"w": torch.ones(tuple(lead) + (cfg.d_model,),
+                                     dtype=torch.float32, device=gen.device)},
+            "mamba": S.mamba_init(gen, cfg, lead)}
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, tp: int = 16,
                 device="cuda") -> Params:
-    """Seeded init with the reference's distributions, scales, dtypes and
-    dead-head zeroing (the draws themselves differ from ``jax.random``)."""
-    _require_dense(cfg)
+    """Seeded init with the reference's layout, distributions, scales,
+    dtypes and dead-head zeroing (the draws themselves differ from
+    ``jax.random``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     dt = L.dtype_of(cfg)
-    n, d, ff, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
-    ones = lambda *shape: torch.ones(shape, dtype=torch.float32, device=dev)
-    lead = (n,)
-    return {
+    d, V = cfg.d_model, cfg.padded_vocab
+    params = {
         "embed": {"w": L.dense_init(gen, V, d, dt, scale=0.02)},
-        "final_norm": {"w": ones(d)},
+        "final_norm": {"w": torch.ones((d,), dtype=torch.float32,
+                                       device=dev)},
         "lm_head": {"w": L.dense_init(gen, d, V, dt)},
-        "layers": {
-            "attn": A.attn_init(gen, cfg, tp, n),
-            "attn_norm": {"w": ones(n, d)},
-            "mlp_norm": {"w": ones(n, d)},
-            "mlp": {
-                "w1": L.dense_init(gen, d, ff, dt, lead=lead),
-                "w3": L.dense_init(gen, d, ff, dt, lead=lead),
-                "w2": L.dense_init(gen, ff, d, dt, lead=lead,
-                                   scale=1.0 / np.sqrt(2 * n * ff)),
-            },
-        },
     }
+    if cfg.family == "hybrid":
+        n_super, per, tail = _hybrid_shape(cfg)
+        params["body"] = _mamba_layers_init(gen, cfg, (n_super, per))
+        params["tail"] = _mamba_layers_init(gen, cfg, (tail,))
+        params["shared"] = layer(_tf_layers_init(gen, cfg, tp, 1), 0)
+    elif cfg.xlstm_pattern:
+        nb = cfg.n_layers // len(cfg.xlstm_pattern)
+        pre = lambda: {"w": torch.ones((nb, d), dtype=torch.float32,
+                                       device=dev)}
+        params["mlstm"] = {"pre": pre(),
+                           "blk": X.mlstm_init(gen, cfg, (nb,))}
+        params["slstm"] = {"pre": pre(),
+                           "blk": X.slstm_init(gen, cfg, (nb,))}
+    else:
+        params["layers"] = _tf_layers_init(gen, cfg, tp, cfg.n_layers)
+    return params
 
 
 def layer(tree, i: int):
@@ -73,11 +125,16 @@ def layer(tree, i: int):
     return tree[i]
 
 
-def _rope_tables(cfg: ArchConfig, positions):
+def _rope_tables(cfg: ArchConfig, positions, positions3=None):
     if cfg.rope_style == "none":
         return None, None
+    if cfg.rope_style == "mrope":
+        if positions3 is None:       # text tokens: one position, 3 streams
+            positions3 = positions[None].expand((3,) + positions.shape)
+        return L.mrope_cos_sin(positions3, cfg.hd, cfg.rope_theta,
+                               cfg.mrope_sections)
     if cfg.rope_style != "rope":
-        raise NotImplementedError(f"rope_style {cfg.rope_style!r}")
+        raise ValueError(f"rope_style {cfg.rope_style!r}")
     return L.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
 
 
@@ -89,8 +146,15 @@ def _attn_out(lp: Params, out, cfg: ArchConfig, tp: int):
     return out.reshape(B, Sq, HP * hd) @ lp["wo"]
 
 
+def _ffn(lp, h, cfg: ArchConfig):
+    """The FFN of a transformer layer on normed h -> (y, MoE aux or None)."""
+    if cfg.n_experts:
+        return MOE.moe_apply(lp["moe"], h, cfg)
+    return L.mlp(lp["mlp"], h), None
+
+
 def _mlp_block(lp, x, cfg):
-    return x + L.mlp(lp["mlp"], L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps))
+    return x + _ffn(lp, L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)[0]
 
 
 def _unstack(tree, n: int):
@@ -104,37 +168,56 @@ def _unstack(tree, n: int):
 
 
 def _layer_full(lp, x, cos, sin, cfg: ArchConfig, tp: int):
-    """One full-sequence transformer layer -> (x, k, v, q)."""
+    """One full-sequence transformer layer -> (x, aux or None, k, v, q)."""
     h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
     q, k, v = A.project_qkv(lp["attn"], h, cos, sin, cfg, tp)
     attn = A.attention_full(q, k, v, cfg, tp=tp)
-    x = _mlp_block(lp, x + _attn_out(lp["attn"], attn, cfg, tp), cfg)
-    return x, k, v, q
+    x = x + _attn_out(lp["attn"], attn, cfg, tp)
+    y, aux = _ffn(lp, L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
+    return x + y, aux, k, v, q
+
+
+def _add_aux(aux, aux_l):
+    return aux if aux_l is None else aux + aux_l
 
 
 def forward(params: Params, cfg: ArchConfig, tokens, *, positions=None,
-            collect_cache: bool = False, collect_q: bool = False,
-            remat: bool = False, tp: int = 16):
-    """tokens [B, S] -> (hidden [B,S,d], caches-or-None); caches hold the
-    stacked k/v [L, B, S, KV, hd], and with ``collect_q`` the per-layer
-    queries ``caches["q"]`` [L, B, S, Hp, hd] (prefill only: the hetero
-    offload executor seeds its lookahead query with them). ``remat`` runs
-    each layer under ``torch.utils.checkpoint`` (the twin of the
-    reference's ``jax.checkpoint``): its activations are recomputed in the
-    backward."""
-    _require_dense(cfg)
+            positions3=None, img_embeds=None, collect_cache: bool = False,
+            collect_q: bool = False, remat: bool = False, tp: int = 16):
+    """tokens [B, S] -> (hidden [B,S,d], aux fp32 scalar, caches-or-None).
+
+    ``img_embeds [B, n, d]`` (the vlm stub) overwrite the first n token
+    embeddings. ``aux`` is the MoE load-balance loss summed over the layers
+    (0 without experts). A transformer's caches hold the stacked k/v [L, B,
+    S, KV, hd], and with ``collect_q`` the per-layer queries ``caches["q"]``
+    [L, B, S, Hp, hd] (prefill only: the hetero offload executor seeds its
+    lookahead query with them); the hybrid's and xLSTM's are
+    ``make_cache``'s trees. ``remat`` runs each layer (the hybrid: each
+    super block and tail layer; xLSTM: each pair) under
+    ``torch.utils.checkpoint`` (the twin of the reference's
+    ``jax.checkpoint``): its activations are recomputed in the backward."""
     B, Sq = tokens.shape
     x = L.embed(params["embed"], tokens)
+    if img_embeds is not None:
+        n = img_embeds.shape[1]
+        x = torch.cat([img_embeds.to(x.dtype), x[:, n:]], dim=1)
     if positions is None:
         positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
-    cos, sin = _rope_tables(cfg, positions)
+    cos, sin = _rope_tables(cfg, positions, positions3)
+    if cfg.family == "hybrid":
+        return _hybrid_forward(params, cfg, x, cos, sin, collect_cache,
+                               remat, tp)
+    if cfg.xlstm_pattern:
+        return _xlstm_forward(params, cfg, x, collect_cache, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs, qs = [], [], []
     for lp in _unstack(params["layers"], cfg.n_layers):
         if remat:
-            x, k, v, q = checkpoint(_layer_full, lp, x, cos, sin, cfg, tp,
-                                    use_reentrant=False)
+            x, aux_l, k, v, q = checkpoint(_layer_full, lp, x, cos, sin, cfg,
+                                           tp, use_reentrant=False)
         else:
-            x, k, v, q = _layer_full(lp, x, cos, sin, cfg, tp)
+            x, aux_l, k, v, q = _layer_full(lp, x, cos, sin, cfg, tp)
+        aux = _add_aux(aux, aux_l)
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -146,16 +229,134 @@ def forward(params: Params, cfg: ArchConfig, tokens, *, positions=None,
         caches = {"k": torch.stack(ks), "v": torch.stack(vs), "length": Sq}
         if collect_q:
             caches["q"] = torch.stack(qs)
-    return x, caches
+    return x, aux, caches
+
+
+def _stack_mamba(states, lead, empty):
+    """Per-layer (ssm, (conv x, B, C)) states, flattened in layer order ->
+    the same tree stacked [*lead, ...]; with no layer (a zero-length tail)
+    the already stacked ``empty``."""
+    if not states:
+        return empty
+    lead = tuple(lead)
+    ssm = torch.stack([s[0] for s in states])
+    conv = [torch.stack([s[1][i] for s in states]) for i in range(3)]
+    return (ssm.reshape(lead + ssm.shape[1:]),
+            tuple(c.reshape(lead + c.shape[1:]) for c in conv))
+
+
+def _mamba_layer(lp, x, cfg: ArchConfig, state=None):
+    """One Mamba2 layer (pre-norm, residual): the chunked forward when
+    ``state`` is None, else one decode step from it. -> (x, new state)."""
+    h = L.rms_norm(lp["norm"], x, cfg.norm_eps)
+    if state is None:
+        y, st = S.mamba_forward(lp["mamba"], h, cfg)
+    else:
+        y, st = S.mamba_decode(lp["mamba"], h, cfg, state)
+    return x + y, st
+
+
+def _mamba_layers(lps, x, cfg: ArchConfig, n: int, states=None):
+    """n stacked Mamba2 layers over x, forward or (from the stacked
+    ``states``: ssm [n, ...], conv (x, B, C) [n, ...]) one decode step ->
+    (x, per-layer states)."""
+    out = []
+    for i, lp in enumerate(_unstack(lps, n)):
+        st = None if states is None else (
+            states[0][i], tuple(c[i] for c in states[1]))
+        x, st = _mamba_layer(lp, x, cfg, st)
+        out.append(st)
+    return x, out
+
+
+def _hybrid_forward(params, cfg, x, cos, sin, collect_cache, remat, tp):
+    n_super, per, tail = _hybrid_shape(cfg)
+    B, Sq = x.shape[:2]
+
+    def super_fn(blp, x):
+        x, st = _mamba_layers(blp, x, cfg, per)
+        x, aux_l, k, v, _ = _layer_full(params["shared"], x, cos, sin, cfg,
+                                        tp)
+        return x, aux_l, st, k, v
+
+    def run(fn, *a):
+        return checkpoint(fn, *a, use_reentrant=False) if remat else fn(*a)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    body_st, ks, vs, tail_st = [], [], [], []
+    for blp in _unstack(params["body"], n_super):
+        x, aux_l, st, k, v = run(super_fn, blp, x)
+        aux = _add_aux(aux, aux_l)
+        body_st += st
+        ks.append(k)
+        vs.append(v)
+    for lp in _unstack(params["tail"], tail):
+        x, st = run(_mamba_layer, lp, x, cfg)
+        tail_st.append(st)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    caches = None
+    if collect_cache:
+        # an empty tail's stacks: fp32 ssm, conv states in the model dtype
+        # (a forward's conv states are)
+        ssm0, conv0 = S.mamba_state_init(cfg, B, device=x.device)
+        empty = (ssm0.new_zeros((0,) + ssm0.shape),
+                 tuple(c.new_zeros((0,) + c.shape, dtype=x.dtype)
+                       for c in conv0))
+        bs, bc = _stack_mamba(body_st, (n_super, per), None)
+        ts, tc = _stack_mamba(tail_st, (tail,), empty)
+        caches = {"body_ssm": bs, "body_conv": bc, "tail_ssm": ts,
+                  "tail_conv": tc, "shared_k": torch.stack(ks),
+                  "shared_v": torch.stack(vs), "length": Sq}
+    return x, aux, caches
+
+
+def _xlstm_forward(params, cfg, x, collect_cache, remat, states=None):
+    """(mLSTM, sLSTM) pairs over x, from ``states`` (``make_cache``'s
+    ``"states"``) or each block's initial state; the final norm applied."""
+    nb = cfg.n_layers // 2
+
+    def pair_fn(mlp, slp, x, st_m, st_s):
+        y, ms = X.mlstm_forward(
+            mlp["blk"], L.rms_norm(mlp["pre"], x, cfg.norm_eps), cfg, st_m)
+        x = x + y
+        y, ss = X.slstm_forward(
+            slp["blk"], L.rms_norm(slp["pre"], x, cfg.norm_eps), cfg, st_s)
+        return x + y, ms, ss
+
+    new_m, new_s = [], []
+    for i, (mlp, slp) in enumerate(zip(_unstack(params["mlstm"], nb),
+                                       _unstack(params["slstm"], nb))):
+        st_m = st_s = None
+        if states is not None:
+            st_m = tuple(a[i] for a in states[0])
+            st_s = tuple(a[i] for a in states[1])
+        if remat:
+            x, ms, ss = checkpoint(pair_fn, mlp, slp, x, st_m, st_s,
+                                   use_reentrant=False)
+        else:
+            x, ms, ss = pair_fn(mlp, slp, x, st_m, st_s)
+        new_m.append(ms)
+        new_s.append(ss)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    caches = None
+    if collect_cache:
+        stack = lambda sts: tuple(torch.stack(a) for a in zip(*sts))
+        caches = {"states": (stack(new_m), stack(new_s)),
+                  "length": x.shape[1]}
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
 
 
 def train_loss(params: Params, cfg: ArchConfig, batch: Dict, *,
                remat: bool = True, tp: int = 16) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"} [B,
-    S]); the reference's MoE aux term is 0 for the dense family."""
-    x, _ = forward(params, cfg, batch["tokens"], remat=remat, tp=tp)
+    S], optional "positions3" and "img_embeds") plus ``MOE_AUX_COEF`` x the
+    MoE load-balance aux (0 without experts)."""
+    x, aux, _ = forward(params, cfg, batch["tokens"],
+                        positions3=batch.get("positions3"),
+                        img_embeds=batch.get("img_embeds"), remat=remat,
+                        tp=tp)
     logits = L.lm_head(params["lm_head"], x, cfg)
-    return L.cross_entropy(logits, batch["labels"])
+    return L.cross_entropy(logits, batch["labels"]) + MOE_AUX_COEF * aux
 
 
 def last_logits(params, cfg: ArchConfig, x):
@@ -164,26 +365,51 @@ def last_logits(params, cfg: ArchConfig, x):
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, tp: int = 16,
                dtype=None, device="cuda") -> Dict:
-    """Per-request KV cache: k/v [L, B, max_len, KV, hd] zeros and the
-    shared ``length`` (a host int)."""
-    _require_dense(cfg)
+    """Per-request cache with the shared ``length`` (a host int): a
+    transformer's k/v [L, B, max_len, KV, hd] zeros; the hybrid's Mamba2
+    states (fp32 zeros, ``[n_super, per]`` and ``[tail]`` stacked) and the
+    shared block's k/v per site [n_super, B, max_len, KV, hd]; xLSTM's
+    (mLSTM, sLSTM) states [nb, ...], all zeros as in the reference."""
     dev = resolve_device(device)
     dt = dtype or L.dtype_of(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev), "length": 0}
+    kv_shape = lambda n: (n, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    zeros = lambda lead, a: torch.zeros(tuple(lead) + a.shape,
+                                        dtype=a.dtype, device=dev)
+    if cfg.family == "hybrid":
+        n_super, per, tail = _hybrid_shape(cfg)
+        ssm, conv = S.mamba_state_init(cfg, batch, device=dev)
+        return {
+            "body_ssm": zeros((n_super, per), ssm),
+            "body_conv": tuple(zeros((n_super, per), c) for c in conv),
+            "tail_ssm": zeros((tail,), ssm),
+            "tail_conv": tuple(zeros((tail,), c) for c in conv),
+            "shared_k": torch.zeros(kv_shape(n_super), dtype=dt, device=dev),
+            "shared_v": torch.zeros(kv_shape(n_super), dtype=dt, device=dev),
+            "length": 0}
+    if cfg.xlstm_pattern:
+        nb = cfg.n_layers // 2
+        m = X.mlstm_state_init(cfg, batch, device=dev)
+        s = X.slstm_state_init(cfg, batch, device=dev)
+        return {"states": (tuple(zeros((nb,), a) for a in m),
+                           tuple(zeros((nb,), a) for a in s)),
+                "length": 0}
+    return {"k": torch.zeros(kv_shape(cfg.n_layers), dtype=dt, device=dev),
+            "v": torch.zeros(kv_shape(cfg.n_layers), dtype=dt, device=dev),
+            "length": 0}
 
 
-def prefill(params, cfg: ArchConfig, tokens, *, max_len=None, tp: int = 16):
-    """Full prompt pass -> (last logits [B, V], caches), the caches zero-
+def prefill(params, cfg: ArchConfig, tokens, *, max_len=None,
+            positions3=None, img_embeds=None, tp: int = 16):
+    """Full prompt pass -> (last logits [B, V], caches), the KV caches zero-
     padded to ``max_len`` (>= S) so decode can continue in place."""
     Sq = tokens.shape[1]
     max_len = max_len or Sq
-    x, caches = forward(params, cfg, tokens, collect_cache=True, tp=tp)
-    if max_len > Sq:
-        pad = (0, 0, 0, 0, 0, max_len - Sq)      # the sequence axis, dim 2
-        caches["k"] = torch.nn.functional.pad(caches["k"], pad)
-        caches["v"] = torch.nn.functional.pad(caches["v"], pad)
+    x, _, caches = forward(params, cfg, tokens, positions3=positions3,
+                           img_embeds=img_embeds, collect_cache=True, tp=tp)
+    pad = (0, 0, 0, 0, 0, max_len - Sq)          # the sequence axis, dim 2
+    for name in ("k", "v", "shared_k", "shared_v"):
+        if name in caches and max_len > Sq:
+            caches[name] = torch.nn.functional.pad(caches[name], pad)
     return last_logits(params, cfg, x), caches
 
 
@@ -194,48 +420,93 @@ def _stack_layers(trees):
     return torch.stack(trees)
 
 
+def _tf_layer_decode(lp, x, cos, sin, cfg: ArchConfig, tp: int, kc, vc,
+                     length: int, sparse_fn=None, sp=None):
+    """One token through one transformer layer against its cache (kc / vc
+    [B, Smax, KV, hd], the new K/V written at ``length`` in place) -> (x,
+    sp): a stateful ``sparse_fn`` returns (attn, new sp)."""
+    h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+    q, k, v = A.project_qkv(lp["attn"], h, cos, sin, cfg, tp)
+    kc[:, length] = k[:, 0].to(kc.dtype)
+    vc[:, length] = v[:, 0].to(vc.dtype)
+    if sparse_fn is not None:
+        res = sparse_fn(q, kc, vc, length + 1, sp, k_new=k)
+        attn, sp = res if isinstance(res, tuple) else (res, sp)
+    else:
+        attn = A.attention_decode(q, kc, vc, length + 1, cfg, tp=tp)
+    return _mlp_block(lp, x + _attn_out(lp["attn"], attn, cfg, tp), cfg), sp
+
+
 def decode_step(params, cfg: ArchConfig, token, caches, *, tp: int = 16,
-                sparse_fn=None, sparse_params=None, sparse_stateful=False):
+                sparse_fn=None, sparse_params=None, sparse_stateful=False,
+                positions3=None):
     """token [B] + caches -> (logits [B, V], caches), every row at the
     shared ``caches["length"]``.
 
     ``sparse_fn(q, kc, vc, length, sp_layer, k_new=)`` replaces dense
-    decode attention; ``sparse_params`` is layer-stacked. With
-    ``sparse_stateful=True`` the sparse_fn returns (attn, new sp_layer) and
-    this returns (logits, caches, new sparse_params). The new K/V are
-    written into ``caches["k"]`` / ``["v"]`` in place.
+    decode attention; ``sparse_params`` is layer-stacked (the hybrid's: one
+    set for the shared block, used at each of its sites). With
+    ``sparse_stateful=True`` (transformers) the sparse_fn returns (attn,
+    new sp_layer) and this returns (logits, caches, new sparse_params). The
+    new K/V are written into the cache's k/v (the hybrid's ``shared_k`` /
+    ``shared_v``) in place; recurrent states come back as new tensors.
     """
-    _require_dense(cfg)
     B = token.shape[0]
     length = int(caches["length"])
-    if length >= caches["k"].shape[2]:
+    kc_all = caches.get("k", caches.get("shared_k"))
+    if kc_all is not None and length >= kc_all.shape[2]:
         raise ValueError(f"cache full: length {length} of "
-                         f"{caches['k'].shape[2]}")
+                         f"{kc_all.shape[2]}")
     x = L.embed(params["embed"], token[:, None])
     positions = torch.full((B, 1), length, dtype=torch.long, device=x.device)
-    cos, sin = _rope_tables(cfg, positions)
+    cos, sin = _rope_tables(cfg, positions, positions3)
+    if cfg.family == "hybrid":
+        x, caches = _hybrid_decode(params, cfg, x, cos, sin, caches, tp,
+                                   sparse_fn, sparse_params)
+        x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+        return last_logits(params, cfg, x), caches
+    if cfg.xlstm_pattern:
+        # _xlstm_forward applies the final norm itself
+        x, _, new = _xlstm_forward(params, cfg, x, True, False,
+                                   states=caches["states"])
+        return last_logits(params, cfg, x), dict(
+            caches, states=new["states"], length=length + 1)
     sp_new = []
     for i in range(cfg.n_layers):
-        lp = layer(params["layers"], i)
-        kc, vc = caches["k"][i], caches["v"][i]
         sp = None if sparse_params is None else layer(sparse_params, i)
-        h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
-        q, k, v = A.project_qkv(lp["attn"], h, cos, sin, cfg, tp)
-        kc[:, length] = k[:, 0].to(kc.dtype)
-        vc[:, length] = v[:, 0].to(vc.dtype)
-        if sparse_fn is not None:
-            res = sparse_fn(q, kc, vc, length + 1, sp, k_new=k)
-            attn, sp = res if isinstance(res, tuple) else (res, sp)
-        else:
-            attn = A.attention_decode(q, kc, vc, length + 1, cfg, tp=tp)
+        x, sp = _tf_layer_decode(layer(params["layers"], i), x, cos, sin,
+                                 cfg, tp, caches["k"][i], caches["v"][i],
+                                 length, sparse_fn, sp)
         sp_new.append(sp)
-        x = _mlp_block(lp, x + _attn_out(lp["attn"], attn, cfg, tp), cfg)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     caches = dict(caches, length=length + 1)
     logits = last_logits(params, cfg, x)
     if sparse_stateful:
         return logits, caches, _stack_layers(sp_new)
     return logits, caches
+
+
+def _hybrid_decode(params, cfg, x, cos, sin, caches, tp, sparse_fn,
+                   sparse_params=None):
+    """One token through the hybrid: per super block its Mamba2 layers'
+    decode steps, then the shared block against that site's cache."""
+    n_super, per, tail = _hybrid_shape(cfg)
+    length = int(caches["length"])
+    body = []
+    for s, blp in enumerate(_unstack(params["body"], n_super)):
+        x, st = _mamba_layers(blp, x, cfg, per, states=(
+            caches["body_ssm"][s], tuple(c[s] for c in caches["body_conv"])))
+        body += st
+        x, _ = _tf_layer_decode(params["shared"], x, cos, sin, cfg, tp,
+                                caches["shared_k"][s], caches["shared_v"][s],
+                                length, sparse_fn, sparse_params)
+    x, tail_st = _mamba_layers(params["tail"], x, cfg, tail, states=(
+        caches["tail_ssm"], caches["tail_conv"]))
+    bs, bc = _stack_mamba(body, (n_super, per), None)
+    ts, tc = _stack_mamba(tail_st, (tail,),
+                          (caches["tail_ssm"], caches["tail_conv"]))
+    return x, dict(caches, body_ssm=bs, body_conv=bc, tail_ssm=ts,
+                   tail_conv=tc, length=length + 1)
 
 
 def make_page_pool(cfg: ArchConfig, n_slots: int, max_len: int, *,
@@ -273,7 +544,6 @@ def decode_step_paged(params, cfg: ArchConfig, token, pool, live, *,
     and with ``collect_qk`` this step's per-layer queries [L, B, Hp, hd] and
     keys [L, B, KV, hd] (the hetero offload's index inputs).
     """
-    _require_dense(cfg)
     lengths = pool["lengths"]
     table = pool["page_table"]
     live = live.bool()
@@ -374,7 +644,6 @@ def extend_paged(params, cfg: ArchConfig, tokens, pool, n_valid, *,
     retrieval service splices retrieved memory embeddings into a slot's
     context through the same chunked path its documents would take.
     """
-    _require_dense(cfg)
     B, C = tokens.shape
     ks, qs = [], []
     lengths = pool["lengths"]
@@ -420,8 +689,8 @@ def prefill_bucketed(params, cfg: ArchConfig, tokens, true_lens, *,
     executor's first lookahead selects with it.
     """
     B, Sb = tokens.shape
-    x, caches = forward(params, cfg, tokens, collect_cache=True,
-                        collect_q=collect_q, tp=tp)
+    x, _, caches = forward(params, cfg, tokens, collect_cache=True,
+                           collect_q=collect_q, tp=tp)
     last = (true_lens.long() - 1).clamp(0, Sb - 1)
     rows = torch.arange(B, device=x.device)
     xg = x[rows, last][:, None]

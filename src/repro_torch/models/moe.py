@@ -1,0 +1,116 @@
+"""Top-k MoE with GShard / Switch-style capacity dispatch (twin of
+``repro.models.moe``).
+
+The semantics are the reference's, step for step. Tokens are flattened in
+b-major order and cut into groups of ``group_size`` (the last group padded
+with zero rows, which take router capacity like any token). Per group:
+router softmax in fp32, top-k (ties to the lower expert index), weights
+renormalised, each token's place in an expert's buffer is ``cumsum(assign)
+- assign`` in token order, tokens past ``cap`` are dropped, and the aux loss
+is the Switch load-balance loss, averaged over groups.
+
+The reference dispatches with a dense ``[t, E, C]`` one-hot einsum (the TPU
+idiom, and its GSPMD expert-sharding hook ``EP_CONSTRAINT``, which has no
+counterpart on one card). Here the dispatch is by index: each kept (token,
+expert) pair writes its row into ``[E, C, d]`` at ``expert * C + place``,
+the experts run as ``torch.bmm``, and each token gathers its k outputs back.
+The same function, without the one-hot (2048 x 32 x 640 x 4 B = 168 MB a
+group at granite's prefill). Every shape is fixed by (t, E, k, C): no host
+sync, no boolean indexing, so a decode step with MoE can be captured in a
+CUDA graph.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ref import topk_stable
+from repro_torch.models import layers as L
+
+Params = Dict[str, torch.Tensor]
+
+
+def moe_init(gen: torch.Generator, cfg: ArchConfig, lead=()) -> Params:
+    """Router [d, E] fp32 (scale 0.02) and expert stacks w1/w3 [E, d, ff],
+    w2 [E, ff, d] in the model dtype, with ``lead`` stacked axes first; the
+    reference's scales (the draws differ from ``jax.random``)."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = L.dtype_of(cfg)
+    lead = tuple(lead)
+    return {
+        "router": L.dense_init(gen, d, E, torch.float32, scale=0.02,
+                               lead=lead),
+        "w1": L.dense_init(gen, d, ff, dt, lead=lead + (E,)),
+        "w3": L.dense_init(gen, d, ff, dt, lead=lead + (E,)),
+        "w2": L.dense_init(gen, ff, d, dt, lead=lead + (E,),
+                           scale=1.0 / np.sqrt(2 * cfg.n_layers * ff)),
+    }
+
+
+def capacity(t: int, cfg: ArchConfig) -> int:
+    """Slots per expert for a group of t tokens: ceil(t k / E x factor),
+    rounded up to a multiple of 4, at least 4."""
+    c = int(np.ceil(t * cfg.experts_per_token / cfg.n_experts
+                    * cfg.capacity_factor))
+    return max(4 * ((c + 3) // 4), 4)
+
+
+def _moe_group(p: Params, x: torch.Tensor, cfg: ArchConfig, cap: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [t, d] -> (y [t, d], aux scalar fp32). One dispatch group."""
+    t, d = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)        # [t, E]
+    wgt, widx = topk_stable(probs, k)                             # [t, k]
+    widx = widx.long()
+    wgt = wgt / wgt.sum(-1, keepdim=True).clamp_min(1e-9)
+    # assignment [t, E] (the k experts are distinct) and each token's place
+    # in its experts' buffers, in token order
+    assign = torch.zeros_like(probs).scatter_(1, widx, 1.0)
+    pos = torch.cumsum(assign, dim=0) - assign
+    pos_k = pos.gather(1, widx)                                   # [t, k]
+    keep = pos_k < cap
+    # buffer row of each (token, expert) pair; dropped pairs write the
+    # trash row E * cap, which no expert reads
+    row = torch.where(keep, widx * cap + pos_k.long(),
+                      torch.full_like(widx, E * cap))
+    buf = x.new_zeros((E * cap + 1, d))
+    buf[row.reshape(-1)] = x.repeat_interleave(k, dim=0)
+    xe = buf[:E * cap].view(E, cap, d)
+    h = F.silu(torch.bmm(xe, p["w1"])) * torch.bmm(xe, p["w3"])
+    ye = torch.bmm(h, p["w2"]).reshape(E * cap, d)
+    ye = torch.cat([ye, ye.new_zeros((1, d))])                    # + trash
+    # the combine weights in the model dtype, as the reference rounds them;
+    # a token's k expert outputs summed in fp32, cast once
+    comb = (wgt * keep).to(x.dtype).float()
+    y = (comb[..., None] * ye[row].float()).sum(1).to(x.dtype)
+    # Switch load-balance aux: E * sum_e f_e * mean_prob_e
+    aux = E * (assign.mean(0) * probs.mean(0)).sum()
+    return y, aux
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
+              group_size: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] -> (y [B, S, d], aux fp32 scalar, the mean over the
+    groups of the flattened tokens)."""
+    B, S, d = x.shape
+    tokens = B * S
+    g = min(group_size, tokens)
+    n_groups = (tokens + g - 1) // g
+    flat = x.reshape(tokens, d)
+    pad = n_groups * g - tokens
+    if pad:
+        flat = F.pad(flat, (0, 0, 0, pad))
+    cap = capacity(g, cfg)
+    ys = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_groups):
+        y, a = _moe_group(p, flat[i * g:(i + 1) * g], cfg, cap)
+        ys.append(y)
+        aux = aux + a
+    y = torch.cat(ys)[:tokens].reshape(B, S, d)
+    return y, aux / n_groups

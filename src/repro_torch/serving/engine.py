@@ -27,6 +27,13 @@
 * ``ServeConfig(fused_steps=K)`` runs up to K decode steps per host
   dispatch (``serving/fused.py``), replayed as CUDA graphs on the card,
   with or without retrieval and offload.
+* The pool serves the transformer families (``POOL_FAMILIES``: dense, moe,
+  audio, vlm). ``ServeConfig(paged=False)`` keeps the legacy dense pool
+  (``n_slots x max_len`` caches, the shared ``lengths.max()`` watermark as
+  every slot's length), the reference's benchmark baseline. ``generate``
+  serves what the pool cannot (the hybrid and ssm families, ``paged=False``,
+  prompts too long for the pool, a pool already mid-flight) through the
+  batched dense-cache loop, as the reference does.
 
 The pool is updated in place; the reference donates the pool buffers to its
 jitted steps instead (``repro/serving/engine.py:342-356``).
@@ -53,7 +60,7 @@ from repro_torch.serving.api import Request, ResponseHandle
 from repro_torch.serving.events import StepEvents
 from repro_torch.serving.kv_cache import PagedKVPool, SlotManager
 
-POOL_FAMILIES = ("dense",)
+POOL_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
 def _next_pow2(n: int) -> int:
@@ -99,9 +106,9 @@ class OffloadConfig:
 class ServeConfig:
     """The reference's fields. The port serves the paged pool, stepped or
     fused (``fused_steps``), with or without retrieval and the hetero
-    offload (``offload_cfg``, one shard); ``Engine`` raises
-    ``NotImplementedError`` for ``paged=False``, ``offload_shards > 1`` and
-    ``main_mesh > 1``.
+    offload (``offload_cfg``, one shard), and the legacy dense pool
+    (``paged=False``); ``Engine`` raises ``NotImplementedError`` for
+    ``offload_shards > 1`` and ``main_mesh > 1``.
 
     ``offload_cfg`` is the offload topology's surface; the flat
     ``offload`` / ``offload_validate`` / ``offload_shards`` / ``main_mesh``
@@ -114,7 +121,7 @@ class ServeConfig:
     tp: int = 16
     page: int = 16             # dsa micro-page size
     greedy: bool = True
-    paged: bool = True
+    paged: bool = True         # False = legacy dense pool + watermark
     kv_page_size: int = 16     # physical KV page (pool granule)
     pool_pages: int = 0        # 0 = full backing; else arena size
     prefill_chunk: int = 128   # chunk span for chunked prefill
@@ -166,22 +173,21 @@ class ServeConfig:
 
 
 def _check_supported(cfg: ArchConfig, sc: ServeConfig) -> None:
-    if sc.offload != "off" and sc.method not in ("dsa", "seer", "lserve"):
-        raise ValueError("hetero offload needs a sparse memory-processing "
-                         "method (dsa | seer | lserve)")
-    todo = [
-        (sc.offload_shards > 1 or sc.main_mesh > 1,
-         "multi-device serving (offload_shards / main_mesh)",
-         "Queue 1 item 10"),
-        (not sc.paged, "the legacy dense pool (paged=False)",
-         "Queue 1 item 5b"),
-        (cfg.family not in POOL_FAMILIES, f"the {cfg.family!r} family",
-         "Queue 1 item 13"),
-    ]
-    for bad, what, item in todo:
-        if bad:
-            raise NotImplementedError(
-                f"repro_torch does not port {what} yet (ROADMAP {item})")
+    if sc.offload != "off":
+        if sc.method not in ("dsa", "seer", "lserve"):
+            raise ValueError("hetero offload needs a sparse memory-"
+                             "processing method (dsa | seer | lserve)")
+        if not sc.paged or cfg.family not in POOL_FAMILIES:
+            raise ValueError("hetero offload runs over the paged pool of a "
+                             f"transformer family ({POOL_FAMILIES})")
+    if sc.retrieval is not None and (not sc.paged
+                                     or cfg.family not in POOL_FAMILIES):
+        raise ValueError("the retrieval subsystem serves the paged pool of "
+                         f"a transformer family ({POOL_FAMILIES})")
+    if sc.offload_shards > 1 or sc.main_mesh > 1:
+        raise NotImplementedError(
+            "repro_torch does not port multi-device serving (offload_shards "
+            "/ main_mesh) yet (ROADMAP Queue 1 item 10)")
 
 
 def _to_device(tree, device):
@@ -211,7 +217,7 @@ class Engine:
             sc.page, self.mem.block_size,
             self.mem.block_size * self.mem.pages_per_physical
             if sc.method == "lserve" else 1)
-        gran = math.lcm(gran, sc.kv_page_size)
+        gran = math.lcm(gran, sc.kv_page_size if sc.paged else 1)
         if sc.max_len % gran:
             sc = dataclasses.replace(
                 sc, max_len=((sc.max_len + gran - 1) // gran) * gran)
@@ -219,11 +225,14 @@ class Engine:
         self._gran = gran
         self.sparse_params = None
         self._sparse_fn = None
-        if sc.method != "none":
+        if sc.method != "none" and cfg.family != "ssm":
+            # the hybrid: one set for the shared block, used at every site
             init_fn, mk = get_sparse_method(sc.method)
             self.sparse_params = _to_device(
                 sparse_params if sparse_params is not None
-                else init_fn(cfg, self.mem, seed, device=self.device),
+                else init_fn(cfg, self.mem, seed,
+                             stacked=cfg.family != "hybrid",
+                             device=self.device),
                 self.device)
             self._sparse_fn = mk(cfg, self.mem, tp=sc.tp,
                                  **sparse_kwargs(sc.method, sc.page))
@@ -242,6 +251,7 @@ class Engine:
 
         self.slots = SlotManager(sc.n_slots, sc.max_len)
         self.pool: Optional[PagedKVPool] = None
+        self.caches = None            # the legacy dense pool
         # chunked-prefill state, admission prompts and retrieval splices:
         # slot -> [request_id, payload (tokens or embedding rows), next_pos,
         # is_embeddings]
@@ -257,11 +267,13 @@ class Engine:
         # walls of the fused windows; bucket_prefills: admission prefills
         # run (one per length bucket); graph_captures / graph_capture_s:
         # CUDA graphs captured, and the seconds their warm-ups and captures
-        # took
+        # took; dense_prefills: unpaged prefills (the legacy pool's
+        # admissions, the batched loop's)
         self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "tokens": 0,
                       "host_steps": 0, "decode_steps": 0, "sparse_steps": 0,
                       "device_steps": 0, "sparse_device_steps": 0,
-                      "bucket_prefills": 0, "graph_captures": 0,
+                      "bucket_prefills": 0, "dense_prefills": 0,
+                      "graph_captures": 0,
                       "graph_capture_s": 0.0,
                       "step_s": collections.deque(maxlen=4096),
                       "window_s": collections.deque(maxlen=4096)}
@@ -322,7 +334,8 @@ class Engine:
         while self.queue and budget > 0:
             req = self.queue[0]
             plen = len(req)
-            if req.override("chunked", plen > self.sc.chunk_threshold):
+            if self.sc.paged and req.override(
+                    "chunked", plen > self.sc.chunk_threshold):
                 if not self._admit_chunked(req.rid, req.tokens, req.max_new,
                                            retrieval=req.retrieval):
                     break
@@ -393,17 +406,22 @@ class Engine:
         return toks / max(t1 - t0, 1e-9)
 
     def generate(self, prompts, max_new: int) -> np.ndarray:
-        """prompts [B, S] -> generated [B, max_new] (greedy), through
-        ``submit`` + ``drain``. The reference's fallback to a batched
-        dense-cache loop is not ported: a batch the pool cannot take
-        raises."""
+        """prompts [B, S] -> generated [B, max_new] (greedy).
+
+        Each row becomes a :class:`Request` through ``submit`` + ``drain``
+        on the paged pool. What the pool cannot serve (the hybrid and ssm
+        families, ``paged=False``, prompts that do not fit, a pool already
+        mid-flight) takes the batched dense-cache loop
+        (``_generate_batched``) instead, as in the reference; the pooled
+        streams equal that loop's."""
         prompts_np = np.asarray(prompts)
         B, S = prompts_np.shape
-        if S + max_new > self.sc.max_len:
-            raise ValueError(f"prompt {S} + max_new {max_new} exceeds "
-                             f"max_len {self.sc.max_len}")
-        if self.busy() or self.slots.live_mask().any():
-            raise RuntimeError("generate() needs an idle engine")
+        poolable = (self.sc.paged and self.cfg.family in POOL_FAMILIES
+                    and S + max_new <= self.sc.max_len
+                    and not self.busy()
+                    and not self.slots.live_mask().any())
+        if not poolable:
+            return self._generate_batched(prompts_np, max_new)
         handles = [self.submit(Request(self._next_rid(), row, max_new,
                                        retrieval=False))
                    for row in prompts_np]
@@ -417,17 +435,119 @@ class Engine:
         return np.stack([np.asarray(h.tokens, np.int32) for h in handles])
 
     # ------------------------------------------------------------------
+    # the unpaged path: the batched dense-cache loop, the legacy pool
+    # ------------------------------------------------------------------
+
+    def _prefill(self, tokens: torch.Tensor):
+        """Unpaged prefill of tokens [B, S] -> (logits [B, V], caches padded
+        to ``max_len``)."""
+        self.stats["dense_prefills"] += 1
+        return M.prefill(self.params, self.cfg, tokens,
+                         max_len=self.sc.max_len, tp=self.sc.tp)
+
+    def _decode(self, tok: torch.Tensor, caches):
+        """One unpaged decode step at ``caches["length"]``; the reference's
+        fallback cond on that (batch-level) length, decided on the host.
+        Returns (logits, caches)."""
+        sparse = self._sparse_at(int(caches["length"]) + 1)
+        logits, caches = M.decode_step(
+            self.params, self.cfg, tok, caches, tp=self.sc.tp,
+            sparse_fn=self._sparse_fn if sparse else None,
+            sparse_params=self.sparse_params)
+        self._count_steps(1, 1, sparse)
+        self.last_logits, self.last_sparse = logits, sparse
+        return logits, caches
+
+    def _generate_batched(self, prompts, max_new: int) -> np.ndarray:
+        """The batched dense-cache loop: one prefill of the whole batch,
+        then ``max_new`` greedy decode steps at the shared length."""
+        dev = self.device
+        t0 = time.perf_counter()
+        logits, caches = self._prefill(
+            torch.as_tensor(np.asarray(prompts), device=dev).long())
+        tok = logits.argmax(-1)
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        out = []
+        t0 = time.perf_counter()
+        for _ in range(max_new):
+            out.append(tok)
+            t1 = time.perf_counter()
+            logits, caches = self._decode(tok, caches)
+            tok = logits.argmax(-1)
+            self.stats["step_s"].append(time.perf_counter() - t1)
+        gen = torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["tokens"] += gen.size
+        return gen
+
+    def _step_pool_dense(self) -> StepEvents:
+        """The legacy pool's decode step: every slot at the shared watermark
+        ``lengths.max()`` (a short slot attends over the zero rows up to the
+        longest slot's length, and the fallback cond sees the watermark,
+        not true lengths), dead slots included; the reference's
+        behaviour."""
+        live = self.slots.live_mask()
+        if not live.any():
+            return StepEvents()
+        lengths = self.slots.lengths()
+        self.caches = dict(self.caches, length=int(lengths.max()))
+        t0 = time.perf_counter()
+        tok = torch.as_tensor(self._pending, device=self.device).long()
+        logits, self.caches = self._decode(tok, self.caches)
+        nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()
+        dt = time.perf_counter() - t0
+        self.stats["decode_s"] += dt
+        self.stats["step_s"].append(dt)
+        ev = StepEvents(steps=1)
+        for i in np.flatnonzero(live):
+            rid = self.slots.slots[i].request_id
+            ev.emissions.append((rid, int(i), int(self._pending[i])))
+            self._pending[i] = nxt[i]
+        self.stats["tokens"] += len(ev.emissions)
+        self.slots.step(live)
+        for i in np.flatnonzero(live):
+            if self.slots.slots[i].done:
+                ev.finished.append(int(i))
+        return ev
+
+    def _admit_one(self, request_id: int, prompt: np.ndarray,
+                   max_new: int) -> bool:
+        """The legacy pool's admission: prefill one prompt and splice its
+        cache (zero-padded to ``max_len``) into the slot."""
+        slot = self.slots.admit(request_id, len(prompt), max_new)
+        if slot is None:
+            return False
+        t0 = time.perf_counter()
+        logits, c1 = self._prefill(torch.as_tensor(
+            np.array(prompt, np.int64), device=self.device)[None])
+        self.caches["k"][:, slot] = c1["k"][:, 0]
+        self.caches["v"][:, slot] = c1["v"][:, 0]
+        self._pending[slot] = int(logits[0].argmax())
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        return True
+
+    # ------------------------------------------------------------------
     # admission
     # ------------------------------------------------------------------
 
     def _ensure_pool(self):
-        if self.pool is None:
+        if self.pool is not None or self.caches is not None:
+            return
+        if self.cfg.family not in POOL_FAMILIES:
+            raise ValueError(
+                f"continuous batching needs KV caches: the "
+                f"{self.cfg.family!r} family serves through generate()")
+        if self.sc.paged:
             self.pool = PagedKVPool(
                 self.cfg, self.sc.n_slots, self.sc.max_len,
                 page_size=self.sc.kv_page_size,
                 total_pages=self.sc.pool_pages, tp=self.sc.tp,
                 device=self.device)
-            self._pending = np.zeros((self.sc.n_slots,), np.int32)
+        else:
+            self.caches = M.make_cache(self.cfg, self.sc.n_slots,
+                                       self.sc.max_len, tp=self.sc.tp,
+                                       device=self.device)
+        self._pending = np.zeros((self.sc.n_slots,), np.int32)
 
     def _bucket_len(self, prompt_len: int) -> int:
         ps = self.sc.kv_page_size
@@ -441,6 +561,9 @@ class Engine:
         prefill per distinct bucket length. ``retrieval[i]`` opts request i
         in or out of the retrieval service (None: on when configured)."""
         self._ensure_pool()
+        if not self.sc.paged:
+            return [self._admit_one(rid, np.asarray(p), mn)
+                    for rid, p, mn in requests]
         admitted: Dict[int, List] = {}   # bucket_len -> [(slot, prompt)]
         ok: List[bool] = []
         for i, (rid, prompt, max_new) in enumerate(requests):
@@ -652,6 +775,8 @@ class Engine:
         live slot, each at its own length, or (``fused_steps`` K > 1) up to
         K steps in one fused window whose event log the host replays."""
         self._ensure_pool()
+        if not self.sc.paged:
+            return self._step_pool_dense()
         live = self._decode_live()
         if not live.any():
             if self.retrieval is not None:

@@ -85,6 +85,27 @@ def test_paged_decode_attention_kernel(dev, dtype, ps, nsel):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,dh", [(24, 64), (32, 112)])
+def test_paged_decode_attention_family_shapes(dev, dtype, KV, dh):
+    """G = 1 (musicgen: 24 heads over 24 KV heads) and dh 112 (zamba2:
+    32 over 32), DSA's 16-token pages, a hole, a length cut mid-page."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    B, S, ps, nsel = 2, 1024, 16, 20
+    q = torch.randn(B, KV, dh, generator=g, device=dev).to(dtype)
+    kc = torch.randn(B, S, KV, dh, generator=g, device=dev).to(dtype)
+    vc = torch.randn(B, S, KV, dh, generator=g, device=dev).to(dtype)
+    pages = torch.stack([torch.randperm(S // ps, generator=g, device=dev)
+                         [:nsel] for _ in range(B)]).to(torch.int32)
+    pages[0, 3] = -1
+    length = torch.tensor([S - 7, S // 2], dtype=torch.int32, device=dev)
+    ko, kl = ops.paged_decode_attention(q, kc, vc, pages, length,
+                                        page_size=ps)
+    po, pl_ = ref.paged_decode_attention(q, kc, vc, pages, ps, length)
+    torch.testing.assert_close(ko, po, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(kl, pl_, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ps", [16, 64])
 @pytest.mark.parametrize("channels", [(8, 64), (3, 5)])
 def test_page_minmax_kernel(dev, dtype, ps, channels):
@@ -385,6 +406,27 @@ def test_flash_attention_cuda_core_route(dev, dtype, dh):
         _bf16_close(got, want)
 
 
+@pytest.mark.parametrize("dtype,window", [(torch.float32, 0),
+                                          (torch.bfloat16, 0),
+                                          (torch.float32, 96)])
+def test_flash_attention_head_dim_112(dev, dtype, window):
+    """zamba2's shared block: dh 112 (7 output channels a thread, each
+    read alone), G = 1, ragged S; the CUDA-core kernel in both dtypes."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn(2, 300, 4, 112, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    n0 = dict(fa.ROUTE_LAUNCHES)
+    got = fa.flash_attention(q, k, v, window=window)
+    assert fa.ROUTE_LAUNCHES[fa.CUDA_CORES] == n0[fa.CUDA_CORES] + 1
+    want = ref.flash_attention(q, k, v, window=window or None)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    else:
+        _bf16_close(got, want)
+
+
 def test_flash_attention_tensor_core_copies_misaligned_views(dev):
     """bf16 views whose base is 2 bytes off 16 (no TMA) are copied, and the
     result equals the plain version on contiguous copies."""
@@ -481,14 +523,14 @@ def test_train_step_kernel_matches_plain(dev):
         assert float((a - b_).abs().max()) <= 1e-4 * scale
 
 
-def _smoke_engine(dev, **sc_kw):
-    """Smoke-width llama3.2-1b engine on the card (fp32: the comparisons
+def _smoke_engine(dev, arch="llama3.2-1b", **sc_kw):
+    """Smoke-width engine of ``arch`` on the card (fp32: the comparisons
     below are bitwise), seeded weights."""
     from repro_torch.configs import get_arch
     from repro_torch.models import init_params
     from repro_torch.serving import Engine, ServeConfig
 
-    cfg = get_arch("llama3.2-1b").smoke().replace(dtype="float32")
+    cfg = get_arch(arch).smoke().replace(dtype="float32")
     params = init_params(cfg, 0, tp=4, device=dev)
     sc = ServeConfig(**dict(dict(max_len=256, n_slots=3, tp=4, page=8,
                                  kv_page_size=16), **sc_kw))
@@ -509,10 +551,21 @@ def test_fused_graph_window_equals_stepped(dev, method):
     the KV pool pages are equal bit for bit; every window replays a graph
     (captures counted, no eager window), and the kernel launches counted
     for the replays are n_layers per sparse step the device computed."""
+    _window_equals_stepped(dev, method, "llama3.2-1b")
+
+
+def test_moe_fused_graph_window_equals_stepped(dev):
+    """The same with granite's MoE inside the graph: index dispatch with
+    fixed shapes and no host sync; dead slots' tokens route as in the
+    stepped loop."""
+    _window_equals_stepped(dev, "dsa", "granite-moe-1b-a400m")
+
+
+def _window_equals_stepped(dev, method, arch):
     import numpy as np
     from repro_torch.serving import Request
 
-    engs = {K: _smoke_engine(dev, method=method, fused_steps=K)
+    engs = {K: _smoke_engine(dev, arch, method=method, fused_steps=K)
             for K in (1, 8)}
     fused = engs[8]
     name = ("page_minmax" if method == "lserve"

@@ -4,7 +4,7 @@ prompts plus one chunked prompt, more requests than slots), for
 ``method="none"``, ``"dsa"``, ``"seer"`` (top-k and threshold) and
 ``"lserve"``, from the same JAX-initialized weights; pooled == one-at-a-time
 inside the port; the pool back at zero after release; unported features
-(more than one offload shard, a main mesh, the legacy dense pool) raise.
+(more than one offload shard, a main mesh) raise.
 
 Smoke config at dtype float32. Tokens must be equal exactly. Seer runs at
 tp=4: with dead TP heads the reference's seer gate does not type-check.
@@ -130,19 +130,12 @@ def test_pooled_matches_one_at_a_time_and_pool_scrubbed(weights):
 @pytest.mark.parametrize("kw", [
     dict(offload_cfg=OffloadConfig(mode="sync", shards=2)),
     dict(offload_cfg=OffloadConfig(mode="sync", main_mesh=2)),
-    dict(paged=False),
 ])
 def test_unported_features_raise(weights, kw):
     kw = dict(kw)
     method = kw.pop("method", "dsa")
     with pytest.raises(NotImplementedError):
         _port_engine(weights, method, **kw)
-
-
-def test_non_dense_family_raises(weights):
-    cfg = get_arch("granite-moe-1b-a400m").smoke()
-    with pytest.raises(NotImplementedError):
-        Engine(cfg, weights[3], ServeConfig(**SC), device="cpu")
 
 
 def test_default_device_needs_cuda(weights):

@@ -5,8 +5,9 @@ blocks then admits, chunked prefill == one-shot prefill, the scheduler
 drains mixed lengths, and the request API's checks and timing marks.
 
 Smoke config at dtype float32 with seeded torch weights; tokens must be
-equal exactly. Where the reference's ``generate`` falls back to a dense
-loop (pool busy), the port raises (ROADMAP Queue 1 item 5b).
+equal exactly. Where the pool is busy, ``generate`` takes the batched
+dense-cache loop, as the reference's does (the loop's own tests:
+``tests/test_torch_legacy.py``).
 """
 import numpy as np
 import pytest
@@ -141,10 +142,14 @@ def test_generate_leaves_no_residue_and_needs_idle_engine(setup):
     assert got.shape == (3, 5)
     assert not eng.busy() and not eng.done and not eng._handles
     assert eng.pool.pages_in_use() == 0
-    eng.submit(Request(0, prompts[0], 6))
+    h = eng.submit(Request(0, prompts[0], 6))
     eng.poll()                                     # resident mid-decode
-    with pytest.raises(RuntimeError):
-        eng.generate(prompts[:1], 4)
+    # a busy engine: generate takes the dense-cache loop, not the pool
+    np.testing.assert_array_equal(eng.generate(prompts[:1], 4),
+                                  got[:1, :4])
+    assert eng.stats["dense_prefills"] == 1
+    eng.drain()
+    np.testing.assert_array_equal(h.result()[:5], got[0])
 
 
 def test_submit_rejects_duplicates_and_wrong_types(setup):
