@@ -106,18 +106,42 @@ failure (the script then exits non-zero):
    the serve phase, per attention layer (the hybrid's sites; none for
    xLSTM), flash per bucketed or unpaged prefill on the route its head
    dim takes; one ``serve`` line per run;
-9. a ``{"kernels": [...]}`` line (flash's ``launches`` from the train
+9. fleet: multi-device serving on the one card, full-width llama3.2-1b
+   bf16 with seeded weights and the serve phase's ``ServeConfig``:
+   dsa through the offload with 2 selection shards (each on a CUDA stream
+   of its own), stepped and in 8-step windows, and with the main mesh
+   (``main_mesh=2``, clamped to the card; the granule still 2 x 64);
+   each equal to its one-shard run (run first when the serve phase did
+   not); ``fleet-dsa-2``: ``Router.build`` of 2 dsa replicas on the card
+   with dsa-rag's retrieval over ONE shared service (the replicas hold the
+   same object, and the weights once), 8 requests (the serve phase's 4 and
+   4 more; sessions "a" and "b" of 2 requests, 4 without; 4 opting into
+   retrieval), launch counts as in the serve phase over both replicas,
+   both replicas serving, each session on one replica, each replica's
+   tokens and retrieval events equal to a fresh single ``Engine`` fed its
+   requests in the same order (one ``fleet`` line); the sequence-parallel
+   functions at DSA's shape (B 4, 32 / 8 KV heads, dh 64, view 8192,
+   16-token pages) over 2 and 4 shards of ``(cuda:0,) * n``: the paged
+   apply against the single kernel and the plain version, the relevancy
+   top-k bit-equal to ``ops.relevancy_topk``, n launches of each a call,
+   the calls' and the shard view copy's times, the two kernels at the
+   shard-local shapes (view 4096 and 2048, beside their bounds and library
+   times), DSA's cached against its stateless distributed decode for one
+   layer at fp32 (one ``fleet_direct`` line);
+10. a ``{"kernels": [...]}`` line (flash's ``launches`` from the train
    phase; paged attention and flash also at the families' shapes: G = 1,
-   2, 4 and 8, dh 112 and 128), the card line, and ``{"ok": true, ...}``
+   2, 4 and 8, dh 112 and 128; relevancy and paged attention at the fleet
+   phase's shard-local shapes), the card line, and ``{"ok": true, ...}``
    as the last line.
 
 ``--phases`` runs a subset of kernels, train, serve, modes, compare,
-pipeline and families (the default is all seven); ``--runs`` a subset of
-the serve runs, ``--family-runs`` of the families phase's.
+pipeline, families and fleet (the default is all eight); ``--runs`` a
+subset of the serve runs, ``--family-runs`` of the families phase's.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -164,7 +188,8 @@ class Run:
     the architecture (``arch``, at its published widths; ``layers`` > 0
     cuts its depth to that many layers), the pool (``paged=False``: the
     legacy dense pool), and for a run through ``Engine.generate`` (the
-    batched dense-cache loop) its batch and prompt length (``generate``)."""
+    batched dense-cache loop) its batch and prompt length (``generate``);
+    the offload's selection shards and main mesh (``shards``, ``mesh``)."""
     method: str
     mem: dict = field(default_factory=dict)
     retrieval: str | None = None
@@ -178,6 +203,8 @@ class Run:
     layers: int = 0
     paged: bool = True
     generate: tuple | None = None
+    shards: int = 1
+    mesh: int = 1
 
 
 # the offload runs select with plain tensor ops on the offload stream: the
@@ -233,9 +260,22 @@ FAMILY_RUNS = {
     # M-RoPE at its published sections (16, 24, 24), 64 heads over 8 KV
     "qwen2vl-dsa": Run("dsa", arch="qwen2-vl-72b", layers=2,
                        compare=False)}
-ALL_RUNS = {**RUNS, **FAMILY_RUNS}
+# the fleet phase's offload runs (besides its router): two selection shards,
+# each on a CUDA stream of its own, stepped and in 8-step windows, and the
+# main mesh (clamped to the card: one shard, the apply through the mesh's
+# seam); each equals its one-shard run
+FLEET_RUNS = {
+    "dsa-offload-shards2-overlap": Run(
+        "dsa", kernels=_APPLY, compare=False, offload="overlap", shards=2,
+        equals="dsa-offload-overlap"),
+    "dsa-offload-shards2-overlap-fused8": Run(
+        "dsa", kernels=_APPLY, compare=False, fused=8, offload="overlap",
+        shards=2, equals="dsa-offload-overlap-fused8"),
+    "dsa-mesh2": Run("dsa", kernels=_APPLY, compare=False, offload="overlap",
+                     mesh=2, equals="dsa-offload-overlap")}
+ALL_RUNS = {**RUNS, **FAMILY_RUNS, **FLEET_RUNS}
 PHASES = ("kernels", "train", "serve", "modes", "compare", "pipeline",
-          "families")
+          "families", "fleet")
 # the run whose serve phase gives a kernel's launches and in-situ time in
 # its row: the first run that launches it
 HOME_PATH = {name: label for label, run in reversed(RUNS.items())
@@ -1685,7 +1725,9 @@ def serve(dtype: str, dev, run: str, record: bool = False,
                        retrieval=retrieval_config(dev, run, mode, validate),
                        fused_steps=r.fused,
                        offload_cfg=OffloadConfig(mode=r.offload,
-                                                 validate=r.validate))
+                                                 validate=r.validate,
+                                                 shards=r.shards,
+                                                 main_mesh=r.mesh))
     reqs = _requests(cfg.vocab_size)
     if profile_polls and r.fused > 1:
         _drive(eng, reqs, run)                  # captures the graphs
@@ -1879,8 +1921,11 @@ def _fused_offload_summary(eng):
         d["hetero"] = {k: rep[k] for k in (
             "mode", "lookahead", "offload_steps", "local_fallback_steps",
             "fused", "apply_s", "devices", "transfer")}
-        if "select_s" in rep:
-            d["hetero"]["select_s"] = rep["select_s"]
+        for k in ("select_s", "shards"):   # shards: each shard's ledger
+            if k in rep:
+                d["hetero"][k] = rep[k]
+        if eng.hetero.main_mesh is not None:
+            d["hetero"]["granule"] = eng._gran
     return d
 
 
@@ -1906,6 +1951,10 @@ def phase_serve(dev, label: str):
     # per sparse step the device computed: a fused window's masked steps
     # and its graph's warm-up launch too (the replays' launches are counted)
     want = n_attn * stats["sparse_device_steps"]
+    if r.mesh > 1:
+        # the mesh's seam takes the dense branch's attention too (all
+        # pages of the view through paged attention)
+        want = n_attn * stats["device_steps"]
     queries = len(run.events)      # every launched query was collected
     # flash: once per attention layer per prefill (bucketed, or unpaged)
     expect = {name: want if name in r.kernels else 0 for name in counts}
@@ -1978,6 +2027,7 @@ def phase_serve(dev, label: str):
         "flash_launches_by_route": routes,
         "profiled_decode": profile,
         "fused_steps": r.fused, "offload": r.offload,
+        "offload_shards": r.shards, "main_mesh": r.mesh,
         **fo,
     }
     if retrieval is not None:
@@ -2193,6 +2243,332 @@ def phase_pipeline(dev, method: str):
         "fused_vs_unfused_max_abs_diff": diff, **res}}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the fleet and multi-device serving on one card
+# ---------------------------------------------------------------------------
+
+# the fleet's traffic: the serve phase's 4 requests and 4 more; two
+# sessions of 2 requests, 4 without one; rids 0, 3, 5, 6 opt into retrieval.
+# Submitted at once, they route (least load, index breaking ties) to two
+# long and two short prompts a replica
+FLEET_LENS = PROMPT_LENS + (4300, 4200, 280, 320)
+FLEET_SESSIONS = ("a", "b", None, None, "a", "b", None, None)
+FLEET_RETRIEVAL = (True, False, False, True, False, True, True, False)
+
+
+def _fleet_requests(vocab: int):
+    import numpy as np
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(i, rng.integers(0, vocab, size=n), MAX_NEW, session=s,
+                    retrieval=r)
+            for i, (n, s, r) in enumerate(zip(FLEET_LENS, FLEET_SESSIONS,
+                                              FLEET_RETRIEVAL))]
+
+
+def _expect_launches(engs, n_attn: int, queries: int):
+    """The launches a dsa path with rag retrieval makes: relevancy and
+    paged attention once per layer per sparse step the device computed,
+    flash once per layer per bucketed prefill, bm25 once per query."""
+    sparse = sum(e.stats["sparse_device_steps"] for e in engs)
+    return {"relevancy_topk_candidates": n_attn * sparse,
+            "paged_decode_attention": n_attn * sparse,
+            "page_minmax": 0, "bm25_topk_candidates": queries,
+            "flash_attention": n_attn * sum(e.stats["bucket_prefills"]
+                                            for e in engs)}
+
+
+def fleet_router(dev):
+    """``fleet-dsa-2``: ``Router.build`` of two dsa replicas on the card,
+    dsa-rag's retrieval over the one shared corpus service, the fleet's
+    8 requests (launch counts reset just before ``drain``, read after);
+    then each replica's requests again through a fresh single ``Engine``
+    on the same service, in the same submit order: equal tokens and
+    retrieval events. One ``fleet`` line. Returns the path's counts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, Router, ServeConfig
+
+    r = RUNS["dsa-rag"]
+    cfg = run_config(r, "bfloat16")
+    mem = cfg.memory.replace(method="dsa")
+    params = init_params(cfg, 0, device=dev)
+    sc = ServeConfig(method="dsa", max_len=VIEW, n_slots=SLOTS,
+                     kv_page_size=PAGE, page=PAGE,
+                     retrieval=retrieval_config(dev, "dsa-rag"))
+    mem0 = torch.cuda.memory_allocated(dev)
+    router = Router.build(cfg, params, sc, n_replicas=2, seed=1, mem=mem,
+                          device=dev)
+    built = torch.cuda.memory_allocated(dev) - mem0
+    svc = router.service
+    engs = [rep.engine for rep in router.replicas]
+    if svc is None or any(e.retrieval.service is not svc for e in engs):
+        raise AssertionError("fleet: the replicas do not share one service")
+    if any(e.params["lm_head"]["w"].data_ptr()
+           != params["lm_head"]["w"].data_ptr() for e in engs):
+        raise AssertionError("fleet: a replica copied the weights")
+    store = sum(t.numel() * t.element_size() for t in svc.state.values()
+                if isinstance(t, torch.Tensor))
+    reqs = _fleet_requests(cfg.vocab_size)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [router.submit(q) for q in reqs]
+    router.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n_ev = [len(e.retrieval.events) for e in engs]
+    want = _expect_launches(engs, attention_layers(cfg), sum(n_ev))
+    log(f"  fleet launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError(f"fleet: launches {counts} != {want}")
+    if not all(h.done and len(h.tokens) == MAX_NEW for h in handles):
+        raise AssertionError("fleet: a request did not finish")
+    placed = {h.rid: h.replica for h in handles}
+    if set(placed.values()) != {0, 1}:
+        raise AssertionError(f"fleet: not both replicas served: {placed}")
+    for sess in set(FLEET_SESSIONS) - {None}:
+        if len({placed[i] for i, x in enumerate(FLEET_SESSIONS)
+                if x == sess}) != 1:
+            raise AssertionError(f"fleet: session {sess} split: {placed}")
+    for e in engs:
+        if e.last_logits is not None and not torch.isfinite(
+                e.last_logits[:, :cfg.vocab_size]).all():
+            raise AssertionError("fleet: non-finite logits")
+    if not all(e.stats["sparse_steps"] for e in engs):
+        raise AssertionError("fleet: a replica took no sparse step")
+    if not all(n_ev):
+        raise AssertionError(f"fleet: retrieval events per replica {n_ev}")
+    tokens = {h.rid: [int(t) for t in h.tokens] for h in handles}
+    per_replica = []
+    for rep_, e in zip(router.replicas, engs):
+        rids = [h.rid for h in handles if h.replica == rep_.index]
+        events = [(ev["slot"], [int(i) for i in ev["ids"]])
+                  for ev in e.retrieval.events]
+        per_replica.append(dict(rep_.report(), rids=rids, events=events,
+                                sparse_steps=e.stats["sparse_steps"],
+                                decode_steps=e.stats["decode_steps"]))
+    report = router.report()
+    del router, engs, handles
+    # the oracle: each replica's requests through one fresh engine
+    for row in per_replica:
+        lone = Engine(cfg, params, dataclasses.replace(
+            sc, retrieval=dataclasses.replace(sc.retrieval, service=svc)),
+            seed=1, mem=mem, device=dev)
+        hs = [lone.submit(reqs[i]) for i in row["rids"]]
+        lone.drain()
+        got = {h.rid: [int(t) for t in h.tokens] for h in hs}
+        ev = [(x["slot"], [int(i) for i in x["ids"]])
+              for x in lone.retrieval.events]
+        if got != {i: tokens[i] for i in row["rids"]} or ev != row["events"]:
+            raise AssertionError(f"fleet: replica {row['replica']} differs "
+                                 f"from its lone engine")
+        row["equals_lone_engine"] = True
+        del lone
+    toks = sum(len(v) for v in tokens.values())
+    print(json.dumps({"fleet": {
+        "run": "fleet-dsa-2", "card": card_line(), "arch": SERVE_ARCH,
+        "width": "full", "dtype": "bfloat16", "replicas": 2,
+        "device_groups": [r_["devices"] for r_ in per_replica],
+        "prompt_lens": list(FLEET_LENS), "sessions": list(FLEET_SESSIONS),
+        "retrieval_opt_in": list(FLEET_RETRIEVAL), "placement": placed,
+        "max_new": MAX_NEW, "tokens": toks, "wall_s": wall,
+        "tok_per_s": toks / wall, "greedy_tokens": tokens,
+        "launches": counts, "per_replica": per_replica,
+        "router_report": report, "shared_service": {
+            "one_object": True, "store_bytes": store,
+            "built_bytes": built, "n_docs": svc.n_docs}}}), flush=True)
+    return counts
+
+
+def _sharded_selection(lengths, n_sel, g, dev):
+    """DSA-shaped selections: distinct live pages with -1 holes, the page
+    of the last live token always in (the engine's force-included page;
+    no row is empty)."""
+    import torch
+
+    pages = _selected_pages(lengths, n_sel, PAGE, g, dev)
+    pages[:, 1::5] = -1                            # holes
+    cur = torch.tensor([(n - 1) // PAGE for n in lengths],
+                       dtype=torch.int32, device=dev)
+    pages = torch.where(pages == cur[:, None], -1, pages)
+    pages[:, -1] = cur
+    return pages
+
+
+def fleet_direct(dev, kernels):
+    """The sequence-parallel functions at DSA's full-width shape on
+    ``(cuda:0,) * n``: ``distributed_paged_sparse_decode`` over 2 and 4
+    shards against the single kernel and the plain version,
+    ``distributed_relevancy_topk`` against ``ops.relevancy_topk`` (bit for
+    bit), ``make_sparse_fn_cached`` against ``make_sparse_fn_distributed``
+    for one layer; n launches of each kernel a call; the times of each call,
+    of a shard's view copy, and of the kernels at the shard-local shapes
+    (rows 1f / 2f beside their bounds and library times, appended to
+    ``kernels``' rows when that phase ran). Returns the ``fleet_direct``
+    line's dict."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.methods import dsa
+    from repro_torch.distributed.topk import (distributed_paged_sparse_decode,
+                                              distributed_relevancy_topk,
+                                              gather_shards)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparse_decode_attention as sda
+
+    card = torch.empty(0, device=dev).device       # indexed: cuda:0
+    g = torch.Generator(device=dev).manual_seed(9)
+    B, KV, G, dh = SLOTS, 8, 4, 64
+    lengths = _main_path_lengths()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn(B, KV * G, dh, generator=g, device=dev).bfloat16()
+    kc = torch.randn(B, VIEW, KV, dh, generator=g, device=dev).bfloat16()
+    vc = torch.randn(B, VIEW, KV, dh, generator=g, device=dev).bfloat16()
+    pages = _sharded_selection(lengths, 2048 // PAGE, g, dev)
+    po, pl_ = sda.paged_decode_attention_plain(q, kc, vc, pages, lens,
+                                               page_size=PAGE)
+    ko, kl = ops.paged_decode_attention(q, kc, vc, pages, lens,
+                                        page_size=PAGE)
+    Hq, dk, S_idx = 64, 128, VIEW // PAGE          # DSA's index heads / dim
+    qi = torch.randn(B, Hq, dk, generator=g, device=dev).bfloat16()
+    keys = torch.randn(B, S_idx, dk, generator=g, device=dev).bfloat16()
+    for b, n in enumerate(lengths):
+        keys[b, -(-n // PAGE):] = 0                # pooled zeros past live
+    w = torch.softmax(torch.randn(B, Hq, generator=g, device=dev), -1)
+    rv, ri = ops.relevancy_topk(qi, keys, w, 2048 // PAGE)
+    out = {"card": card_line(), "shape": f"q [{B},{KV * G},{dh}] bf16, "
+           f"k/v [{B},{VIEW},{KV},{dh}] bf16, {2048 // PAGE} pages of "
+           f"{PAGE} with -1 holes; relevancy q [{B},{Hq},{dk}], keys "
+           f"[{B},{S_idx},{dk}] bf16, top {2048 // PAGE}",
+           "tolerance": f"out abs {ATTN_TOL}, lse rel {ATTN_TOL}; top-k "
+                        f"values and indices bit-equal", "shards": {}}
+    for n in (2, 4):
+        mesh = (card,) * n
+        c0 = ops.launch_counts()
+        do, dl = distributed_paged_sparse_decode(q, kc, vc, pages, lens,
+                                                 mesh, page_size=PAGE)
+        dv, di = distributed_relevancy_topk(qi, keys, w, 2048 // PAGE, mesh)
+        c1 = ops.launch_counts()
+        launched = tuple(c1[k] - c0[k] for k in _DSA[::-1])
+        if launched != (n, n):
+            raise AssertionError(f"{n} shards launched {launched}")
+        errs = [_attn_check(f"distributed paged attention, {n} shards vs "
+                            f"the kernel", do, dl, ko, kl),
+                _attn_check(f"distributed paged attention, {n} shards vs "
+                            f"plain", do, dl, po, pl_)]
+        if not (torch.equal(dv, rv) and torch.equal(di, ri)):
+            raise AssertionError(f"distributed relevancy, {n} shards: not "
+                                 f"bit-equal to ops.relevancy_topk")
+        local = VIEW // n
+        copy_ms = time_ms(lambda: (kc[:, :local].contiguous(),
+                                   vc[:, :local].contiguous()))
+        out["shards"][n] = {
+            "paged_max_abs_err": max(errs), "relevancy_equal": True,
+            "launches_per_call": {"paged_decode_attention": n,
+                                  "relevancy_topk_candidates": n},
+            "paged_call_ms": time_ms(lambda: distributed_paged_sparse_decode(
+                q, kc, vc, pages, lens, mesh, page_size=PAGE)),
+            "relevancy_call_ms": time_ms(lambda: distributed_relevancy_topk(
+                qi, keys, w, 2048 // PAGE, mesh)),
+            "view_copy_ms": copy_ms,
+            "view_copy_bytes": 2 * kc[:, :local].numel() * 2}
+        log(f"  {n} shards: paged call {out['shards'][n]['paged_call_ms']:.4f}"
+            f" ms, relevancy call {out['shards'][n]['relevancy_call_ms']:.4f}"
+            f" ms, one shard's view copy {copy_ms:.4f} ms")
+    out["single_kernel_ms"] = {
+        "paged_decode_attention": time_ms(lambda: ops.paged_decode_attention(
+            q, kc, vc, pages, lens, page_size=PAGE)),
+        "relevancy_topk": time_ms(lambda: ops.relevancy_topk(
+            qi, keys, w, 2048 // PAGE))}
+
+    # rows 1f / 2f: the kernels at shard 0's local shapes
+    rows_rel, rows_paged = [], []
+    for n in (2, 4):
+        local, lp = VIEW // n, VIEW // n // PAGE
+        kl_, vl_ = kc[:, :local].contiguous(), vc[:, :local].contiguous()
+        loc = torch.where((pages >= 0) & (pages < lp), pages,
+                          torch.full_like(pages, -1))
+        ll = lens.clamp(max=local)
+        if not (loc >= 0).any(1).all():
+            raise AssertionError("a shard-local row selects nothing")
+        rows_paged.append(dict(
+            _paged_timing(q, kl_, vl_, loc, ll, PAGE),
+            path=f"fleet: shard 0 of {n}",
+            shape=f"q [{B},{KV * G},{dh}] bf16, k/v [{B},{local},{KV},{dh}]"
+                  f" bf16, the selection's pages in [0, {lp})"))
+        keys_l = keys[:, :S_idx // n].contiguous()
+        blk = max(min(4096, S_idx // n), 2)
+        rows_rel.append(dict(
+            _relevancy_timing(qi, keys_l, w, blk),
+            path=f"fleet: shard 0 of {n}", library_ms=None,
+            shape=f"q [{B},{Hq},{dk}] bf16, keys [{B},{S_idx // n},{dk}] "
+                  f"bf16, block {blk}"))
+        del kl_, vl_
+    out["rows"] = {"relevancy_topk_candidates": rows_rel,
+                   "paged_decode_attention": rows_paged}
+    for k in kernels:
+        k.setdefault("other_shapes", []).extend(out["rows"].get(k["name"],
+                                                                []))
+
+    # DSA's stateful (cached) against its stateless sequence-parallel path,
+    # one layer at full width, fp32 (the reference's test)
+    cfg = get_arch(SERVE_ARCH)
+    mem = cfg.memory.replace(method="dsa")
+    sp = dsa.dsa_init(cfg, mem, 1, stacked=False, device=dev)
+    kc32 = torch.randn(B, VIEW, KV, dh, generator=g, device=dev)
+    vc32 = torch.randn(B, VIEW, KV, dh, generator=g, device=dev)
+    q32 = torch.randn(B, 1, cfg.padded_heads(16), dh, generator=g,
+                      device=dev)
+    mesh = (card, card)
+    stateless = dsa.make_sparse_fn_distributed(cfg, mem, mesh, tp=16,
+                                               page=PAGE)
+    out_d = stateless(q32, kc32, vc32, VIEW, sp)
+    k_idx = dsa._matmul_promoted(kc32.reshape(B, VIEW, -1),
+                                 sp["wk_idx"]).float()
+    k_idx[:, VIEW - 1] = 0.0
+    cache = k_idx.reshape(B, VIEW // PAGE, PAGE, -1).sum(2)
+    cached = dsa.make_sparse_fn_cached(cfg, mem, mesh, tp=16, page=PAGE)
+    out_c, sp_new = cached(q32, kc32, vc32, VIEW, {"p": sp,
+                                                   "kidx_sum": cache},
+                           k_new=kc32[:, VIEW - 1][:, None])
+    err = float((out_c - out_d).abs().max())
+    full = dsa._matmul_promoted(kc32.reshape(B, VIEW, -1),
+                                sp["wk_idx"]).float()
+    full = full.reshape(B, VIEW // PAGE, PAGE, -1).sum(2)
+    upd = float((gather_shards(sp_new["kidx_sum"]) - full).abs().max())
+    log(f"  cached vs stateless DSA (2 shards, fp32): out max abs err "
+        f"{err:.3g}, index cache err {upd:.3g}")
+    if err > ATTN_TOL or upd > 1e-3:
+        raise AssertionError(f"cached DSA: out err {err}, cache err {upd}")
+    out["cached_vs_stateless"] = {"out_max_abs_err": err,
+                                  "cache_max_abs_err": upd,
+                                  "tolerance": f"out {ATTN_TOL}, cache 1e-3",
+                                  "dtype": "float32", "shards": 2}
+    print(json.dumps({"fleet_direct": out}), flush=True)
+    return out
+
+
+def phase_fleet(dev, runs, kernels):
+    """Phase 9: the new offload runs (``FLEET_RUNS``, each with the run it
+    must equal when the serve phase did not run it), the fleet's router
+    (``fleet_router``) and the direct checks (``fleet_direct``). Adds the
+    runs to ``runs``."""
+    for label, r in FLEET_RUNS.items():
+        if r.equals not in runs:
+            log(f"[9] {r.equals} (the run {label} must equal)")
+            runs[r.equals] = phase_serve(dev, r.equals)
+        log(f"[9] {label}")
+        runs[label] = phase_serve(dev, label)
+    log("[9] fleet-dsa-2: a router over 2 dsa replicas, one shared corpus")
+    counts = fleet_router(dev)
+    runs["fleet-dsa-2"] = (counts, {"kernel_ms_in_situ": {}}, {}, None)
+    log("[9] the sequence-parallel functions at DSA's shape")
+    fleet_direct(dev, kernels)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -2256,6 +2632,8 @@ def main(argv=None):
             cut = f" ({run.layers} layers)" if run.layers else ""
             log(f"[8] {r}: {run.arch}{cut} bf16, method {run.method}")
             runs[r] = phase_serve(dev, r)
+    if "fleet" in phases:
+        phase_fleet(dev, runs, kernels)
     if runs:
         check_equal_runs(runs)
         for k in kernels:

@@ -134,6 +134,96 @@ def make_sparse_fn(cfg: ArchConfig, mem: MemoryConfig, *, tp: int = 16,
     return sparse_fn
 
 
+def make_sparse_fn_distributed(cfg: ArchConfig, mem: MemoryConfig, devices,
+                               *, tp: int = 16, page: int = 64):
+    """Sequence-parallel sparse decode over the device tuple ``devices``
+    (``launch.mesh``): distributed top-k with an index-only exchange, then
+    per-shard paged attention with the LSE merge (``distributed.topk``)."""
+    from repro_torch.distributed.topk import (distributed_relevancy_topk,
+                                              distributed_sparse_decode)
+
+    n_pages_sel = max(mem.top_k // page, 1)
+
+    def sparse_fn(q, kc, vc, length, sp, k_new=None):
+        B = q.shape[0]
+        q_idx, w = _index_qw(sp, q[:, 0])
+        kp = _index_k(sp, kc, page)
+        _, pidx = distributed_relevancy_topk(q_idx, kp, w, n_pages_sel,
+                                             devices, block=2048)
+        lb = torch.as_tensor(length, dtype=torch.int32,
+                             device=q.device).reshape(-1).expand(B)
+        pidx = torch.where(pidx * page < lb[:, None], pidx,
+                           torch.full_like(pidx, -1)).to(torch.int32)
+        out = distributed_sparse_decode(strip_dead_heads(q, cfg), kc, vc,
+                                        pidx, lb, devices, page_size=page)
+        return repad_dead_heads(out, q, cfg)
+
+    return sparse_fn
+
+
+def idx_cache_init(cfg: ArchConfig, mem: MemoryConfig, batch: int,
+                   max_len: int, *, page: int = 64, stacked: bool = True,
+                   device="cuda") -> torch.Tensor:
+    """Incremental pooled-index cache: per-page SUM of index vectors (the
+    mean is recovered at score time from ``length``), so the prepare stage
+    projects one token a step instead of the whole context."""
+    shape = (batch, max_len // page, mem.index_dim)
+    if stacked:
+        shape = (cfg.n_layers,) + shape
+    return torch.zeros(shape, dtype=torch.float32,
+                       device=resolve_device(device))
+
+
+def make_sparse_fn_cached(cfg: ArchConfig, mem: MemoryConfig, devices, *,
+                          tp: int = 16, page: int = 64):
+    """Stateful sequence-parallel sparse decode: ``sp = {"p": indexer
+    weights, "kidx_sum": pooled index cache}`` (one tensor, or its per-shard
+    tensors). Per step it projects ONLY the new token's key, adds it into
+    the owning shard's page (``sharded_page_add``), scores the pooled index
+    and runs the distributed top-k and LSE-merged paged attention. ``length``
+    is the step's context length (an int or a 0-d tensor). Returns (out,
+    sp with ``kidx_sum`` as per-shard tensors)."""
+    from repro_torch.distributed.topk import (_shards,
+                                              distributed_relevancy_topk,
+                                              distributed_sparse_decode,
+                                              sharded_page_add)
+
+    n_pages_sel = max(mem.top_k // page, 1)
+
+    def sparse_fn(q, kc, vc, length, sp, k_new=None):
+        B = q.shape[0]
+        p = sp["p"]
+        # prepare, incremental: index the ONE key written this step; the
+        # page update stays on the shard that owns the page
+        k_idx_new = _matmul_promoted(k_new.reshape(B, -1),
+                                     p["wk_idx"]).float()
+        kidx_sum = sharded_page_add(sp["kidx_sum"], k_idx_new,
+                                    (length - 1) // page, devices)
+        q_idx, w = _index_qw(p, q[:, 0])
+        # page means over each shard's own pages (its token counts)
+        local_np = kidx_sum[0].shape[1]
+        kp = []
+        for s, kx in enumerate(_shards(kidx_sum, len(devices))):
+            first = (s * local_np + torch.arange(local_np,
+                                                 device=kx.device)) * page
+            counts = (torch.as_tensor(length, device=kx.device)
+                      - first).clamp(0, page)
+            kp.append(kx * (1.0 / counts.clamp(min=1).float())[None, :,
+                                                               None])
+        _, pidx = distributed_relevancy_topk(q_idx, kp, w, n_pages_sel,
+                                             devices, block=2048)
+        pidx = torch.where(pidx * page < torch.as_tensor(
+            length, device=pidx.device), pidx, torch.full_like(pidx, -1))
+        lb = torch.as_tensor(length, dtype=torch.int32,
+                             device=q.device).reshape(-1).expand(B)
+        out = distributed_sparse_decode(strip_dead_heads(q, cfg), kc, vc,
+                                        pidx.to(torch.int32), lb, devices,
+                                        page_size=page)
+        return repad_dead_heads(out, q, cfg), dict(sp, kidx_sum=kidx_sum)
+
+    return sparse_fn
+
+
 def build_pipeline(cfg: ArchConfig, mem: MemoryConfig, sp: Params, *,
                    page: int = 16, fused: bool = False) -> MemoryPipeline:
     """The four stages over (memory=(kc, vc), query=q [B,1,Hp,hd]), one

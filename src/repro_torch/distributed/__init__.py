@@ -1,6 +1,7 @@
-"""Checkpointing and elastic planning of the port (twin of
-``repro.distributed``'s ``checkpoint`` and ``elastic``; the collectives,
-sharding and pipeline parallelism wait for ROADMAP Queue 1 item 10)."""
-from repro_torch.distributed import checkpoint, elastic
+"""Checkpointing, elastic planning and sequence-parallel top-k / sparse
+decode of the port (twin of ``repro.distributed``'s ``checkpoint``,
+``elastic`` and ``topk``; the collectives, sharding and pipeline
+parallelism wait for ROADMAP Queue 1 item 10b)."""
+from repro_torch.distributed import checkpoint, elastic, topk
 
-__all__ = ["checkpoint", "elastic"]
+__all__ = ["checkpoint", "elastic", "topk"]

@@ -1,0 +1,163 @@
+"""Sequence-parallel relevancy top-k and sparse decode over a device tuple
+(twin of ``repro.distributed.topk``).
+
+The paper's link principle, "transfer only the top-k indices" (§5.2): each
+shard runs the relevancy kernel over ITS slice of the compressed keys and
+sends back only (value, index) pairs, 8 bytes a candidate, which the first
+device merges; the apply runs the paged attention kernel per shard over its
+slice of the view and sends back only (out, lse) pairs, merged by
+``ops.lse_merge``. Raw scores (O(S)) and KV pages never cross.
+
+``devices`` is a mesh (``launch.mesh.mesh_from_devices``): one shard per
+entry, in order, the sequence axis cut into equal contiguous slices, the
+results merged on ``devices[0]``. An entry may repeat a device: the shards
+then run there one after another (one card runs 2 or 4 shards that way).
+Each shard body calls ``ops.relevancy_topk`` / ``ops.paged_decode_attention``:
+the kernels on the card, their plain versions on the CPU.
+
+A sharded input is either one tensor, cut here (each shard's slice copied
+to its device), or a list of per-shard tensors already resident.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import topk_stable
+
+
+def _shards(x, n: int, axis: int = 1) -> List[torch.Tensor]:
+    """``x`` as ``n`` contiguous slices along ``axis`` (a list of per-shard
+    tensors passes through)."""
+    if isinstance(x, (list, tuple)):
+        if len(x) != n:
+            raise ValueError(f"{len(x)} shards for a mesh of {n}")
+        return list(x)
+    S = x.shape[axis]
+    assert S % n == 0, (S, n)
+    local = S // n
+    return [x.narrow(axis, s * local, local) for s in range(n)]
+
+
+def gather_shards(parts, device=None, axis: int = 1) -> torch.Tensor:
+    """Per-shard tensors -> one tensor on ``device`` (default: the first
+    shard's)."""
+    device = device or parts[0].device
+    return torch.cat([p.to(device) for p in parts], dim=axis)
+
+
+def distributed_relevancy_topk(q, keys, weights, k: int,
+                               devices: Sequence[torch.device], *,
+                               block: int = 2048
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact global top-k with an index-only exchange. q [B, Hq, dk];
+    keys [B, S, dk] sharded on S; weights [B, Hq]. Returns (vals, idx)
+    [B, k] in GLOBAL sequence coordinates on ``devices[0]``, padded with
+    (-inf, -1) past ``n_shards * min(k, S / n_shards)`` candidates.
+
+    Shard s returns its own exact top-min(k, local) in index order among
+    ties; the candidates concatenate in shard order, so a stable sort by
+    descending value breaks ties by ascending global index, as the
+    reference's ``lax.top_k`` does (never ``torch.topk``)."""
+    n = len(devices)
+    main = devices[0]
+    parts = _shards(keys, n)
+    local_S = parts[0].shape[1]
+    k_local = min(k, local_S)
+    vals, idx = [], []
+    for s, (dev, kl) in enumerate(zip(devices, parts)):
+        v, i = ops.relevancy_topk(q.to(dev), kl.to(dev), weights.to(dev),
+                                  k_local, block=block)
+        vals.append(v.to(main))
+        idx.append((i + s * local_S).to(main))
+    top_v, pos = topk_stable(torch.cat(vals, dim=1), min(k, n * k_local))
+    top_i = torch.gather(torch.cat(idx, dim=1), 1, pos.long())
+    if top_v.shape[1] < k:           # cannot select more than exist
+        pad = k - top_v.shape[1]
+        top_v = torch.cat([top_v, top_v.new_full((top_v.shape[0], pad),
+                                                 float("-inf"))], dim=1)
+        top_i = torch.cat([top_i, top_i.new_full((top_i.shape[0], pad),
+                                                 -1)], dim=1)
+    return top_v, top_i
+
+
+def sharded_page_add(kidx, delta, pg, devices: Sequence[torch.device]
+                     ) -> List[torch.Tensor]:
+    """Add ``delta`` [B, di] into page ``pg`` (an int or a 0-d tensor) of
+    the page-sharded index cache ``kidx`` [B, n_pages, di] without
+    gathering it: every shard runs the reference's masked local update, and
+    only the one owning the page changes. Returns the per-shard tensors
+    (new tensors; the inputs stay as they were)."""
+    n = len(devices)
+    parts = _shards(kidx, n)
+    local_np = parts[0].shape[1]
+    out = []
+    for s, (dev, kx) in enumerate(zip(devices, parts)):
+        kx = kx.to(dev)
+        lpg = torch.as_tensor(pg, device=dev).reshape(1).long() \
+            - s * local_np
+        ok = ((lpg >= 0) & (lpg < local_np)).to(torch.float32)
+        idx = lpg.clamp(0, local_np - 1)
+        cur = kx.index_select(1, idx)                    # [B, 1, di]
+        new = cur + ok * delta.to(dev)[:, None]
+        out.append(kx.index_copy(1, idx, new.to(kx.dtype)))
+    return out
+
+
+def distributed_sparse_decode(q, k_cache, v_cache, page_ids, length,
+                              devices: Sequence[torch.device], *,
+                              page_size: int = 64):
+    """Sequence-parallel sparse decode, the dense per-request contract:
+    ``distributed_paged_sparse_decode`` (ONE shard body) with its lse
+    dropped."""
+    out, _ = distributed_paged_sparse_decode(
+        q, k_cache, v_cache, page_ids, length, devices, page_size=page_size)
+    return out
+
+
+def distributed_paged_sparse_decode(q, k_cache, v_cache, page_ids, lengths,
+                                    devices: Sequence[torch.device], *,
+                                    page_size: int = 64):
+    """The LSE-merged sequence-parallel apply over the paged-pool view
+    (paper Fig. 6a). q [B, Hq, dh]; k_cache / v_cache [B, S, KV, dh] (the
+    gathered view, zero outside each slot's live region), sharded on S;
+    page_ids [B, P] GLOBAL logical page ids, -1 anywhere; lengths [B] (or a
+    scalar) per-slot live lengths, each shard clipping them to its window.
+
+    Each shard attends to the selected pages it owns over its own slice of
+    the view (``.contiguous()`` in the kernel's wrapper copies a slice of a
+    view with B > 1); only (out, lse) pairs come back. Returns (out
+    [B, Hq, dh], lse [B, Hq]) on ``devices[0]``, ``ops.paged_decode_
+    attention``'s contract, so it drops into ``models.decode_step_paged_
+    presel``'s ``page_attn`` seam.
+
+    The merge is the reference's ``lse_merge``: a slot with no valid token
+    in any shard gets the equal-weight mean of each shard's degenerate
+    output (the mean of v over the first page of its slice), not the
+    unsharded kernel's; the engine always selects the current page, so
+    serving never meets that case."""
+    n = len(devices)
+    main = devices[0]
+    S = k_cache[0].shape[1] * n if isinstance(k_cache, (list, tuple)) \
+        else k_cache.shape[1]
+    assert S % (n * page_size) == 0, (S, n, page_size)
+    local_S = S // n
+    local_pages = local_S // page_size
+    ks, vs = _shards(k_cache, n), _shards(v_cache, n)
+    B = q.shape[0]
+    outs, lses = [], []
+    for s, dev in enumerate(devices):
+        pids = page_ids.to(dev)
+        local = pids - s * local_pages
+        mine = (pids >= 0) & (local >= 0) & (local < local_pages)
+        local = torch.where(mine, local, torch.full_like(local, -1))
+        len_g = torch.as_tensor(lengths, device=dev).reshape(-1).expand(B)
+        len_l = (len_g - s * local_S).clamp(0, local_S).to(torch.int32)
+        out, lse = ops.paged_decode_attention(
+            q.to(dev), ks[s].to(dev), vs[s].to(dev), local.to(torch.int32),
+            len_l, page_size=page_size)
+        outs.append(out.to(main))
+        lses.append(lse.to(main))
+    return ops.lse_merge(torch.stack(outs), torch.stack(lses))

@@ -1,5 +1,5 @@
 """Offload executor: memory processing beside decode (twin of
-``repro.hetero.executor``, paper §5), one shard.
+``repro.hetero.executor``, paper §5).
 
 Two-phase decode with ONE STEP OF LOOKAHEAD, double-buffered:
 
@@ -42,10 +42,21 @@ Invalidation is per slot: a finished admission or a landed retrieval
 splice marks only that slot's rows dirty; the next step keeps the clean
 rows of the overlapped lookahead and patches the dirty ones from a fresh
 selection (``profiler.lookahead_patched``).
+
+The main side may be a MESH (``main_mesh``, a device tuple): the apply then
+runs ``distributed_paged_sparse_decode`` behind ``decode_step_paged_
+presel``'s ``page_attn`` seam, the dense fallback through the same seam.
+
+The selection-state methods (``_launch_select`` / ``_to_apply`` /
+``_ingest_step`` / ``_select_from_pinned`` / ``_seed_span`` / the fused
+window's ``_fused_state_up`` / ``_fused_state_down``) are the override
+surface of ``hetero.sharded.ShardedHeteroExecutor``; the stream helpers take
+the index of the offload side they serve (one here, one per shard there).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -90,14 +101,28 @@ def _pinned_len(inputs) -> torch.Tensor:
 class HeteroExecutor:
     def __init__(self, cfg: ArchConfig, mem: MemoryConfig, sc,
                  sparse_params, *, mode: str = "overlap",
-                 validate: bool = False, device="cuda"):
+                 validate: bool = False, device="cuda", devices=None,
+                 main_mesh=None):
+        """``devices=(main, offload)`` overrides ``pick_devices(device)``
+        (a fleet replica's group); ``main_mesh`` (a device tuple whose
+        first entry is the main device) runs the apply sequence-parallel
+        over it."""
         if mode not in ("sync", "overlap"):
             raise ValueError(f"offload mode {mode!r}")
         self.cfg, self.mem, self.sc, self.mode = cfg, mem, sc, mode
         self.validate = validate
-        self.main_dev, self.off_dev = hpolicy.pick_devices(device)
-        self.stream = (torch.cuda.Stream(self.off_dev)
-                       if self.off_dev.type == "cuda" else None)
+        if devices is not None:
+            self.main_dev, self.off_dev = (torch.device(devices[0]),
+                                           torch.device(devices[1]))
+        else:
+            self.main_dev, self.off_dev = hpolicy.pick_devices(device)
+        self.main_mesh = None if main_mesh is None else tuple(main_mesh)
+        self._page_attn = None
+        if self.main_mesh is not None:
+            from repro_torch.distributed.topk import \
+                distributed_paged_sparse_decode
+            self._page_attn = functools.partial(
+                distributed_paged_sparse_decode, devices=self.main_mesh)
         self.sel = make_offload_select(sc.method, cfg, mem,
                                        dsa_page=sc.page, n_slots=sc.n_slots,
                                        max_len=sc.max_len,
@@ -112,15 +137,28 @@ class HeteroExecutor:
         self._neg_sel = torch.full(
             (cfg.n_layers, sc.n_slots, self.sel.n_sel), -1,
             dtype=torch.int32, device=self.main_dev)
-        # offload-resident state: method params, index summary, stale query
-        self.sp_off = {k: v.to(self.off_dev)
-                       for k, v in sparse_params.items()}
         self._sp_main = {k: v.to(self.main_dev)
                          for k, v in sparse_params.items()}
-        self.summary = self.sel.summary_init()
-        self.q_buf = torch.zeros(
+        self._init_offload_state(sparse_params)
+
+    def _q_init(self, device) -> torch.Tensor:
+        cfg, sc = self.cfg, self.sc
+        return torch.zeros(
             (cfg.n_layers, sc.n_slots, cfg.padded_heads(sc.tp), cfg.hd),
-            dtype=L.dtype_of(cfg), device=self.off_dev)
+            dtype=L.dtype_of(cfg), device=device)
+
+    def _init_offload_state(self, sparse_params) -> None:
+        """Offload-resident state, one copy on the one offload side: the
+        method params, the index summary, the stale-query buffer, and on a
+        CUDA device the side's stream."""
+        self.off_devs = (self.off_dev,)
+        self.stream = (torch.cuda.Stream(self.off_dev)
+                       if self.off_dev.type == "cuda" else None)
+        self.streams = [self.stream]
+        self.sp_off = {k: v.to(self.off_dev)
+                       for k, v in sparse_params.items()}
+        self.summary = self.sel.summary_init()
+        self.q_buf = self._q_init(self.off_dev)
 
     @property
     def devices(self) -> Tuple[torch.device, torch.device]:
@@ -134,42 +172,44 @@ class HeteroExecutor:
         return (torch.cuda.current_stream(self.main_dev)
                 if self.main_dev.type == "cuda" else None)
 
-    def _on_off(self):
-        """Context of offload-side work, after the main stream's work so
-        far (what it reads from the main side is then complete)."""
-        if self.stream is None:
+    def _on_off(self, s: int = 0):
+        """Context of work on offload side ``s``, after the main stream's
+        work so far (what it reads from the main side is then complete)."""
+        stream = self.streams[s]
+        if stream is None:
             return contextlib.nullcontext()
-        self.stream.wait_stream(self._main_stream())
-        return torch.cuda.stream(self.stream)
+        stream.wait_stream(self._main_stream())
+        return torch.cuda.stream(stream)
 
-    def _to_off(self, t: torch.Tensor) -> torch.Tensor:
-        """A main-side tensor read on the offload side (inside
-        ``_on_off``)."""
-        if self.stream is not None and t.device == self.off_dev:
-            t.record_stream(self.stream)
-        return t.to(self.off_dev, non_blocking=True)
+    def _to_off(self, t: torch.Tensor, s: int = 0) -> torch.Tensor:
+        """A main-side tensor read on offload side ``s`` (inside
+        ``_on_off(s)``)."""
+        if self.streams[s] is not None and t.device == self.off_devs[s]:
+            t.record_stream(self.streams[s])
+        return t.to(self.off_devs[s], non_blocking=True)
 
-    def _off_to_main(self, t: torch.Tensor, event=None) -> torch.Tensor:
-        """An offload-side tensor read on the main stream."""
+    def _off_to_main(self, t: torch.Tensor, event=None,
+                     s: int = 0) -> torch.Tensor:
+        """A tensor of offload side ``s`` read on the main stream."""
         main = self._main_stream()
-        if self.stream is not None:
+        if self.streams[s] is not None:
             if event is not None:
                 main.wait_event(event)
             else:
-                main.wait_stream(self.stream)
+                main.wait_stream(self.streams[s])
             if t.device == self.main_dev:
                 t.record_stream(main)
         return t.to(self.main_dev, non_blocking=True)
 
-    def _event(self):
-        if self.stream is None:
+    def _event(self, s: int = 0):
+        if self.streams[s] is None:
             return None
         ev = torch.cuda.Event()
-        ev.record(self.stream)
+        ev.record(self.streams[s])
         return ev
 
     def _sync(self):
-        for d in {self.main_dev, self.off_dev}:
+        for d in {self.main_dev, *self.off_devs, *(self.main_mesh or ())}:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
 
@@ -202,6 +242,18 @@ class HeteroExecutor:
         d = torch.as_tensor(dirty_np, device=old.device)[None, :, None]
         return torch.where(d, fresh, old)
 
+    def _patch_handle(self, old, fresh, dirty_np: np.ndarray):
+        """The pending selection with the dirty rows taken from ``fresh``,
+        patched on the main side (both are shipped there)."""
+        return _Sel(self._patch_pidx(self._to_apply(old),
+                                     self._to_apply(fresh), dirty_np),
+                    ready=True)
+
+    def _pin_state(self):
+        """The pre-step offload state: the overlapped select must not see
+        this step's keys / queries."""
+        return self.summary, self.q_buf
+
     def _ingest_step(self, pinned, q_t, k_t, lengths, live) -> None:
         """Ship this step's queries / keys down; fold them into the index
         summary and the stale-query buffer (new tensors)."""
@@ -213,6 +265,9 @@ class HeteroExecutor:
             self.summary = self.sel.ingest(summary_prev, self.sp_off, k_off,
                                            lengths, live)
             self.q_buf = self._blend_q(q_prev, q_off, None, live)
+
+    def _tick(self) -> None:
+        self.ledger.tick()
 
     # -- pinned-input replay -------------------------------------------
 
@@ -229,6 +284,11 @@ class HeteroExecutor:
             _, summary, qbuf, la_len = inputs
             return self.sel.select(self._sp_main, summary, qbuf,
                                    la_len).cpu()
+        return self._select_from_pinned(inputs)
+
+    def _select_from_pinned(self, inputs) -> torch.Tensor:
+        """The selection of raw pinned inputs, recomputed synchronously and
+        returned on the CPU."""
         _, summary, qbuf, lengths = inputs
         with self._on_off():
             return self.sel.select(self.sp_off, summary, qbuf,
@@ -290,11 +350,14 @@ class HeteroExecutor:
     def on_admit_slot(self, slot: int) -> None:
         """Chunked admission: clear the slot's rows; keys arrive per chunk."""
         self._reset_slots([slot])
+        self._clear_q([slot])
+        self.invalidate([slot])
+
+    def _clear_q(self, slot_ids: List[int]) -> None:
         with self._on_off():
             q = self.q_buf.clone()
-            q[:, slot] = 0.0
+            q[:, slot_ids] = 0.0
             self.q_buf = q
-        self.invalidate([slot])
 
     def on_extend(self, k_span, q_last, start_np: np.ndarray,
                   n_valid_np: np.ndarray, finished: List[int]) -> None:
@@ -342,10 +405,8 @@ class HeteroExecutor:
             if patch_rows.any():
                 t0 = time.perf_counter()
                 fresh, fresh_inputs = self._launch_select(lengths_np)
-                # patched on the main side: old and fresh are both there
-                old = self._to_apply(self.sel_buf)
-                self.sel_buf = _Sel(self._patch_pidx(
-                    old, self._to_apply(fresh), patch_rows), ready=True)
+                self.sel_buf = self._patch_handle(self.sel_buf, fresh,
+                                                  patch_rows)
                 self._sel_inputs = (PATCHED, self._sel_inputs,
                                     fresh_inputs, patch_rows.copy())
                 self._dirty &= ~patch_rows
@@ -379,9 +440,7 @@ class HeteroExecutor:
             pidx_inputs, pidx = None, self._neg_sel
             self.invalidate()
 
-        # the pre-step offload state: the overlapped select must not see
-        # this step's keys / queries
-        pinned = (self.summary, self.q_buf)
+        pinned = self._pin_state()
         next_sel = next_inputs = None
         if offloaded and not sync:
             # select_{t+1} queued on the offload stream BEFORE apply_t
@@ -393,7 +452,8 @@ class HeteroExecutor:
         pool = dict(pool_device, page_table=table, lengths=lengths)
         logits, _, q_t, k_t = M.decode_step_paged_presel(
             params, self.cfg, tok, pool, live, pidx, sparse=offloaded,
-            page_size=self.sel.page, tp=self.sc.tp)
+            page_size=self.sel.page, tp=self.sc.tp,
+            page_attn=self._page_attn)
         t_apply = None
         if sync:
             self._sync()
@@ -407,7 +467,7 @@ class HeteroExecutor:
 
         # ingest (also during local fallback: the index must stay coherent
         # for when the context re-enters the offload window)
-        self.ledger.tick()
+        self._tick()
         t0 = time.perf_counter()
         self._ingest_step(pinned, q_t, k_t, lengths, live)
         if sync:
@@ -427,6 +487,22 @@ class HeteroExecutor:
     # ------------------------------------------------------------------
     # fused multi-step windows (serving.fused)
     # ------------------------------------------------------------------
+
+    def _fused_state_up(self):
+        """The offload-resident index state on the main side for a window
+        (bulk traffic: a state migration, not the per-step exchange).
+        -> (summary, qbuf)."""
+        summary = {k: self._off_to_main(v) for k, v in self.summary.items()}
+        qbuf = self._off_to_main(self.q_buf)
+        self.ledger.bulk_bytes += pytree_bytes((summary, qbuf))
+        return summary, qbuf
+
+    def _fused_state_down(self, summary, qbuf) -> None:
+        """The post-window index state back to the offload side."""
+        with self._on_off():
+            self.summary = {k: self._to_off(v) for k, v in summary.items()}
+            self.q_buf = self._to_off(qbuf)
+        self.ledger.bulk_bytes += pytree_bytes((self.summary, self.q_buf))
 
     def decode_fused(self, runner, params, pool_device: Dict, ins: Dict,
                      lengths_np: np.ndarray, live_np: np.ndarray, K: int,
@@ -455,11 +531,7 @@ class HeteroExecutor:
         else:
             pidx = self._neg_sel
             self.invalidate()
-        # the index state moves to the main side for the window (bulk
-        # traffic, a state migration, not the per-step exchange)
-        summary = {k: self._off_to_main(v) for k, v in self.summary.items()}
-        qbuf = self._off_to_main(self.q_buf)
-        self.ledger.bulk_bytes += pytree_bytes((summary, qbuf))
+        summary, qbuf = self._fused_state_up()
         B = self.sc.n_slots
         ins = dict(ins, sel=pidx, qbuf=qbuf,
                    **{"summary." + k: v for k, v in summary.items()})
@@ -468,20 +540,16 @@ class HeteroExecutor:
         fn = F.make_fused_presel(
             self.cfg, self.sc, self.sel, K=K, trigger=trigger,
             offl=offloaded, sparse_params=self._sp_main, params=params,
-            pool_device=pool_device)
+            pool_device=pool_device, page_attn=self._page_attn)
         host, outs = runner.run(key, fn, ins)
         if sync:
             self._sync()
         nsteps, pending, emits, fired = F.unpack_host(host, K, B)
         for _ in range(nsteps):
-            self.ledger.tick()
-        # the post-window index state back to the offload side
-        with self._on_off():
-            self.summary = {k[len("summary."):]: self._to_off(v)
-                            for k, v in outs.items()
-                            if k.startswith("summary.")}
-            self.q_buf = self._to_off(outs["qbuf"])
-        self.ledger.bulk_bytes += pytree_bytes((self.summary, self.q_buf))
+            self._tick()
+        self._fused_state_down(
+            {k[len("summary."):]: v for k, v in outs.items()
+             if k.startswith("summary.")}, outs["qbuf"])
         if offloaded:
             self.sel_buf = _Sel(outs["sel"], ready=True)
             prev = {k[len("prev_summary."):]: v for k, v in outs.items()
@@ -530,6 +598,8 @@ class HeteroExecutor:
                         "offload": str(self.off_dev),
                         "distinct": self.main_dev != self.off_dev,
                         "offload_stream": self.stream is not None}
+        if self.main_mesh is not None:
+            d["devices"]["main_mesh"] = [str(x) for x in self.main_mesh]
         d["plan"] = {"stages": dict(self.plan.stages),
                      "offloaded": list(self.plan.offloaded())}
         return d

@@ -16,12 +16,15 @@ of that window, ``placement.in_sparse_window``.
 
 Devices: the offload role takes a second CUDA device when there is one,
 else a CUDA stream of its own on the engine's card; on the CPU both roles
-run on the CPU.
+run on the CPU. The multi-device policies (``pick_devices_mesh`` /
+``_replicas`` / ``_sharded``) follow the reference's rules over the local
+CUDA devices (the CPU's one device in tests): contiguous groups, devices
+shared round-robin when there are fewer than asked for.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -97,4 +100,61 @@ def pick_devices(device="cuda"):
     dev = resolve_device(device)
     if dev.type == "cuda" and torch.cuda.device_count() >= 2:
         return torch.device("cuda", 0), torch.device("cuda", 1)
+    if dev.type == "cuda" and dev.index is None:
+        # indexed, as a tensor's device is: the executors compare them to
+        # decide when a tensor read on the other stream must be recorded
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev, dev
+
+
+def local_devices(device="cuda") -> List[torch.device]:
+    """The distinct devices the multi-device policies split: every visible
+    CUDA device for ``device`` on the card, else ``device`` alone."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def pick_devices_mesh(n_main: int, n_shards: int = 1, device="cuda"):
+    """(main mesh devices, offload shard devices) for the fully sharded
+    topology: mesh devices are [0, n), offload shards round-robin over the
+    remainder (over every device when they run short).
+
+    A mesh names each device once, so with fewer than ``n_main`` distinct
+    devices it clamps to the largest DIVISOR of the request that fits: the
+    engine's view granule is a multiple of the REQUESTED mesh, and a
+    divisor keeps ``S % (n_shards * page_size) == 0`` for the clamped
+    count. On one card (or the CPU) the mesh is that one device."""
+    devs = local_devices(device)
+    n = max(d for d in range(1, n_main + 1)
+            if n_main % d == 0 and d <= len(devs))
+    mains = tuple(devs[:n])
+    pool = devs[n:] if len(devs) > n else devs
+    return mains, tuple(pool[i % len(pool)] for i in range(n_shards))
+
+
+def pick_devices_replicas(n_replicas: int, device="cuda"):
+    """Contiguous device GROUPS, one per fleet replica (``serving.router``):
+    each group's first device is the replica's main device, the rest its
+    offload / retrieval side. ``N >= n_replicas`` devices give every replica
+    ``N // n_replicas`` of them; fewer are shared round-robin (one card:
+    every replica on it, each with streams of its own)."""
+    if n_replicas < 1:
+        raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+    devs = local_devices(device)
+    if len(devs) >= n_replicas:
+        per = len(devs) // n_replicas
+        return [tuple(devs[i * per:(i + 1) * per])
+                for i in range(n_replicas)]
+    return [(devs[i % len(devs)],) for i in range(n_replicas)]
+
+
+def pick_devices_sharded(n_shards: int, device="cuda"):
+    """(main, (offload_0, ..., offload_{n-1})) for the sharded executor:
+    shards on devices 1..N-1 round-robin, or all on the one device there
+    is (each shard then keeps a CUDA stream of its own)."""
+    devs = local_devices(device)
+    pool = devs[1:] if len(devs) >= 2 else devs
+    return devs[0], tuple(pool[i % len(pool)] for i in range(n_shards))

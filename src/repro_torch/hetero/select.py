@@ -28,7 +28,7 @@ Every bundle is built over a WINDOW ``(tok_lo, n_tok)`` of the logical
 token space, the full window unless given; ``select_partial`` returns the
 window's top candidates as (vals, idx) in global page coordinates and
 ``finalize`` merges candidate lists (``merge_shard_topk``), so ``select =
-finalize o select_partial``. A sharded executor (ROADMAP Queue 1 item 10)
+finalize o select_partial``. The sharded executor (``hetero.sharded``)
 builds one bundle per shard window.
 """
 from __future__ import annotations

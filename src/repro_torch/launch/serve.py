@@ -15,6 +15,10 @@ loop (xLSTM ignores the method).
         --retrieval-kind rag --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --offload on \\
         --fused-steps 8 --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --replicas 2 \\
+        --retrieval on --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --offload on \\
+        --offload-shards 2 --main-mesh 2 --device cuda
 
 Like the reference CLI it serves the architecture's ``.smoke()`` config with
 seeded random weights. ``--device cpu`` runs the plain PyTorch path.
@@ -26,7 +30,13 @@ over a synthetic ``--docs``-document corpus) or MaC memory embeddings
 offload executor and prints its per-stage report (``--offload-validate``
 replays every consumed selection); ``--fused-steps K`` runs up to K decode
 steps per host dispatch (CUDA graphs on the card) and prints the steps per
-dispatch.
+dispatch. ``--offload-shards N`` cuts the offload side into N KV-sequence
+shards and ``--main-mesh N`` runs the apply sequence-parallel over a mesh of
+up to N devices (both need ``--offload``; on one card the shards share it,
+each on a stream of its own, and the mesh clamps to the card).
+``--replicas N`` serves through a ``Router`` over N engine replicas (on one
+card all of them on it), rag retrieval sharing one corpus, and prints the
+router's report.
 """
 from __future__ import annotations
 
@@ -39,7 +49,8 @@ import numpy as np
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.hetero import resolve_cli_offload, resolve_cli_retrieval
 from repro_torch.models import init_params
-from repro_torch.serving import Engine, OffloadConfig, Request, ServeConfig
+from repro_torch.serving import (Engine, OffloadConfig, Request, Router,
+                                 ServeConfig)
 from repro_torch.serving.engine import POOL_FAMILIES
 
 
@@ -55,6 +66,18 @@ def main(argv=None):
     ap.add_argument("--offload", default="off",
                     choices=["on", "off", "sync", "overlap"],
                     help="hetero offload executor (on = overlap)")
+    ap.add_argument("--offload-shards", type=int, default=1,
+                    help="KV-sequence shards on the offload side (one "
+                         "device each, or streams of their own on one "
+                         "card); needs --offload")
+    ap.add_argument("--main-mesh", type=int, default=1,
+                    help="devices of the main apply mesh (sequence-"
+                         "parallel, LSE-merged; clamps to the devices "
+                         "there are); needs --offload")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through a Router over N engine replicas, "
+                         "each on its own device group (on one card all on "
+                         "it); rag retrieval shares ONE corpus")
     ap.add_argument("--offload-validate", action="store_true",
                     help="replay every consumed lookahead selection "
                          "synchronously and bit-check it")
@@ -94,16 +117,28 @@ def main(argv=None):
                 kind="mac", mode=ret_mode, min_interval=4, max_retrievals=2,
                 mac=MacConfig(segment_len=16, memory_slots=8, retrieve_k=2))
     extra = 96 if retrieval is not None else 16
+    # shards and the mesh apply only under an offload mode
+    shards = args.offload_shards if offload != "off" else 1
+    mesh_n = args.main_mesh if offload != "off" else 1
     sc = ServeConfig(max_len=args.prompt_len + args.max_new + extra,
                      n_slots=args.slots, method=args.method, tp=args.tp,
                      page=8, retrieval=retrieval,
                      offload_cfg=OffloadConfig(
-                         mode=offload, validate=args.offload_validate),
+                         mode=offload, validate=args.offload_validate,
+                         shards=shards, main_mesh=mesh_n),
                      fused_steps=args.fused_steps)
-    eng = Engine(cfg, params, sc, seed=1, device=args.device)
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, size=args.prompt_len),
                     args.max_new) for i in range(args.requests)]
+    if args.replicas > 1:
+        if cfg.family not in POOL_FAMILIES:
+            ap.error(f"--replicas serves the paged pool ({POOL_FAMILIES})")
+        if mesh_n > 1:
+            ap.error("--main-mesh picks its own devices; it does not "
+                     "compose with --replicas' device groups")
+        serve_fleet(args, cfg, params, sc, reqs, ret_mode)
+        return
+    eng = Engine(cfg, params, sc, seed=1, device=args.device)
     if cfg.family not in POOL_FAMILIES:
         t0 = time.perf_counter()
         gen = eng.generate(np.stack([r.tokens for r in reqs]), args.max_new)
@@ -119,24 +154,66 @@ def main(argv=None):
     done = eng.drain()
     toks = sum(len(h.tokens) for h in handles)
     ttft = [h.ttft_s() for h in handles if h.ttft_s() is not None]
-    print(f"method={args.method} offload={offload} "
+    print(f"method={args.method} offload={_offload_label(sc)} "
           f"retrieval={ret_mode or 'off'} device={eng.device}: "
           f"{len(done)}/{args.requests} requests, {toks} tokens, "
           f"{eng.throughput_tokens_per_s():.1f} tok/s, "
           f"p50 TTFT {1e3 * float(np.median(ttft)):.1f}ms, "
           f"{eng.stats['sparse_steps']}/{eng.stats['decode_steps']} decode "
           f"steps sparse")
+    report_engines(args, [eng])
+
+
+def _offload_label(sc) -> str:
+    """``mode[/shards=N][/mesh=M]`` of the run's offload topology."""
+    label = sc.offload
+    if sc.offload_shards > 1:
+        label += f"/shards={sc.offload_shards}"
+    if sc.main_mesh > 1:
+        label += f"/mesh={sc.main_mesh}"
+    return label
+
+
+def serve_fleet(args, cfg, params, sc, reqs, ret_mode):
+    """``--replicas N``: the requests through a ``Router``; prints the
+    totals, the router's report and each replica's engine reports."""
+    router = Router.build(cfg, params, sc, n_replicas=args.replicas,
+                          seed=1, device=args.device)
+    t0 = time.perf_counter()
+    handles = [router.submit(r) for r in reqs]
+    done = router.drain()
+    wall = time.perf_counter() - t0
+    toks = sum(len(h.tokens) for h in handles)
+    ttft = [h.ttft_s() for h in handles if h.ttft_s() is not None]
+    print(f"method={args.method} offload={_offload_label(sc)} "
+          f"retrieval={ret_mode or 'off'} replicas={args.replicas} "
+          f"device={args.device}: {len(done)}/{args.requests} requests, "
+          f"{toks} tokens, {toks / wall:.1f} tok/s, "
+          f"p50 TTFT {1e3 * float(np.median(ttft)):.1f}ms")
+    print("router report:")
+    print(json.dumps(router.report(), indent=2, sort_keys=True))
+    report_engines(args, [r.engine for r in router.replicas])
+
+
+def report_engines(args, engines):
+    """The fused-decode line and each engine's offload and retrieval
+    reports."""
     if args.fused_steps > 1:
-        hs, ds = eng.stats["host_steps"], eng.stats["decode_steps"]
+        hs = sum(e.stats["host_steps"] for e in engines)
+        ds = sum(e.stats["decode_steps"] for e in engines)
+        gc = sum(e.stats["graph_captures"] for e in engines)
         print(f"fused decode: {ds} device steps in {hs} host dispatches "
               f"({ds / max(hs, 1):.1f} steps/dispatch), "
-              f"{eng.stats['graph_captures']} CUDA graphs captured")
-    if eng.hetero is not None:
-        print("hetero per-stage breakdown (Fig. 3 style):")
-        print(json.dumps(eng.hetero.report(), indent=2, sort_keys=True))
-    if eng.retrieval is not None:
-        print("retrieval service report:")
-        print(json.dumps(eng.retrieval.report(), indent=2, sort_keys=True))
+              f"{gc} CUDA graphs captured")
+    for i, eng in enumerate(engines):
+        tag = f" (replica {i})" if len(engines) > 1 else ""
+        if eng.hetero is not None:
+            print(f"hetero per-stage breakdown{tag} (Fig. 3 style):")
+            print(json.dumps(eng.hetero.report(), indent=2, sort_keys=True))
+        if eng.retrieval is not None:
+            print(f"retrieval service report{tag}:")
+            print(json.dumps(eng.retrieval.report(), indent=2,
+                             sort_keys=True))
 
 
 if __name__ == "__main__":

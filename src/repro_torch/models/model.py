@@ -576,7 +576,7 @@ def decode_step_paged(params, cfg: ArchConfig, token, pool, live, *,
 
 def decode_step_paged_presel(params, cfg: ArchConfig, token, pool, live,
                              pidx, *, sparse: bool, page_size: int,
-                             tp: int = 16):
+                             tp: int = 16, page_attn=None):
     """Apply-phase decode over the paged pool with PRE-SELECTED pages (the
     hetero offload split, paper §5): prepare / relevancy / retrieve ran on
     the offload side one step ahead and handed back page indices only.
@@ -596,6 +596,13 @@ def decode_step_paged_presel(params, cfg: ArchConfig, token, pool, live,
     lengths; here the caller decides it on the host (``use_sparse``), as
     ``decode_step_paged``'s caller does.
 
+    ``page_attn`` replaces the selected-page attention (``ops.paged_decode_
+    attention``'s contract: (q, kc, vc, pids, lengths, page_size=) -> (out,
+    lse)); the main mesh installs ``distributed_paged_sparse_decode``. With
+    it installed the dense branch runs through the same seam, every page of
+    the view selected (``lb`` masks the live region), so neither branch
+    leaves the mesh, as in the reference.
+
     Returns (logits [B, V], pool with lengths advanced, q_layers [L, B, Hp,
     hd], k_layers [L, B, KV, hd]): this step's per-layer query and key feed
     the next lookahead selection and the offload-side index.
@@ -613,14 +620,23 @@ def decode_step_paged_presel(params, cfg: ArchConfig, token, pool, live,
         s = torch.where(sel == cur_page[:, None], neg, sel)
         s = torch.where(s.long() * ps < lb.long()[:, None], s, neg)
         s_full = torch.cat([s, cur_page[:, None]], dim=1)
-        out, _ = ops.paged_decode_attention(
-            strip_dead_heads(q, cfg), kc, vc, s_full.to(torch.int32), lb,
-            page_size=ps)
+        out, _ = attn(strip_dead_heads(q, cfg), kc, vc,
+                      s_full.to(torch.int32), lb, page_size=ps)
         return repad_dead_heads(out, q, cfg)
 
+    def all_pages_attention(q, kc, vc, lb, sp, k_new=None):
+        B, n_pages = q.shape[0], kc.shape[1] // ps
+        allp = torch.arange(n_pages, dtype=torch.int32,
+                            device=kc.device).expand(B, n_pages)
+        out, _ = attn(strip_dead_heads(q, cfg), kc, vc, allp, lb,
+                      page_size=ps)
+        return repad_dead_heads(out, q, cfg)
+
+    attn = page_attn or ops.paged_decode_attention
+    sparse_fn = presel_attention if sparse else \
+        all_pages_attention if page_attn is not None else None
     return decode_step_paged(
-        params, cfg, token, pool, live, tp=tp,
-        sparse_fn=presel_attention if sparse else None,
+        params, cfg, token, pool, live, tp=tp, sparse_fn=sparse_fn,
         sparse_params={"pidx": pidx}, collect_qk=True)
 
 

@@ -29,8 +29,8 @@ device: ``traced_trigger`` is the predicate on tensors, and
 ``fused_gates`` compiles the host gates into per-slot scalars a window
 evaluates without a host turn.
 
-Not ported: the reference's ``service=`` field (a service shared by the
-replicas of a fleet, ROADMAP Queue 1 item 11).
+``RetrievalConfig(service=...)`` hands the executor a service built
+elsewhere: the fleet router's one corpus shared by its replicas.
 """
 from __future__ import annotations
 
@@ -83,28 +83,46 @@ class RetrievalConfig:
     min_interval: int = 8        # context growth required between triggers
     max_retrievals: int = 2      # per request
     validate: bool = False       # replay every consumed query synchronously
+    # a RetrievalService built elsewhere and SHARED by executors (the fleet
+    # router's one corpus for many replicas: the store is capacity-padded
+    # and ingests incrementally, so a document ingested through any replica
+    # is visible to every replica's triggers). kind='rag' only; None = the
+    # executor builds its own service.
+    service: Optional[RetrievalService] = None
 
 
 class RetrievalExecutor:
     def __init__(self, cfg: ArchConfig, sc, rcfg: RetrievalConfig, params,
-                 *, mac_params=None, seed: int = 0, device="cuda"):
+                 *, mac_params=None, seed: int = 0, device="cuda",
+                 devices=None):
         """``params`` are the model's (MaC embeds its token windows with
         them); ``mac_params`` the MaC projections (default ``mac_init`` at
         ``seed``). The service runs on ``policy.pick_devices(device)``'s
-        offload device, the engine's on one card."""
+        offload device (the engine's on one card), or on ``devices=(main,
+        offload)``'s; a shared ``rcfg.service`` keeps its own."""
         if rcfg.mode not in MODES:
             raise ValueError(f"retrieval mode {rcfg.mode!r} not in {MODES}")
         if rcfg.kind not in ("rag", "mac"):
             raise ValueError(f"retrieval kind {rcfg.kind!r}")
         self.cfg, self.sc, self.rcfg = cfg, sc, rcfg
         self.mode = rcfg.mode
-        self.main_dev, self.off_dev = hpolicy.pick_devices(device)
+        if devices is not None:
+            self.main_dev, self.off_dev = (torch.device(devices[0]),
+                                           torch.device(devices[1]))
+        else:
+            self.main_dev, self.off_dev = hpolicy.pick_devices(device)
         inline = rcfg.mode == "inline"
         dev = self.main_dev if inline else self.off_dev
         self.ledger = TransferLedger()
         self.service: Optional[RetrievalService] = None
         self.bank: Optional[MacBankService] = None
-        if rcfg.kind == "rag":
+        if rcfg.kind == "rag" and rcfg.service is not None:
+            # the fleet's shared corpus: adopt the service and its ledger,
+            # so the replicas' transfers pool in one place
+            self.service = rcfg.service
+            self.ledger = self.service.ledger
+            self.off_dev = self.service.device
+        elif rcfg.kind == "rag":
             if rcfg.corpus is None:
                 raise ValueError("kind='rag' needs a corpus")
             self.service = RetrievalService(

@@ -23,7 +23,12 @@
   the memory-processing stages through the hetero offload executor
   (``repro_torch.hetero``): lookahead selection on the offload side (a
   second card, or a CUDA stream of its own), overlapped with decode,
-  exchanging page indices only.
+  exchanging page indices only; ``shards=N`` cuts the offload side into N
+  KV-sequence shards (``hetero.sharded``), ``main_mesh=N`` runs the apply
+  sequence-parallel over a device mesh (``distributed.topk``).
+* ``Engine(devices=...)`` pins the engine to a fleet replica's device group
+  (``serving.router``): the first device is main, the rest serve the
+  offload and retrieval side.
 * ``ServeConfig(fused_steps=K)`` runs up to K decode steps per host
   dispatch (``serving/fused.py``), replayed as CUDA graphs on the card,
   with or without retrieval and offload.
@@ -77,10 +82,11 @@ class OffloadConfig:
                double-buffered lookahead selection overlapped with decode
                (the paper's heterogeneous execution).
     validate   replay each consumed selection and check it bit for bit.
-    shards     >1 = one offload device per KV-sequence shard.
-    main_mesh  >1 = an N-device main mesh running the apply phase.
-    The port serves shards = main_mesh = 1 (``Engine`` raises otherwise:
-    ROADMAP Queue 1 item 10).
+    shards     >1 = one offload side per KV-sequence shard
+               (``hetero.sharded``), index-only candidate merge.
+    main_mesh  >1 = an N-device main mesh running the apply phase
+               sequence-parallel (clamped to a divisor of N that fits the
+               distinct devices, one on one card). Composes with shards.
     """
     mode: str = "off"
     validate: bool = False
@@ -106,9 +112,8 @@ class OffloadConfig:
 class ServeConfig:
     """The reference's fields. The port serves the paged pool, stepped or
     fused (``fused_steps``), with or without retrieval and the hetero
-    offload (``offload_cfg``, one shard), and the legacy dense pool
-    (``paged=False``); ``Engine`` raises ``NotImplementedError`` for
-    ``offload_shards > 1`` and ``main_mesh > 1``.
+    offload (``offload_cfg``: sharded selection, a main mesh), and the
+    legacy dense pool (``paged=False``).
 
     ``offload_cfg`` is the offload topology's surface; the flat
     ``offload`` / ``offload_validate`` / ``offload_shards`` / ``main_mesh``
@@ -184,10 +189,6 @@ def _check_supported(cfg: ArchConfig, sc: ServeConfig) -> None:
                                      or cfg.family not in POOL_FAMILIES):
         raise ValueError("the retrieval subsystem serves the paged pool of "
                          f"a transformer family ({POOL_FAMILIES})")
-    if sc.offload_shards > 1 or sc.main_mesh > 1:
-        raise NotImplementedError(
-            "repro_torch does not port multi-device serving (offload_shards "
-            "/ main_mesh) yet (ROADMAP Queue 1 item 10)")
 
 
 def _to_device(tree, device):
@@ -199,15 +200,24 @@ def _to_device(tree, device):
 class Engine:
     def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
                  seed: int = 0, mem: Optional[MemoryConfig] = None,
-                 device="cuda", sparse_params=None, retrieval_params=None):
+                 device="cuda", sparse_params=None, retrieval_params=None,
+                 devices=None):
         """``params`` from ``models.init_params`` or
         ``weights.from_jax_params``. ``sparse_params`` (the method's
         per-layer weights: DSA's indexer, Seer's gates) and
         ``retrieval_params`` (MaC's projections, for
         ``RetrievalConfig(kind="mac")``) default to their inits at
-        ``seed``; pass the reference engine's to compare the two."""
+        ``seed``; pass the reference engine's to compare the two.
+        ``devices`` pins the engine to a device group (a fleet replica's,
+        ``hetero.policy.pick_devices_replicas``): the engine runs on its
+        first device, the offload and retrieval side on the rest (on the
+        first too when the group has one). Tensors already on the device
+        are not copied, so replicas on one card share the weights."""
         _check_supported(cfg, sc)
-        self.device = resolve_device(device)
+        self.devices = None if devices is None else tuple(
+            torch.device(d) for d in devices)
+        self.device = resolve_device(
+            device if self.devices is None else self.devices[0])
         self.cfg = cfg
         self.params = _to_device(params, self.device)
         self.mem = mem or cfg.memory.replace(method=sc.method)
@@ -218,6 +228,12 @@ class Engine:
             self.mem.block_size * self.mem.pages_per_physical
             if sc.method == "lserve" else 1)
         gran = math.lcm(gran, sc.kv_page_size if sc.paged else 1)
+        # every offload shard's window covers whole selection and kv pages
+        gran *= max(sc.offload_shards, 1)
+        # pow2-bucketed views are multiples of the granule: with the
+        # REQUESTED mesh folded in, every view splits into main_mesh shards
+        # of whole pages (distributed_paged_sparse_decode's contract)
+        gran *= max(sc.main_mesh, 1)
         if sc.max_len % gran:
             sc = dataclasses.replace(
                 sc, max_len=((sc.max_len + gran - 1) // gran) * gran)
@@ -236,18 +252,33 @@ class Engine:
                 self.device)
             self._sparse_fn = mk(cfg, self.mem, tp=sc.tp,
                                  **sparse_kwargs(sc.method, sc.page))
+        exec_devs = self._layout_devices()
         self.hetero = None
         if sc.offload != "off":
-            from repro_torch.hetero import HeteroExecutor
-            self.hetero = HeteroExecutor(
-                cfg, self.mem, self.sc, self.sparse_params, mode=sc.offload,
-                validate=sc.offload_validate, device=self.device)
+            from repro_torch.hetero import (HeteroExecutor,
+                                            ShardedHeteroExecutor)
+            kw = dict(mode=sc.offload, validate=sc.offload_validate,
+                      device=self.device, main_mesh=self.main_mesh)
+            if sc.offload_shards > 1:
+                self.hetero = ShardedHeteroExecutor(
+                    cfg, self.mem, self.sc, self.sparse_params,
+                    n_shards=sc.offload_shards, devices=exec_devs, **kw)
+            else:
+                self.hetero = HeteroExecutor(
+                    cfg, self.mem, self.sc, self.sparse_params,
+                    devices=exec_devs, **kw)
         self.retrieval = None
         if sc.retrieval is not None:
             from repro_torch.retrieval import RetrievalExecutor
+            rdevs = self.hetero.devices if self.hetero is not None else None
+            if rdevs is None and exec_devs is not None:
+                off = exec_devs[1]
+                rdevs = (exec_devs[0],
+                         off[0] if isinstance(off, tuple) else off)
             self.retrieval = RetrievalExecutor(
                 cfg, self.sc, sc.retrieval, self.params,
-                mac_params=retrieval_params, seed=seed, device=self.device)
+                mac_params=retrieval_params, seed=seed, device=self.device,
+                devices=rdevs)
 
         self.slots = SlotManager(sc.n_slots, sc.max_len)
         self.pool: Optional[PagedKVPool] = None
@@ -290,6 +321,35 @@ class Engine:
         self.done: Dict[int, ResponseHandle] = {}
         self._auto_rid = 0                 # generate() uses negative rids
         self._polled_prefill = False
+
+    def _layout_devices(self):
+        """The main mesh (``self.main_mesh``) and the executors' placement:
+        None (the policies' defaults), or (main, offload) with a tuple of
+        offload devices under sharding. The mesh picks its own devices, so
+        it does not compose with a replica's ``devices``."""
+        sc = self.sc
+        self.main_mesh = None
+        if sc.main_mesh > 1:
+            if self.devices is not None:
+                raise ValueError(
+                    "Engine(devices=...) pins a replica's device group; it "
+                    "does not compose with main_mesh, which picks its own "
+                    "devices (hetero.policy.pick_devices_mesh)")
+            from repro_torch.hetero.policy import pick_devices_mesh
+            from repro_torch.launch.mesh import mesh_from_devices
+            mains, offs = pick_devices_mesh(
+                sc.main_mesh, max(sc.offload_shards, 1), device=self.device)
+            self.main_mesh = mesh_from_devices(mains)
+            return mains[0], offs if sc.offload_shards > 1 else offs[0]
+        if self.devices is None:
+            return None
+        # a replica's group: main first, the offload side round-robin over
+        # the rest (over the whole group when it holds one device)
+        pool = self.devices[1:] or self.devices
+        if sc.offload_shards > 1:
+            return self.devices[0], tuple(pool[i % len(pool)]
+                                          for i in range(sc.offload_shards))
+        return self.devices[0], pool[0]
 
     # ------------------------------------------------------------------
     # request-level serving API (submit / poll / drain)

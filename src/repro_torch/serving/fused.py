@@ -149,7 +149,8 @@ def make_fused_paged(cfg, sc, *, K: int, trigger, sparse_fn,
 
 
 def make_fused_presel(cfg, sc, sel, *, K: int, trigger, offl: bool,
-                      sparse_params, params, pool_device) -> Callable:
+                      sparse_params, params, pool_device,
+                      page_attn=None) -> Callable:
     """Window of the HETERO two-phase pipeline: apply over preselected
     pages plus the selection double buffer, on the main side.
 
@@ -170,7 +171,8 @@ def make_fused_presel(cfg, sc, sel, *, K: int, trigger, offl: bool,
     replay the exit lookahead.
 
     ``ins`` adds to ``make_fused_paged``'s: sel [L, B, n_sel], qbuf, and
-    the summary's tensors as ``summary.<name>``."""
+    the summary's tensors as ``summary.<name>``. ``page_attn`` is the main
+    mesh's sequence-parallel apply (``decode_step_paged_presel``)."""
     from repro_torch.hetero.executor import HeteroExecutor
 
     blend_q = HeteroExecutor._blend_q     # the stepped schedule's refresh
@@ -199,7 +201,8 @@ def make_fused_presel(cfg, sc, sel, *, K: int, trigger, offl: bool,
             # a dense (offl=False) step ignores the selection
             logits, _, q_t, k_t = M.decode_step_paged_presel(
                 params, cfg, c["pending"], pool, live_j, cur_sel,
-                sparse=offl, page_size=sel.page, tp=sc.tp)
+                sparse=offl, page_size=sel.page, tp=sc.tp,
+                page_attn=page_attn)
             # a step with no live row adds +0.0 / leaves min and max as
             # they are: exact no-ops on the index
             summary = sel.ingest(summary, sparse_params, k_t, lengths_m,

@@ -159,6 +159,23 @@ class PagedKVPool:
             self.table, device=self.device["k_pages"].device)
         self.table_version += 1
 
+    def shard_owners(self, n_shards: int) -> np.ndarray:
+        """Logical page -> owning offload shard, [pages_per_slot]: the
+        sharded executor cuts the token space into ``n_shards`` contiguous
+        windows, so page ``p`` belongs to ``p // (pages_per_slot //
+        n_shards)``; its ingest windows agree with this map."""
+        if self.pages_per_slot % n_shards:
+            raise ValueError(f"{self.pages_per_slot} pages per slot do not "
+                             f"split into {n_shards} shards")
+        return np.repeat(np.arange(n_shards),
+                         self.pages_per_slot // n_shards)
+
+    def shard_table_view(self, n_shards: int, shard: int) -> np.ndarray:
+        """The part of every slot's page table that ``shard`` owns:
+        [n_slots, pages_per_slot // n_shards] physical page ids (0, the
+        zero page, where nothing is allocated)."""
+        return self.table[:, self.shard_owners(n_shards) == shard]
+
     def pages_in_use(self) -> int:
         return sum(len(o) for o in self.owned)
 

@@ -8,7 +8,7 @@ restores the latest checkpoint on construction, and exposes
 ``compress`` is accepted and, as in the reference on one device, has no
 effect: the reference compresses only its cross-pod gradient sync, which
 needs a mesh with a ``pod`` axis. The port's collectives wait for ROADMAP
-Queue 1 item 10. The reference jits and donates; the port runs eagerly and
+Queue 1 item 10b. The reference jits and donates; the port runs eagerly and
 updates the parameters and moments in place (``optimizer.adamw_update``).
 """
 from __future__ import annotations

@@ -645,3 +645,111 @@ def test_fused_capture_failure_raises(dev, monkeypatch):
         eng.poll()
     assert eng.stats["decode_steps"] == 0
     assert eng.stats["graph_captures"] == 0
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_distributed_paged_decode_on_one_card(dev, n):
+    """``distributed_paged_sparse_decode`` over n shards of ``(cuda:0,) * n``
+    (one paged-attention launch a shard) == the single kernel and == the
+    plain version, for selections with -1 holes, ragged lengths and the
+    force-included live page in every row."""
+    from repro_torch.distributed.topk import distributed_paged_sparse_decode
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, KV, G, dh, S, ps = 4, 8, 4, 64, 2048, 16
+    lens = torch.tensor([2000, 1031, 517, 16], dtype=torch.int32,
+                        device=dev)
+    q = torch.randn(B, KV * G, dh, generator=g, device=dev).bfloat16()
+    kc = torch.randn(B, S, KV, dh, generator=g, device=dev).bfloat16()
+    vc = torch.randn(B, S, KV, dh, generator=g, device=dev).bfloat16()
+    pages = torch.stack([torch.randperm(S // ps, generator=g, device=dev)
+                         [:40] for _ in range(B)]).to(torch.int32)
+    pages[:, ::3] = -1
+    pages[:, -1] = ((lens - 1) // ps).to(torch.int32)   # the live page
+    pages[:, :-1] = torch.where(pages[:, :-1] == pages[:, -1:], -1,
+                                pages[:, :-1])
+    mesh = (dev,) * n
+    n0 = sda.paged_decode_attention.launches
+    out, lse = distributed_paged_sparse_decode(q, kc, vc, pages, lens, mesh,
+                                               page_size=ps)
+    assert sda.paged_decode_attention.launches == n0 + n
+    ko, kl = ops.paged_decode_attention(q, kc, vc, pages, lens, page_size=ps)
+    po, pl_ = sda.paged_decode_attention_plain(q, kc, vc, pages, lens,
+                                               page_size=ps)
+    for a, b in ((out, ko), (lse, kl), (out, po), (lse, pl_)):
+        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_distributed_relevancy_topk_on_one_card(dev, n):
+    """``distributed_relevancy_topk`` over n shards on one card (one
+    relevancy launch a shard) == ``ops.relevancy_topk``, values and
+    indices bit for bit (each key's score does not depend on its shard)."""
+    from repro_torch.distributed.topk import distributed_relevancy_topk
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn(4, 64, 128, generator=g, device=dev).bfloat16()
+    keys = torch.randn(4, 512, 128, generator=g, device=dev).bfloat16()
+    keys[3, 200:] = 0                                # ties at zero
+    w = torch.softmax(torch.randn(4, 64, generator=g, device=dev), -1)
+    n0 = rt.relevancy_topk_candidates.launches
+    v, i = distributed_relevancy_topk(q, keys, w, 128, (dev,) * n)
+    assert rt.relevancy_topk_candidates.launches == n0 + n
+    kv, ki = ops.relevancy_topk(q, keys, w, 128)
+    assert torch.equal(i, ki) and torch.equal(v, kv)
+
+
+def test_sharded_offload_and_mesh_on_one_card(dev):
+    """Two selection shards on streams of their own, and the main mesh
+    clamped to the card: overlap == the single-shard sync run, stepped and
+    in 4-step CUDA-graph windows."""
+    from repro_torch.serving import OffloadConfig, Request
+
+    out = {}
+    for name, mode, shards, mesh, fused in (
+            ("sync", "sync", 1, 1, 1), ("shards2", "overlap", 2, 1, 1),
+            ("shards2-fused4", "overlap", 2, 1, 4),
+            ("mesh2", "overlap", 1, 2, 1), ("both-fused4", "overlap", 2, 2,
+                                            4)):
+        eng = _smoke_engine(dev, method="dsa", fused_steps=fused,
+                            offload_cfg=OffloadConfig(
+                                mode=mode, shards=shards, main_mesh=mesh,
+                                validate=mode == "overlap"))
+        rep = eng.hetero.report()["devices"]
+        if shards > 1:
+            assert rep["offload_streams"] == shards
+        if mesh > 1:
+            assert len(rep["main_mesh"]) == 1          # one card
+        hs = [eng.submit(Request(i, p, 12))
+              for i, p in enumerate(_smoke_prompts(eng))]
+        eng.drain()
+        assert all(h.done for h in hs)
+        out[name] = [h.tokens for h in hs]
+    assert all(v == out["sync"] for v in out.values())
+
+
+def test_router_two_replicas_on_one_card(dev):
+    """Two replicas share the card and its weights; each replica's tokens
+    equal a fresh engine's fed its requests in the same order."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, Request, Router, ServeConfig
+
+    cfg = get_arch("llama3.2-1b").smoke().replace(dtype="float32")
+    params = init_params(cfg, 0, tp=4, device=dev)
+    sc = ServeConfig(max_len=256, n_slots=3, tp=4, page=8, kv_page_size=16,
+                     method="dsa")
+    router = Router.build(cfg, params, sc, 2, seed=1, device=dev)
+    a, b = (r.engine for r in router.replicas)
+    assert a.params["lm_head"]["w"].data_ptr() == \
+        b.params["lm_head"]["w"].data_ptr()
+    prompts = _smoke_prompts(a, (40, 24, 9, 33))
+    hs = [router.submit(Request(i, p, 10)) for i, p in enumerate(prompts)]
+    router.drain()
+    assert {h.replica for h in hs} == {0, 1}
+    for rep in router.replicas:
+        mine = [h for h in hs if h.replica == rep.index]
+        lone = Engine(cfg, params, sc, device=dev, seed=1)
+        got = [lone.submit(Request(h.rid, prompts[h.rid], 10)) for h in mine]
+        lone.drain()
+        assert [h.tokens for h in got] == [h.tokens for h in mine]

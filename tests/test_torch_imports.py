@@ -40,6 +40,9 @@ def test_no_jax_or_reference_imports(path):
     "repro_torch.kernels.bm25_topk", "repro_torch.core.methods.rag",
     "repro_torch.core.methods.mac", "repro_torch.kernels.flash_attention",
     "repro_torch.train", "repro_torch.distributed", "repro_torch.launch.train",
+    "repro_torch.distributed.topk", "repro_torch.hetero.sharded",
+    "repro_torch.serving.router", "repro_torch.serving.replica",
+    "repro_torch.launch.mesh",
 ])
 def test_port_imports_without_cuda_toolchain(mod):
     importlib.import_module(mod)

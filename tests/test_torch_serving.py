@@ -3,8 +3,9 @@ aligned ``max_len`` as the JAX ``Engine`` for a mixed batch (short bucketed
 prompts plus one chunked prompt, more requests than slots), for
 ``method="none"``, ``"dsa"``, ``"seer"`` (top-k and threshold) and
 ``"lserve"``, from the same JAX-initialized weights; pooled == one-at-a-time
-inside the port; the pool back at zero after release; unported features
-(more than one offload shard, a main mesh) raise.
+inside the port; the pool back at zero after release; selection shards
+and a main mesh build their executors, and a mesh with a replica's device
+group raises.
 
 Smoke config at dtype float32. Tokens must be equal exactly. Seer runs at
 tp=4: with dead TP heads the reference's seer gate does not type-check.
@@ -132,10 +133,21 @@ def test_pooled_matches_one_at_a_time_and_pool_scrubbed(weights):
     dict(offload_cfg=OffloadConfig(mode="sync", main_mesh=2)),
 ])
 def test_unported_features_raise(weights, kw):
+    """Selection shards and the main mesh were unported and raised
+    NotImplementedError; now ported, they build their executors, and what
+    still raises is the combination the reference refuses: a main mesh
+    with a replica's device group (``Engine(devices=...)``)."""
     kw = dict(kw)
     method = kw.pop("method", "dsa")
-    with pytest.raises(NotImplementedError):
-        _port_engine(weights, method, **kw)
+    eng = _port_engine(weights, method, **kw)
+    oc = kw["offload_cfg"]
+    assert (getattr(eng.hetero, "n_shards", 1), eng.main_mesh is not None) \
+        == (oc.shards, oc.main_mesh > 1)
+    _, tcfg, _, tparams = weights
+    sc = ServeConfig(method=method, **dict(SC, offload_cfg=OffloadConfig(
+        mode="sync", shards=oc.shards, main_mesh=2)))
+    with pytest.raises(ValueError):
+        Engine(tcfg, tparams, sc, device="cpu", devices=["cpu"])
 
 
 def test_default_device_needs_cuda(weights):
