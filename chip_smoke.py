@@ -22,7 +22,8 @@ failure (the script then exits non-zero):
    (B 2, S 512), mixtral's at S 8192 (dh 128, window 4096) and the
    families' prefills (granite's bucketed one at G = 2, the legacy pool's
    whole 4500-token prompt, mixtral's and qwen2-vl's bucketed ones at dh
-   128, zamba2's at dh 112), and its gradients at fp32; each also at edge cases (-1 holes, a
+   128, zamba2's at dh 112), MemAgent's segment and answer prefills (B 2,
+   S 6024 and 1088), and its gradients at fp32; each also at edge cases (-1 holes, a
    length cut mid-page, an all-masked row, S or D not a multiple of the
    block, S below the tile, a window below the tile, G = 1, all-zero
    scores, equal scores, fewer live docs than k, fp32 and bf16, a single
@@ -128,15 +129,38 @@ failure (the script then exits non-zero):
    shard-local shapes (view 4096 and 2048, beside their bounds and library
    times), DSA's cached against its stateless distributed decode for one
    layer at fp32 (one ``fleet_direct`` line);
-10. a ``{"kernels": [...]}`` line (flash's ``launches`` from the train
+10. methods: MemAgent at full width (llama3.2-1b bf16, seeded weights,
+   Appendix D's segments of 5000, 1024-token memory and 32-token answer,
+   B 2, a 10,000-token document and a 64-token question) through
+   ``run_memagent`` with ``prefill`` / ``decode_step`` placed by
+   ``split_mesh_roles`` (the card takes both roles): each segment's
+   prefill and 1024 decode steps timed apart (the paper's Fig. 12), 48
+   flash launches on the tensor cores and no other kernel, an int32
+   answer in the vocab, segment 1's prefill logits at fp32 through the
+   kernel against the plain path (one ``memagent`` line); its
+   ``build_pipeline`` through ``run``, apply handed the raw memory as in
+   the reference (a ``pipeline`` line); ``ttt_forward`` at d 2048,
+   fast_dim 2048, B 4, S 8192, chunk 256 (x bf16): the reconstruction
+   loss diverging at the reference's lr 0.1 (lr x lambda_max > 2 at this
+   width) and falling at lr 0.1 x 32 / 2048, where it also gives ms a
+   call and its three pipeline stages timed over the chunks, their W'
+   equal to the forward's (one ``ttt`` line);
+11. examples: each ``repro_torch.examples`` module's ``main`` at its
+   defaults on the card, launching its path's kernels (one ``examples``
+   line), then ``train_mac_100m --full`` for 10 steps (d 768, 12 layers,
+   vocab 32000, 2 segments of 256, B 4): finite, falling loss, 24 flash
+   launches a step on the tensor cores (one ``train_mac`` line);
+12. a ``{"kernels": [...]}`` line (flash's ``launches`` from the train
    phase; paged attention and flash also at the families' shapes: G = 1,
    2, 4 and 8, dh 112 and 128; relevancy and paged attention at the fleet
-   phase's shard-local shapes), the card line, and ``{"ok": true, ...}``
+   phase's shard-local shapes; flash at MemAgent's prefills, with the
+   methods phase's launches), the card line, and ``{"ok": true, ...}``
    as the last line.
 
 ``--phases`` runs a subset of kernels, train, serve, modes, compare,
-pipeline, families and fleet (the default is all eight); ``--runs`` a
-subset of the serve runs, ``--family-runs`` of the families phase's.
+pipeline, families, fleet, methods and examples (the default is all ten);
+``--runs`` a subset of the serve runs, ``--family-runs`` of the families
+phase's.
 """
 from __future__ import annotations
 
@@ -275,7 +299,7 @@ FLEET_RUNS = {
                      mesh=2, equals="dsa-offload-overlap")}
 ALL_RUNS = {**RUNS, **FAMILY_RUNS, **FLEET_RUNS}
 PHASES = ("kernels", "train", "serve", "modes", "compare", "pipeline",
-          "families", "fleet")
+          "families", "fleet", "methods", "examples")
 # the run whose serve phase gives a kernel's launches and in-situ time in
 # its row: the first run that launches it
 HOME_PATH = {name: label for label, run in reversed(RUNS.items())
@@ -1251,6 +1275,10 @@ def check_flash_attention(dev):
         "qwen2-vl bucketed prefill": (len(SHORT_LENS), PREFILL_BUCKET, 64,
                                       8, 128, 0, 20),
         "zamba2 prefill": (2, 4480, 32, 32, 112, 0, 2),
+        # MemAgent's prefills (Appendix D): [memory 1024; segment 5000] and
+        # [memory 1024; question 64], B 2 (rows 3f and 3g)
+        "memagent segment prefill": (2, 6024, 32, 8, 64, 0, 2),
+        "memagent answer prefill": (2, 1088, 32, 8, 64, 0, 20),
     }
     def routed(name, fn, want_route):
         """``fn()``, checked to launch once on ``want_route``."""
@@ -2569,6 +2597,440 @@ def phase_fleet(dev, runs, kernels):
     fleet_direct(dev, kernels)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the paper's last two memory methods, MemAgent and TTT
+# ---------------------------------------------------------------------------
+
+MEMAGENT_B = 2
+MEMAGENT_SEGMENTS = 2     # the fewest that carry a memory to the next segment
+MEMAGENT_Q = 64
+TTT_B, TTT_S, TTT_CHUNK = 4, 8192, 256
+
+
+def _memagent_inputs(cfg, ma, dev):
+    """A seeded document of MEMAGENT_SEGMENTS segments and a question."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    draw = lambda n: torch.randint(0, cfg.vocab_size, (MEMAGENT_B, n),
+                                   generator=g, device=dev,
+                                   dtype=torch.int32)
+    return draw(MEMAGENT_SEGMENTS * ma.segment_len), draw(MEMAGENT_Q)
+
+
+def phase_memagent(dev):
+    """MemAgent at full width (llama3.2-1b bf16, seeded weights) with the
+    paper's Appendix D config (segments of 5000, a 1024-token memory, 32
+    answer tokens), B 2, a 2-segment document and a 64-token question:
+    ``run_memagent`` with the model's ``prefill`` / ``decode_step`` placed
+    through ``split_mesh_roles`` (one card takes both roles). Each prefill
+    is closed by a synchronize on both sides, which splits every segment
+    into its prefill and its 1024 decode steps (the paper's Fig. 12). 48
+    flash launches (16 layers x 3 prefills), all on the tensor cores, and
+    no other kernel; then segment 1's prefill logits at fp32 through the
+    kernel against the plain path; then MemAgent's ``build_pipeline``
+    through ``run`` under a StageProfiler, apply handed the raw memory.
+    Returns the main run's flash launches in the segments' prefills and in
+    the answer's."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.methods import memagent
+    from repro_torch.core.pipeline import StageProfiler
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import mesh_from_devices, split_mesh_roles
+    from repro_torch.models import init_params, model as M
+
+    cfg = get_arch(SERVE_ARCH)
+    ma = memagent.MemAgentConfig()
+    # one card takes both roles: the mesh names it twice
+    pre, dec = split_mesh_roles(mesh_from_devices([dev] * 2))
+    params = init_params(cfg, 0, device=dev)
+    p, prefill_fn, decode_fn = memagent.role_fns(params, cfg, pre[0], dec[0])
+    doc, question = _memagent_inputs(cfg, ma, dev)
+    # warm-up at the answer's shape: one prefill, one decode step
+    ctx = torch.cat([doc[:, :ma.mem_len], question], 1)
+    _, c = prefill_fn(p, ctx, ctx.shape[1] + 1)
+    decode_fn(p, question[:, 0], c)
+    del c
+
+    marks, shapes = [], []
+
+    def timed_prefill(params_, tokens, max_len):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        n0 = ops.flash_route_counts()[fa.TENSOR_CORES]
+        out = prefill_fn(params_, tokens, max_len)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        shapes.append((tuple(tokens.shape),
+                       ops.flash_route_counts()[fa.TENSOR_CORES] - n0))
+        return out
+
+    prof = StageProfiler()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    answer = memagent.run_memagent(p, cfg, doc, question, ma,
+                                   prefill_fn=timed_prefill,
+                                   decode_fn=decode_fn, profiler=prof)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    counts, routes = ops.launch_counts(), ops.flash_route_counts()
+    n_pre = MEMAGENT_SEGMENTS + 1
+    want_routes = {fa.TENSOR_CORES: cfg.n_layers * n_pre, fa.CUDA_CORES: 0}
+    others = {k: v for k, v in counts.items() if k != "flash_attention" and v}
+    if routes != want_routes or counts["flash_attention"] != sum(
+            want_routes.values()) or others:
+        raise AssertionError(f"memagent: flash routes {routes} (want "
+                             f"{want_routes}), other kernels {others}")
+    if answer.shape != (MEMAGENT_B, ma.max_answer) or \
+            answer.dtype != torch.int32 or not bool(
+                ((answer >= 0) & (answer < cfg.vocab_size)).all()):
+        raise AssertionError(f"memagent: answer {answer.dtype} "
+                             f"{tuple(answer.shape)} out of the vocab")
+    stage_s = prof.stage_seconds["memagent"]
+    if not (stage_s["prepare"] > 0 and stage_s["apply"] > 0):
+        raise AssertionError(f"memagent: profiler stages {stage_s}")
+    ms = lambda a, b: 1e3 * (b - a)
+    segs = []
+    for i in range(MEMAGENT_SEGMENTS):
+        pf, dc = ms(marks[2 * i], marks[2 * i + 1]), ms(marks[2 * i + 1],
+                                                        marks[2 * i + 2])
+        segs.append({"prefill_ms": pf, "decode_ms": dc,
+                     "decode_steps": ma.mem_len,
+                     "decode_ms_per_step": dc / ma.mem_len,
+                     "decode_share": dc / (pf + dc)})
+    ans = {"prefill_ms": ms(marks[-2], marks[-1]),
+           "decode_ms": ms(marks[-1], t_end),
+           "decode_steps": ma.max_answer - 1}
+    log(f"  memagent: segments {[round(s['prefill_ms'], 1) for s in segs]} "
+        f"ms prefill, {[round(s['decode_ms'], 1) for s in segs]} ms decode; "
+        f"answer {ans['prefill_ms']:.1f} + {ans['decode_ms']:.1f} ms")
+
+    # kernel vs plain: segment 1's prefill at fp32 (the CUDA-core route)
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = init_params(cfg32, 0, device=dev)
+    ctx = torch.cat([torch.zeros(MEMAGENT_B, ma.mem_len, dtype=torch.int32,
+                                 device=dev), doc[:, :ma.segment_len]], 1)
+    got, _ = M.prefill(p32, cfg32, ctx)
+    ops.use_kernels(False)
+    try:
+        want, _ = M.prefill(p32, cfg32, ctx)
+    finally:
+        ops.use_kernels(True)
+    logit_err = float((got - want).abs().max())
+    log(f"  memagent segment-1 prefill logits fp32, kernel vs plain: max abs "
+        f"err {logit_err:.3g} (tol {LOGIT_TOL})")
+    if not (logit_err <= LOGIT_TOL and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"memagent prefill logits: err {logit_err}")
+    del p32, got, want
+    torch.cuda.empty_cache()
+    profile = _profile_memagent_decode(p, prefill_fn, decode_fn, ctx)
+
+    print(json.dumps({"memagent": {
+        "card": card_line(), "arch": SERVE_ARCH, "dtype": "bfloat16",
+        "config": dataclasses.asdict(ma), "batch": MEMAGENT_B,
+        "segments": MEMAGENT_SEGMENTS, "question_len": MEMAGENT_Q,
+        "roles": {"prefill": [str(d) for d in pre],
+                  "decode": [str(d) for d in dec]},
+        "segment": segs, "answer": ans, "total_s": t_end - t0,
+        "stage_ms": {s: 1e3 * v for s, v in stage_s.items()},
+        "flash_launches_by_route": routes,
+        "flash_launches_by_prefill": [
+            {"tokens": list(sh), "launches": n} for sh, n in shapes],
+        "answer_shape": list(answer.shape),
+        "answer_range": [int(answer.min()), int(answer.max())],
+        "prefill_logits_fp32_kernel_vs_plain_max_abs_err": logit_err,
+        "logit_tol": LOGIT_TOL, "decode_profile": profile}}), flush=True)
+    phase_pipeline_memagent(dev, cfg, ma, p, prefill_fn, decode_fn, doc,
+                            question)
+    return {"segment": sum(n for _, n in shapes[:-1]),
+            "answer": shapes[-1][1]}
+
+
+def _profile_memagent_decode(p, prefill_fn, decode_fn, ctx, steps=4):
+    """torch.profiler over ``steps`` decode steps after a prefill of ``ctx``
+    (segment 1's context): wall, device busy time and share a step, the
+    five ops with the most device time; the per-op table goes to
+    chiprun_out/profile_decode_memagent.txt."""
+    import torch
+
+    logits, caches = prefill_fn(p, ctx, ctx.shape[1] + steps + 1)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    logits, caches = decode_fn(p, tok, caches)          # warm-up
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, caches = decode_fn(p, tok, caches)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cpu = torch.autograd.DeviceType.CPU
+    dev_us = sum(e.self_device_time_total for e in prof.events()
+                 if e.device_type != cpu)
+    avgs = prof.key_averages()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out",
+                           "profile_decode_memagent.txt"), "w") as f:
+        f.write(f"card: {card_line()}\nwall {wall_us:.0f} us, device busy "
+                f"{dev_us:.0f} us ({100 * dev_us / wall_us:.1f}%) over "
+                f"{steps} decode steps\n")
+        f.write(avgs.table(sort_by="self_device_time_total", row_limit=30))
+    top = sorted(avgs, key=lambda e: -e.self_device_time_total)[:5]
+    return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+            "device_busy_ms_per_step": dev_us / steps / 1e3,
+            "device_busy_share": dev_us / wall_us,
+            "top_device_ops_ms_per_step": {
+                e.key[:80]: e.self_device_time_total / steps / 1e3
+                for e in top}}
+
+
+PIPELINE_MEM_LEN = 128      # the memagent pipeline's synthesized memory
+
+
+def phase_pipeline_memagent(dev, cfg, ma, p, prefill_fn, decode_fn, doc,
+                            question):
+    """MemAgent's ``build_pipeline`` through ``run`` under a StageProfiler
+    at full width: M = (the zero first memory of 1024 tokens, segment 1),
+    x = the question; prepare synthesizes a memory (PIPELINE_MEM_LEN decode
+    steps: the main run times the 1024-step ones), relevancy is bypassed,
+    and, as in the reference, apply prefills [M's raw memory; x], not the
+    synthesized memory."""
+    import torch
+    from repro_torch.core.methods import memagent
+    from repro_torch.core.pipeline import StageProfiler
+
+    ma = dataclasses.replace(ma, mem_len=PIPELINE_MEM_LEN)
+
+    def synthesize(M):
+        memory, segment = M
+        ctx = torch.cat([memory, segment], 1)
+        logits, caches = prefill_fn(p, ctx, ctx.shape[1] + ma.mem_len)
+        out = []
+        for _ in range(ma.mem_len):
+            out.append(torch.argmax(logits, -1).to(torch.int32))
+            logits, caches = decode_fn(p, out[-1], caches)
+        return torch.stack(out, 1)
+
+    seen = []
+
+    def answer_prefill(Mp, x):
+        seen.append(Mp[0])
+        ctx = torch.cat([Mp[0], x], 1)
+        return prefill_fn(p, ctx, ctx.shape[1] + ma.max_answer)[0]
+
+    memory0 = torch.zeros(MEMAGENT_B, memagent.MemAgentConfig().mem_len,
+                          dtype=torch.int32, device=dev)
+    pipe = memagent.build_pipeline(synthesize, answer_prefill)
+    prof = StageProfiler()
+    out = pipe.run((memory0, doc[:, :ma.segment_len]), question,
+                   profiler=prof)
+    if len(seen) != 1 or seen[0] is not memory0 or out.shape != (
+            MEMAGENT_B, cfg.padded_vocab) or not bool(
+                torch.isfinite(out).all()):
+        raise AssertionError("pipeline memagent: apply did not prefill the "
+                             "raw memory")
+    sec = prof.stage_seconds["memagent"]
+    log(f"  pipeline memagent: apply prefilled the raw memory (the "
+        f"reference's data flow)")
+    print(json.dumps({"pipeline": {
+        "method": "memagent", "card": card_line(),
+        "shape": f"M = (memory [{MEMAGENT_B},{memory0.shape[1]}], segment "
+                 f"[{MEMAGENT_B},{ma.segment_len}]) int32, x = question "
+                 f"[{MEMAGENT_B},{MEMAGENT_Q}]; llama3.2-1b bf16; prepare "
+                 f"decodes {ma.mem_len} tokens",
+        "apply_saw_raw_memory": True,
+        "memagent": {"stage_ms": {s: 1e3 * v for s, v in sec.items()},
+                     "total_ms": 1e3 * sum(sec.values()),
+                     "breakdown": prof.breakdown("memagent")}}}),
+          flush=True)
+
+
+TTT_SMOKE_FAST_DIM = 32     # the reference test's fast_dim, at lr 0.1
+
+
+def _ttt_losses(p, k, v, W0, W1, chunk):
+    """The reconstruction loss mean((k W - v)^2) under W0 and W1, and lr
+    times the largest eigenvalue of the first chunk's k^T k / chunk (the
+    step's stability number: above 2 a gradient step on this quadratic
+    grows the error)."""
+    import torch
+
+    loss = lambda W: float(((torch.bmm(k, W) - v) ** 2).mean())
+    kc = k[:, :chunk]
+    lam = float(torch.linalg.eigvalsh(kc.transpose(1, 2) @ kc / chunk).max())
+    return loss(W0), loss(W1), float(p["lr"]) * lam
+
+
+def phase_ttt(dev):
+    """``ttt_forward`` at llama3.2-1b's width (d 2048, fast_dim 2048), B 4,
+    S 8192, chunk 256, x bf16. At the reference's fixed lr 0.1 the update
+    diverges at this width (lr x lambda_max of k^T k / chunk ~ 9 > 2, as
+    the JAX package does on the CPU): loss0 and the infinite loss1 are
+    reported, and the divergence is checked to be that one. At lr 0.1 x 32
+    / fast_dim (the reference test's step per fast dimension, its fast_dim
+    32 at lr 0.1) loss1 < loss0 must hold, the reference test's property;
+    there: ms a call (CUDA-graph replays), and ``build_pipeline``'s three
+    stages called directly over the chunks in order under a StageProfiler
+    (``run`` raises, as the reference's does), their W' against
+    ``ttt_forward``'s within 1e-4 of max |W'|."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.core.methods import ttt
+    from repro_torch.core.pipeline import StageProfiler
+
+    cfg = get_arch(SERVE_ARCH)
+    d = cfg.d_model
+    p = ttt.ttt_init(cfg, 0, fast_dim=d, device=dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(TTT_B, TTT_S, d, generator=g, device=dev).bfloat16()
+    W0 = ttt.fast_state_init(cfg, TTT_B, fast_dim=d, device=dev)
+    xf = x.float()
+    q, k, v = F.silu(xf @ p["wq"]), F.silu(xf @ p["wk"]), xf @ p["wv"]
+    ref_lr = float(p["lr"])
+    runs = {}
+    for label, lr in (("reference_lr", ref_lr),
+                      ("width_scaled_lr", ref_lr * TTT_SMOKE_FAST_DIM / d)):
+        p["lr"] = torch.tensor(lr, dtype=torch.float32, device=dev)
+        y, W1 = ttt.ttt_forward(p, x, W0, chunk=TTT_CHUNK)
+        loss0, loss1, stab = _ttt_losses(p, k, v, W0, W1, TTT_CHUNK)
+        runs[label] = {"lr": lr, "loss0": loss0, "loss1": loss1,
+                       "lr_x_lambda_max": stab}
+        log(f"  ttt {label} (lr {lr:.6g}): loss {loss0:.4g} -> {loss1:.4g},"
+            f" lr x lambda_max {stab:.3g}")
+    div, ok = runs["reference_lr"], runs["width_scaled_lr"]
+    if not (div["lr_x_lambda_max"] > 2 and not div["loss1"] < div["loss0"]):
+        raise AssertionError(f"ttt at lr {ref_lr}: expected the divergence "
+                             f"of lr x lambda_max > 2, got {div}")
+    if not (y.shape == x.shape and y.dtype == x.dtype and bool(
+            torch.isfinite(y).all()) and ok["lr_x_lambda_max"] < 2
+            and ok["loss1"] < ok["loss0"]):
+        raise AssertionError(f"ttt: y {y.dtype} {tuple(y.shape)}, {ok}")
+    call_ms = time_ms(lambda: ttt.ttt_forward(p, x, W0, chunk=TTT_CHUNK),
+                      n=3)
+
+    pipe = ttt.build_pipeline(p, TTT_CHUNK)
+    prof = StageProfiler()
+
+    def timed(stage, fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        prof.record("ttt", (stage,), time.perf_counter() - t0)
+        return out
+
+    chunks = [(q[:, c:c + TTT_CHUNK], k[:, c:c + TTT_CHUNK],
+               v[:, c:c + TTT_CHUNK]) for c in range(0, TTT_S, TTT_CHUNK)]
+    qc, kc, vc = chunks[0]                         # warm-up
+    pipe.apply(pipe.prepare((W0, kc, vc)), qc), pipe.relevancy(W0, (kc, vc))
+    W = W0
+    for qc, kc, vc in chunks:
+        timed("relevancy", pipe.relevancy, W, (kc, vc))
+        W = timed("prepare", pipe.prepare, (W, kc, vc))
+        timed("apply", pipe.apply, W, qc)
+    w_err = float((W - W1).abs().max())
+    w_tol = 1e-4 * max(1.0, float(W1.abs().max()))
+    if not w_err <= w_tol:
+        raise AssertionError(f"ttt stages: W' err {w_err} > {w_tol}")
+    sec = prof.stage_seconds["ttt"]
+    log(f"  ttt: {call_ms:.3f} ms a call, stages' W' within {w_err:.3g} of "
+        f"the forward's")
+    print(json.dumps({"ttt": {
+        "card": card_line(), "shape": f"x [{TTT_B},{TTT_S},{d}] bf16, "
+                                      f"fast_dim {d}, chunk {TTT_CHUNK}",
+        "ms": call_ms, "timing": "3 calls in a CUDA graph, replayed, at "
+                                 "width_scaled_lr",
+        **runs,
+        "stage_ms": {s: 1e3 * t for s, t in sec.items()},
+        "stage_total_ms": 1e3 * sum(sec.values()),
+        "breakdown": prof.breakdown("ttt"),
+        "stages_vs_forward_w_max_abs_err": w_err}}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the examples
+# ---------------------------------------------------------------------------
+
+# the kernels each example's main path must launch on the card
+EXAMPLE_KERNELS = {
+    "quickstart": ("flash_attention",) + _DSA,
+    "serve_sparse_attention": ("flash_attention",) + _DSA,
+    "rag_pipeline": ("flash_attention", "bm25_topk_candidates"),
+    "train_mac_100m": ("flash_attention",)}
+TRAIN_MAC_STEPS = 10
+
+
+def phase_examples(dev):
+    """Each example's ``main`` on the card at its defaults (their output to
+    stderr), each launching the kernels of ``EXAMPLE_KERNELS``; then
+    ``train_mac_100m --full`` (d 768, 12 layers, 12 / 12 heads, vocab
+    32000, segments of 256, B 4, 2 segments) for TRAIN_MAC_STEPS steps:
+    finite, falling loss, 2 x 12 flash launches a step on the tensor cores
+    (the backward recomputes the plain attention); one ``examples`` and one
+    ``train_mac`` line. Returns train_mac's flash launches."""
+    import contextlib
+
+    import torch
+    from repro_torch.examples import (quickstart, rag_pipeline,
+                                      serve_sparse_attention, train_mac_100m)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    res = {}
+    for mod in (quickstart, serve_sparse_attention, rag_pipeline,
+                train_mac_100m):
+        name = mod.__name__.rsplit(".", 1)[1]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        missing = [k for k in EXAMPLE_KERNELS[name] if not counts[k]]
+        if missing:
+            raise AssertionError(f"example {name}: no launch of {missing}")
+        res[name] = {"s": time.perf_counter() - t0,
+                     "launches": {k: c for k, c in counts.items() if c},
+                     "flash_launches_by_route": ops.flash_route_counts()}
+        log(f"  example {name}: {res[name]['s']:.1f} s, launches "
+            f"{res[name]['launches']}")
+    print(json.dumps({"examples": {"card": card_line(), **res}}), flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        out = train_mac_100m.main(["--full", "--steps", str(TRAIN_MAC_STEPS),
+                                   "--device", "cuda"])
+    routes = ops.flash_route_counts()
+    cfg, mc, B = train_mac_100m.setup(full=True)
+    per_step = 2 * cfg.n_layers
+    losses = out["losses"]
+    if routes != {fa.TENSOR_CORES: per_step * TRAIN_MAC_STEPS,
+                  fa.CUDA_CORES: 0} or not all(
+                      math.isfinite(x) for x in losses) or not \
+            losses[-1] < losses[0]:
+        raise AssertionError(f"train_mac: routes {routes}, losses {losses}")
+    step_ms = [1e3 * s for s in out["step_s"]]
+    print(json.dumps({"train_mac": {
+        "card": card_line(), "params": out["params"],
+        "config": f"d {cfg.d_model}, {cfg.n_layers} layers, {cfg.n_heads} / "
+                  f"{cfg.n_kv_heads} heads, vocab {cfg.vocab_size}, bf16; "
+                  f"segments 2 x {mc.segment_len} (+{mc.retrieve_k} "
+                  f"memories), B {B}",
+        "steps": TRAIN_MAC_STEPS, "step_ms_median": statistics.median(step_ms),
+        "step_ms": step_ms, "loss_first": losses[0], "loss_last": losses[-1],
+        "flash_launches_per_step_by_route": {
+            r: n / TRAIN_MAC_STEPS for r, n in routes.items()},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}}),
+          flush=True)
+    return routes[fa.TENSOR_CORES]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -2674,6 +3136,24 @@ def main(argv=None):
         log("[7] rag: build_pipeline unfused vs fused; mac")
         phase_pipeline_rag(dev)
         phase_pipeline_mac(dev)
+    flash_paths = {}
+    if "methods" in phases:
+        log("[10] memagent: llama3.2-1b bf16, Appendix D's config; ttt")
+        by_prefill = phase_memagent(dev)
+        flash_paths["memagent"] = sum(by_prefill.values())
+        phase_ttt(dev)
+    if "examples" in phases:
+        log("[11] the examples; train_mac_100m --full")
+        flash_paths["train_mac"] = phase_examples(dev)
+    for k in kernels:
+        if k["name"] == "flash_attention" and flash_paths:
+            k["launches_by_path"].update(flash_paths)
+            if "methods" in phases:   # rows 3f and 3g: the main run's counts
+                for row in k["other_shapes"]:
+                    if row["path"] == "memagent segment prefill":
+                        row["launches"] = by_prefill["segment"]
+                    elif row["path"] == "memagent answer prefill":
+                        row["launches"] = by_prefill["answer"]
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

@@ -4,12 +4,14 @@ sparse-attention family (dsa, seer, lserve); ``module(name)`` the method's
 module (its ``build_pipeline``); ``sparse_kwargs(name, page)`` the keywords
 its ``make_sparse_fn`` / ``build_pipeline`` take beyond the configs;
 ``offload_stages(name)`` the pipeline stages a method may move off the
-KV-owning device. rag and mac (the document-memory family) have their own
+KV-owning device. rag and mac (the document-memory family), memagent
+(synthesized memory) and ttt (parameterized memory) have their own
 application-level APIs and no sparse_fn."""
-from repro_torch.core.methods import dsa, lserve, mac, rag, seer
+from repro_torch.core.methods import (dsa, lserve, mac, memagent, rag, seer,
+                                      ttt)
 
 _METHOD_MODULES = {"dsa": dsa, "seer": seer, "lserve": lserve, "rag": rag,
-                   "mac": mac}
+                   "memagent": memagent, "mac": mac, "ttt": ttt}
 
 SPARSE_METHODS = {name: (getattr(mod, f"{name}_init"), mod.make_sparse_fn)
                   for name, mod in _METHOD_MODULES.items()
@@ -38,8 +40,8 @@ def sparse_kwargs(name: str, page: int) -> dict:
 
 def offload_stages(name: str) -> tuple:
     """Stages of ``name`` that read only the compressed index (paper §5.2),
-    declared per method as ``OFFLOAD_STAGES``. Methods the port does not
-    have yet (memagent, ttt) and unknown names like 'none' offload
-    nothing."""
+    declared per method as ``OFFLOAD_STAGES``. memagent and ttt declare
+    none (their stages are model passes, paper §4), and unknown names like
+    'none' offload nothing."""
     mod = _METHOD_MODULES.get(name)
     return getattr(mod, "OFFLOAD_STAGES", ()) if mod else ()

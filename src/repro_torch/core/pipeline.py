@@ -42,7 +42,10 @@ def _cuda_device(tree):
     return None
 
 
-def _wait(res):
+def block_until_ready(res):
+    """The twin of ``jax.block_until_ready``: synchronizes the device of the
+    first CUDA tensor in ``res`` (nothing for CPU results); returns
+    ``res``."""
     dev = _cuda_device(res)
     if dev is not None:
         torch.cuda.synchronize(dev)
@@ -89,7 +92,7 @@ class MemoryPipeline:
                 out = fn(sel, x)
                 res = out
             if profiler:
-                _wait(res)
+                block_until_ready(res)
                 profiler.record(self.name, covers, time.perf_counter() - t0)
         return out if out is not None else sel
 

@@ -36,7 +36,10 @@ up to N devices (both need ``--offload``; on one card the shards share it,
 each on a stream of its own, and the mesh clamps to the card).
 ``--replicas N`` serves through a ``Router`` over N engine replicas (on one
 card all of them on it), rag retrieval sharing one corpus, and prints the
-router's report.
+router's report. ``--disaggregate`` shows the paper's prefill/decode role
+split (Fig. 6b): with two or more cards their mesh is cut into a prefill
+and a decode role (``launch.mesh.split_mesh_roles``) and the split is
+printed; on one device it does nothing, as in the reference.
 """
 from __future__ import annotations
 
@@ -45,9 +48,11 @@ import json
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.hetero import resolve_cli_offload, resolve_cli_retrieval
+from repro_torch.launch.mesh import mesh_from_devices, split_mesh_roles
 from repro_torch.models import init_params
 from repro_torch.serving import (Engine, OffloadConfig, Request, Router,
                                  ServeConfig)
@@ -63,6 +68,7 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--tp", type=int, default=4)
+    ap.add_argument("--disaggregate", action="store_true")
     ap.add_argument("--offload", default="off",
                     choices=["on", "off", "sync", "overlap"],
                     help="hetero offload executor (on = overlap)")
@@ -100,6 +106,8 @@ def main(argv=None):
 
     cfg = get_arch(args.arch).smoke()
     params = init_params(cfg, 0, tp=args.tp, device=args.device)
+    if args.disaggregate:
+        print_roles(args.device)
     retrieval = None
     if ret_mode:
         from repro_torch.core.methods.mac import MacConfig
@@ -162,6 +170,18 @@ def main(argv=None):
           f"{eng.stats['sparse_steps']}/{eng.stats['decode_steps']} decode "
           f"steps sparse")
     report_engines(args, [eng])
+
+
+def print_roles(device):
+    """The prefill/decode split of every card's mesh, when there are two or
+    more (the reference's ``jax.device_count() >= 2``)."""
+    n = torch.cuda.device_count() if torch.device(device).type == "cuda" \
+        else 1
+    if n >= 2:
+        pre, dec = split_mesh_roles(mesh_from_devices(
+            [f"cuda:{i}" for i in range(n)]))
+        print(f"disaggregated roles: prefill={len(pre)} devices, "
+              f"decode={len(dec)} devices")
 
 
 def _offload_label(sc) -> str:

@@ -363,6 +363,8 @@ def _bf16_close(got, want):
     (4, 2048, 32, 8, 64, 0),      # training (llama3.2-1b)
     (2, 512, 32, 8, 64, 0),       # bucketed prefill
     (1, 8192, 32, 8, 128, 4096),  # mixtral's window
+    (2, 6024, 32, 8, 64, 0),      # MemAgent's segment prefill
+    (2, 1088, 32, 8, 64, 0),      # MemAgent's answer prefill
     (2, 200, 8, 2, 64, 0),        # ragged S
     (2, 37, 8, 8, 128, 0),        # S below the tile
     (2, 256, 8, 2, 64, 48),       # a window below the tile
@@ -753,3 +755,38 @@ def test_router_two_replicas_on_one_card(dev):
         got = [lone.submit(Request(h.rid, prompts[h.rid], 10)) for h in mine]
         lone.drain()
         assert [h.tokens for h in got] == [h.tokens for h in mine]
+
+
+def test_memagent_and_ttt_on_card_match_cpu(dev):
+    """MemAgent's segment loop (fp32 smoke width, the prefills through the
+    flash kernel, one launch a layer a prefill) gives the CPU run's answer
+    tokens; ``ttt_forward`` on the card within 1e-5 of the CPU's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.methods import memagent, ttt
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params
+
+    cfg = get_arch("llama3.2-1b").smoke().replace(dtype="float32")
+    ma = memagent.MemAgentConfig(segment_len=16, mem_len=4, max_answer=4)
+    g = torch.Generator().manual_seed(3)
+    doc = torch.randint(0, cfg.vocab_size, (2, 32), generator=g)
+    qn = torch.randint(0, cfg.vocab_size, (2, 8), generator=g)
+    answers = {}
+    for d in ("cpu", dev):
+        params = init_params(cfg, 0, tp=4, device="cpu")
+        p, pf, df = memagent.role_fns(params, cfg, d, d, tp=4)
+        n0 = fa.flash_attention.launches
+        answers[str(d)] = memagent.run_memagent(
+            p, cfg, doc.to(d), qn.to(d), ma, prefill_fn=pf,
+            decode_fn=df).cpu()
+        if d != "cpu":
+            assert fa.flash_attention.launches == n0 + 3 * cfg.n_layers
+    assert torch.equal(answers["cpu"], answers[str(dev)])
+    p = ttt.ttt_init(cfg, 0, fast_dim=32, device="cpu")
+    x = torch.randn(2, 128, cfg.d_model, generator=g)
+    w0 = ttt.fast_state_init(cfg, 2, fast_dim=32, device="cpu")
+    y, w = ttt.ttt_forward(p, x, w0, chunk=32)
+    yc, wc = ttt.ttt_forward({k: v.to(dev) for k, v in p.items()}, x.to(dev),
+                             w0.to(dev), chunk=32)
+    torch.testing.assert_close(yc.cpu(), y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(wc.cpu(), w, rtol=1e-5, atol=1e-5)

@@ -56,7 +56,9 @@ from repro_torch.distributed.topk import (  # noqa: E402
     distributed_sparse_decode, gather_shards, sharded_page_add)
 from repro_torch.hetero import pick_devices_mesh  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.launch.mesh import mesh_from_devices  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.launch.mesh import (mesh_from_devices,  # noqa: E402
+                                     split_mesh_roles)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving import (Engine, OffloadConfig, Request,  # noqa: E402
                                  Scheduler, ServeConfig)
@@ -129,9 +131,13 @@ from repro.configs import get_arch
 from repro.core.methods import dsa
 from repro.distributed.topk import (distributed_paged_sparse_decode,
                                     distributed_relevancy_topk)
-from repro.launch.mesh import make_mesh
+from repro.launch.mesh import make_mesh, split_mesh_roles
 d = dict(np.load(sys.argv[1]))
 out = {}
+for f in (0.25, 0.5, 0.75):
+    roles = split_mesh_roles(make_mesh((4, 1), ("data", "model")), f)
+    for name, m in zip(("pre", "dec"), roles):
+        out[f"roles_{name}_{f}"] = [dev.id for dev in m.devices.flat]
 for n in (1, 2, 4):
     mesh = make_mesh((n,), ("seq",))
     for case in ("dec", "empty"):
@@ -398,6 +404,40 @@ def test_mesh_policies():
     assert mesh_from_devices(["cpu", "cpu"]) == (CPU, CPU)
     with pytest.raises(ValueError):
         mesh_from_devices([])
+
+
+@pytest.mark.parametrize("fraction", [0.25, 0.5, 0.75])
+def test_split_mesh_roles_matches_jax(fraction, jax_ref):
+    """The prefill role takes the first ``max(1, int(4 * fraction))`` of 4
+    devices and the decode role the rest, as the reference cuts its mesh's
+    data axis (4 host devices, ids compared with the card indexes)."""
+    mesh = mesh_from_devices([f"cuda:{i}" for i in range(4)])
+    pre, dec = split_mesh_roles(mesh, fraction)
+    assert [d.index for d in pre] == list(jax_ref[f"roles_pre_{fraction}"])
+    assert [d.index for d in dec] == list(jax_ref[f"roles_dec_{fraction}"])
+    assert pre + dec == mesh
+
+
+def test_split_mesh_roles_on_one_card():
+    """One card takes both roles when the mesh names it twice; a one-entry
+    mesh leaves the decode role empty, which raises."""
+    assert split_mesh_roles(mesh_from_devices(["cuda:0"] * 2)) == (
+        (torch.device("cuda:0"),), (torch.device("cuda:0"),))
+    with pytest.raises(ValueError):
+        split_mesh_roles(mesh_from_devices(["cuda:0"]))
+
+
+def test_serve_cli_disaggregate(capsys, monkeypatch):
+    """``--disaggregate`` on one device serves and prints no split (the
+    reference's one-device behaviour); with 4 cards it prints 2 + 2."""
+    tserve.main(["--disaggregate", "--device", "cpu", "--requests", "2",
+                 "--max-new", "2"])
+    out = capsys.readouterr().out
+    assert "disaggregated roles" not in out and "2/2 requests" in out
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    tserve.print_roles("cuda")
+    assert capsys.readouterr().out.strip() == \
+        "disaggregated roles: prefill=2 devices, decode=2 devices"
 
 
 # ---------------------------------------------------------------------------

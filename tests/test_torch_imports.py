@@ -42,7 +42,11 @@ def test_no_jax_or_reference_imports(path):
     "repro_torch.train", "repro_torch.distributed", "repro_torch.launch.train",
     "repro_torch.distributed.topk", "repro_torch.hetero.sharded",
     "repro_torch.serving.router", "repro_torch.serving.replica",
-    "repro_torch.launch.mesh",
+    "repro_torch.launch.mesh", "repro_torch.core.methods.memagent",
+    "repro_torch.core.methods.ttt", "repro_torch.examples.quickstart",
+    "repro_torch.examples.serve_sparse_attention",
+    "repro_torch.examples.rag_pipeline",
+    "repro_torch.examples.train_mac_100m",
 ])
 def test_port_imports_without_cuda_toolchain(mod):
     importlib.import_module(mod)

@@ -305,6 +305,18 @@ def test_offload_stages_and_methods_match_reference():
     assert tmethods.sparse_kwargs("dsa", 8) == {"page": 8}
     assert tmethods.sparse_kwargs("seer", 8) == {} == \
         tmethods.sparse_kwargs("lserve", 8)
+    # every method module of the reference resolves in the port, memagent
+    # and ttt included, with the same offload stages and a build_pipeline
+    assert sorted(tmethods._METHOD_MODULES) == sorted(
+        jmethods._METHOD_MODULES)
+    for name in ("memagent", "ttt"):
+        mod = tmethods.module(name)
+        assert mod.__name__ == f"repro_torch.core.methods.{name}"
+        assert mod.OFFLOAD_STAGES == jmethods._METHOD_MODULES[
+            name].OFFLOAD_STAGES == ()
+        assert callable(mod.build_pipeline)
+        with pytest.raises(KeyError):
+            tmethods.get_sparse_method(name)
 
 
 # ---------------------------------------------------------------------------
