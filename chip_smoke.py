@@ -30,10 +30,11 @@ failure (the script then exits non-zero):
    page, scalar loads); paged attention also at one slot, a selection
    that is no multiple of its split, and a slot whose selected pages all
    lie past its length in splits of unequal size (the mean of v over every
-   loaded token); flash attention on both routes (bf16 at head dim 64 and
-   128 through the tensor cores, including a view that TMA cannot read in
-   place; fp32 and head dim 32 through the CUDA cores), with the route each
-   shape took, the HGMMA instructions in the tensor-core library's SASS
+   loaded token); flash attention on both routes (bf16 at head dim 64, 112
+   and 128 through the tensor cores, including views that TMA cannot read
+   in place; fp32 and head dim 32 through the CUDA cores), with the route
+   each shape took, the HGMMA instructions in the tensor-core library's
+   SASS (the 64x112 ones of dh 112's P.V among them)
    and each new kernel's ptxas registers, shared memory and spills;
    relevancy and BM25 with each timed shape's cluster split (CTAs a block,
    the scoring route), the HMMA instructions in the relevancy library's
@@ -49,6 +50,16 @@ failure (the script then exits non-zero):
    ``torch.profiler`` (busy share, the flash kernel in situ, the attention
    backward's plain recompute), a step with accum 2, and one fp32 step (B 1
    x S 1024) through the kernel against the plain path; one ``train`` line;
+3b. train_families: granite-moe-1b-a400m, musicgen-medium, zamba2-7b and
+   xlstm-125m (``TRAIN_FAMILIES``) trained the same way at their published
+   widths at a constant lr (1e-5; musicgen 3e-6, xLSTM 3e-4), zamba2 cut
+   to 12 layers (2 shared-block sites at dh 112) and xLSTM to S 128 (its
+   token loops): batch 0's loss after one step at the train phase's
+   schedule and at the family's (the lr probe); 4 steps with finite,
+   falling loss, 2 flash launches per attention layer per step, all on the
+   tensor cores (none for xLSTM), one profiled step (busy share), and one
+   fp32 step (B 1 x S 512; xLSTM S 32) through the kernels against the
+   plain path; one ``train`` line each;
 4. serve: full-width llama3.2-1b in bf16 with seeded random weights,
    ``ServeConfig(method=m, max_len=8192, n_slots=4)`` for m in dsa, lserve
    and seer, seer in both its top-k and its threshold selection, and dsa
@@ -97,13 +108,15 @@ failure (the script then exits non-zero):
    ``ServeConfig`` and requests: granite-moe-1b-a400m at full width with
    DSA on the paged pool, stepped (``granite-dsa``, also in the fp32
    compare) and in 8-step windows (``granite-dsa-fused8``, equal to it);
-   musicgen-medium at full width (paged attention at G = 1); llama3.2-1b
-   on the legacy dense pool (``paged=False``: the shared watermark);
-   zamba2-7b (81 Mamba2 layers, the shared block's 13 sites at dh 112) and
-   xlstm-125m at full width through ``Engine.generate`` (2 prompts of 4480
-   and of 512 tokens); mixtral-8x7b and qwen2-vl-72b at their published
-   widths cut to 2 layers (neither fits the card at full depth; MoE with
-   a 4096-token window, M-RoPE at sections (16, 24, 24)). Launch counts as in
+   musicgen-medium at full width cut to 24 of its 48 layers (paged
+   attention at G = 1); llama3.2-1b on the legacy dense pool
+   (``paged=False``: the shared watermark); zamba2-7b at full width cut to
+   27 of its 81 layers (4 of the shared block's 13 sites at dh 112, and the
+   3-layer tail) and xlstm-125m at full width through ``Engine.generate``
+   (2 prompts of 4480 and of 512 tokens); mixtral-8x7b and qwen2-vl-72b at
+   their published widths cut to 2 layers (neither fits the card at full
+   depth; MoE with a 4096-token window, M-RoPE at sections (16, 24, 24));
+   the musicgen and zamba2 cuts hold ``chip_smoke.py``'s time. Launch counts as in
    the serve phase, per attention layer (the hybrid's sites; none for
    xLSTM), flash per bucketed or unpaged prefill on the route its head
    dim takes; one ``serve`` line per run;
@@ -151,14 +164,16 @@ failure (the script then exits non-zero):
    vocab 32000, 2 segments of 256, B 4): finite, falling loss, 24 flash
    launches a step on the tensor cores (one ``train_mac`` line);
 12. a ``{"kernels": [...]}`` line (flash's ``launches`` from the train
-   phase; paged attention and flash also at the families' shapes: G = 1,
+   phase, the train_families phase's by family in ``launches_by_path``;
+   paged attention and flash also at the families' shapes: G = 1,
    2, 4 and 8, dh 112 and 128; relevancy and paged attention at the fleet
    phase's shard-local shapes; flash at MemAgent's prefills, with the
    methods phase's launches), the card line, and ``{"ok": true, ...}``
    as the last line.
 
-``--phases`` runs a subset of kernels, train, serve, modes, compare,
-pipeline, families, fleet, methods and examples (the default is all ten);
+``--phases`` runs a subset of kernels, train, train_families, serve, modes,
+compare, pipeline, families, fleet, methods and examples (the default is
+all eleven);
 ``--runs`` a subset of the serve runs, ``--family-runs`` of the families
 phase's.
 """
@@ -190,6 +205,21 @@ SHORT_LENS = tuple(n for n in PROMPT_LENS if n < 1024)
 PREFILL_BUCKET = 512     # the short prompts' length bucket (Engine._bucket_len)
 TRAIN_ARCH = "llama3.2-1b"
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 6
+CLI_TP, CLI_TOTAL_STEPS = 4, 20          # launch/train.py's --tp, --steps
+# the train_families phase: arch -> (depth cut to, 0 for none; B; S; lr; S
+# of the fp32 kernel-vs-plain step at B 1), at published widths. zamba2-7b's
+# 81 layers do not fit 80 GB with fp32 AdamW moments (~12 bytes a
+# parameter): 12 layers keep 2 shared-block sites. xLSTM's token loops (one
+# step of host code per token) cut its S; no kernel is on its path, so its
+# fp32 step is a short one. The lr is constant (one warm-up step): Adam's
+# first steps move every parameter by about lr, and at 1.4-1.8 B parameters
+# the train phase's schedule (lr 3e-3, 5 warm-up steps: 6e-4 at step 1)
+# overshoots, musicgen's even at 1e-5 (``_lr_probe``).
+TRAIN_FAMILIES = {"granite-moe-1b-a400m": (0, TRAIN_B, TRAIN_S, 1e-5, 512),
+                  "musicgen-medium": (0, TRAIN_B, TRAIN_S, 3e-6, 512),
+                  "zamba2-7b": (12, TRAIN_B, TRAIN_S, 1e-5, 512),
+                  "xlstm-125m": (0, TRAIN_B, 128, 3e-4, 32)}
+TRAIN_FAMILY_STEPS = 4
 MAX_NEW = 16
 VIEW = 8192
 PAGE = 16                                # DSA micro-page, kv pool page
@@ -261,19 +291,24 @@ RUNS = {"dsa": Run("dsa"),
             validate=True, equals="dsa-offload-overlap")}
 # the families phase: the rest of the model zoo on the card, each run at
 # its published widths, at full depth but mixtral's and qwen2-vl's (cut to
-# 2 layers: 47 B and 73 B parameters do not fit 80 GB in bf16)
+# 2 layers: 47 B and 73 B parameters do not fit 80 GB in bf16), musicgen's
+# and zamba2's (cut for the script's time)
 GRANITE, ZAMBA2 = "granite-moe-1b-a400m", "zamba2-7b"
 FAMILY_RUNS = {
     "granite-dsa": Run("dsa", arch=GRANITE),
     "granite-dsa-fused8": Run("dsa", arch=GRANITE, compare=False, fused=8,
                               equals="granite-dsa"),
-    # 24 heads over 24 KV heads: paged attention at G = 1
-    "musicgen-dsa": Run("dsa", arch="musicgen-medium", compare=False),
+    # 24 heads over 24 KV heads: paged attention at G = 1; 24 of its 48
+    # layers, for chip_smoke.py's time
+    "musicgen-dsa": Run("dsa", arch="musicgen-medium", layers=24,
+                        compare=False),
     # the watermark differs from per-slot lengths by design: no equals
     "llama-dsa-legacy": Run("dsa", compare=False, paged=False),
     # 35 x 128 tokens (Mamba2's chunk), past min_context; flash, relevancy
-    # and paged attention at each of the 13 shared-block sites, dh 112
-    "zamba2-dsa-generate": Run("dsa", arch=ZAMBA2, compare=False,
+    # and paged attention at each shared-block site, dh 112; 27 of its 81
+    # layers (4 sites of 6 Mamba2 layers and the 3-layer tail, the published
+    # model's shape), for chip_smoke.py's time
+    "zamba2-dsa-generate": Run("dsa", arch=ZAMBA2, layers=27, compare=False,
                                generate=(2, 4480)),
     # attention-free: the method does not apply, no kernel on the path
     "xlstm-generate": Run("none", arch="xlstm-125m", kernels=(),
@@ -298,8 +333,8 @@ FLEET_RUNS = {
     "dsa-mesh2": Run("dsa", kernels=_APPLY, compare=False, offload="overlap",
                      mesh=2, equals="dsa-offload-overlap")}
 ALL_RUNS = {**RUNS, **FAMILY_RUNS, **FLEET_RUNS}
-PHASES = ("kernels", "train", "serve", "modes", "compare", "pipeline",
-          "families", "fleet", "methods", "examples")
+PHASES = ("kernels", "train", "train_families", "serve", "modes",
+          "compare", "pipeline", "families", "fleet", "methods", "examples")
 # the run whose serve phase gives a kernel's launches and in-situ time in
 # its row: the first run that launches it
 HOME_PATH = {name: label for label, run in reversed(RUNS.items())
@@ -322,6 +357,14 @@ LOGIT_TOL = 2e-3             # abs, fp32 logits after 16 layers
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def mark(msg: str):
+    """A phase's header in the log, with the seconds since the start."""
+    log(f"{msg} (at {time.perf_counter() - T_START:.1f} s)")
 
 
 def card_line() -> str:
@@ -1264,8 +1307,9 @@ def check_flash_attention(dev):
         # one (G = 2); the legacy pool's whole prompt (B 1, the longest);
         # mixtral's and qwen2-vl's bucketed ones (dh 128, mixtral's window
         # passed to the kernel, G = 4 and 8); zamba2's shared block at its
-        # generate prefill (dh 112, G = 1, on the CUDA-core route: the
-        # tensor-core kernel takes 64 and 128)
+        # generate prefill (dh 112, G = 1, on the tensor cores: two
+        # 64-channel boxes a tile, zero past 112; its first version ran on
+        # the CUDA cores)
         "granite prefill": (len(SHORT_LENS), PREFILL_BUCKET, 16, 8, 64, 0,
                             20),
         "legacy whole-prompt prefill": (1, max(PROMPT_LENS), 32, 8, 64, 0,
@@ -1300,16 +1344,20 @@ def check_flash_attention(dev):
         e = _flash_check(f"flash {path} bf16", got,
                          ops_plain_flash(q, k, v, w))
         err = max(err, e)
-        rows[path] = dict(_flash_timing(q, k, v, w, plain_n=pn),
-                          path=path, max_abs_err=e, route=routes[path],
-                          shape=f"q [{B},{S},{H},{dh}] bf16, k/v [{B},{S},"
-                                f"{KV},{dh}] bf16, window {w or 'none'}")
+        rows[path] = r = dict(_flash_timing(q, k, v, w, plain_n=pn),
+                              path=path, max_abs_err=e, route=routes[path],
+                              shape=f"q [{B},{S},{H},{dh}] bf16, k/v [{B},"
+                                    f"{S},{KV},{dh}] bf16, window "
+                                    f"{w or 'none'}")
+        log(f"  flash {path} ({r['route']}): {r['ms']:.4g} ms, bound "
+            f"{r['bound_ms']:.4g} ({r['bound_by']}), SDPA "
+            f"{r['library_ms']:.4g}, plain {r['plain_ms']:.4g}")
         del q, k, v
         torch.cuda.empty_cache()
 
     # edge cases through the public op: ragged S, S below the tile, a
-    # window below the tile, G = 1, fp32, dh 32 and 128; bf16 at dh 64 and
-    # 128 on the tensor cores, the rest on the CUDA cores
+    # window below the tile, G = 1, fp32, dh 32, 112 and 128; bf16 at dh
+    # 64, 112 and 128 on the tensor cores, the rest on the CUDA cores
     f32, bf16 = torch.float32, torch.bfloat16
     for name, B, S, H, KV, dh, w, dt in [
             ("S=200 ragged", 2, 200, 8, 2, 64, 0, bf16),
@@ -1323,6 +1371,12 @@ def check_flash_attention(dev):
             ("fp32 window 96", 1, 700, 8, 2, 128, 96, f32),
             ("bf16 window 96", 1, 700, 8, 2, 128, 96, bf16),
             ("bf16 dh 112 G=1 ragged", 1, 300, 4, 4, 112, 0, bf16),
+            ("bf16 dh 112 G=4 S=200 ragged", 2, 200, 8, 2, 112, 0, bf16),
+            ("bf16 dh 112 S=37 below the tile", 2, 37, 8, 8, 112, 0, bf16),
+            ("bf16 dh 112 window 48 below the tile", 2, 256, 8, 4, 112, 48,
+             bf16),
+            ("bf16 dh 112 window 96", 1, 700, 8, 2, 112, 96, bf16),
+            ("fp32 dh 112 G=1 ragged", 1, 300, 4, 4, 112, 0, f32),
             ("fp32 dh 112 window 96", 1, 700, 8, 2, 112, 96, f32)]:
         q, k, v = qkv(B, S, H, KV, dh, dt)
         routes[name] = fa._route(dt, dh)
@@ -1330,25 +1384,28 @@ def check_flash_attention(dev):
                      routes[name])
         err = max(err, _flash_check(f"flash {name} ({routes[name]})", got,
                                     ops_plain_flash(q, k, v, w)))
-    # a bf16 view TMA cannot read in place (base 2 bytes off 16): copied
-    B, S, H, KV, dh = 2, 130, 8, 2, 64
-    qkv_ = torch.randn(B * S * (H + 2 * KV) * dh + 1, generator=g,
-                       device=dev).bfloat16()[1:].view(B, S, H + 2 * KV, dh)
-    q, k, v = qkv_[:, :, :H], qkv_[:, :, H:H + KV], qkv_[:, :, H + KV:]
-    if q.data_ptr() % 16 == 0:
-        raise AssertionError("the misaligned view is aligned")
-    got = routed("misaligned view", lambda: fa.flash_attention(
-        q, k, v, window=50), fa.TENSOR_CORES)
-    routes["bf16 view 2 bytes off 16"] = fa.TENSOR_CORES
-    err = max(err, _flash_check("flash bf16 view 2 bytes off 16", got,
-                                ops_plain_flash(q.contiguous(),
-                                                k.contiguous(),
-                                                v.contiguous(), 50)))
+    # bf16 views TMA cannot read in place (base 2 bytes off 16): copied
+    B, S, H, KV = 2, 130, 8, 2
+    for dh in (64, 112):
+        qkv_ = torch.randn(B * S * (H + 2 * KV) * dh + 1, generator=g,
+                           device=dev).bfloat16()[1:].view(B, S, H + 2 * KV,
+                                                           dh)
+        q, k, v = qkv_[:, :, :H], qkv_[:, :, H:H + KV], qkv_[:, :, H + KV:]
+        if q.data_ptr() % 16 == 0:
+            raise AssertionError("the misaligned view is aligned")
+        name = f"bf16 dh {dh} view 2 bytes off 16"
+        got = routed(name, lambda: fa.flash_attention(q, k, v, window=50),
+                     fa.TENSOR_CORES)
+        routes[name] = fa.TENSOR_CORES
+        err = max(err, _flash_check(f"flash {name}", got, ops_plain_flash(
+            q.contiguous(), k.contiguous(), v.contiguous(), 50)))
     hgmma = _sass_count("flash_attention_sm90", "HGMMA")
+    hgmma112 = _sass_count("flash_attention_sm90", "HGMMA.64x112")
     log(f"  flash tensor-core library: {hgmma} HGMMA instructions in its "
-        f"SASS")
-    if not hgmma:
-        raise AssertionError("no HGMMA in the tensor-core flash library")
+        f"SASS, {hgmma112} of them 64x112 (dh 112's P.V)")
+    if not hgmma or not hgmma112:
+        raise AssertionError("no HGMMA (or none of N 112) in the "
+                             "tensor-core flash library")
 
     # gradients: B 1, S 1024, llama's heads, fp32, a random cotangent
     q, k, v = qkv(1, 1024, 32, 8, 64, f32)
@@ -1379,7 +1436,7 @@ def check_flash_attention(dev):
         "sources_by_route": {
             fa.TENSOR_CORES: "src/repro_torch/csrc/flash_attention_sm90.cu",
             fa.CUDA_CORES: "src/repro_torch/csrc/flash_attention.cu"},
-        "hgmma_instructions": hgmma,
+        "hgmma_instructions": hgmma, "hgmma_64x112_instructions": hgmma112,
         "ptxas": {src: _ptxas(src) for src in ("flash_attention_sm90",
                                                "flash_attention")},
         "tolerance": f"fp32 out abs {ATTN_TOL}; bf16 out within one bf16 "
@@ -1455,6 +1512,40 @@ def _profile_steps(tr, batches):
             "flash_ms_in_situ": flash_ms,
             "attn_backward_recompute_us": bwd_us,
             "attn_backward_recompute_share_of_busy": bwd_us / dev_us}
+
+
+def _profile_busy(tr, batches):
+    """Train steps under torch.profiler (CUDA activity only): wall and
+    device-busy time and the flash kernel's mean in-situ time, summed over
+    the raw kineto events. No ``FunctionEvent`` tree is built: for eager
+    loops of many small ops (the SSD chunks, xLSTM's tokens) that tree costs
+    tens of seconds a step."""
+    import torch
+
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    t0 = time.perf_counter()
+    for b in batches:
+        tr.train_step(b)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    prof.stop()
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_ns = flash_ns = n_flash = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda or e.is_user_annotation():
+            continue
+        busy_ns += e.duration_ns()
+        if KERNEL_SYMBOLS["flash_attention"] in e.name():
+            flash_ns += e.duration_ns()
+            n_flash += 1
+    dev_us = busy_ns / 1e3
+    return {"steps": len(batches), "wall_us": wall_us,
+            "device_busy_us": dev_us, "device_busy_share": dev_us / wall_us,
+            "flash_ms_in_situ": flash_ns / n_flash / 1e6 if n_flash else None,
+            "flash_launches_profiled": n_flash}
 
 
 def phase_train(dev):
@@ -1571,25 +1662,28 @@ def phase_train(dev):
     return counts["flash_attention"], profile["flash_ms_in_situ"], routes
 
 
-def _train_compare(dev, cfg):
-    """One fp32 step's loss and gradients (B 1 x S 1024) through the flash
-    kernel and through the plain path: loss within 1e-5 relative, each
-    gradient leaf within 1e-4 of its largest |g|, the gradient norm within
-    1e-4 relative."""
+def _train_compare(dev, cfg, B: int = 1, S: int = 1024, tp: int = 16):
+    """One fp32 step's loss and gradients (B x S, remat) through the flash
+    kernel and through the plain path: 2 flash launches per attention layer
+    (forward and recompute; none for xLSTM), loss within 1e-5 relative,
+    each gradient leaf within 1e-4 of its largest |g|, the gradient norm
+    within 1e-4 relative."""
+    import torch
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
     from repro_torch.train import TrainConfig, loss_and_grads
     from repro_torch.train.optimizer import global_norm, leaves
 
     cfg32 = cfg.replace(dtype="float32")
-    params = init_params(cfg32, 2, device=dev)
-    batch = _train_batches(cfg32, dev, 1, 1, 1024, seed=1)[0]
-    tc = TrainConfig(remat=True, tp=16)
+    params = init_params(cfg32, 2, tp=tp, device=dev)
+    batch = _train_batches(cfg32, dev, 1, B, S, seed=1)[0]
+    tc = TrainConfig(remat=True, tp=tp)
     n0 = ops.launch_counts()["flash_attention"]
     loss_k, g_k = loss_and_grads(params, cfg32, tc, batch)
     launched = ops.launch_counts()["flash_attention"] - n0
-    if launched != 2 * cfg.n_layers:
-        raise AssertionError(f"train fp32: {launched} flash launches")
+    if launched != 2 * attention_layers(cfg):
+        raise AssertionError(f"train fp32 {cfg.name}: {launched} flash "
+                             f"launches")
     ops.use_kernels(False)
     try:
         loss_p, g_p = loss_and_grads(params, cfg32, tc, batch)
@@ -1598,19 +1692,153 @@ def _train_compare(dev, cfg):
     loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     leaf_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
                                                     1e-30)
-                   for a, b in zip(leaves(g_k), leaves(g_p)))
+                   for a, b in zip(leaves(g_k), leaves(g_p)) if b.numel())
     nk, np_ = float(global_norm(g_k)), float(global_norm(g_p))
     norm_rel = abs(nk - np_) / np_
     log(f"  fp32 kernel vs plain step: loss rel {loss_rel:.3g} (tol 1e-5), "
         f"worst leaf {leaf_rel:.3g} of its max|g| (tol 1e-4), grad norm rel "
         f"{norm_rel:.3g} (tol 1e-4)")
     if not (loss_rel <= 1e-5 and leaf_rel <= 1e-4 and norm_rel <= 1e-4):
-        raise AssertionError("train fp32: kernel path != plain path")
-    return {"batch": 1, "seq": 1024, "flash_launches": launched,
+        raise AssertionError(f"train fp32 {cfg.name}: kernel path != plain "
+                             f"path")
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+    return {"batch": B, "seq": S, "flash_launches": launched,
             "loss_kernel": float(loss_k),
             "loss_plain": float(loss_p), "loss_rel_err": loss_rel,
             "worst_leaf_err_of_max": leaf_rel, "grad_norm_kernel": nk,
             "grad_norm_plain": np_, "grad_norm_rel_err": norm_rel}
+
+
+def _lr_probe(cfg, tc, batch, dev):
+    """Batch 0's loss from the seeded weights, and after one step on it at
+    the train phase's schedule (lr 3e-3, 5 warm-up steps) and at ``tc``'s:
+    how far one of Adam's first steps moves the loss."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+    from repro_torch.train import OptConfig, Trainer
+
+    out = {}
+    for name, oc in (("train_phase", OptConfig(lr=3e-3, warmup_steps=5,
+                                              total_steps=TRAIN_STEPS)),
+                     ("family", tc.opt)):
+        tr = Trainer(cfg, dataclasses.replace(tc, opt=oc),
+                     init_params(cfg, 0, tp=tc.tp, device=dev))
+        st = tr.train_step(batch)
+        with torch.no_grad():
+            after = float(M.train_loss(tr.params, cfg, batch, remat=False,
+                                       tp=tc.tp))
+        out["before"] = st["loss"]
+        out[f"after_{name}_step"] = after
+        out[f"{name}_step_lr"] = st["lr"]
+        del tr
+        torch.cuda.empty_cache()
+    log(f"  lr probe: batch 0 loss {out['before']:.4f}; after one step at "
+        f"lr {out['train_phase_step_lr']:.3g} "
+        f"{out['after_train_phase_step']:.4f}, at lr "
+        f"{out['family_step_lr']:.3g} {out['after_family_step']:.4f}")
+    return out
+
+
+def phase_train_family(dev, arch: str):
+    """One family of ``TRAIN_FAMILIES`` trained as the train phase trains
+    llama: bf16 seeded weights, fp32 AdamW moments, ``TokenStream`` data,
+    remat, the training CLI's tp, at the family's constant lr (the lr
+    probe first: batch 0's loss after one step at the train phase's
+    schedule and at the family's); ``TRAIN_FAMILY_STEPS`` steps with
+    finite, falling loss and 2 flash launches per attention layer per step
+    (forward and remat recompute; counts reset just before and read just
+    after), on the tensor-core route (bf16 at dh 64 and 112), no other
+    kernel; one profiled step (busy share); then one fp32 step at B 1
+    through the kernels against the plain path. One ``train`` line.
+    Returns (flash launches, by route)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.train import OptConfig, Trainer, TrainConfig
+    from repro_torch.train.optimizer import leaves
+
+    layers, B, S, lr, compare_S = TRAIN_FAMILIES[arch]
+    cfg = get_arch(arch)
+    cut = []
+    if layers:
+        cut.append(f"n_layers {cfg.n_layers} -> {layers}")
+        cfg = cfg.replace(n_layers=layers)
+    if S != TRAIN_S:
+        cut.append(f"seq {TRAIN_S} -> {S}")
+    n_attn, steps = attention_layers(cfg), TRAIN_FAMILY_STEPS
+    batches = _train_batches(cfg, dev, steps + 1, B, S)
+    tc = TrainConfig(opt=OptConfig(lr=lr, warmup_steps=1,
+                                   total_steps=CLI_TOTAL_STEPS),
+                     remat=True, tp=CLI_TP)
+    probe = _lr_probe(cfg, tc, batches[0], dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tc, init_params(cfg, 0, tp=tc.tp, device=dev))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(tr.params))
+    losses, step_s, per_step = [], [], []
+    ops.reset_launch_counts()
+    for b in batches[:steps]:
+        n0 = ops.launch_counts()["flash_attention"]
+        t0 = time.perf_counter()
+        losses.append(tr.train_step(b)["loss"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(ops.launch_counts()["flash_attention"] - n0)
+    counts = ops.launch_counts()
+    routes = ops.flash_route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {arch}: {n_params / 1e9:.3f} B parameters, losses "
+        f"{[round(x, 4) for x in losses]}, step s "
+        f"{[round(x, 3) for x in step_s]}, flash launches per step "
+        f"{per_step} (expected {n_attn} attention layers x 2)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train {arch}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train {arch}: loss did not fall: {losses}")
+    if per_step != [2 * n_attn] * steps:
+        raise AssertionError(f"train {arch}: flash launches per step "
+                             f"{per_step}")
+    if routes != {fa.TENSOR_CORES: counts["flash_attention"],
+                  fa.CUDA_CORES: 0}:
+        raise AssertionError(f"train {arch} bf16: flash routes {routes}")
+    if any(n for name, n in counts.items() if name != "flash_attention"):
+        raise AssertionError(f"train {arch}: other kernels launched {counts}")
+    t0 = time.perf_counter()
+    profile = _profile_busy(tr, batches[steps:])
+    profile_s = time.perf_counter() - t0
+    if profile["flash_launches_profiled"] != 2 * n_attn:
+        raise AssertionError(f"train {arch}: {profile} in the profiled step")
+    del tr
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    compare = _train_compare(dev, cfg, B=1, S=compare_S, tp=tc.tp)
+    log(f"  {arch}: init {init_s:.1f} s, profiled steps {profile_s:.1f} s, "
+        f"fp32 compare {time.perf_counter() - t0:.1f} s")
+    step_med = statistics.median(step_s)
+    print(json.dumps({"train": {
+        "card": card_line(), "arch": arch, "dtype": "bfloat16",
+        "layers": cfg.n_layers, "cut": cut or None,
+        "attention_layers": n_attn, "head_dim": cfg.hd,
+        "parameters": n_params, "batch": B, "seq": S, "remat": True,
+        "tp": tc.tp, "steps": steps, "lr": lr, "warmup_steps": 1,
+        "lr_probe": probe,
+        "init_s": init_s, "losses": losses, "step_s": step_s,
+        "step_ms_median": 1e3 * step_med, "tokens_per_s": B * S / step_med,
+        "peak_memory_bytes": peak,
+        "flash_launches": counts["flash_attention"],
+        "flash_launches_by_route": routes,
+        "flash_launches_per_step": per_step,
+        "profiled_steps": profile, "fp32_compare": compare}}), flush=True)
+    return counts["flash_attention"], routes
 
 
 # ---------------------------------------------------------------------------
@@ -3066,7 +3294,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     _build.build()
-    log(f"[1] built {list(_build.SOURCES)} in {time.perf_counter() - t0:.1f}"
+    mark(f"[1] built {list(_build.SOURCES)} in {time.perf_counter() - t0:.1f}"
         f" s")
     for name, text in _build.BUILD_LOGS.items():
         for line in text.splitlines():
@@ -3075,24 +3303,29 @@ def main(argv=None):
 
     kernels = []
     if "kernels" in phases:
-        log("[2] kernels vs plain versions")
+        mark("[2] kernels vs plain versions")
         kernels = [check_relevancy(dev), check_paged_attention(dev),
                    check_page_minmax(dev), check_bm25(dev),
                    check_flash_attention(dev)]
     flash = None
     if "train" in phases:
-        log("[3] train llama3.2-1b bf16")
+        mark("[3] train llama3.2-1b bf16")
         flash = phase_train(dev)
+    trained = {}
+    if "train_families" in phases:
+        for arch in TRAIN_FAMILIES:
+            mark(f"[3b] train {arch} bf16")
+            trained[f"train {arch}"] = phase_train_family(dev, arch)
     runs = {}
     if "serve" in phases:
         for r in serve_runs:
-            log(f"[4] serve llama3.2-1b bf16, {r}")
+            mark(f"[4] serve llama3.2-1b bf16, {r}")
             runs[r] = phase_serve(dev, r)
     if "families" in phases:
         for r in family_runs:
             run = FAMILY_RUNS[r]
             cut = f" ({run.layers} layers)" if run.layers else ""
-            log(f"[8] {r}: {run.arch}{cut} bf16, method {run.method}")
+            mark(f"[8] {r}: {run.arch}{cut} bf16, method {run.method}")
             runs[r] = phase_serve(dev, r)
     if "fleet" in phases:
         phase_fleet(dev, runs, kernels)
@@ -3120,30 +3353,32 @@ def main(argv=None):
         if flash is not None:
             k["launches"], k["ms_in_situ"], by_route["train"] = flash
             by_path["train"] = flash[0]
+        for m, (n, r) in trained.items():
+            by_path[m], by_route[m] = n, r
         k["launches_by_path"] = by_path
         k["launches_by_route_by_path"] = by_route
     if "modes" in phases:
-        log("[5] dsa-rag: retrieval inline vs sync vs overlap")
+        mark("[5] dsa-rag: retrieval inline vs sync vs overlap")
         phase_modes(dev)
     if "compare" in phases:
         for r in (r for r, run in ALL_RUNS.items() if run.compare):
-            log(f"[6] {r}: kernel path vs plain path, fp32")
+            mark(f"[6] {r}: kernel path vs plain path, fp32")
             phase_compare(dev, r)
     if "pipeline" in phases:
         for m in METHODS:
-            log(f"[7] {m}: build_pipeline unfused vs fused")
+            mark(f"[7] {m}: build_pipeline unfused vs fused")
             phase_pipeline(dev, m)
-        log("[7] rag: build_pipeline unfused vs fused; mac")
+        mark("[7] rag: build_pipeline unfused vs fused; mac")
         phase_pipeline_rag(dev)
         phase_pipeline_mac(dev)
     flash_paths = {}
     if "methods" in phases:
-        log("[10] memagent: llama3.2-1b bf16, Appendix D's config; ttt")
+        mark("[10] memagent: llama3.2-1b bf16, Appendix D's config; ttt")
         by_prefill = phase_memagent(dev)
         flash_paths["memagent"] = sum(by_prefill.values())
         phase_ttt(dev)
     if "examples" in phases:
-        log("[11] the examples; train_mac_100m --full")
+        mark("[11] the examples; train_mac_100m --full")
         flash_paths["train_mac"] = phase_examples(dev)
     for k in kernels:
         if k["name"] == "flash_attention" and flash_paths:
@@ -3155,6 +3390,7 @@ def main(argv=None):
                     elif row["path"] == "memagent answer prefill":
                         row["launches"] = by_prefill["answer"]
     torch.cuda.synchronize()
+    mark("[12] the kernels line")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

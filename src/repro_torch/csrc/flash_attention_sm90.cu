@@ -2,10 +2,11 @@
 // FlashAttention-3 shape of the forward, with TMA loads and wgmma.
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention (Pallas body
-// `_kernel`, :21-66; wrapper :70-112), for bf16 inputs at head dim 64 and 128
-// (the training, bucketed-prefill and mixtral shapes). fp32 inputs and other
-// head dims take the CUDA-core kernel of flash_attention.cu, the exact route;
-// kernels/flash_attention.py `_route` chooses by dtype and head dim only.
+// `_kernel`, :21-66; wrapper :70-112), for bf16 inputs at head dim 64, 112
+// and 128 (the training, bucketed-prefill and mixtral shapes; zamba2's shared
+// block). fp32 inputs and other head dims take the CUDA-core kernel of
+// flash_attention.cu, the exact route; kernels/flash_attention.py `_route`
+// chooses by dtype and head dim only.
 //
 // What bounds it on this card: operations. Each (query, key) pair the causal
 // band keeps costs 4 x dh FLOP per query head (training shape: 68.7 GFLOP
@@ -13,7 +14,7 @@
 //
 // Design. One CTA per (query tile, head, batch), query tiles issued longest
 // first: kNWG consumer warpgroups of 64 query rows each (3 at dh 64, a
-// 192-row tile; 2 at dh 128) and one producer warp.
+// 192-row tile; 2 at dh 112 and 128) and one producer warp.
 // - Loads: the producer warp's lane 0 issues TMA copies
 //   (cp.async.bulk.tensor, 4-d tensor maps over [B, S, heads, dh] read
 //   through the inputs' strides) into shared memory with the 128-byte
@@ -21,6 +22,11 @@
 //   kStages = 3 stages. A stage's `full` mbarrier counts the TMA bytes; its
 //   `empty` mbarrier counts the consumer warps' releases. Rows at or past S
 //   come in as zeros (TMA fills out-of-bounds rows) and are masked.
+// - dh 112 is no multiple of the 64-channel swizzle row: the tensor maps keep
+//   the channel extent at 112 and each tile is two 64-channel boxes, the
+//   second filled with zeros past channel 112 by TMA (no copy, no extra HBM
+//   bytes). Q.K^T runs 7 k16 steps, P.V is one wgmma of N = 112 a k16 step,
+//   and the store writes the 112 channels.
 // - S = Q.K^T: wgmma m64n64k16, bf16 -> fp32, Q and K K-major from swizzled
 //   shared memory. Products of bf16 values are exact in fp32, so only the
 //   order of the sum differs from the fp32 reference. 1/sqrt(dh) is applied
@@ -53,7 +59,8 @@
 //   the pipelined loop has no branch around a wgmma in flight.
 // - Registers: at dh 128 a consumer thread holds S (32 fp32), P_hi and P_lo
 //   (16 + 16 packed pairs) and the output accumulator (64 fp32): 166
-//   registers, no spills, with 288 threads a CTA.
+//   registers, no spills, with 288 threads a CTA; dh 112 holds 8 fewer
+//   accumulator registers.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,17 +81,19 @@ constexpr int kErrEncode = 100001;     // + CUresult: the encode refused
 // CTA's query tile is 64 x kNWG rows): three at dh 64, which ran faster
 // than two at the training shape on the H100; two at dh 128, where a third
 // would leave fewer registers than a consumer thread holds. 128-key tiles
-// spilled registers and ran slower.
+// spilled registers and ran slower. dh 112 takes dh 128's tiles, the
+// channels past 112 zero in shared memory.
 template <int DH>
 struct Cfg {
   static constexpr int kBN = 64;
   static constexpr int kNWG = DH == 64 ? 3 : 2;
   static constexpr int kBM = 64 * kNWG;
   static constexpr int kThreads = kNWG * 128 + 32;       // + one producer warp
-  static constexpr int kSub = DH / 64;                  // 64-channel sub-tiles
+  static constexpr int kSub = (DH + 63) / 64;           // 64-channel sub-tiles
+  static constexpr int kNPV = DH;                       // P.V's wgmma N
   static constexpr int kStages = 3;
-  static constexpr int kQBytes = kBM * DH * 2;           // [kSub][kBM][64]
-  static constexpr int kKVBytes = kBN * DH * 2;          // [kSub][kBN][64]
+  static constexpr int kQBytes = kBM * kSub * kSubBytes;   // [kSub][kBM][64]
+  static constexpr int kKVBytes = kBN * kSub * kSubBytes;  // [kSub][kBN][64]
   static constexpr int kStageBytes = 2 * kKVBytes;       // K then V
   // barriers in the first 1 KB, tiles 1024-byte aligned after it
   static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes + 1024;
@@ -209,10 +218,36 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float* d, const uint32_t* a, ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 112] += A[64 x 16] . B[16 x 112], A from registers (bf16 pairs), B
+// MN-major (transposed) in shared memory: one whole 64-channel atom and 48
+// channels of the next
+__device__ __forceinline__ void wgmma_rs_m64n112(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  static_assert(N == 64 || N == 112 || N == 128, "P.V takes N = 64, 112 or 128");
   if constexpr (N == 64)
     wgmma_rs_m64n64(d, a, db);
+  else if constexpr (N == 112)
+    wgmma_rs_m64n112(d, a, db);
   else
     wgmma_rs_m64n128(d, a, db);
 }
@@ -295,9 +330,10 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int r_lo = row0 + wq * 16 + lane / 4;
   const int c2 = 2 * (lane % 4);
   const float scale_log2 = scale * kLog2e;
-  float acc[DH / 2];
+  constexpr int kAcc = C::kNPV / 2;            // output accumulator registers
+  float acc[kAcc];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
   float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
   mbar_wait(bar_q, 0);
 
@@ -338,8 +374,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
       const uint64_t vd = sw128_desc(sV + kk * 16 * kSubBytes, kBN * kSubBytes);
-      wgmma_rs<DH>(acc, p_hi + 4 * kk, vd);
-      wgmma_rs<DH>(acc, p_lo + 4 * kk, vd);
+      wgmma_rs<C::kNPV>(acc, p_hi + 4 * kk, vd);
+      wgmma_rs<C::kNPV>(acc, p_lo + 4 * kk, vd);
     }
     wgmma_commit();
   };
@@ -408,7 +444,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   // parts: for 16-key slice kk the A fragment is s[8kk .. 8kk + 7] in pairs
   auto rescale_pack = [&](const float* corr) {
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
+    for (int j = 0; j < kAcc / 4; ++j)
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         acc[4 * j + 2 * rr] *= corr[rr];
@@ -441,7 +477,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = ia + 1; i <= ib; ++i) {
       wait_full(i);
       fence_regs<kNS>(s);
-      fence_regs<DH / 2>(acc);
+      fence_regs<kAcc>(acc);
       wgmma_fence();
       issue_qk(i);
       issue_pv(i - 1);
@@ -449,15 +485,15 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs<kNS>(s);
       softmax(i, corr);
       wgmma_wait<0>();  // P.V(i - 1) has landed in acc
-      fence_regs<DH / 2>(acc);
+      fence_regs<kAcc>(acc);
       release(i - 1);
       rescale_pack(corr);
     }
-    fence_regs<DH / 2>(acc);
+    fence_regs<kAcc>(acc);
     wgmma_fence();
     issue_pv(ib);
     wgmma_wait<0>();
-    fence_regs<DH / 2>(acc);
+    fence_regs<kAcc>(acc);
     release(ib);
   }
   for (int i = ib + 1; i < n_tiles; ++i) {  // after the run
@@ -495,7 +531,8 @@ EncodeTiled encode_fn() {
 }
 
 // a 4-d map over x [B, S, n_heads, DH] (element strides st: batch, seq,
-// head; channels contiguous), boxes of 64 channels x 1 head x `rows` rows
+// head; channels contiguous), boxes of 64 channels x 1 head x `rows` rows;
+// channels at or past dh (dh 112's second box) come in as zeros
 int make_map(CUtensorMap* map, const void* x, int B, int S, int n_heads, int dh,
              const long long* st, int rows) {
   EncodeTiled fn = encode_fn();
@@ -536,7 +573,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 // q [B,S,H,dh]; k/v [B,S,H/G,dh], all bf16 -> out [B,S,H,dh] bf16. strides:
 // 12 element strides, (batch, seq, head) of q, k, v and out in turn; the
 // channel stride is 1; the bases and every stride of q, k and v are
-// multiples of 16 bytes (TMA), out's strides even. dh is 64 or 128 (else
+// multiples of 16 bytes (TMA), out's strides even. dh is 64, 112 or 128 (else
 // cudaErrorInvalidValue). window 0: causal only. scale: 1/sqrt(dh). Returns
 // cudaGetLastError() after the launch, or a code >= 100000 when a tensor map
 // could not be made.
@@ -546,6 +583,7 @@ extern "C" int flash_attention_sm90_cuda(const void* q, const void* k, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 64: return launch<64>(q, k, v, out, B, S, H, G, window, scale, strides, st);
+    case 112: return launch<112>(q, k, v, out, B, S, H, G, window, scale, strides, st);
     case 128: return launch<128>(q, k, v, out, B, S, H, G, window, scale, strides, st);
     default: return (int)cudaErrorInvalidValue;
   }

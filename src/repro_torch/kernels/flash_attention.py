@@ -6,9 +6,10 @@ H // KV) and an optional sliding window, in fp32, output in q's dtype.
 ``flash_attention`` launches a CUDA kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors; it never falls back from one to
 the other. On the card ``_route`` picks the kernel by dtype and head dim
-alone: bf16 at head dim 64 or 128 goes to the tensor-core kernel
+alone: bf16 at head dim 64, 112 or 128 goes to the tensor-core kernel
 (``csrc/flash_attention_sm90.cu``: TMA loads, wgmma, P split into bf16 high
-and low parts), everything else to the CUDA-core kernel
+and low parts; dh 112 in two 64-channel boxes, zero past 112), everything
+else, fp32 at every head dim included, to the CUDA-core kernel
 (``csrc/flash_attention.cu``: every product an fp32 FMA), the exact route.
 ``ROUTE_LAUNCHES`` counts the launches of each route.
 
@@ -31,7 +32,7 @@ from repro_torch.kernels import ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 HEAD_DIMS = (32, 64, 112, 128)  # the CUDA-core kernel's template cases
-TC_HEAD_DIMS = (64, 128)      # the tensor-core kernel's
+TC_HEAD_DIMS = (64, 112, 128)  # the tensor-core kernel's
 TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 #: launches of each route since the last reset (``ops.reset_launch_counts``)
 ROUTE_LAUNCHES = {TENSOR_CORES: 0, CUDA_CORES: 0}

@@ -7,8 +7,14 @@ The intra-chunk decay ``exp(cum_i - cum_j)`` is formed per (chunk, head
 group of ``HEAD_GROUP``) only, bounding the live intermediate to [B, cs, cs,
 hg]. It keeps the difference form (exponent <= 0 under the causal mask): the
 factorised ``exp(cum_i) * exp(-cum_j)`` overflows fp32 for fast-decaying
-heads even at init. The upper triangle's exponent can overflow to inf, so
-it is zeroed after the ``exp``, by ``where``, and never enters a product.
+heads even at init. The upper triangle's exponent (>= 0) can overflow, so
+it is set to -inf before the ``exp``, which gives exactly 0 there. The
+reference zeroes it after the ``exp`` instead (``where(mask, exp(diff),
+0)``): the same forward, bit for bit, but its backward multiplies the
+masked zeros by ``exp(diff)`` = inf, so every gradient turns NaN once a
+chunk's decay passes fp32's range (zamba2 at full width at init: 112 heads
+with A down to -112, 128-token chunks). The port's gradient is the
+reference's wherever that is finite, and finite where it is not.
 
 Dtypes follow the reference's promotion op for op: a causal conv over a
 model-dtype input with no state stays in the model dtype (its new state
@@ -125,9 +131,10 @@ def _intra_chunk(scores, cum, x_c, mask):
     for h0 in range(0, H, hg):
         cg = cum[:, :, h0:h0 + hg]
         diff = cg[:, :, None, :] - cg[:, None, :, :]            # [B,i,j,hg]
-        Lm = torch.where(mask[None, :, :, None], torch.exp(diff),
-                         torch.zeros((), dtype=diff.dtype,
-                                     device=diff.device))
+        Lm = torch.exp(torch.where(mask[None, :, :, None], diff,
+                                   torch.full((), -torch.inf,
+                                              dtype=diff.dtype,
+                                              device=diff.device)))
         out.append(torch.einsum("bijh,bjhp->bihp", scores[..., None] * Lm,
                                 x_c[:, :, h0:h0 + hg]))
     return torch.cat(out, dim=2)

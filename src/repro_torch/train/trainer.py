@@ -52,7 +52,9 @@ def loss_and_grads(params, cfg: ArchConfig, tc: TrainConfig, batch):
     1 the batch's leading axis is [accum, mb, S]: the microbatches run in
     turn (the twin of the reference's ``lax.scan``) and the loss and the
     gradients (fp32) are their means. The parameter leaves are marked to
-    require grad."""
+    require grad. A leaf the loss does not reach (the hybrid's unused shared
+    pieces, experts no token is routed to) gets a zero gradient, as
+    ``jax.grad`` gives it."""
     ps = leaves(params)
     for p in ps:
         p.requires_grad_(True)
@@ -60,7 +62,9 @@ def loss_and_grads(params, cfg: ArchConfig, tc: TrainConfig, batch):
     def one(b):
         with torch.enable_grad():
             loss = M.train_loss(params, cfg, b, remat=tc.remat, tp=tc.tp)
-            return loss.detach(), torch.autograd.grad(loss, ps)
+            got = torch.autograd.grad(loss, ps, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(ps, got)]
 
     if tc.accum <= 1:
         loss, grads = one(batch)

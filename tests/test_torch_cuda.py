@@ -370,10 +370,15 @@ def _bf16_close(got, want):
     (2, 256, 8, 2, 64, 48),       # a window below the tile
     (1, 300, 4, 4, 64, 0),        # G = 1
     (1, 700, 8, 2, 128, 96),
+    (2, 4480, 32, 32, 112, 0),    # zamba2's prefill (dh 112, G = 1)
+    (2, 200, 8, 2, 112, 0),       # dh 112: ragged S, G = 4
+    (2, 37, 8, 8, 112, 0),        # dh 112: S below the tile
+    (2, 256, 8, 4, 112, 48),      # dh 112: a window below the tile, G = 2
+    (1, 700, 8, 2, 112, 96),      # dh 112: a window
 ])
 def test_flash_attention_tensor_core_route(dev, B, S, H, KV, dh, window):
-    """bf16 at head dim 64 and 128 takes the tensor-core kernel, within one
-    bf16 ulp of the plain version."""
+    """bf16 at head dim 64, 112 and 128 takes the tensor-core kernel, within
+    one bf16 ulp of the plain version."""
     from repro_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(6)
@@ -412,16 +417,20 @@ def test_flash_attention_cuda_core_route(dev, dtype, dh):
                                           (torch.bfloat16, 0),
                                           (torch.float32, 96)])
 def test_flash_attention_head_dim_112(dev, dtype, window):
-    """zamba2's shared block: dh 112 (7 output channels a thread, each
-    read alone), G = 1, ragged S; the CUDA-core kernel in both dtypes."""
+    """zamba2's shared block: dh 112, G = 1, ragged S; bf16 on the
+    tensor-core kernel (two 64-channel boxes a tile, zero past 112), fp32
+    on the CUDA-core kernel (7 output channels a thread), the exact
+    route."""
     from repro_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(11)
     q, k, v = (torch.randn(2, 300, 4, 112, generator=g, device=dev).to(dtype)
                for _ in range(3))
+    route = fa.TENSOR_CORES if dtype == torch.bfloat16 else fa.CUDA_CORES
     n0 = dict(fa.ROUTE_LAUNCHES)
     got = fa.flash_attention(q, k, v, window=window)
-    assert fa.ROUTE_LAUNCHES[fa.CUDA_CORES] == n0[fa.CUDA_CORES] + 1
+    assert {r: fa.ROUTE_LAUNCHES[r] - n0[r] for r in n0} == {
+        r: int(r == route) for r in n0}
     want = ref.flash_attention(q, k, v, window=window or None)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
@@ -429,13 +438,14 @@ def test_flash_attention_head_dim_112(dev, dtype, window):
         _bf16_close(got, want)
 
 
-def test_flash_attention_tensor_core_copies_misaligned_views(dev):
+@pytest.mark.parametrize("dh", [64, 112])
+def test_flash_attention_tensor_core_copies_misaligned_views(dev, dh):
     """bf16 views whose base is 2 bytes off 16 (no TMA) are copied, and the
     result equals the plain version on contiguous copies."""
     from repro_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(9)
-    B, S, H, KV, dh = 2, 130, 8, 2, 64
+    B, S, H, KV = 2, 130, 8, 2
     qkv = torch.randn(B, S, H + 2 * KV + 1, dh, generator=g,
                       device=dev).bfloat16().reshape(-1)[1:]
     qkv = qkv[:B * S * (H + 2 * KV) * dh].view(B, S, H + 2 * KV, dh)

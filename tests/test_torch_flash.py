@@ -218,7 +218,9 @@ def test_tensor_core_model_is_fp32_accurate():
 @pytest.mark.parametrize("dtype,dh,route", [
     (torch.bfloat16, 64, tfa.TENSOR_CORES),
     (torch.bfloat16, 128, tfa.TENSOR_CORES),
+    (torch.bfloat16, 112, tfa.TENSOR_CORES),
     (torch.bfloat16, 32, tfa.CUDA_CORES),
+    (torch.float32, 112, tfa.CUDA_CORES),
     (torch.float32, 64, tfa.CUDA_CORES),
     (torch.float32, 128, tfa.CUDA_CORES),
     (torch.float16, 64, tfa.CUDA_CORES),
@@ -230,6 +232,7 @@ def test_route_by_dtype_and_head_dim(dtype, dh, route):
 @pytest.mark.parametrize("offset,seq_stride,tc_ok,cc_ok", [
     (0, 64 * 13, True, True),     # q of a packed [B, S, 13 heads, 64] view
     (64, 64 * 13, True, True),    # k: a head in, 128 bytes
+    (112, 112 * 13, True, True),  # dh 112: a head in, 224 bytes
     (4, 64 * 13, False, True),    # base 8 bytes off: no TMA
     (0, 68, False, True),         # a seq stride of 136 bytes: no TMA
     (2, 64 * 13, False, False),   # base 4 bytes off: neither

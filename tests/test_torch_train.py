@@ -39,6 +39,7 @@ from repro_torch.train import (OptConfig, Trainer, TrainConfig,  # noqa: E402
                                adamw_update, init_opt_state, loss_and_grads)
 from repro_torch.train.optimizer import leaves  # noqa: E402
 from repro_torch.weights import from_jax_params  # noqa: E402
+from torch_family_cases import grad_close  # noqa: E402
 
 torch.set_num_threads(2)
 TP = 4
@@ -183,13 +184,6 @@ def smoke32():
     return jcfg, tcfg, jparams
 
 
-def _grad_close(got, want, name):
-    want = np.asarray(want)
-    scale = max(float(np.abs(want).max()), 1e-30)
-    err = float(np.abs(got.float().numpy() - want).max())
-    assert err <= 1e-4 * scale, f"{name}: err {err} vs max|g| {scale}"
-
-
 @pytest.mark.parametrize("remat", [False, True])
 @pytest.mark.parametrize("accum", [1, 2])
 def test_train_loss_and_grads_match_jax(smoke32, remat, accum):
@@ -216,7 +210,7 @@ def test_train_loss_and_grads_match_jax(smoke32, remat, accum):
     flat = jax.tree_util.tree_flatten_with_path(jg)[0]
     assert len(flat) == len(leaves(grads))
     for (path, want), got in zip(flat, leaves(grads)):
-        _grad_close(got, want, jax.tree_util.keystr(path))
+        grad_close(got, want, jax.tree_util.keystr(path))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

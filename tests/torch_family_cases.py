@@ -1,6 +1,7 @@
-"""Shared by ``test_torch_families.py`` and ``test_torch_families_bf16.py``:
-one architecture's smoke config through the JAX package and the port from
-the same JAX-initialized weights on the same seeded inputs."""
+"""Shared by ``test_torch_families.py``, ``test_torch_families_bf16.py`` and
+``test_torch_family_grads.py``: one architecture's smoke config through the
+JAX package and the port from the same JAX-initialized weights on the same
+seeded inputs; ``grad_close`` also serves ``test_torch_train.py``."""
 import numpy as np
 import torch
 
@@ -64,3 +65,16 @@ def parity(name: str, dtype: str, tol: float):
 def _close(t, j, tol, name):
     err = np.abs(t.float().numpy() - np.asarray(j, np.float32)).max()
     assert err < tol, (name, err)
+
+
+def grad_close(got, want, name):
+    """A gradient leaf of the port against JAX's: the same shape, and within
+    1e-4 of JAX's largest |g| (an empty leaf: the shape alone)."""
+    want = np.asarray(want)
+    assert tuple(got.shape) == want.shape, (name, tuple(got.shape),
+                                            want.shape)
+    if want.size == 0:
+        return
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got.float().numpy() - want).max())
+    assert err <= 1e-4 * scale, f"{name}: err {err} vs max|g| {scale}"
