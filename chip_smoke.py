@@ -60,6 +60,24 @@ failure (the script then exits non-zero):
    tensor cores (none for xLSTM), one profiled step (busy share), and one
    fp32 step (B 1 x S 512; xLSTM S 32) through the kernels against the
    plain path; one ``train`` line each;
+3c. train_sharded: multi-device training on the one card, one process over
+   a mesh whose entries are all ``cuda:0``: llama3.2-1b at full width,
+   bf16, B 4 x S 2048, remat, tp 4, lr 1e-5; 3 single-device steps, then 3
+   on a (2, 4) ("data", "model") mesh from the same weights and batches
+   (losses within 2e-2, the worst leaf within its bf16 bound, 64 flash
+   launches a step on the tensor cores: 2 data indices x 16 layers x 2;
+   step ms, peak memory, one profiled
+   step's busy share, the gathers', the gradient all-reduce's and the
+   sharded AdamW's ms, which on one card are device-local copies); the
+   params saved from the mesh, restored onto a (4,) model mesh and onto
+   one device, bit-equal; one fp32 step (S 512, lr 1e-3) sharded against
+   single device within the CPU tests' tolerances, its data replicas
+   agreeing; the compressed pod sync on (2, 2, 2) ("pod", "data",
+   "model") at 4 layers, int8 and bf16 (step 1's loss bit-equal to the
+   uncompressed step's, each residual held against one recomputed from
+   the reduced gradients, int8's non-zero);
+   GPipe: 4 stages of 4 layers, 8 microbatches of [1, 2048], 176 flash
+   launches, equal to the unpipelined forward; one ``train_sharded`` line;
 4. serve: full-width llama3.2-1b in bf16 with seeded random weights,
    ``ServeConfig(method=m, max_len=8192, n_slots=4)`` for m in dsa, lserve
    and seer, seer in both its top-k and its threshold selection, and dsa
@@ -164,16 +182,20 @@ failure (the script then exits non-zero):
    vocab 32000, 2 segments of 256, B 4): finite, falling loss, 24 flash
    launches a step on the tensor cores (one ``train_mac`` line);
 12. a ``{"kernels": [...]}`` line (flash's ``launches`` from the train
-   phase, the train_families phase's by family in ``launches_by_path``;
+   phase, the train_families phase's by family and the train_sharded
+   phase's sharded steps and pipelined forward (``train_sharded``,
+   ``gpipe``) in ``launches_by_path``, flash also checked and timed at
+   those two paths' shapes, bf16 [2, 2048] and [1, 2048], and at the fp32
+   sharded step's [2, 512];
    paged attention and flash also at the families' shapes: G = 1,
    2, 4 and 8, dh 112 and 128; relevancy and paged attention at the fleet
    phase's shard-local shapes; flash at MemAgent's prefills, with the
    methods phase's launches), the card line, and ``{"ok": true, ...}``
    as the last line.
 
-``--phases`` runs a subset of kernels, train, train_families, serve, modes,
-compare, pipeline, families, fleet, methods and examples (the default is
-all eleven);
+``--phases`` runs a subset of kernels, train, train_families,
+train_sharded, serve, modes, compare, pipeline, families, fleet, methods
+and examples (the default is all twelve);
 ``--runs`` a subset of the serve runs, ``--family-runs`` of the families
 phase's.
 """
@@ -220,6 +242,16 @@ TRAIN_FAMILIES = {"granite-moe-1b-a400m": (0, TRAIN_B, TRAIN_S, 1e-5, 512),
                   "zamba2-7b": (12, TRAIN_B, TRAIN_S, 1e-5, 512),
                   "xlstm-125m": (0, TRAIN_B, 128, 3e-4, 32)}
 TRAIN_FAMILY_STEPS = 4
+# the train_sharded phase: llama3.2-1b at full width on a (2, 4) mesh of the
+# card. The pod sync's (2, 2, 2) mesh holds 4 copies of every leaf and of
+# its fp32 moments: at full depth that is past 80 GB, so it runs at
+# POD_LAYERS layers. GPipe: 4 stages of 4 layers, 8 microbatches.
+SHARDED_STEPS, SHARDED_LR = 3, 1e-5
+SHARDED_FP32_S, SHARDED_FP32_LR = 512, 1e-3
+SHARDED_MESH = ((2, 4), ("data", "model"))
+POD_MESH = ((2, 2, 2), ("pod", "data", "model"))
+POD_LAYERS = 4
+GPIPE_STAGES, GPIPE_MICRO, GPIPE_PAIRS = 4, 8, 6
 MAX_NEW = 16
 VIEW = 8192
 PAGE = 16                                # DSA micro-page, kv pool page
@@ -333,8 +365,9 @@ FLEET_RUNS = {
     "dsa-mesh2": Run("dsa", kernels=_APPLY, compare=False, offload="overlap",
                      mesh=2, equals="dsa-offload-overlap")}
 ALL_RUNS = {**RUNS, **FAMILY_RUNS, **FLEET_RUNS}
-PHASES = ("kernels", "train", "train_families", "serve", "modes",
-          "compare", "pipeline", "families", "fleet", "methods", "examples")
+PHASES = ("kernels", "train", "train_families", "train_sharded", "serve",
+          "modes", "compare", "pipeline", "families", "fleet", "methods",
+          "examples")
 # the run whose serve phase gives a kernel's launches and in-situ time in
 # its row: the first run that launches it
 HOME_PATH = {name: label for label, run in reversed(RUNS.items())
@@ -1323,6 +1356,11 @@ def check_flash_attention(dev):
         # [memory 1024; question 64], B 2 (rows 3f and 3g)
         "memagent segment prefill": (2, 6024, 32, 8, 64, 0, 2),
         "memagent answer prefill": (2, 1088, 32, 8, 64, 0, 20),
+        # the train_sharded phase: each of the sharded step's 2 data indices
+        # (B 4 / 2); a GPipe microbatch, also each of the pod sync's 4 data
+        # indices (B 4 / 4)
+        "train_sharded": (TRAIN_B // 2, TRAIN_S, 32, 8, 64, 0, 20),
+        "gpipe": (1, TRAIN_S, 32, 8, 64, 0, 20),
     }
     def routed(name, fn, want_route):
         """``fn()``, checked to launch once on ``want_route``."""
@@ -1368,6 +1406,8 @@ def check_flash_attention(dev):
             ("bf16 G=1", 1, 300, 4, 4, 64, 0, bf16),
             ("bf16 dh 32", 1, 300, 4, 2, 32, 0, bf16),
             ("fp32 training heads", 1, 1024, 32, 8, 64, 0, f32),
+            ("fp32 sharded step's data index", TRAIN_B // 2,
+             SHARDED_FP32_S, 32, 8, 64, 0, f32),
             ("fp32 window 96", 1, 700, 8, 2, 128, 96, f32),
             ("bf16 window 96", 1, 700, 8, 2, 128, 96, bf16),
             ("bf16 dh 112 G=1 ragged", 1, 300, 4, 4, 112, 0, bf16),
@@ -1839,6 +1879,535 @@ def phase_train_family(dev, arch: str):
         "flash_launches_per_step": per_step,
         "profiled_steps": profile, "fp32_compare": compare}}), flush=True)
     return counts["flash_attention"], routes
+
+
+def _event_ms(fn, n: int = 3) -> float:
+    """Median device time of ``fn`` over n calls, each between two CUDA
+    events (for calls that allocate or update in place, which ``time_ms``'s
+    graphs do not take)."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
+def _place(params, cfg, mesh):
+    from repro_torch.distributed import sharding as sh
+
+    return sh.device_put(params, sh.make_shardings(
+        sh.param_specs(params, cfg, mesh), mesh))
+
+
+def _steps(tr, batches):
+    """Train steps: (losses, step seconds, flash launches per step)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    losses, step_s, per_step = [], [], []
+    for b in batches:
+        n0 = ops.launch_counts()["flash_attention"]
+        t0 = time.perf_counter()
+        losses.append(tr.train_step(b)["loss"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(ops.launch_counts()["flash_attention"] - n0)
+    return losses, step_s, per_step
+
+
+def _worst_leaf(placed, host):
+    """Max |a - b| over the leaves: a sharded tree on the card against full
+    tensors on the host."""
+    from repro_torch.train.optimizer import leaves
+
+    return max(float((p.full().float() - h.to(p.shards[0].device).float())
+                     .abs().max()) for p, h in zip(leaves(placed), host))
+
+
+def _bf16_leaf_bound(placed, host, steps, lr):
+    """(worst |a - b| / bound over the leaves, its leaf's bound): two bf16
+    runs whose gradients differ by rounding part by at most 2 lr a step
+    (Adam's normalized step is about lr on each side; twice that as
+    margin) plus one bf16 rounding of the leaf's largest value a step,
+    2^(floor(log2 max|p|) - 7)."""
+    from repro_torch.train.optimizer import leaves
+
+    worst, at = 0.0, None
+    for p, h in zip(leaves(placed), host):
+        big = float(h.float().abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(big)) - 7) if big > 0 else 0.0
+        bound = steps * (4 * lr + ulp)
+        diff = float((p.full().float() - h.to(p.shards[0].device).float())
+                     .abs().max())
+        if diff / bound >= worst:
+            worst, at = diff / bound, bound
+    return worst, at
+
+
+def _sharded_parts(tr, dev):
+    """The sharded step's three collective parts, each timed alone at the
+    step's shapes on the card: one data index's gather of the full
+    parameters, the gradient all-reduce over the data indices (bf16), and
+    the sharded AdamW (in place: it moves the parameters)."""
+    import torch
+    from repro_torch.distributed import collectives, sharding as sh
+    from repro_torch.train.optimizer import adamw_update, leaves
+
+    mesh = tr.mesh
+    groups = mesh.groups(sh.data_axes(mesh))
+    order = groups[0] + [i for i in range(mesh.size) if i not in groups[0]]
+    ps = leaves(tr.params)
+    gather_ms = _event_ms(lambda: [p.full(dev, order) for p in ps])
+    grads = [[torch.full(p.shape, 1e-3 * (d + 1), dtype=p.dtype, device=dev)
+              for p in ps] for d in range(len(groups))]
+    reduce_ms = _event_ms(lambda: [collectives.all_reduce(list(g), "mean")
+                                   for g in zip(*grads)])
+    full = [collectives.all_reduce(list(g), "mean") for g in zip(*grads)]
+    del grads
+    by_leaf = {id(p): g for p, g in zip(ps, full)}
+    gtree = sh.tree_map(lambda p: by_leaf[id(p)], tr.params)
+    adamw_ms = _event_ms(lambda: adamw_update(gtree, tr.opt_state, tr.params,
+                                              tr.tc.opt), n=2)
+    del full, gtree
+    return {"gather_ms": gather_ms, "grad_all_reduce_ms": reduce_ms,
+            "sharded_adamw_ms": adamw_ms}
+
+
+def _reshard(params, cfg, dev):
+    """The params tree saved from its mesh, restored onto a (4,) model mesh
+    and onto one device: bit-equal leaves."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.distributed import checkpoint as ckpt, sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.optimizer import leaves
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_reshard_")
+    try:
+        like = {"params": params}
+        t0 = time.perf_counter()
+        ckpt.save(d, 1, like)
+        save_s = time.perf_counter() - t0
+        nbytes = ckpt.read_manifest(d, 1)["bytes"]
+        mesh4 = make_mesh((4,), ("model",))
+        one = make_mesh((1,), ("model",))
+        out = {"checkpoint_bytes": nbytes, "save_s": save_s}
+        for name, shardings in (
+                ("model4", {"params": sh.make_shardings(
+                    sh.param_specs(params, cfg, mesh4), mesh4)}),
+                ("one_device", sh.NamedSharding(one, sh.P()))):
+            t0 = time.perf_counter()
+            back = ckpt.restore(d, 1, like, shardings=shardings)
+            torch.cuda.synchronize()
+            out[f"restore_{name}_s"] = time.perf_counter() - t0
+            equal = all(torch.equal(a.full(), b.full()) for a, b in
+                        zip(leaves(back["params"]), leaves(params)))
+            if not equal:
+                raise AssertionError(f"reshard onto {name}: leaves differ")
+            out[f"{name}_bit_equal"] = equal
+            del back
+        log(f"  reshard: {nbytes / 1e9:.2f} GB saved from "
+            f"{dict(next(iter(leaves(params))).sharding.mesh.shape)} in "
+            f"{save_s:.1f} s, restored onto (4,) model in "
+            f"{out['restore_model4_s']:.1f} s and onto one device in "
+            f"{out['restore_one_device_s']:.1f} s, bit-equal")
+        return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _gpipe(cfg, tc, dev):
+    """llama's 16 layers as GPIPE_STAGES stages of 4 over a (4,) pod mesh of
+    the card, the model's own layer loop (``run_layers``) as the stage
+    function, GPIPE_MICRO microbatches of [1, S]: the pipelined hidden
+    states against the unpipelined forward of each microbatch (the same
+    GEMM shapes), flash launches = ticks x layers."""
+    import torch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.pipeline_parallel import (bubble_fraction,
+                                                           gpipe_forward)
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    n, m, L_ = GPIPE_STAGES, GPIPE_MICRO, cfg.n_layers
+    params = init_params(cfg, 0, tp=tc.tp, device=dev)
+    stages = sh.tree_map(lambda a: a.reshape((n, L_ // n) + a.shape[1:]),
+                         params["layers"])
+    tokens = torch.cat([b["tokens"] for b in _train_batches(
+        cfg, dev, -(-m // TRAIN_B), TRAIN_B, TRAIN_S, seed=3)])[:m]
+    fn = gpipe_forward(lambda sp, x: M.run_layers(sp, cfg, x, tp=tc.tp),
+                       make_mesh((n,), ("pod",)))
+
+    def piped():
+        xs = L.embed(params["embed"], tokens)[:, None]
+        return L.rms_norm(params["final_norm"], fn(stages, xs)[:, 0],
+                          cfg.norm_eps)
+
+    def unpiped():
+        return torch.cat([M.forward(params, cfg, tokens[i:i + 1],
+                                    tp=tc.tp)[0] for i in range(m)])
+
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        got = piped()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()["flash_attention"]
+        routes = ops.flash_route_counts()
+        want = unpiped()
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        # in turns (piped, unpiped, unpiped, piped, ...): the two share the
+        # card's state and the host's load
+        times = {piped: [], unpiped: []}
+        for i in range(GPIPE_PAIRS):
+            for run in ((piped, unpiped) if i % 2 == 0 else
+                        (unpiped, piped)):
+                times[run].append(_event_ms(run, n=1))
+        piped_ms = statistics.median(times[piped])
+        unpiped_ms = statistics.median(times[unpiped])
+    ticks = m + n - 1
+    log(f"  gpipe: {n} stages x {L_ // n} layers, {m} microbatches of [1, "
+        f"{TRAIN_S}]: {launches} flash launches (expected {ticks} ticks x "
+        f"{L_}), max abs err {err:.3g} vs the unpipelined forward (max |h| "
+        f"{scale:.3g}); median of {GPIPE_PAIRS} in turns {piped_ms:.1f} ms "
+        f"(range {min(times[piped]):.1f}-{max(times[piped]):.1f}) vs "
+        f"{unpiped_ms:.1f} ms ({min(times[unpiped]):.1f}-"
+        f"{max(times[unpiped]):.1f}): {piped_ms / unpiped_ms:.3f}x; "
+        f"{ticks}/{m} = {ticks / m:.3f}")
+    if launches != ticks * L_ or routes[fa.CUDA_CORES]:
+        raise AssertionError(f"gpipe: {launches} flash launches, {routes}")
+    if not (math.isfinite(err) and err <= BF16_ULP[0] * max(1.0, scale)):
+        raise AssertionError(f"gpipe: pipelined != unpipelined ({err})")
+    del params, stages, got, want
+    torch.cuda.empty_cache()
+    return {"stages": n, "layers_per_stage": L_ // n, "microbatches": m,
+            "microbatch_shape": [1, TRAIN_S], "ticks": ticks,
+            "bubble_fraction": bubble_fraction(n, m),
+            "flash_launches": launches, "flash_launches_by_route": routes,
+            "max_abs_err": err, "max_abs_hidden": scale,
+            "tolerance": f"abs {BF16_ULP[0]} x max(1, max|h|)",
+            "bit_equal": err == 0.0, "pipelined_ms": piped_ms,
+            "unpipelined_ms": unpiped_ms, "pipelined_ms_runs": times[piped],
+            "unpipelined_ms_runs": times[unpiped],
+            "ratio": piped_ms / unpiped_ms}, launches, routes
+
+
+def phase_train_sharded(dev):
+    """Multi-device training on the one card, one process over a mesh whose
+    entries are all ``cuda:0``: llama3.2-1b at full width, bf16, seeded
+    weights, ``TokenStream`` batches, B 4 x S 2048, remat, tp 4, lr 1e-5.
+    SHARDED_STEPS single-device steps first (the final parameters kept on
+    the host, then freed), then as many on a (2, 4) ("data", "model") mesh
+    from the same weights and batches: losses within 2e-2 relative, all
+    finite, the worst leaf within its bf16 bound (``_bf16_leaf_bound``),
+    2 data indices x 16 layers x 2 flash launches a step on the
+    tensor cores; step ms, peak memory, one profiled sharded step's busy
+    share, the gathers', the all-reduce's and the sharded AdamW's ms; the
+    params saved from the mesh and restored onto a (4,) model mesh and onto
+    one device bit-equal; one fp32 step (``_sharded_fp32``); the compressed
+    pod sync (``_pod_sync``); GPipe (``_gpipe``). One ``train_sharded`` line. Returns the flash launches and
+    routes of the sharded steps and of the pipelined forward."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import OptConfig, Trainer, TrainConfig
+    from repro_torch.train.optimizer import leaves
+
+    cfg = get_arch(TRAIN_ARCH)
+    B, S, L, n = TRAIN_B, TRAIN_S, cfg.n_layers, SHARDED_STEPS
+    tc = TrainConfig(opt=OptConfig(lr=SHARDED_LR, warmup_steps=1,
+                                   total_steps=CLI_TOTAL_STEPS),
+                     remat=True, tp=CLI_TP)
+    batches = _train_batches(cfg, dev, n + 1, B, S)
+    mesh = make_mesh(*SHARDED_MESH)
+    dp = mesh.shape["data"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tc, init_params(cfg, 0, tp=tc.tp, device=dev))
+    single_losses, single_s, _ = _steps(tr, batches[:n])
+    single_peak = torch.cuda.max_memory_allocated()
+    host = [p.detach().cpu() for p in leaves(tr.params)]
+    del tr
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tc, _place(init_params(cfg, 0, tp=tc.tp, device=dev),
+                                 cfg, mesh), mesh)
+    ops.reset_launch_counts()
+    losses, step_s, per_step = _steps(tr, batches[:n])
+    counts = ops.launch_counts()
+    routes = ops.flash_route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, single_losses)]
+    worst = _worst_leaf(tr.params, host)
+    worst_of_bound, bound = _bf16_leaf_bound(tr.params, host, n, SHARDED_LR)
+    del host
+    log(f"  single-device losses {[round(x, 5) for x in single_losses]}, "
+        f"sharded {[round(x, 5) for x in losses]} (rel {max(rel):.3g}, tol "
+        f"2e-2); worst leaf |diff| after step {n} {worst:.3g}, at most "
+        f"{worst_of_bound:.3g} of its leaf's bf16 bound (that leaf's "
+        f"{bound:.3g}); step ms "
+        f"{1e3 * statistics.median(single_s):.1f} vs "
+        f"{1e3 * statistics.median(step_s):.1f}; peak "
+        f"{single_peak / 1e9:.2f} vs {peak / 1e9:.2f} GB; flash launches "
+        f"per sharded step {per_step} (expected {dp} x {L} x 2)")
+    if not all(math.isfinite(x) for x in losses + single_losses):
+        raise AssertionError(f"train_sharded: non-finite loss {losses}")
+    if max(rel) > 2e-2:
+        raise AssertionError(f"train_sharded: sharded {losses} vs single "
+                             f"{single_losses}")
+    if per_step != [dp * L * 2] * n:
+        raise AssertionError(f"train_sharded: flash launches {per_step}")
+    if not worst_of_bound <= 1.0:
+        raise AssertionError(f"train_sharded: a leaf {worst_of_bound} of its "
+                             f"bf16 bound apart")
+    if routes != {fa.TENSOR_CORES: counts["flash_attention"],
+                  fa.CUDA_CORES: 0}:
+        raise AssertionError(f"train_sharded bf16: flash routes {routes}")
+    if any(c for name, c in counts.items() if name != "flash_attention"):
+        raise AssertionError(f"train_sharded: other kernels {counts}")
+    profile = _profile_busy(tr, batches[n:])
+    if profile["flash_launches_profiled"] != dp * L * 2:
+        raise AssertionError(f"train_sharded: {profile} in the profiled step")
+    reshard = _reshard(tr.params, cfg, dev)
+    parts = _sharded_parts(tr, dev)
+    log(f"  one profiled sharded step: busy "
+        f"{100 * profile['device_busy_share']:.1f} %; gathers "
+        f"{parts['gather_ms']:.2f} ms, grad all-reduce "
+        f"{parts['grad_all_reduce_ms']:.2f} ms, sharded AdamW "
+        f"{parts['sharded_adamw_ms']:.2f} ms")
+    del tr
+    torch.cuda.empty_cache()
+
+    fp32 = _sharded_fp32(cfg, mesh, dev)
+    pod = _pod_sync(cfg, tc, batches[0], dev)
+    gpipe, gp_launches, gp_routes = _gpipe(cfg, tc, dev)
+    print(json.dumps({"train_sharded": {
+        "card": card_line(), "arch": TRAIN_ARCH, "dtype": "bfloat16",
+        "batch": B, "seq": S, "remat": True, "tp": tc.tp, "lr": SHARDED_LR,
+        "mesh": dict(mesh.shape), "mesh_devices": sorted(
+            set(map(str, mesh.devices.flat))), "steps": n,
+        "single_losses": single_losses, "sharded_losses": losses,
+        "loss_rel_err": rel, "loss_tol": 2e-2,
+        "worst_leaf_abs_diff": worst,
+        "worst_leaf_of_bf16_bound": worst_of_bound,
+        "leaf_bound": f"{n} steps x (4 lr + one bf16 ulp of the leaf's "
+                      f"max |p|)",
+        "single_step_s": single_s, "sharded_step_s": step_s,
+        "single_step_ms_median": 1e3 * statistics.median(single_s),
+        "sharded_step_ms_median": 1e3 * statistics.median(step_s),
+        "single_tokens_per_s": B * S / statistics.median(single_s),
+        "sharded_tokens_per_s": B * S / statistics.median(step_s),
+        "single_peak_memory_bytes": single_peak,
+        "sharded_peak_memory_bytes": peak,
+        "flash_launches": counts["flash_attention"],
+        "flash_launches_by_route": routes,
+        "flash_launches_per_step": per_step,
+        "profiled_step": profile, **parts,
+        "collectives_note": "one card: every mesh entry is cuda:0, so the "
+                            "gathers and the all-reduce are device-local "
+                            "copies and adds, not interconnect transfers",
+        "reshard": reshard, "fp32": fp32, "pod_sync": pod,
+        "gpipe": gpipe}}), flush=True)
+    return (counts["flash_attention"], routes, gp_launches, gp_routes)
+
+
+def _sharded_fp32(cfg, mesh, dev):
+    """One fp32 step (B 4 x S SHARDED_FP32_S, lr SHARDED_FP32_LR from step
+    1, so that an update is 100 x the tolerance) on one device and on
+    ``mesh``: loss within 1e-5 relative, every shard equal to its slice of
+    the gathered leaf, every leaf moved by at least lr / 2, and every
+    parameter and first moment within 1e-5 abs, except the parameters
+    where the clipped gradient is below 100 eps = 1e-6: there Adam's first
+    step, lr g / (|g| + eps), turns fp32 rounding in g into up to 2 lr
+    (the CPU tests' rule; at most 0.1 % of the elements)."""
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.train import OptConfig, Trainer, TrainConfig
+    from repro_torch.train.optimizer import leaves
+
+    cfg32 = cfg.replace(dtype="float32")
+    lr = SHARDED_FP32_LR
+    tc32 = TrainConfig(opt=OptConfig(lr=lr, warmup_steps=1), remat=True,
+                       tp=CLI_TP)
+    oc = tc32.opt
+    batch = _train_batches(cfg32, dev, 1, TRAIN_B, SHARDED_FP32_S, seed=1)[0]
+    tr = Trainer(cfg32, tc32, init_params(cfg32, 2, tp=tc32.tp, device=dev))
+    p0 = [p.detach().to("cpu", copy=True) for p in leaves(tr.params)]
+    single = tr.train_step(batch)["loss"]
+    host = [p.detach().cpu() for p in leaves(tr.params)]
+    host_m = [m.cpu() for m in leaves(tr.opt_state.m)]
+    del tr
+    torch.cuda.empty_cache()
+    tr = Trainer(cfg32, tc32, _place(init_params(cfg32, 2, tp=tc32.tp,
+                                                 device=dev), cfg32, mesh),
+                 mesh)
+    sharded = tr.train_step(batch)["loss"]
+    rel = abs(sharded - single) / abs(single)
+    worst = worst_m = worst_loose = 0.0
+    loose = total = 0
+    moved = math.inf
+    replicas = True
+    for p, m, h, hm, h0 in zip(leaves(tr.params), leaves(tr.opt_state.m),
+                               host, host_m, p0):
+        for t in (p, m):
+            full = t.full()
+            replicas &= all(torch.equal(sd, full[sl])
+                            for sd, sl in zip(t.shards, t.slices))
+        full, hm = p.full(), hm.to(dev)
+        d = (full - h.to(dev)).abs()
+        moved = min(moved, float((full - h0.to(dev)).abs().max()))
+        worst = max(worst, float(d.max()))
+        worst_m = max(worst_m, float((m.full() - hm).abs().max()))
+        off = d > 1e-5
+        if bool((off & (hm.abs() / (1 - oc.b1) >= 100 * oc.eps)).any()):
+            raise AssertionError("train_sharded fp32: a parameter whose "
+                                 "gradient is above 100 eps is 1e-5 apart")
+        if off.any():
+            worst_loose = max(worst_loose, float(d[off].max()))
+        loose += int(off.sum())
+        total += d.numel()
+        del full, hm, d, off
+    del tr, host, host_m, p0
+    torch.cuda.empty_cache()
+    log(f"  fp32 (B {TRAIN_B} x S {SHARDED_FP32_S}, lr {lr}): loss "
+        f"{sharded:.6f} vs {single:.6f} (rel {rel:.3g}, tol 1e-5), worst "
+        f"leaf {worst:.3g}: {loose} of {total} parameters beyond 1e-5, all "
+        f"with clipped |g| < 100 eps (worst {worst_loose:.3g}, tol 2 lr); "
+        f"worst first moment {worst_m:.3g} (tol 1e-5); least leaf move "
+        f"{moved:.3g}; replicas agree: {replicas}")
+    if not (rel <= 1e-5 and worst_m <= 1e-5 and worst_loose <= 2 * lr
+            and loose <= 1e-3 * total and moved >= lr / 2 and replicas):
+        raise AssertionError("train_sharded fp32: sharded != single")
+    return {"batch": TRAIN_B, "seq": SHARDED_FP32_S, "lr": lr,
+            "single_loss": single, "sharded_loss": sharded,
+            "loss_rel_err": rel, "worst_leaf_abs_diff": worst,
+            "params_beyond_1e-5": loose, "params": total,
+            "worst_beyond_1e-5": worst_loose,
+            "worst_first_moment_abs_diff": worst_m,
+            "least_leaf_move": moved, "replicas_agree": replicas,
+            "tolerance": "loss rel 1e-5; parameters and first moments abs "
+                         "1e-5, parameters whose clipped |g| < 100 eps "
+                         "within 2 lr (at most 0.1 %); every leaf moved by "
+                         "lr / 2; every shard equal to its slice"}
+
+
+def _expected_residual(g, mode):
+    """The pod sync's residual after its first step, recomputed here from
+    the reduced gradient ``g``: g - decompress(compress(g)) in fp32, int8
+    per tensor at scale max|g| / 127 + 1e-12 with half-to-even rounding,
+    or the bf16 round trip."""
+    import torch
+
+    gf = g.float()
+    if mode == "bf16":
+        return gf - gf.to(torch.bfloat16).float()
+    scale = gf.abs().max() / 127.0 + 1e-12
+    return gf - torch.clamp(torch.round(gf / scale), -127, 127) * scale
+
+
+def _pod_sync(cfg, tc, batch, dev):
+    """One step on a (2, 2, 2) ("pod", "data", "model") mesh of the card
+    from the same weights with compress none, int8 and bf16, at POD_LAYERS
+    layers: step 1's loss bit-equal across the three (the forward is the
+    same, so this shows only that the path runs); each mode's residual held
+    against ``_expected_residual`` of the reduced gradients, taken from the
+    same placed weights before the uncompressed step: within 1e-6 abs, or
+    one quantum (int8: the leaf's scale; bf16: one bf16 ulp of |g|) at
+    elements where rounding puts g on the other side of a boundary, at most
+    0.1 % of them (the CPU tests' rule). The int8 residual is non-zero;
+    bf16 gradients pass the bf16 wire exactly, so for bf16 only the fp32
+    leaves, the norms, leave one."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import Trainer
+    from repro_torch.train.optimizer import leaves
+    from repro_torch.train.trainer import sharded_loss_and_grads
+
+    cut = cfg.replace(n_layers=POD_LAYERS)
+    mesh = make_mesh(*POD_MESH)
+    out = {"layers": POD_LAYERS, "mesh": dict(mesh.shape)}
+    grads = None
+    for mode in ("none", "int8", "bf16"):
+        tcm = dataclasses.replace(tc, compress=mode)
+        tr = Trainer(cut, tcm, _place(init_params(cut, 0, tp=tc.tp,
+                                                  device=dev), cut, mesh),
+                     mesh)
+        if grads is None:
+            grads = [g.detach() for g in leaves(sharded_loss_and_grads(
+                tr.params, cut, tcm, batch, mesh)[1])]
+        t0 = time.perf_counter()
+        loss = tr.train_step(batch)["loss"]
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        out[mode] = {"loss": loss, "step_ms": step_ms}
+        if mode != "none":
+            res = leaves(tr.opt_state.residual)
+            flips = total = 0
+            worst = 0.0
+            for r, g in zip(res, grads):
+                want = _expected_residual(g, mode)
+                diff = (r.to(want.device) - want).abs()
+                gf = g.float().abs()
+                quantum = ((gf.max() / 127).expand_as(gf) if mode == "int8"
+                           else 2.0 ** -7 * gf)
+                off = diff > 1e-6
+                if not bool((diff[off] <= 1.01 * quantum[off] + 1e-6).all()):
+                    raise AssertionError(f"pod sync {mode}: residual off by "
+                                         f"more than a quantum")
+                flips += int(off.sum())
+                total += diff.numel()
+                worst = max(worst, float(diff.max()))
+            out[mode].update(
+                residual_finite=all(bool(torch.isfinite(r).all())
+                                    for r in res),
+                residual_max_abs=max(float(r.abs().max()) for r in res),
+                residual_vs_recomputed_max_abs=worst,
+                residual_elements_a_quantum_off=flips,
+                residual_elements=total)
+            if flips > 1e-3 * total:
+                raise AssertionError(f"pod sync {mode}: {flips} of {total} "
+                                     f"residual elements a quantum off")
+            del res
+        del tr
+        torch.cuda.empty_cache()
+    del grads
+    base = out["none"]["loss"]
+    log(f"  pod sync ({POD_LAYERS} layers, {out['mesh']}): loss none "
+        f"{base!r}, int8 {out['int8']['loss']!r}, bf16 "
+        f"{out['bf16']['loss']!r}; residual max |r| int8 "
+        f"{out['int8']['residual_max_abs']:.3g}, bf16 "
+        f"{out['bf16']['residual_max_abs']:.3g}; against the residual "
+        f"recomputed from the reduced gradients: int8 max |diff| "
+        f"{out['int8']['residual_vs_recomputed_max_abs']:.3g} "
+        f"({out['int8']['residual_elements_a_quantum_off']} of "
+        f"{out['int8']['residual_elements']} a quantum off), bf16 "
+        f"{out['bf16']['residual_vs_recomputed_max_abs']:.3g} "
+        f"({out['bf16']['residual_elements_a_quantum_off']} a quantum off)")
+    for mode in ("int8", "bf16"):
+        if out[mode]["loss"] != base or not out[mode]["residual_finite"]:
+            raise AssertionError(f"pod sync {mode}: {out[mode]} vs {base}")
+    if not out["int8"]["residual_max_abs"] > 0:
+        raise AssertionError("pod sync int8: zero residual")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3316,6 +3885,12 @@ def main(argv=None):
         for arch in TRAIN_FAMILIES:
             mark(f"[3b] train {arch} bf16")
             trained[f"train {arch}"] = phase_train_family(dev, arch)
+    if "train_sharded" in phases:
+        mark("[3c] train llama3.2-1b bf16 sharded on one card; pod sync; "
+             "GPipe; reshard")
+        sh_n, sh_routes, gp_n, gp_routes = phase_train_sharded(dev)
+        trained["train_sharded"] = (sh_n, sh_routes)
+        trained["gpipe"] = (gp_n, gp_routes)
     runs = {}
     if "serve" in phases:
         for r in serve_runs:
@@ -3389,6 +3964,12 @@ def main(argv=None):
                         row["launches"] = by_prefill["segment"]
                     elif row["path"] == "memagent answer prefill":
                         row["launches"] = by_prefill["answer"]
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            for row in k["other_shapes"]:
+                if row["path"] in ("train_sharded", "gpipe") and \
+                        row["path"] in trained:
+                    row["launches"] = trained[row["path"]][0]
     torch.cuda.synchronize()
     mark("[12] the kernels line")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,7 +21,8 @@ from repro_torch.configs.base import ArchConfig, MemoryConfig
 # sparsity. The reference's are a TPU v5e's.
 PEAK_FLOPS = 989e12      # bf16 FLOP/s on the tensor cores
 HBM_BW = 3.35e12         # B/s, HBM3
-NVLINK_BW = 900e9        # B/s to the other cards of the host
+NVLINK_BW = 450e9        # B/s one direction of NVLink 4 to the host's
+                         # other cards (the sheet's 900 GB/s is both ways)
 SMEM_BYTES = 227 * 2**10  # shared memory one block can use
 
 # Power model for derived-energy estimates: the card's 700 W limit for

@@ -9,9 +9,12 @@ package restores in the other:
 Leaves are keyed by their "/"-joined dict path ("params/layers/attn/wq");
 bf16 leaves are stored as their uint16 bit patterns (npz has no bf16) and
 named "bfloat16" in the manifest. A write goes to a temporary directory that
-is renamed into place; ``keep`` newest steps are retained. One host only:
-the reference's resharding onto another mesh waits for ROADMAP Queue 1 item
-10.
+is renamed into place; ``keep`` newest steps are retained.
+
+Elastic restarts: a tree of sharded leaves (``sharding.ShardedTensor``) is
+saved as its gathered full arrays, so the files do not depend on the mesh,
+and ``restore(..., shardings=)`` places the restored tree onto any mesh
+(``plan_mesh``'s smaller one after a host is lost, or one device).
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import ShardedTensor, device_put
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -38,7 +43,7 @@ def _flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 def _to_numpy(t: torch.Tensor):
     """(array as stored, dtype name for the manifest)."""
-    t = t.detach().cpu()
+    t = t.full("cpu") if isinstance(t, ShardedTensor) else t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     a = t.numpy()
@@ -85,9 +90,11 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return int(steps[-1].split("_")[1]) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like):
+def restore(ckpt_dir: str, step: int, like, shardings=None):
     """A tree of the structure of ``like``, each leaf a new tensor on the
-    device of ``like``'s leaf at the same path."""
+    device of ``like``'s leaf at the same path (the CPU for a sharded one);
+    placed onto ``shardings`` (one ``NamedSharding`` or a tree of them, any
+    mesh) when given: the elastic-restart path."""
     data = np.load(os.path.join(ckpt_dir, f"step_{step:08d}", "params.npz"))
     dtypes = read_manifest(ckpt_dir, step).get("dtypes", {})
     flat_like = _flatten(like)
@@ -101,14 +108,15 @@ def restore(ckpt_dir: str, step: int, like):
             t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
         else:
             t = torch.from_numpy(a.copy())
-        return t.to(ref.device)
+        return t if isinstance(ref, ShardedTensor) else t.to(ref.device)
 
     def build(t, prefix=""):
         if isinstance(t, dict):
             return {k: build(v, f"{prefix}{k}/") for k, v in t.items()}
         return load(prefix[:-1], t)
 
-    return build(like)
+    tree = build(like)
+    return tree if shardings is None else device_put(tree, shardings)
 
 
 def read_manifest(ckpt_dir: str, step: int) -> Dict:

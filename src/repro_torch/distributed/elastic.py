@@ -9,8 +9,8 @@ Components:
     valid (data, model) factorization that preserves TP divisibility, so a
     512-chip job degrades to 480 chips instead of dying.
   * ``ElasticSession`` — ties it together: on failure, restore the latest
-    checkpoint onto the new mesh (the reference's checkpoint reshards; the
-    port's restores on one host).
+    checkpoint onto the new mesh (``launch.mesh.make_mesh(*plan)``, then
+    ``checkpoint.restore(..., shardings=)``).
 """
 from __future__ import annotations
 

@@ -177,6 +177,20 @@ def _layer_full(lp, x, cos, sin, cfg: ArchConfig, tp: int):
     return x + y, aux, k, v, q
 
 
+def run_layers(layers: Params, cfg: ArchConfig, x, *, tp: int = 16):
+    """x [B, S, d] through a stack of transformer layers (the leading dim of
+    ``layers``' leaves) at positions 0..S-1, without the final norm: the
+    stage function of a pipeline over slices of ``params["layers"]``
+    (``distributed.pipeline_parallel.gpipe_forward``)."""
+    B, Sq = x.shape[:2]
+    positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
+    cos, sin = _rope_tables(cfg, positions)
+    n = layers["attn_norm"]["w"].shape[0]
+    for lp in _unstack(layers, n):
+        x = _layer_full(lp, x, cos, sin, cfg, tp)[0]
+    return x
+
+
 def _add_aux(aux, aux_l):
     return aux if aux_l is None else aux + aux_l
 

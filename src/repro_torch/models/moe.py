@@ -93,8 +93,11 @@ def _moe_group(p: Params, x: torch.Tensor, cfg: ArchConfig, cap: int
     return y, aux
 
 
+GROUP_SIZE = 2048   # tokens of a dispatch group (the last one padded)
+
+
 def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
-              group_size: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
+              group_size: int = GROUP_SIZE) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y [B, S, d], aux fp32 scalar, the mean over the
     groups of the flattened tokens)."""
     B, S, d = x.shape

@@ -8,6 +8,12 @@ in fp32. Unlike the reference, which returns new arrays, ``adamw_update``
 writes the parameters and the moments IN PLACE under ``torch.no_grad()``
 (one model's worth of fp32 temporaries at most, one leaf at a time) and
 returns the same tensors.
+
+Sharded parameters (``distributed.sharding.ShardedTensor`` leaves) get
+moments sharded like them; the gradients stay full tensors, and each mesh
+coordinate updates its own slice of the parameter and of the moments from
+its slice of the gradient. The clip's norm is taken once, from the full
+gradients, so it is the single-device norm.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import ShardedTensor, zeros_like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,9 +61,14 @@ def tree_map(fn, tree):
 
 
 def init_opt_state(params, compress: str = "none") -> OptState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
-    residual = tree_map(zeros, params) if compress == "int8" else None
+    """Zero fp32 moments (sharded like sharded parameters); for int8
+    compression a zero fp32 residual of the full shapes, on the device the
+    sharded step reduces the gradients on (the first coordinate's)."""
+    zeros = lambda p: zeros_like(p, torch.float32)
+    full_zeros = lambda p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.shards[0].device
+        if isinstance(p, ShardedTensor) else p.device)
+    residual = tree_map(full_zeros, params) if compress == "int8" else None
     return OptState(step=0, m=tree_map(zeros, params),
                     v=tree_map(zeros, params), residual=residual)
 
@@ -89,14 +102,23 @@ def adamw_update(grads, state: OptState, params, oc: OptConfig):
     f = np.float32
     bc1 = float(f(1) - f(oc.b1) ** f(step))
     bc2 = float(f(1) - f(oc.b2) ** f(step))
-    for g, m, v, p in zip(leaves(grads), leaves(state.m), leaves(state.v),
-                          leaves(params)):
-        g = g.float() * scale
+
+    def upd(g, m, v, p, decay: bool):
+        g = g.float() * scale.to(g.device)
         m.mul_(oc.b1).add_((1 - oc.b1) * g)
         v.mul_(oc.b2).add_((1 - oc.b2) * g * g)
         delta = (m / bc1) / (torch.sqrt(v / bc2) + oc.eps)
-        if p.dim() >= 2:  # decoupled weight decay on matrices only
+        if decay:  # decoupled weight decay on matrices only
             delta += oc.weight_decay * p.float()
         p.copy_((p.float() - lr * delta).to(p.dtype))
+
+    for g, m, v, p in zip(leaves(grads), leaves(state.m), leaves(state.v),
+                          leaves(params)):
+        if isinstance(p, ShardedTensor):
+            for i, sl in enumerate(p.slices):
+                upd(g[sl].to(p.shards[i].device), m.shards[i], v.shards[i],
+                    p.shards[i], p.dim() >= 2)
+        else:
+            upd(g, m, v, p, p.dim() >= 2)
     stats = {"lr": lr, "grad_norm": gnorm}
     return params, state._replace(step=step), stats

@@ -1,28 +1,52 @@
 """Training loop (twin of ``repro.train.trainer``): a train step with
-per-layer remat, microbatch gradient accumulation, and checkpoint / restart.
+per-layer remat, microbatch gradient accumulation, the compressed cross-pod
+gradient sync with error feedback, the sharded step, and checkpoint /
+restart.
 
 Fault tolerance: the Trainer saves every ``ckpt_every`` steps (atomic),
 restores the latest checkpoint on construction, and exposes
 ``emergency_save`` for the launcher's signal handler.
 
-``compress`` is accepted and, as in the reference on one device, has no
-effect: the reference compresses only its cross-pod gradient sync, which
-needs a mesh with a ``pod`` axis. The port's collectives wait for ROADMAP
-Queue 1 item 10b. The reference jits and donates; the port runs eagerly and
-updates the parameters and moments in place (``optimizer.adamw_update``).
+The pod sync: when ``compress`` is not "none" and the mesh has a ``pod``
+axis of size > 1, the gradients pass through
+``collectives.compressed_grads_with_feedback`` (bf16 mode casts to bf16 and
+back once more, as the reference does) and the residual lives in
+``opt_state.residual``. Without a pod axis ``compress`` changes nothing, as
+in the reference.
+
+The sharded step: with parameters placed by ``sharding.device_put``, the
+step computes what the reference's ``jax.jit(step)`` computes under GSPMD,
+the single-device step's result. The batch is split over the data axes as
+``batch_specs`` says (not split when it does not divide); each data index
+gathers the full parameters onto its first device and runs
+``loss_and_grads`` on its slice (its microbatches in turn with accum > 1);
+the loss and the gradients are averaged over the data indices in index
+order (``collectives.all_reduce``); then the pod sync, if on; then each mesh
+coordinate updates its own slices of the parameters and of the fp32 moments
+(``optimizer.adamw_update``). MoE layers dispatch in groups of
+``moe.GROUP_SIZE`` tokens, with capacity and the aux loss per group, so a
+split keeps the single-device result only where each data index's tokens
+are a whole number of the global group; elsewhere the step raises (GSPMD
+has no such limit: ROADMAP Queue 3).
+
+The reference jits and donates; the port runs eagerly and updates the
+parameters and moments in place.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed import collectives, sharding
+from repro_torch.distributed.sharding import ShardedTensor
 from repro_torch.models import model as M
+from repro_torch.models.moe import GROUP_SIZE
 from repro_torch.train.optimizer import (OptConfig, OptState, adamw_update,
-                                         init_opt_state, leaves)
+                                         init_opt_state, leaves, tree_map)
 
 
 @dataclasses.dataclass
@@ -80,14 +104,108 @@ def loss_and_grads(params, cfg: ArchConfig, tc: TrainConfig, batch):
     return loss, _unflatten(params, acc)
 
 
-def make_train_step(cfg: ArchConfig, tc: TrainConfig) -> Callable:
+def placed_mesh(params):
+    """The mesh a parameter tree is placed on (None: not sharded)."""
+    for p in leaves(params):
+        if isinstance(p, ShardedTensor):
+            return p.sharding.mesh
+    return None
+
+
+# the batch dim of each train input, where ``batch_specs`` cuts it
+BATCH_DIMS = {"tokens": 0, "labels": 0, "positions3": 1, "img_embeds": 0}
+
+
+def data_parts(batch, cfg: ArchConfig, tc: TrainConfig, mesh) -> List[Dict]:
+    """The batch cut over the mesh's data axes as ``batch_specs`` cuts it,
+    one part per data index; the whole batch as the one part when it does
+    not divide. An input ``batch_specs`` does not name for the arch (vlm
+    smoke configs have no ``vision_stub`` frontend, yet take
+    ``img_embeds``) is cut on its batch dim all the same: GSPMD slices a
+    replicated input to the rows each device computes. With accum > 1 the
+    cut dims sit one further right (the leading axis is the
+    microbatch's). Raises where the cut would split an MoE dispatch
+    group."""
+    lead = 1 if tc.accum > 1 else 0
+    B, S = batch["tokens"].shape[lead:lead + 2]
+    specs = sharding.batch_specs(cfg, ShapeConfig("step", S, B, "train"),
+                                 mesh)
+    if specs["tokens"][0] is None:
+        return [batch]
+    dp = sharding.data_ways(mesh)
+    group = min(GROUP_SIZE, B * S)
+    if cfg.n_experts and (B // dp) * S % group:
+        raise ValueError(
+            f"{cfg.name}: {dp} data ways give each a batch of {B // dp} x "
+            f"{S} = {(B // dp) * S} tokens, no whole number of the "
+            f"{group}-token MoE dispatch group of the {B} x {S} batch: "
+            f"capacity and the aux loss would differ from one device's")
+    parts = [{} for _ in range(dp)]
+    for k, v in batch.items():
+        spec = specs.get(k)
+        dim = lead + (BATCH_DIMS[k] if spec is None else
+                      next(i for i, e in enumerate(spec) if e is not None))
+        n = v.shape[dim] // dp
+        for d in range(dp):
+            parts[d][k] = v.narrow(dim, d * n, n)
+    return parts
+
+
+def sharded_loss_and_grads(params, cfg: ArchConfig, tc: TrainConfig, batch,
+                           mesh):
+    """``loss_and_grads`` of a sharded parameter tree: each data index
+    gathers the full parameters onto its first device (blocks from its own
+    coordinates first) and runs its part of the batch; the loss and the
+    gradients are their mean over the data indices, on the mesh's first
+    coordinate's device (the result of ``collectives.all_reduce``)."""
+    groups = mesh.groups(sharding.data_axes(mesh))
+    losses, grads = [], []
+    for d, part in enumerate(data_parts(batch, cfg, tc, mesh)):
+        dev = mesh.device(groups[d][0])
+        own = set(groups[d])
+        order = groups[d] + [i for i in range(mesh.size) if i not in own]
+        full = tree_map(lambda p: p.full(dev, order)
+                        if isinstance(p, ShardedTensor) else p.to(dev),
+                        params)
+        loss, g = loss_and_grads(full, cfg, tc,
+                                 {k: v.to(dev) for k, v in part.items()})
+        del full
+        losses.append(loss)
+        grads.append(leaves(g))
+    reduced = []
+    for i in range(len(grads[0])):
+        reduced.append(collectives.all_reduce([g[i] for g in grads],
+                                              "mean"))
+        for g in grads:
+            g[i] = None
+    return collectives.all_reduce(losses, "mean"), _unflatten(params, reduced)
+
+
+def make_train_step(cfg: ArchConfig, tc: TrainConfig, mesh=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, stats), the params
-    and moments updated in place. stats: loss, lr, grad_norm."""
+    and moments updated in place. stats: loss, lr, grad_norm. Parameters
+    placed on a mesh (``sharding.device_put``) take the sharded step;
+    ``mesh`` with a ``pod`` axis of size > 1 turns on the compressed pod
+    sync when ``tc.compress`` asks for it."""
+    pod_sync = (tc.compress != "none" and mesh is not None
+                and "pod" in mesh.shape and mesh.shape["pod"] > 1)
 
     def step_fn(params, opt_state: OptState, batch):
-        loss, grads = loss_and_grads(params, cfg, tc, batch)
-        params, opt_state, stats = adamw_update(grads, opt_state, params,
-                                                tc.opt)
+        placed = placed_mesh(params)
+        if placed is None:
+            loss, grads = loss_and_grads(params, cfg, tc, batch)
+        else:
+            loss, grads = sharded_loss_and_grads(params, cfg, tc, batch,
+                                                 placed)
+        residual = opt_state.residual
+        if pod_sync:
+            grads, residual = collectives.compressed_grads_with_feedback(
+                grads, residual, tc.compress)
+            if tc.compress == "bf16":
+                grads = tree_map(lambda g: g.to(torch.bfloat16).float(),
+                                 grads)
+        params, opt_state, stats = adamw_update(
+            grads, opt_state._replace(residual=residual), params, tc.opt)
         stats["loss"] = loss
         return params, opt_state, stats
 
@@ -95,12 +213,13 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig) -> Callable:
 
 
 class Trainer:
-    def __init__(self, cfg: ArchConfig, tc: TrainConfig, params):
+    def __init__(self, cfg: ArchConfig, tc: TrainConfig, params, mesh=None):
         self.cfg, self.tc = cfg, tc
         self.params = params
         self.opt_state = init_opt_state(params, tc.compress)
-        self.step_fn = make_train_step(cfg, tc)
+        self.step_fn = make_train_step(cfg, tc, mesh)
         self.step = 0
+        self.mesh = mesh
         if tc.ckpt_dir:
             last = ckpt.latest_step(tc.ckpt_dir)
             if last is not None:
@@ -127,12 +246,13 @@ class Trainer:
             self.save()
 
     def restore(self, step: int):
+        """Copies the checkpoint into the parameters and moments in place:
+        into each slice of a sharded tree, whatever mesh wrote it."""
         like = {"params": self.params, "m": self.opt_state.m,
                 "v": self.opt_state.v}
         tree = ckpt.restore(self.tc.ckpt_dir, step, like)
-        with torch.no_grad():
-            for dst, src in zip(leaves(like), leaves(tree)):
-                dst.copy_(src)
+        for dst, src in zip(leaves(like), leaves(tree)):
+            sharding.copy_(dst, src)
         man = ckpt.read_manifest(self.tc.ckpt_dir, step)
         self.opt_state = self.opt_state._replace(
             step=int(man["extra"].get("opt_step", step)))

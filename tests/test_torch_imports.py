@@ -47,6 +47,17 @@ def test_no_jax_or_reference_imports(path):
     "repro_torch.examples.serve_sparse_attention",
     "repro_torch.examples.rag_pipeline",
     "repro_torch.examples.train_mac_100m",
+    "repro_torch.distributed.sharding", "repro_torch.distributed.collectives",
+    "repro_torch.distributed.pipeline_parallel",
 ])
 def test_port_imports_without_cuda_toolchain(mod):
     importlib.import_module(mod)
+
+
+def test_make_mesh_is_the_ports_own():
+    """``make_mesh`` comes from the port's ``launch/mesh.py``, which imports
+    neither JAX nor the reference (checked file by file above)."""
+    from repro_torch.launch import mesh
+
+    assert mesh.make_mesh.__module__ == "repro_torch.launch.mesh"
+    assert not {"jax", "repro"} & set(vars(mesh))
