@@ -78,6 +78,18 @@ failure (the script then exits non-zero):
    the reduced gradients, int8's non-zero);
    GPipe: 4 stages of 4 layers, 8 microbatches of [1, 2048], 176 flash
    launches, equal to the unpipelined forward; one ``train_sharded`` line;
+3d. roofline: the dry-run and roofline tools (``launch.op_walk``,
+   ``launch.roofline``, ``launch.dryrun``): one train step of full-width
+   llama3.2-1b (bf16, B 4 x S 2048, remat, one card) and one DSA
+   ``decode_step`` (B 4, a cache of 8191 tokens in 16-token pages), each
+   walked on the card and dry-run on placeholder cuda:0, the two walks
+   equal in FLOPs per dtype, bytes and kernel records (32 flash records a
+   train step; 16 relevancy and 16 paged attention a decode step), with
+   the walk's terms, its bound, the median of 3 timed steps, MFU, and the
+   walk's peak live bytes beside ``max_memory_allocated``; then the dry
+   run of llama3.2-1b's decode_32k cell on the 16 x 16 mesh of
+   placeholder cards (its record under ``chiprun_out/dryrun/``); one
+   ``roofline`` line;
 4. serve: full-width llama3.2-1b in bf16 with seeded random weights,
    ``ServeConfig(method=m, max_len=8192, n_slots=4)`` for m in dsa, lserve
    and seer, seer in both its top-k and its threshold selection, and dsa
@@ -194,8 +206,8 @@ failure (the script then exits non-zero):
    as the last line.
 
 ``--phases`` runs a subset of kernels, train, train_families,
-train_sharded, serve, modes, compare, pipeline, families, fleet, methods
-and examples (the default is all twelve);
+train_sharded, roofline, serve, modes, compare, pipeline, families, fleet,
+methods and examples (the default is all thirteen);
 ``--runs`` a subset of the serve runs, ``--family-runs`` of the families
 phase's.
 """
@@ -203,6 +215,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -216,10 +229,9 @@ from types import SimpleNamespace
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM, NVIDIA data sheet (dense rates)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12        # tensor cores, bf16 in, fp32 accumulate
-FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
+# the card's rates (H100 SXM, NVIDIA data sheet) are the package's table,
+# ``repro_torch.core.placement``; each kernel's bound is its wrapper's
+# ``cost(...).bound()``
 L2_BYTES = 50 * 2**20
 SERVE_ARCH = "llama3.2-1b"
 PROMPT_LENS = (4500, 4400, 300, 260)     # two past min_context, two short
@@ -365,9 +377,9 @@ FLEET_RUNS = {
     "dsa-mesh2": Run("dsa", kernels=_APPLY, compare=False, offload="overlap",
                      mesh=2, equals="dsa-offload-overlap")}
 ALL_RUNS = {**RUNS, **FAMILY_RUNS, **FLEET_RUNS}
-PHASES = ("kernels", "train", "train_families", "train_sharded", "serve",
-          "modes", "compare", "pipeline", "families", "fleet", "methods",
-          "examples")
+PHASES = ("kernels", "train", "train_families", "train_sharded",
+          "roofline", "serve", "modes", "compare", "pipeline", "families",
+          "fleet", "methods", "examples")
 # the run whose serve phase gives a kernel's launches and in-situ time in
 # its row: the first run that launches it
 HOME_PATH = {name: label for label, run in reversed(RUNS.items())
@@ -641,38 +653,8 @@ def _relevancy_timing(q, keys, w, block):
                                                       block=block))
     plain_ms = time_ms(lambda: rt.relevancy_topk_candidates_plain(
         q, keys, w, block=block))
-    B, Hq, dk = q.shape
-    S = keys.shape[1]
-    nb, c = S // block, block
-    n_bytes = (q.numel() + keys.numel()) * q.element_size() \
-        + w.numel() * 4 + B * nb * c * 8
-    # q.k products of bf16 inputs: exact on the tensor cores (bf16 products,
-    # fp32 accumulation); on fp32 cores the relu.w terms and the log2(block)
-    # compares a key that ordering a block by comparisons needs at least
-    dots = 2 * B * S * Hq * dk
-    rest = 2 * B * S * Hq + B * S * max(1, int(math.log2(block)))
     return {"ms": ms, "plain_ms": plain_ms,
-            **_bound(n_bytes, [(dots, _dot_rate(q, keys)),
-                               (rest, FP32_FLOP_PER_S)])}
-
-
-def _dot_rate(a, b):
-    """Peak rate of dot products of ``a`` by ``b`` computed in fp32: the
-    tensor cores' when both are bf16, else the fp32 cores'."""
-    import torch
-
-    both_bf16 = a.dtype == b.dtype == torch.bfloat16
-    return BF16_FLOP_PER_S if both_bf16 else FP32_FLOP_PER_S
-
-
-def _bound(n_bytes, terms):
-    """Least time for ``n_bytes`` moved and ``terms`` = [(operations, peak
-    rate)], each type of operation at its own peak, the types in turn."""
-    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = sum(n / rate for n, rate in terms) * 1e3
-    return {"bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations",
-            "bytes": n_bytes, "operations": sum(n for n, _ in terms)}
+            **rt.cost(q, keys, w, block=block).bound()}
 
 
 def _ptxas(source):
@@ -901,12 +883,12 @@ def _paged_timing(q, kc, vc, pages, lens, ps):
     log(f"  SDPA yardstick vs plain (pages of {ps}): max abs err "
         f"{lib_err:.3g} (bf16 output)")
 
-    valid_tok = int(valid.sum())
-    n_pages_read = sum(max(int((r >= 0).sum()), 1) for r in pages)
-    n_bytes = (q.numel() * 2 + n_pages_read * ps * KV * dh * 2 * 2
-               + pages.numel() * 4 + B * 4 + B * Hq * dh * 4 + B * Hq * 4)
-    # q.k of bf16 inputs on the tensor cores; p.v takes fp32 weights
-    qk = pv = 2 * valid_tok * Hq * dh
+    # the work this call's data needs: its valid tokens, its pages read
+    cost = sda.cost(q, kc, vc, pages, lens, page_size=ps,
+                    valid_tokens=int(valid.sum()),
+                    pages_read=sum(max(int((r >= 0).sum()), 1)
+                                   for r in pages))
+    n_bytes = cost.bytes
 
     n = cold_copies(n_bytes)
     ks = [kc] + [kc.clone() for _ in range(n - 1)]
@@ -925,8 +907,7 @@ def _paged_timing(q, kc, vc, pages, lens, ps):
         qs, k, v, attn_mask=valid) for k, v in zip(kgs, vgs)])
     del kgs, vgs
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            **_bound(n_bytes, [(qk, _dot_rate(q, kc)), (pv, FP32_FLOP_PER_S)]),
-            "ms_l2_warm": ms_warm,
+            **cost.bound(), "ms_l2_warm": ms_warm,
             "timing": f"cold L2: ms, plain_ms and library_ms rotate over {n}, "
                       f"{n}, {n_lib} copies of their k/v; ms_l2_warm on one "
                       f"copy"}
@@ -984,8 +965,7 @@ def check_page_minmax(dev):
 
     # on the path it reads the view pool_gather has just written (67 MB of
     # K and V per layer), so its keys are mostly out of L2: cold timing
-    n_bytes = k.numel() * 2 + 2 * mn.numel() * 4
-    n = cold_copies(n_bytes)
+    n = cold_copies(pp.cost(k, page_size=ps).bytes)
     ks = [k] + [k.clone() for _ in range(n - 1)]
     ms = time_ms([lambda x=x: pp.page_minmax(x, page_size=ps) for x in ks])
     ms_warm = time_ms(lambda: pp.page_minmax(k, page_size=ps))
@@ -1005,10 +985,7 @@ def check_page_minmax(dev):
         "source": "src/repro_torch/csrc/page_minmax.cu",
         "replaces": "src/repro/kernels/page_pool.py:99",
         "launches": None, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms,
-        # one compare for the min and one for the max per element, on the
-        # fp32 cores
-        **_bound(n_bytes, [(2 * k.numel(), FP32_FLOP_PER_S)]),
+        "library_ms": library_ms, **pp.cost(k, page_size=ps).bound(),
         "ms_l2_warm": ms_warm,
         "timing": f"cold L2: ms, plain_ms and library_ms rotate over {n} "
                   f"copies of k; ms_l2_warm on one copy",
@@ -1174,12 +1151,6 @@ def _bm25_kernel_times(tf, dl, idf, block, c, avgdl, valid):
     ms = time_ms(lambda: bm.bm25_topk_candidates(tf, dl, idf, **kw))
     plain_ms = time_ms(lambda: bm.bm25_topk_candidates_plain(tf, dl, idf,
                                                              **kw))
-    B, D, T = tf.shape
-    nb = D // block
-    nd = min(int(valid), D) if int(valid) > 0 else D
-    # the kernel reads tf and doc_len of the live docs only (a doc at or
-    # past nd scores -inf unread), idf, and writes the candidates
-    n_bytes = (B * nd * (T + 1) + idf.numel()) * 4 + B * nb * c * 8
     n = cold_copies((tf.numel() + dl.numel()) * 4)
     tfs = [tf] + [tf.clone() for _ in range(n - 1)]
     dls = [dl] + [dl.clone() for _ in range(n - 1)]
@@ -1187,11 +1158,10 @@ def _bm25_kernel_times(tf, dl, idf, block, c, avgdl, valid):
                                                                 **kw)
                        for x, y in zip(tfs, dls)])
     del tfs, dls
-    # per live doc: 4 operations for the length norm, 5 per term (multiply,
-    # add, divide, fused multiply-add), one compare to select it
-    ops_n = B * nd * (4 + 5 * T + 1)
     return {"ms": ms, "plain_ms": plain_ms, "ms_cold": ms_cold,
-            **_bound(n_bytes, [(ops_n, FP32_FLOP_PER_S)]),
+            # the live docs this run's data holds (the store's count)
+            **bm.cost(tf, dl, idf, block=block, c=c,
+                      valid=int(valid)).bound(),
             "timing": f"ms and plain_ms L2-warm; ms_cold rotates over {n} "
                       f"copies of the panel and doc lengths"}
 
@@ -1205,13 +1175,6 @@ def _bm25_timing(state, terms, tfq, dln, idf, nd, block):
     row = _bm25_kernel_times(tfq, dln, idf, block, RAG_K, 1.0, nd)
     row["gather_ms"] = time_ms(lambda: _bm25_panel(state, terms))
     return row
-
-
-def _pairs(S: int, window: int) -> int:
-    """(query, key) pairs the causal band keeps, under a window if given."""
-    if not window or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
 
 
 def _flash_check(name, got, want):
@@ -1301,11 +1264,8 @@ def _flash_timing(q, k, v, window, plain_n=20):
     library_ms = time_ms([lambda a=a: lib(a) for a in cp])
     backend = _kernel_names(lambda: lib(cp[0]))
     del cp
-    out_bytes = q.numel() * q.element_size()
-    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            **_bound(in_bytes + out_bytes,
-                     [(4 * B * H * dh * _pairs(S, window), rate)]),
+            **fa.cost(q, k, v, window=window).bound(),
             "ms_l2_warm": ms_warm, "library_kernels": backend,
             "library": "scaled_dot_product_attention(is_causal=True, "
                        "enable_gqa=True)" if not window else
@@ -2407,6 +2367,270 @@ def _pod_sync(cfg, tc, batch, dev):
             raise AssertionError(f"pod sync {mode}: {out[mode]} vs {base}")
     if not out["int8"]["residual_max_abs"] > 0:
         raise AssertionError("pod sync int8: zero residual")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the roofline tools on the card
+# ---------------------------------------------------------------------------
+
+ROOFLINE_DECODE_B = 4
+ROOFLINE_DECODE_LEN = VIEW - 1      # inside [min_context, fallback_context]
+ROOFLINE_TIMED = 3
+
+
+def _walks_equal(name, real, fake):
+    """Raise unless two walks count the same: FLOPs per dtype, bytes and
+    collective bytes per device, and the kernel records in order. The
+    message names the ops whose counts differ."""
+    a = {d: c.as_dict() for d, c in real.costs.items()}
+    b = {d: c.as_dict() for d, c in fake.costs.items()}
+    if a == b and real.kernel_keys() == fake.kernel_keys():
+        return
+    rows = {op: (real.by_op.get(op), fake.by_op.get(op))
+            for op in set(real.by_op) | set(fake.by_op)
+            if real.by_op.get(op) != fake.by_op.get(op)}
+    raise AssertionError(
+        f"roofline {name}: the card's walk {a} != the placeholder walk {b}; "
+        f"kernel records {len(real.kernels)} vs {len(fake.kernels)} "
+        f"(equal: {real.kernel_keys() == fake.kernel_keys()}); ops "
+        f"[calls, flops, bytes] card vs placeholder: {rows}")
+
+
+def _roofline_row(name, real, fake, step_ms, model_flops, t_real, t_fake,
+                  memory):
+    """The walk's terms on cuda:0, the bound (the largest), the measured
+    step and MFU (model FLOPs over the step at the bf16 peak), and the
+    walk's peak live bytes beside ``memory``: the card's allocated bytes
+    when its peak was reset (before the walked step) and its peak
+    during the step."""
+    import torch
+    from repro_torch.core.placement import PEAK_FLOPS
+    from repro_torch.launch import roofline as RL
+
+    _walks_equal(name, real, fake)
+    rl = RL.from_walk(real.costs, 1, model_flops)
+    counts = {}
+    for r in real.kernels:
+        counts[r.name] = counts.get(r.name, 0) + 1
+    row = {"device": rl.device, "flops_by_dtype": rl.flops_by_dtype,
+           "bytes": rl.hbm_bytes, "compute_s": rl.compute_s,
+           "memory_s": rl.memory_s, "collective_s": rl.collective_s,
+           "bound_ms": rl.step_s * 1e3, "bound_by": rl.bottleneck,
+           "step_ms_median": step_ms,
+           "bound_over_step": rl.step_s * 1e3 / step_ms,
+           "model_flops": model_flops,
+           "mfu": model_flops / (step_ms / 1e3 * PEAK_FLOPS),
+           "mfu_at_bound": rl.mfu, "kernel_records": counts,
+           "walks_equal": True,
+           "peak_live_bytes": real.peak_live.get(rl.device, 0),
+           "argument_bytes": real.argument_bytes.get(rl.device, 0),
+           "allocated_at_reset": memory[0],
+           "max_memory_allocated": memory[1],
+           "card_total_memory": torch.cuda.get_device_properties(
+               0).total_memory,
+           "walk_s_card": t_real, "walk_s_placeholder": t_fake,
+           "top_ops_by_bytes": sorted(
+               ([op, *v] for op, v in real.by_op.items()),
+               key=lambda r: -r[3])[:8]}
+    log(f"  roofline {name}: compute {row['compute_s'] * 1e3:.4g} ms "
+        f"({rl.flops_by_dtype}), memory {row['memory_s'] * 1e3:.4g} ms, "
+        f"bound {row['bound_ms']:.4g} ms ({rl.bottleneck}); step "
+        f"{step_ms:.4g} ms, bound/step {row['bound_over_step']:.3f}, MFU "
+        f"{row['mfu']:.4f}; peak live {row['peak_live_bytes'] / 1e9:.2f} GB "
+        f"vs max_memory_allocated "
+        f"{row['max_memory_allocated'] / 1e9:.2f} GB (allocated at its "
+        f"reset {memory[0] / 1e9:.2f} GB); kernels {counts}; "
+        f"walks {t_real:.1f} s (card) / {t_fake:.1f} s (placeholders)")
+    return row
+
+
+def _timed_ms(fn, n=ROOFLINE_TIMED):
+    """Median wall ms of ``fn`` over n calls, each closed by a sync."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def _roofline_train(dev):
+    """One train step of full-width llama3.2-1b (bf16, B 4 x S 2048, remat,
+    one device, flash on the tensor cores) walked on the card and on
+    placeholder cuda:0: equal counts, 32 flash records; then 3 steps timed
+    without a walk."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import op_walk
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.specs import param_structs
+    from repro_torch.models import init_params, model as M
+    from repro_torch.train import OptConfig, TrainConfig, make_train_step
+    from repro_torch.train.optimizer import init_opt_state, tree_map
+
+    cfg = get_arch(TRAIN_ARCH)
+    B, S = TRAIN_B, TRAIN_S
+    tc = TrainConfig(opt=OptConfig(lr=3e-3, warmup_steps=5,
+                                   total_steps=TRAIN_STEPS), remat=True,
+                     tp=16)
+    step = make_train_step(cfg, tc)
+    batch = _train_batches(cfg, dev, 1, B, S)[0]
+    params = init_params(cfg, 0, device=dev)
+    opt = init_opt_state(params)
+    step(params, opt, batch)                 # warm: caches, cuBLAS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at_reset = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with op_walk.OpWalk() as real:
+        real.track(params, opt.m, opt.v, batch)
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    t_real = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    with op_walk.placeholders():
+        fp = tree_map(lambda t: t.to("cuda:0"), param_structs(cfg, tc.tp))
+        fo = init_opt_state(fp)
+        fb = {k: torch.empty(v.shape, dtype=v.dtype).to("cuda:0")
+              for k, v in batch.items()}
+        with torch.no_grad():               # warm the placeholder caches
+            M.train_loss(fp, cfg, fb, remat=True, tp=tc.tp)
+        with op_walk.OpWalk() as fake:
+            fake.track(fp, fo.m, fo.v, fb)
+            step(fp, fo, fb)
+    t_fake = time.perf_counter() - t0
+    n_flash = sum(r.name == "flash_attention" for r in real.kernels)
+    if n_flash != 2 * cfg.n_layers or len(real.kernels) != n_flash:
+        raise AssertionError(f"roofline train: kernel records "
+                             f"{[r.name for r in real.kernels]}")
+    step_ms = _timed_ms(lambda: step(params, opt, batch))
+    row = _roofline_row("train", real, fake, step_ms, RL.model_flops_for(
+        cfg, ShapeConfig("train", S, B, "train")), t_real, t_fake,
+        (at_reset, peak))
+    del params, opt, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(row, arch=TRAIN_ARCH, batch=B, seq=S, remat=True,
+                dtype="bfloat16")
+
+
+def _roofline_decode(dev):
+    """One DSA ``decode_step`` of full-width llama3.2-1b (B 4, a cache of
+    8191 tokens, 16-token pages) walked on the card and on placeholder
+    cuda:0: equal counts, relevancy and paged attention recorded once a
+    layer each; then 3 steps timed without a walk."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.methods import dsa
+    from repro_torch.launch import op_walk
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.specs import (cache_structs, param_structs,
+                                          sparse_structs)
+    from repro_torch.models import init_params, model as M
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = get_arch(SERVE_ARCH)
+    B, n = ROOFLINE_DECODE_B, ROOFLINE_DECODE_LEN
+    mem = cfg.memory
+    if not mem.min_context <= n + 1 <= mem.fallback_context:
+        raise AssertionError(f"decode length {n + 1} outside the window")
+    fn = dsa.make_sparse_fn(cfg, mem, tp=16, page=PAGE)
+    g = torch.Generator(device=dev).manual_seed(11)
+    params = init_params(cfg, 0, device=dev)
+    sp = dsa.dsa_init(cfg, mem, 0, device=dev)
+    caches = M.make_cache(cfg, B, VIEW, device=dev)
+    for name in ("k", "v"):
+        caches[name].normal_(generator=g)
+    caches["length"] = n
+    token = torch.randint(0, cfg.vocab_size, (B,), generator=g, device=dev,
+                          dtype=torch.int32)
+
+    def decode(p, c, t, s):
+        with torch.no_grad():
+            return M.decode_step(p, cfg, t, c, tp=16, sparse_fn=fn,
+                                 sparse_params=s)
+
+    decode(params, caches, token, sp)        # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at_reset = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with op_walk.OpWalk() as real:
+        real.track(params, caches, token, sp)
+        decode(params, caches, token, sp)
+        torch.cuda.synchronize()
+    t_real = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    with op_walk.placeholders():
+        on = lambda tree: tree_map(  # noqa: E731
+            lambda t: t.to("cuda:0") if isinstance(t, torch.Tensor) else t,
+            tree)
+        fp, fs = on(param_structs(cfg, 16)), on(sparse_structs(cfg, 16))
+        fc = on(cache_structs(cfg, B, VIEW, 16))
+        fc["length"] = n
+        ft = torch.empty(B, dtype=token.dtype).to("cuda:0")
+        decode(fp, fc, ft, fs)               # warm the placeholder caches
+        with op_walk.OpWalk() as fake:
+            fake.track(fp, fc, ft, fs)
+            decode(fp, fc, ft, fs)
+    t_fake = time.perf_counter() - t0
+    names = [r.name for r in real.kernels]
+    want = {"relevancy_topk_candidates": cfg.n_layers,
+            "paged_decode_attention": cfg.n_layers}
+    if {k: names.count(k) for k in set(names)} != want:
+        raise AssertionError(f"roofline decode: kernel records {names}")
+    step_ms = _timed_ms(lambda: decode(params, caches, token, sp))
+    row = _roofline_row("decode", real, fake, step_ms, RL.model_flops_for(
+        cfg, ShapeConfig("decode", n + 1, B, "decode")), t_real, t_fake,
+        (at_reset, peak))
+    del params, caches, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(row, arch=SERVE_ARCH, batch=B, context=n + 1, page=PAGE,
+                method="dsa", dtype="bfloat16")
+
+
+def phase_roofline(dev):
+    """The dry-run and roofline tools on the card (``launch.op_walk``,
+    ``launch.roofline``, ``launch.dryrun``): (a) one full-width llama3.2-1b
+    train step and (b) one DSA decode step, each walked on the card and
+    dry-run on placeholder cuda:0, the two walks equal in FLOPs per dtype,
+    bytes and kernel records (collectives are compared on placeholder
+    meshes only: a mesh of one card's entries aliases ``.to``), with the
+    terms, the bound, the measured step and MFU, and the walk's peak live
+    bytes beside ``max_memory_allocated``; (c) the dry run of llama3.2-1b's
+    decode_32k cell on the 16 x 16 mesh of placeholder cards. One
+    ``roofline`` line."""
+    from repro_torch.launch import dryrun
+
+    out = {"card": card_line(), "train": _roofline_train(dev),
+           "decode": _roofline_decode(dev)}
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell("llama3.2-1b", "decode_32k", force=True,
+                          out_dir=os.path.join(ROOT, "chiprun_out", "dryrun"))
+    if not rec.get("ok"):
+        raise AssertionError(f"roofline dry run: {rec.get('error')}")
+    rl, ma = rec["roofline"], rec["memory_analysis"]
+    out["dryrun"] = {
+        "cell": "llama3.2-1b decode_32k 16x16 baseline", "wall_s":
+        time.perf_counter() - t0, "device": rl["device"],
+        "compute_s": rl["compute_s"], "memory_s": rl["memory_s"],
+        "collective_s": rl["collective_s"], "bottleneck": rl["bottleneck"],
+        "mfu_at_bound": rl["mfu"], "flops_by_dtype": rl["flops_by_dtype"],
+        "ideal_memory_s": rl["ideal_memory_s"],
+        "peak_live_bytes": ma["peak_live_bytes"], "fits_80gb": ma["fits"],
+        "kernel_calls": rec["kernel_calls"], "walked": rec["walked"]}
+    log(f"  dry run decode_32k 16x16: {out['dryrun']}")
+    print(json.dumps({"roofline": out}), flush=True)
     return out
 
 
@@ -3891,6 +4115,10 @@ def main(argv=None):
         sh_n, sh_routes, gp_n, gp_routes = phase_train_sharded(dev)
         trained["train_sharded"] = (sh_n, sh_routes)
         trained["gpipe"] = (gp_n, gp_routes)
+    if "roofline" in phases:
+        mark("[3d] roofline: walks on the card and on placeholders; the dry "
+             "run")
+        phase_roofline(dev)
     runs = {}
     if "serve" in phases:
         for r in serve_runs:

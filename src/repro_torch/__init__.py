@@ -17,7 +17,9 @@ def resolve_device(device="cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises when CUDA is asked for and
     this process has no CUDA device (never a silent move to the CPU)."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    # a placeholder card of a dry run (``launch.op_walk.Card``) needs none
+    if isinstance(dev, torch.device) and dev.type == "cuda" \
+            and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch: device 'cuda' requested but torch.cuda.is_available()"
             " is False; pass device='cpu' to run the plain PyTorch path")

@@ -18,9 +18,16 @@ from repro_torch.configs.base import ArchConfig, MemoryConfig
 
 # Hardware constants of one NVIDIA H100 SXM5, from NVIDIA's data sheet
 # (https://www.nvidia.com/en-us/data-center/h100/), dense rates without
-# sparsity. The reference's are a TPU v5e's.
-PEAK_FLOPS = 989e12      # bf16 FLOP/s on the tensor cores
+# sparsity. The reference's are a TPU v5e's. The one table of the card's
+# rates: the kernels' bounds (``kernels.cost``), the roofline
+# (``launch.roofline``) and ``chip_smoke.py`` read them here.
+PEAK_FLOPS = 989e12      # bf16 FLOP/s on the tensor cores (fp32 accumulate)
+PEAK_FLOPS_FP32 = 67e12  # fp32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12         # B/s, HBM3
+#: peak FLOP/s by the dtype key of ``kernels.cost.dtype_key``
+PEAK_BY_DTYPE = {"bf16": PEAK_FLOPS, "fp32": PEAK_FLOPS_FP32}
+HBM_BYTES = 80 * 2**30   # device memory of one card: 80 GB of HBM3 as
+                         # NVIDIA counts it (2^30 bytes a GB)
 NVLINK_BW = 450e9        # B/s one direction of NVLink 4 to the host's
                          # other cards (the sheet's 900 GB/s is both ways)
 SMEM_BYTES = 227 * 2**10  # shared memory one block can use

@@ -11,7 +11,8 @@ run (Karimireddy et al., arXiv:1901.09847).
 The in-process collectives take one tensor per participant (each on its
 participant's device) and reduce in participant order, so a run is
 bit-reproducible. The all-gather over a mesh axis is
-``sharding.ShardedTensor.full``.
+``sharding.ShardedTensor.full``. Each labels its copies between devices
+for an op walk (``launch.op_walk.collective``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from repro_torch.core.placement import NVLINK_BW
+from repro_torch.launch.op_walk import collective
 
 
 def compress_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -98,8 +100,9 @@ def all_reduce(xs: Sequence[torch.Tensor], op: str = "sum") -> torch.Tensor:
     if op not in ("sum", "mean"):
         raise ValueError(f"all_reduce op {op!r}: sum | mean")
     acc = xs[0].to(torch.float32, copy=True)
-    for x in xs[1:]:
-        acc += x.to(acc.device, torch.float32)
+    with collective("all-reduce"):
+        for x in xs[1:]:
+            acc += x.to(acc.device, torch.float32)
     if op == "mean":
         acc /= len(xs)
     return acc.to(xs[0].dtype)
@@ -111,7 +114,8 @@ def ring_shift(xs: Sequence[torch.Tensor], shift: int = 1
     (i + shift) % n receives participant i's tensor, on its own device."""
     n = len(xs)
     out = [None] * n
-    for i, x in enumerate(xs):
-        j = (i + shift) % n
-        out[j] = x.to(xs[j].device)
+    with collective("collective-permute"):
+        for i, x in enumerate(xs):
+            j = (i + shift) % n
+            out[j] = x.to(xs[j].device)
     return out

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.launch.op_walk import collective
 
 MODEL_AXIS = "model"
 DATA_AXIS = "data"
@@ -337,10 +338,12 @@ class ShardedTensor:
         dev = device if device is not None else self.shards[0].device
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
         seen = set()
-        for i in (order if order is not None else range(len(self.shards))):
-            if self._blocks[i] not in seen:
-                seen.add(self._blocks[i])
-                out[self.slices[i]].copy_(self.shards[i])
+        with collective("all-gather"):
+            for i in (order if order is not None
+                      else range(len(self.shards))):
+                if self._blocks[i] not in seen:
+                    seen.add(self._blocks[i])
+                    out[self.slices[i]].copy_(self.shards[i])
         if len(seen) != len(set(self._blocks)):
             raise ValueError("gather: the order leaves blocks uncovered")
         return out

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import ref
 from repro_torch.kernels.relevancy_topk import split_plan, split_topk
 from repro_torch.kernels.sparse_decode_attention import _aligned16, _sm_count
@@ -92,6 +93,24 @@ def bm25_topk_candidates_split(tf, doc_len, idf, *, block: int = 4096,
                       block, c, n, THREADS)
 
 
+def cost(tf, doc_len, idf, *, block: int = 4096, c: int = 64,
+         valid=0) -> _cost.KernelCost:
+    """The work of one candidates call. Per live doc: 4 operations for the
+    length norm, 5 per term (multiply, add, divide, fused multiply-add),
+    one compare to select it, on the fp32 cores; the kernel reads tf and
+    doc_len of the live docs only (a doc at or past the live count scores
+    -inf unread), idf, and writes the candidates. A tensor ``valid`` (read
+    by the kernel itself) counts every doc: a walk counts shapes only, and
+    the kernel phase passes the store's live count as an int."""
+    B, D, T, block, c = _check_args(tf, doc_len, idf, block, c)
+    nd = D
+    if not isinstance(valid, torch.Tensor) and int(valid) > 0:
+        nd = min(int(valid), D)
+    n_bytes = (B * nd * (T + 1) + idf.numel()) * 4 \
+        + B * (D // block) * c * 8
+    return _cost.KernelCost(((B * nd * (4 + 5 * T + 1), "fp32"),), n_bytes)
+
+
 def bm25_topk_candidates(tf, doc_len, idf, *, block: int = 4096, c: int = 64,
                          k1: float = 1.5, b: float = 0.75,
                          avgdl: float = 100.0, valid=0):
@@ -100,12 +119,22 @@ def bm25_topk_candidates(tf, doc_len, idf, *, block: int = 4096, c: int = 64,
     tf [B,D,T], doc_len [B,D], idf [B,T], fp32. ``block`` must be a power of
     two dividing D (``ops.bm25_topk`` pads); c is clamped to the block. A
     chunk too large for one CTA's shared memory makes the launch fail, and
-    the call raises.
+    the call raises. Under an op walk the call records its ``cost``.
     """
     if not tf.is_cuda:
         return bm25_topk_candidates_plain(tf, doc_len, idf, block=block, c=c,
                                           k1=k1, b=b, avgdl=avgdl,
                                           valid=valid)
+    walk = _cost.ACTIVE["walk"]
+    if walk is not None:
+        return walk.kernel(
+            "bm25_topk_candidates", tf,
+            cost(tf, doc_len, idf, block=block, c=c, valid=valid),
+            lambda: _launch(tf, doc_len, idf, block, c, k1, b, avgdl, valid))
+    return _launch(tf, doc_len, idf, block, c, k1, b, avgdl, valid)
+
+
+def _launch(tf, doc_len, idf, block, c, k1, b, avgdl, valid):
     B, D, T, block, c = _check_args(tf, doc_len, idf, block, c)
     if block & (block - 1):
         raise ValueError(f"block={block} must be a power of two")
@@ -114,6 +143,11 @@ def bm25_topk_candidates(tf, doc_len, idf, *, block: int = 4096, c: int = 64,
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if x.device != tf.device:
             raise ValueError("tf, doc_len and idf must be on one CUDA device")
+    nb = D // block
+    vals = tf.new_empty((B, nb, c), dtype=torch.float32)
+    idx = tf.new_empty((B, nb, c), dtype=torch.int32)
+    if _cost.is_fake(tf):
+        return vals, idx
     nd_ptr, nd = None, 0
     if isinstance(valid, torch.Tensor):
         if (valid.dtype != torch.int32 or valid.numel() != 1
@@ -125,10 +159,7 @@ def bm25_topk_candidates(tf, doc_len, idf, *, block: int = 4096, c: int = 64,
         nd = int(valid)
     tf, doc_len = _aligned16(tf), _aligned16(doc_len)
     idf = idf.contiguous()
-    nb = D // block
     n_cta = split_plan(B, nb, block, c, n_sm=_sm_count(tf.device))
-    vals = torch.empty((B, nb, c), dtype=torch.float32, device=tf.device)
-    idx = torch.empty((B, nb, c), dtype=torch.int32, device=tf.device)
     lib = _build.load("bm25_topk")
     fn = lib.bm25_topk_candidates_cuda
     fn.restype = _I

@@ -27,6 +27,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import ref
 
 _P = ctypes.c_void_p
@@ -68,11 +69,39 @@ def _aligned(x: torch.Tensor, route: str) -> torch.Tensor:
     return x.clone(memory_format=torch.contiguous_format)
 
 
+def causal_pairs(S: int, window: int = 0) -> int:
+    """(query, key) pairs the causal band keeps, under a window if given."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def cost(q, k, v, *, window: int = 0) -> _cost.KernelCost:
+    """The work of one call: q.k and p.v over the causal band's pairs only
+    (not the full S x S tile), 4 B H dh FLOPs a pair, on the tensor cores
+    for bf16; q, k, v read once, out written once."""
+    B, S, H, dh = q.shape
+    es = q.element_size()
+    return _cost.KernelCost(
+        ((4 * B * H * dh * causal_pairs(S, window),
+          _cost.dtype_key(q.dtype)),),
+        (q.numel() + 2 * k.numel()) * es + q.numel() * es)
+
+
 def flash_attention(q, k, v, *, window: int = 0):
     """q [B,S,H,dh]; k/v [B,S,KV,dh] (H % KV == 0) -> [B,S,H,dh] in q's
-    dtype. ``window`` 0 is causal only. No gradient: see ``FlashAttention``."""
+    dtype. ``window`` 0 is causal only. No gradient: see ``FlashAttention``.
+    Under an op walk the call records its ``cost``."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, window=window)
+    walk = _cost.ACTIVE["walk"]
+    if walk is not None:
+        return walk.kernel("flash_attention", q, cost(q, k, v, window=window),
+                           lambda: _launch(q, k, v, window))
+    return _launch(q, k, v, window)
+
+
+def _launch(q, k, v, window):
     B, S, H, dh = q.shape
     KV = k.shape[2]
     if k.shape != (B, S, KV, dh) or v.shape != k.shape or H % KV:
@@ -88,8 +117,8 @@ def flash_attention(q, k, v, *, window: int = 0):
         raise ValueError("q, k and v must be on one CUDA device")
     if window < 0:
         raise ValueError(f"window {window} < 0")
-    out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
+    out = q.new_empty((B, S, H, dh))
+    if out.numel() == 0 or _cost.is_fake(q):
         return out
     route = _route(q.dtype, dh)
     q, k, v = (_aligned(t, route) for t in (q, k, v))

@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import ref
 
 _P = ctypes.c_void_p
@@ -86,22 +87,42 @@ def page_minmax_plain(k_cache, *, page_size: int = 64):
     return ref.page_minmax(k_cache, page_size)
 
 
+def cost(k_cache, *, page_size: int = 64) -> _cost.KernelCost:
+    """The work of one call: one compare for the min and one for the max
+    per key element, on the fp32 cores; the keys read once, the two fp32
+    [B, S/ps, KV, dh] outputs written once."""
+    B, S, KV, dh = k_cache.shape
+    n_out = B * (S // page_size) * KV * dh
+    return _cost.KernelCost(((2 * k_cache.numel(), "fp32"),),
+                            k_cache.numel() * k_cache.element_size()
+                            + 2 * n_out * 4)
+
+
 def page_minmax(k_cache, *, page_size: int = 64):
     """k_cache [B,S,KV,dh] (fp32 or bf16) -> (min, max) [B,S/ps,KV,dh]
-    fp32. Raises when S is not a multiple of ``page_size``."""
+    fp32. Raises when S is not a multiple of ``page_size``. Under an op
+    walk the call records its ``cost``."""
     if not k_cache.is_cuda:
         return page_minmax_plain(k_cache, page_size=page_size)
+    walk = _cost.ACTIVE["walk"]
+    if walk is not None:
+        return walk.kernel("page_minmax", k_cache,
+                           cost(k_cache, page_size=page_size),
+                           lambda: _launch(k_cache, page_size))
+    return _launch(k_cache, page_size)
+
+
+def _launch(k_cache, page_size):
     _check_page_size(k_cache, page_size)
     if k_cache.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"k_cache must be fp32 or bf16, got {k_cache.dtype}")
     B, S, KV, dh = k_cache.shape
-    k = k_cache.contiguous()
-    dev = k.device
-    mn = torch.empty((B, S // page_size, KV, dh), dtype=torch.float32,
-                     device=dev)
+    dev = k_cache.device
+    mn = k_cache.new_empty((B, S // page_size, KV, dh), dtype=torch.float32)
     mx = torch.empty_like(mn)
-    if mn.numel() == 0:
+    if mn.numel() == 0 or _cost.is_fake(k_cache):
         return mn, mx
+    k = k_cache.contiguous()
     C = KV * dh
     is_bf16 = k.dtype == torch.bfloat16
     per_16b = 8 if is_bf16 else 4          # elements in one 16-byte load

@@ -18,10 +18,12 @@ module's scores; the tests hold it against the reference.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import ref
 from repro_torch.kernels.sparse_decode_attention import _aligned16, _sm_count
 
@@ -186,6 +188,22 @@ def relevancy_topk_candidates_split(q, keys, weights, *, block: int = 2048,
                       n, THREADS)
 
 
+def cost(q, keys, weights, *, block: int = 2048,
+         c: int = 0) -> _cost.KernelCost:
+    """The work of one candidates call: q.k products (on the tensor cores
+    for bf16 inputs), then on the fp32 cores the relu.w terms and the
+    log2(block) compares a key that ordering a block by comparisons needs
+    at least; q, keys and weights read once, the candidates written once."""
+    B, S, dk, block, c = _check_args(q, keys, weights, block, c)
+    Hq = q.shape[1]
+    n_bytes = (q.numel() + keys.numel()) * q.element_size() \
+        + weights.numel() * 4 + B * (S // block) * c * 8
+    dots = 2 * B * S * Hq * dk
+    rest = 2 * B * S * Hq + B * S * max(1, int(math.log2(block)))
+    return _cost.KernelCost(((dots, _cost.dot_key(q, keys)),
+                             (rest, "fp32")), n_bytes)
+
+
 def relevancy_topk_candidates(q, keys, weights, *, block: int = 2048,
                               c: int = 0, valid_len: int = 0):
     """Per-block candidates: (vals [B, nb, c] fp32, idx [B, nb, c] int32).
@@ -193,10 +211,21 @@ def relevancy_topk_candidates(q, keys, weights, *, block: int = 2048,
     q [B,Hq,dk] and keys [B,S,dk] share one dtype (fp32 or bf16); weights
     [B,Hq]. ``block`` must be a power of two dividing S (``ops`` pads);
     c = 0 -> block; valid_len = 0 -> S (keys at or past it score -inf).
+    Under an op walk the call records its ``cost``.
     """
     if not keys.is_cuda:
         return relevancy_topk_candidates_plain(q, keys, weights, block=block,
                                                c=c, valid_len=valid_len)
+    walk = _cost.ACTIVE["walk"]
+    if walk is not None:
+        return walk.kernel("relevancy_topk_candidates", keys,
+                           cost(q, keys, weights, block=block, c=c),
+                           lambda: _launch(q, keys, weights, block, c,
+                                           valid_len))
+    return _launch(q, keys, weights, block, c, valid_len)
+
+
+def _launch(q, keys, weights, block, c, valid_len):
     B, S, dk, block, c = _check_args(q, keys, weights, block, c)
     if block & (block - 1):
         raise ValueError(f"block={block} must be a power of two")
@@ -205,13 +234,15 @@ def relevancy_topk_candidates(q, keys, weights, *, block: int = 2048,
                         f"{keys.dtype}")
     if not (q.is_cuda and weights.is_cuda and q.device == keys.device):
         raise ValueError("q, keys and weights must be on one CUDA device")
+    nb = S // block
+    vals = keys.new_empty((B, nb, c), dtype=torch.float32)
+    idx = keys.new_empty((B, nb, c), dtype=torch.int32)
+    if _cost.is_fake(keys):
+        return vals, idx
     q, keys = _aligned16(q), _aligned16(keys)
     weights = weights.float().contiguous()
-    nb = S // block
     Hq = q.shape[1]
     n_cta = split_plan(B, nb, block, c, n_sm=_sm_count(keys.device))
-    vals = torch.empty((B, nb, c), dtype=torch.float32, device=keys.device)
-    idx = torch.empty((B, nb, c), dtype=torch.int32, device=keys.device)
     lib = _build.load("relevancy_topk")
     fn = lib.relevancy_topk_candidates_cuda
     fn.restype = _I

@@ -21,6 +21,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import ref
 
 _P = ctypes.c_void_p
@@ -141,16 +142,50 @@ def paged_decode_attention_plain(q, k_cache, v_cache, page_ids, length, *,
                                       page_size, length)
 
 
+def cost(q, k_cache, v_cache, page_ids, length, *, page_size: int = 64,
+         valid_tokens=None, pages_read=None) -> _cost.KernelCost:
+    """The work of one call: q.k over the valid selected tokens (on the
+    tensor cores for bf16 inputs) and p.v on the fp32 cores (fp32
+    weights); q, the K/V rows of the pages read, the page ids and lengths
+    read once, out and lse written once. ``valid_tokens`` (the (slot,
+    token) pairs inside a selected page and below the slot's length) and
+    ``pages_read`` (the selected pages, at least one a slot) are the
+    data's counts; None counts every selected token and page (shapes
+    only, as a walk does)."""
+    B, S, KV, dh = k_cache.shape
+    Hq, n_sel = q.shape[1], page_ids.shape[1]
+    if valid_tokens is None:
+        valid_tokens = B * n_sel * page_size
+    if pages_read is None:
+        pages_read = B * max(n_sel, 1)
+    n_bytes = (q.numel() * q.element_size()
+               + pages_read * page_size * KV * dh * k_cache.element_size() * 2
+               + page_ids.numel() * 4 + B * 4 + B * Hq * dh * 4 + B * Hq * 4)
+    qk = pv = 2 * valid_tokens * Hq * dh
+    return _cost.KernelCost(((qk, _cost.dot_key(q, k_cache)), (pv, "fp32")),
+                            n_bytes)
+
+
 def paged_decode_attention(q, k_cache, v_cache, page_ids, length, *,
                            page_size: int = 64):
     """q [B,Hq,dh]; k/v [B,S,KV,dh]; page_ids [B,P] (-1 = hole); length [B]
-    or [] -> (out [B,Hq,dh] fp32, lse [B,Hq] fp32)."""
+    or [] -> (out [B,Hq,dh] fp32, lse [B,Hq] fp32). Under an op walk the
+    call records its ``cost``."""
     if not k_cache.is_cuda:
         return paged_decode_attention_plain(q, k_cache, v_cache, page_ids,
                                             length, page_size=page_size)
+    walk = _cost.ACTIVE["walk"]
+    if walk is not None:
+        return walk.kernel(
+            "paged_decode_attention", k_cache,
+            cost(q, k_cache, v_cache, page_ids, length, page_size=page_size),
+            lambda: _launch(q, k_cache, v_cache, page_ids, length, page_size))
+    return _launch(q, k_cache, v_cache, page_ids, length, page_size)
+
+
+def _launch(q, k_cache, v_cache, page_ids, length, ps):
     B, S, KV, dh = k_cache.shape
     Hq = q.shape[1]
-    ps = page_size
     if (q.shape != (B, Hq, dh) or v_cache.shape != k_cache.shape
             or page_ids.dim() != 2 or page_ids.shape[0] != B):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k_cache.shape)}"
@@ -169,13 +204,15 @@ def paged_decode_attention(q, k_cache, v_cache, page_ids, length, *,
     dev = k_cache.device
     if not (q.device == v_cache.device == page_ids.device == dev):
         raise ValueError("q, k, v and page_ids must be on one CUDA device")
+    out = k_cache.new_empty((B, Hq, dh), dtype=torch.float32)
+    lse = k_cache.new_empty((B, Hq), dtype=torch.float32)
+    if _cost.is_fake(k_cache):
+        return out, lse
     q, k_cache, v_cache = (_aligned16(t) for t in (q, k_cache, v_cache))
     pages = page_ids.to(torch.int32).contiguous()
     n_sel = pages.shape[1]
     lens = _lengths(length, B, dev)
     pps, n_split = split_plan(B, KV, Hq // KV, n_sel, ps, _sm_count(dev))
-    out = torch.empty((B, Hq, dh), dtype=torch.float32, device=dev)
-    lse = torch.empty((B, Hq), dtype=torch.float32, device=dev)
     part_ml = torch.empty((B, Hq, n_split, 2), dtype=torch.float32,
                           device=dev)
     part_acc = torch.empty((B, Hq, n_split, dh), dtype=torch.float32,

@@ -1,0 +1,306 @@
+"""Dry run: walk every (architecture x input-shape x mesh) cell's step on
+placeholder devices, and write its memory, roofline terms and collective
+bytes (twin of ``repro.launch.dryrun``).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
+        [--shape S] [--multi-pod] [--both-meshes] [--variant baseline]
+        [--force]
+
+The reference lowers and compiles each cell's jitted step on 512
+placeholder CPU devices and reads XLA's memory analysis and HLO. The port
+builds the cell's structs under ``op_walk.placeholders()`` (fake tensors:
+nothing is allocated, ``cuda:0 .. cuda:511`` need no card), runs the step
+eagerly under ``op_walk.OpWalk`` and reads the walk. It runs on any
+machine, with or without a card; on the card it touches none.
+
+  * train cells walk the port's own sharded ``Trainer`` step
+    (``train.trainer.make_train_step``: each data index gathers the
+    parameters onto its first device and runs its microbatches there, the
+    gradients are all-reduced onto the mesh's first device, every
+    coordinate updates its slices) over the production mesh, with
+    ``pick_accum``'s accumulation;
+  * prefill and decode cells have no sharded step in the port: they walk
+    data index 0's part of the batch on the first device of its group, its
+    parameters and cache there in full. A decode cell's cache holds
+    ``seq_len - 1`` tokens (the shape's length, a host int). Variants
+    ``optimized-spdecode`` and ``optimized-idxcache`` run DSA through
+    ``make_sparse_fn_distributed`` / ``make_sparse_fn_cached`` over that
+    group's ``model`` devices.
+
+The reference's variant hints ``set_ep_constraint`` (shard-local MoE
+dispatch) and ``set_sp_residual`` (Megatron-SP residual) are GSPMD
+sharding constraints; the port's eager step has nothing to apply them to,
+so a cell under such a variant walks the baseline step and its record says
+so (``hints_not_applied``).
+
+Each record (``build/dryrun/<arch>__<shape>__<mesh>__<variant>.json``)
+holds the reference's keys: ``memory_analysis`` (argument and peak live
+bytes of the busiest device, whether they fit in the card's 80 GB),
+``roofline`` (``launch.roofline``: the busiest device's terms), ``ok`` or
+``error``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+import traceback
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs import ARCHS, SHAPES, get_arch
+from repro_torch.core.placement import HBM_BW, HBM_BYTES
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch import op_walk
+from repro_torch.launch import roofline as RL
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.specs import (batch_structs, cache_structs,
+                                      input_specs, param_structs,
+                                      pick_accum, sparse_structs)
+from repro_torch.models import model as M
+from repro_torch.train.optimizer import init_opt_state, tree_map
+from repro_torch.train.trainer import TrainConfig, make_train_step
+
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "..", "..", "build", "dryrun")
+PAGE = 64            # DSA's micro-page in the reference's decode cells
+
+
+def mesh_name(mesh) -> str:
+    return "x".join(str(n) for n in mesh.devices.shape)
+
+
+def _cell_path(arch: str, shape: str, mesh: str, variant: str,
+               out_dir: Optional[str] = None) -> str:
+    out_dir = out_dir or OUT_DIR
+    os.makedirs(out_dir, exist_ok=True)
+    tag = "pod" + mesh if mesh.count("x") == 2 else mesh
+    return os.path.join(out_dir, f"{arch}__{shape}__{tag}__{variant}.json")
+
+
+def _unapplied_hints(cfg, shape, tp: int, variant: str):
+    """The reference's GSPMD hints this variant turns on for a train
+    cell (``dryrun.py:54-61``), which the port does not apply."""
+    out = []
+    if variant.startswith("optimized") and cfg.n_experts \
+            and cfg.n_experts % tp == 0:
+        out.append("set_ep_constraint")
+    if "sp" in variant.split("-") and shape.seq_len % tp == 0:
+        out.append("set_sp_residual")
+    return out
+
+
+def _place(tree, dev):
+    return tree_map(lambda t: t.to(dev) if isinstance(t, torch.Tensor)
+                    else t, tree)
+
+
+def _first_part(mesh, batch: int):
+    """Data index 0's first device, and its rows of a batch of ``batch``
+    (all of it when the batch does not split over the data axes)."""
+    groups = mesh.groups(sh.data_axes(mesh))
+    dp = len(groups)
+    rows = batch // dp if batch >= dp and batch % dp == 0 else batch
+    return groups[0], mesh.device(groups[0][0]), rows
+
+
+# ---------------------------------------------------------------------------
+# the cells' steps
+# ---------------------------------------------------------------------------
+
+
+def walk_train(cfg, shape, mesh, tp: int, rec: Dict) -> op_walk.OpWalk:
+    """One sharded ``Trainer`` step over ``mesh`` (inside placeholders)."""
+    accum = pick_accum(cfg, shape, mesh.size // tp)
+    rec["accum"] = accum
+    specs = input_specs(cfg, shape, mesh, tp=tp)
+    params = sh.device_put(specs["params"], specs["params_sharding"])
+    opt = init_opt_state(params)
+    batch = specs["batch"]
+    if accum > 1:
+        mb = shape.global_batch // accum
+        batch = {k: (x.reshape((3, accum, mb) + x.shape[2:]).movedim(0, 1)
+                     if k == "positions3" else
+                     x.reshape((accum, mb) + x.shape[1:]))
+                 for k, x in batch.items()}
+    step = make_train_step(cfg, TrainConfig(accum=accum, tp=tp, remat=True),
+                           mesh)
+    rec["walked"] = (f"the sharded Trainer step: {len(mesh.groups(sh.data_axes(mesh)))} "
+                     f"data indices, accum {accum}")
+    with op_walk.OpWalk() as w:
+        w.track(params, opt.m, opt.v, batch)
+        step(params, opt, batch)
+    return w
+
+
+def walk_prefill(cfg, shape, mesh, tp: int, rec: Dict) -> op_walk.OpWalk:
+    _, dev, rows = _first_part(mesh, shape.global_batch)
+    batch = batch_structs(cfg, shape.__class__(shape.name, shape.seq_len,
+                                               rows, shape.kind))
+    params = _place(param_structs(cfg, tp), dev)
+    batch = _place(batch, dev)
+    rec["walked"] = f"data index 0's {rows} rows on {dev}"
+    with torch.no_grad(), op_walk.OpWalk() as w:
+        w.track(params, batch)
+        M.prefill(params, cfg, batch["tokens"], max_len=shape.seq_len,
+                  positions3=batch.get("positions3"),
+                  img_embeds=batch.get("img_embeds"), tp=tp)
+    return w
+
+
+def walk_decode(cfg, shape, mesh, tp: int, variant: str,
+                rec: Dict) -> op_walk.OpWalk:
+    group, dev, rows = _first_part(mesh, shape.global_batch)
+    S = shape.seq_len
+    params = _place(param_structs(cfg, tp), dev)
+    caches = _place(cache_structs(cfg, rows, S, tp), dev)
+    caches["length"] = S - 1
+    token = _place(batch_structs(cfg, shape.__class__(
+        shape.name, S, rows, shape.kind))["token"], dev)
+    sparse_fn = sp = None
+    stateful = False
+    if cfg.family != "ssm" and S >= cfg.memory.min_context:
+        from repro_torch.core.methods import (dsa, get_sparse_method,
+                                              sparse_kwargs)
+        sp = _place(sparse_structs(cfg, tp), dev)
+        devices = tuple(mesh.device(i) for i in group)
+        if variant == "optimized-spdecode":
+            sparse_fn = dsa.make_sparse_fn_distributed(
+                cfg, cfg.memory, devices, tp=tp, page=PAGE)
+        elif variant == "optimized-idxcache":
+            sparse_fn = dsa.make_sparse_fn_cached(cfg, cfg.memory, devices,
+                                                  tp=tp, page=PAGE)
+            stateful = True
+            sp = {"p": sp, "kidx_sum": dsa.idx_cache_init(
+                cfg, cfg.memory, rows, S, page=PAGE, device="cpu").to(dev)}
+        else:
+            _, mk = get_sparse_method(cfg.memory.method)
+            sparse_fn = mk(cfg, cfg.memory, tp=tp,
+                           **sparse_kwargs(cfg.memory.method, PAGE))
+    rec["walked"] = (f"data index 0's {rows} rows on {dev}, a cache of "
+                     f"{S - 1} tokens")
+    with torch.no_grad(), op_walk.OpWalk() as w:
+        w.track(params, caches, token, sp)
+        M.decode_step(params, cfg, token, caches, tp=tp,
+                      sparse_fn=sparse_fn, sparse_params=sp,
+                      sparse_stateful=stateful)
+    return w
+
+
+# ---------------------------------------------------------------------------
+# dry-run one cell
+# ---------------------------------------------------------------------------
+
+
+def memory_analysis(w: op_walk.OpWalk, device: str) -> Dict:
+    """Argument and peak live bytes of ``device`` (the busiest), whether
+    its peak fits in one card's memory, and the largest peak of any
+    card."""
+    cards = {d: n for d, n in w.peak_live.items() if d.startswith("cuda")}
+    top = max(cards, key=cards.get) if cards else device
+    peak = w.peak_live.get(device, 0)
+    return {"device": device,
+            "argument_size_in_bytes": int(w.argument_bytes.get(device, 0)),
+            "peak_live_bytes": int(peak), "fits": peak <= HBM_BYTES,
+            "max_peak_device": top,
+            "max_peak_live_bytes": int(cards.get(top, 0)),
+            "max_fits": cards.get(top, 0) <= HBM_BYTES,
+            "card_bytes": HBM_BYTES}
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
+             variant: str = "baseline", force: bool = False, *, cfg=None,
+             shape=None, mesh=None, out_dir: Optional[str] = None) -> Dict:
+    """Walk one cell and write its record. ``cfg``, ``shape`` and ``mesh``
+    replace the arch's config, ``SHAPES[shape_name]`` and the production
+    mesh (a test's smoke cell on a small mesh of ``op_walk.cards``)."""
+    cfg = cfg or get_arch(arch)
+    shape = shape or SHAPES[shape_name]
+    mesh = mesh or make_production_mesh(multi_pod=multi_pod)
+    name = mesh_name(mesh)
+    path = _cell_path(arch, shape_name, name, variant, out_dir)
+    if os.path.exists(path) and not force:
+        with open(path) as f:
+            return json.load(f)
+    tp = mesh.shape["model"]
+    chips = mesh.size
+    t0 = time.time()
+    rec: Dict = {"arch": arch, "shape": shape_name, "mesh": name,
+                 "variant": variant, "ok": False}
+    try:
+        with op_walk.placeholders():
+            if shape.kind == "train":
+                hints = _unapplied_hints(cfg, shape, tp, variant)
+                if hints:
+                    rec["hints_not_applied"] = hints
+                w = walk_train(cfg, shape, mesh, tp, rec)
+            elif shape.kind == "prefill":
+                w = walk_prefill(cfg, shape, mesh, tp, rec)
+            else:
+                w = walk_decode(cfg, shape, mesh, tp, variant, rec)
+        rec["walk_s"] = time.time() - t0
+        rl = RL.from_walk(w.costs, chips, RL.model_flops_for(cfg, shape))
+        rec["memory_analysis"] = memory_analysis(w, rl.device)
+        rec["roofline"] = rl.to_dict()
+        rec["roofline"]["ideal_memory_s"] = (
+            RL.ideal_memory_bytes(cfg, shape, chips) / HBM_BW)
+        rec["collective_bytes"] = RL.collective_bytes(w.costs)
+        rec["kernel_calls"] = {}
+        for r in w.kernels:
+            rec["kernel_calls"][r.name] = rec["kernel_calls"].get(r.name,
+                                                                  0) + 1
+        rec["ok"] = True
+        ma = rec["memory_analysis"]
+        print(f"[dryrun] {arch} {shape_name} {name} {variant}: "
+              f"compute={rl.compute_s*1e3:.2f}ms "
+              f"memory={rl.memory_s*1e3:.2f}ms "
+              f"collective={rl.collective_s*1e3:.2f}ms "
+              f"bottleneck={rl.bottleneck} mfu={rl.mfu:.3f} on {rl.device} "
+              f"(walk {rec['walk_s']:.0f}s)")
+        print(f"  memory: arguments {ma['argument_size_in_bytes']/2**30:.2f}"
+              f"GiB, peak live {ma['peak_live_bytes']/2**30:.2f}GiB on "
+              f"{ma['device']} (fits 80 GB: {ma['fits']}); largest peak "
+              f"{ma['max_peak_live_bytes']/2**30:.2f}GiB on "
+              f"{ma['max_peak_device']}")
+        print(f"  walk: flops/dev={rl.flops:.3e} bytes/dev={rl.hbm_bytes:.3e}"
+              f" {rl.flops_by_dtype}")
+        print(f"  collectives: { {k: f'{v/2**20:.1f}MiB' for k, v in rl.per_collective.items() if v} }")
+    except Exception as e:  # noqa: BLE001
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+        print(f"[dryrun] {arch} {shape_name} {name} FAILED: "
+              f"{rec['error'][:300]}")
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1, default=str)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--variant", default="baseline")
+    ap.add_argument("--force", action="store_true")
+    args = ap.parse_args(argv)
+
+    archs = [args.arch] if args.arch else sorted(ARCHS)
+    shapes = [args.shape] if args.shape else list(SHAPES)
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+    n_ok = n_fail = 0
+    for mp in meshes:
+        for a in archs:
+            for s in shapes:
+                rec = run_cell(a, s, mp, args.variant, args.force)
+                n_ok += rec.get("ok", False)
+                n_fail += not rec.get("ok", False)
+    print(f"[dryrun] done: {n_ok} ok, {n_fail} failed")
+    return 1 if n_fail else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,9 +15,14 @@ Two forms, each for its callers:
   which is how one card runs 2 or 4 shards, or both roles of
   ``split_mesh_roles``.
 
-``make_production_mesh`` and ``use_mesh`` (the reference's 16 x 16 TPU mesh
-for XLA dry-runs and its mesh context) stay unported with ``dryrun``
-(ROADMAP Queue 1 item 14b).
+``make_production_mesh`` gives the reference's production meshes, 16 x 16
+("data", "model") or 2 x 16 x 16 ("pod", "data", "model"), over distinct
+device names ``cuda:0 .. cuda:n-1``. Naming a device needs no card: the dry
+run (``launch.dryrun``) places fake tensors there under
+``op_walk.placeholders()``. The reference's ``use_mesh`` (``jax.set_mesh``,
+the mesh context its jitted steps read for sharding constraints) has no
+twin: nothing in the port reads a current mesh, every function that needs
+one takes it as an argument (ROADMAP Queue 1 item 14b).
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.launch.op_walk import Card, cards
 
 
 class Mesh:
@@ -68,7 +75,8 @@ class Mesh:
 
 def make_mesh(shape, axes, devices=None) -> Mesh:
     """A mesh of ``shape`` with axis names ``axes`` over ``devices`` (each
-    entry a ``torch.device`` or its name), taken round-robin when there are
+    entry a ``torch.device``, its name, or a placeholder ``op_walk.Card``),
+    taken round-robin when there are
     fewer devices than entries. ``devices=None`` takes the visible CUDA
     devices and raises when there is none (tests pass ``devices=["cpu"]``).
     ``elastic.plan_mesh``'s ``(shape, axes)`` go in as they are."""
@@ -81,13 +89,24 @@ def make_mesh(shape, axes, devices=None) -> Mesh:
             raise RuntimeError("make_mesh: no CUDA device is visible; pass "
                                "devices=['cpu'] for a mesh on the CPU")
         devices = [f"cuda:{i}" for i in range(n)]
-    devs = [torch.device(d) for d in devices]
+    devs = [d if isinstance(d, Card) else torch.device(d) for d in devices]
     if not devs:
         raise ValueError("a mesh needs at least one device")
     arr = np.empty(math.prod(shape), dtype=object)
     for i in range(arr.size):
         arr[i] = devs[i % len(devs)]
     return Mesh(arr.reshape(shape), axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """(16, 16) on ("data", "model"), or (2, 16, 16) on ("pod", "data",
+    "model") with ``multi_pod``, one distinct ``cuda:k`` per entry in C
+    order, each an ``op_walk.Card`` (torch's own device index stops at
+    127); they name no card, and ``op_walk.placeholders()`` places on
+    them."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices=cards(math.prod(shape)))
 
 
 def mesh_from_devices(devices: Sequence) -> Tuple[torch.device, ...]:

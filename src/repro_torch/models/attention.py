@@ -60,8 +60,9 @@ def head_mask(cfg: ArchConfig, tp: int = 16, device=None) -> torch.Tensor:
     """[Hp] fp32: 1 for live heads, 0 for the TP padding. Made once per
     (width, device) and shared: callers only read it (a copy from the host
     per layer would stall decode and cannot be captured in a CUDA graph)."""
-    return _head_mask_on(cfg.padded_heads(tp), cfg.n_heads,
-                         torch.device(device or "cpu"))
+    if device is None or type(device) is str:   # a name: one cache key
+        device = torch.device(device or "cpu")
+    return _head_mask_on(cfg.padded_heads(tp), cfg.n_heads, device)
 
 
 @functools.lru_cache(maxsize=16)

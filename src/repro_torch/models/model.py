@@ -119,9 +119,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, tp: int = 16,
 
 
 def layer(tree, i: int):
-    """Layer ``i`` of a layer-stacked parameter tree (views, no copies)."""
+    """Layer ``i`` of a layer-stacked parameter tree (views, no copies). A
+    list holds per-shard stacks (the cached DSA index's ``kidx_sum``):
+    layer ``i`` of each."""
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [layer(v, i) for v in tree]
     return tree[i]
 
 
@@ -191,6 +195,15 @@ def run_layers(layers: Params, cfg: ArchConfig, x, *, tp: int = 16):
     return x
 
 
+def _remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (the twin of
+    ``jax.checkpoint``): its activations are recomputed in the backward.
+    The layers draw no random numbers, so no RNG state is saved and
+    restored around the recompute."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def _add_aux(aux, aux_l):
     return aux if aux_l is None else aux + aux_l
 
@@ -227,8 +240,8 @@ def forward(params: Params, cfg: ArchConfig, tokens, *, positions=None,
     ks, vs, qs = [], [], []
     for lp in _unstack(params["layers"], cfg.n_layers):
         if remat:
-            x, aux_l, k, v, q = checkpoint(_layer_full, lp, x, cos, sin, cfg,
-                                           tp, use_reentrant=False)
+            x, aux_l, k, v, q = _remat(_layer_full, lp, x, cos, sin, cfg,
+                                       tp)
         else:
             x, aux_l, k, v, q = _layer_full(lp, x, cos, sin, cfg, tp)
         aux = _add_aux(aux, aux_l)
@@ -294,7 +307,7 @@ def _hybrid_forward(params, cfg, x, cos, sin, collect_cache, remat, tp):
         return x, aux_l, st, k, v
 
     def run(fn, *a):
-        return checkpoint(fn, *a, use_reentrant=False) if remat else fn(*a)
+        return _remat(fn, *a) if remat else fn(*a)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     body_st, ks, vs, tail_st = [], [], [], []
@@ -345,8 +358,7 @@ def _xlstm_forward(params, cfg, x, collect_cache, remat, states=None):
             st_m = tuple(a[i] for a in states[0])
             st_s = tuple(a[i] for a in states[1])
         if remat:
-            x, ms, ss = checkpoint(pair_fn, mlp, slp, x, st_m, st_s,
-                                   use_reentrant=False)
+            x, ms, ss = _remat(pair_fn, mlp, slp, x, st_m, st_s)
         else:
             x, ms, ss = pair_fn(mlp, slp, x, st_m, st_s)
         new_m.append(ms)
@@ -428,9 +440,13 @@ def prefill(params, cfg: ArchConfig, tokens, *, max_len=None,
 
 
 def _stack_layers(trees):
-    """Per-layer parameter trees -> one layer-stacked tree."""
+    """Per-layer parameter trees -> one layer-stacked tree (a list of
+    per-shard tensors -> a list of per-shard stacks)."""
     if isinstance(trees[0], dict):
         return {k: _stack_layers([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_stack_layers([t[s] for t in trees])
+                for s in range(len(trees[0]))]
     return torch.stack(trees)
 
 

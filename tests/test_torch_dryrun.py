@@ -1,0 +1,289 @@
+"""The port's dry-run tools (``repro_torch.launch.{specs,roofline,mesh,
+dryrun,report}``) against the reference's, on the CPU.
+
+On all ten archs at full width, tp 16: every leaf's shape and dtype from
+``param_structs``, ``cache_structs`` (decode_32k's batch and length),
+``sparse_structs`` and ``batch_structs`` (each of the four ``SHAPES``);
+``pick_accum``, ``model_flops_for`` and ``ideal_memory_bytes`` for each
+shape on both production meshes; ``make_production_mesh``'s shape, axes
+and distinct devices. Then ``run_cell`` end to end on llama3.2-1b's smoke
+config over a (2, 4) mesh of placeholder cards, and ``report`` over the
+records it writes.
+"""
+import json
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.configs import ARCHS, SHAPES  # noqa: E402
+from repro.configs import get_arch as jget_arch  # noqa: E402
+from repro.launch import mesh as jmesh  # noqa: E402
+from repro.launch import roofline as JRL  # noqa: E402
+from repro.launch import specs as jspecs  # noqa: E402
+from repro_torch.configs import SHAPES as TSHAPES  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.base import ShapeConfig, smoke_shape  # noqa: E402,E501
+from repro_torch.launch import dryrun, op_walk, report, specs  # noqa: E402
+from repro_torch.launch import roofline as RL  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, make_production_mesh  # noqa: E402,E501
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.train.optimizer import tree_map  # noqa: E402
+from repro_torch.train.trainer import TrainConfig, loss_and_grads  # noqa: E402
+
+TP = 16
+ALL = sorted(ARCHS)
+
+
+def _jleaves(tree):
+    """{path: (shape, dtype)} of a JAX struct tree."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key = tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
+        out[key] = (tuple(leaf.shape), str(leaf.dtype))
+    return out
+
+
+def _tleaves(tree, path=()):
+    """{path: (shape, dtype)} of the port's tree (dicts, tuples, lists);
+    a host int leaf (the cache's ``length``) as ((), "int")."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree
+                for k, v in _tleaves(tree[key], path + (key,)).items()}
+    if isinstance(tree, (tuple, list)):
+        return {k: v for i, t in enumerate(tree)
+                for k, v in _tleaves(t, path + (i,)).items()}
+    if isinstance(tree, torch.Tensor):
+        return {path: (tuple(tree.shape), str(tree.dtype).split(".")[-1])}
+    return {path: ((), type(tree).__name__)}
+
+
+def _same(port, ref):
+    """Equal leaves; the cache's ``length`` is a host int in the port, a
+    0-d int32 in the reference."""
+    p, r = _tleaves(port), _jleaves(ref)
+    if ("length",) in r:
+        assert p.pop(("length",)) == ((), "int")
+        assert r.pop(("length",)) == ((), "int32")
+    assert p == r
+
+
+@pytest.mark.parametrize("arch", ALL)
+def test_param_structs_match(arch):
+    _same(specs.param_structs(get_arch(arch), TP),
+          jspecs.param_structs(jget_arch(arch), TP))
+
+
+@pytest.mark.parametrize("arch", ALL)
+def test_cache_structs_match(arch):
+    sh = SHAPES["decode_32k"]
+    _same(specs.cache_structs(get_arch(arch), sh.global_batch, sh.seq_len,
+                              TP),
+          jspecs.cache_structs(jget_arch(arch), sh.global_batch, sh.seq_len,
+                               TP))
+
+
+@pytest.mark.parametrize("arch", ALL)
+def test_sparse_structs_match(arch):
+    port = specs.sparse_structs(get_arch(arch), TP)
+    ref = jspecs.sparse_structs(jget_arch(arch), TP)
+    assert (port is None) == (ref is None)
+    if ref is not None:
+        _same(port, ref)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("arch", ALL)
+def test_batch_structs_and_numbers_match(arch, shape):
+    """Batch structs, ``pick_accum`` on both production meshes' data
+    ways, ``model_flops_for`` and ``ideal_memory_bytes`` at 256 and 512
+    chips."""
+    cfg, jcfg = get_arch(arch), jget_arch(arch)
+    sh, jsh = TSHAPES[shape], SHAPES[shape]
+    _same(specs.batch_structs(cfg, sh), jspecs.batch_structs(jcfg, jsh))
+    for dp in (16, 32):
+        assert specs.pick_accum(cfg, sh, dp) == jspecs.pick_accum(jcfg, jsh,
+                                                                   dp)
+    assert RL.model_flops_for(cfg, sh) == JRL.model_flops_for(jcfg, jsh)
+    for chips in (256, 512):
+        assert RL.ideal_memory_bytes(cfg, sh, chips) == \
+            JRL.ideal_memory_bytes(jcfg, jsh, chips)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_mesh_matches(multi_pod, monkeypatch):
+    """The reference asks ``jax.make_mesh`` for its shape and axes (512
+    host devices would be needed to build it here): the port's mesh has
+    them, over that many distinct placeholder cards ``cuda:0 ..``."""
+    asked = {}
+    monkeypatch.setattr(jmesh.jax, "make_mesh",
+                        lambda shape, axes, **kw: asked.update(
+                            shape=tuple(shape), axes=tuple(axes)))
+    jmesh.make_production_mesh(multi_pod=multi_pod)
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    assert mesh.devices.shape == asked["shape"]
+    assert mesh.axis_names == asked["axes"]
+    names = [str(d) for d in mesh.devices.flat]
+    assert names == [f"cuda:{i}" for i in range(mesh.size)]
+    assert len(set(mesh.devices.flat)) == mesh.size
+    assert all(d.type == "cuda" for d in mesh.devices.flat)
+
+
+# ---------------------------------------------------------------------------
+# run_cell end to end on a smoke config, and the report
+# ---------------------------------------------------------------------------
+
+SMOKE = "llama3.2-1b"
+
+
+@pytest.fixture(scope="module")
+def cells(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dryrun")
+    cfg = get_arch(SMOKE).smoke()
+    mesh = make_mesh((2, 4), ("data", "model"), devices=op_walk.cards(8))
+    recs = {kind: dryrun.run_cell(SMOKE, f"smoke_{kind}", cfg=cfg,
+                                  shape=smoke_shape(kind), mesh=mesh,
+                                  out_dir=str(out), force=True)
+            for kind in ("train", "prefill", "decode")}
+    return out, cfg, mesh, recs
+
+
+REF_KEYS = {"flops_per_dev", "hbm_bytes_per_dev", "coll_bytes_per_dev",
+            "chips", "model_flops", "compute_s", "memory_s", "collective_s",
+            "bottleneck", "useful_ratio", "mfu", "per_collective",
+            "ideal_memory_s"}
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_run_cell_writes_an_ok_record(cells, kind):
+    out, _, _, recs = cells
+    rec = recs[kind]
+    assert rec["ok"], rec.get("error")
+    path = out / f"{SMOKE}__smoke_{kind}__2x4__baseline.json"
+    assert json.loads(path.read_text()) == json.loads(json.dumps(
+        rec, default=str))
+    assert REF_KEYS <= set(rec["roofline"])
+    assert rec["roofline"]["chips"] == 8 and rec["roofline"]["mfu"] > 0
+    ma = rec["memory_analysis"]
+    assert ma["device"] == "cuda:0" and ma["fits"]
+    assert ma["peak_live_bytes"] >= ma["argument_size_in_bytes"] > 0
+    want = {"train": {"flash_attention": 8}, "prefill": {
+        "flash_attention": 2}, "decode": {"relevancy_topk_candidates": 2,
+                                          "paged_decode_attention": 2}}
+    assert rec["kernel_calls"] == want[kind]
+
+
+def test_train_cell_is_the_sharded_step(cells):
+    """The sharded step's work over all cards equals one device's step
+    of the whole batch (FLOPs); its gradients are all-reduced onto cuda:0
+    and each data index gathers the parameters (all-gather)."""
+    _, cfg, mesh, recs = cells
+    rec = recs["train"]
+    coll = rec["collective_bytes"]
+    assert coll["all-gather"] > 0 and coll["all-reduce"] > 0
+    assert rec["roofline"]["device"] == "cuda:0"
+    sh = smoke_shape("train")
+    with op_walk.placeholders():
+        p = tree_map(lambda t: t.to("cuda:0"),
+                     M.init_params(cfg, 0, tp=4, device="cpu"))
+        b = {k: torch.zeros(sh.global_batch, sh.seq_len, dtype=torch.int32
+                            ).to("cuda:0") for k in ("tokens", "labels")}
+        with op_walk.OpWalk() as w:
+            loss_and_grads(p, cfg, TrainConfig(tp=4), b)
+    assert rec["roofline"]["total_flops"] == w.total().flops
+
+
+@pytest.mark.parametrize("variant", ["optimized-spdecode",
+                                     "optimized-idxcache"])
+def test_decode_variants_run_over_the_model_devices(cells, variant):
+    out, cfg, mesh, _ = cells
+    # 16 pages of 64 tokens: 4 a model device
+    rec = dryrun.run_cell(SMOKE, "smoke_decode_1k", variant=variant,
+                          cfg=cfg, shape=ShapeConfig("smoke_decode_1k", 1024,
+                                                     2, "decode"),
+                          mesh=mesh, out_dir=str(out), force=True)
+    assert rec["ok"], rec.get("error")
+    # the sequence-parallel top-k and apply: one launch per shard a layer
+    assert rec["kernel_calls"]["paged_decode_attention"] == 2 * 4
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b",
+                                  "granite-moe-1b-a400m"])
+def test_run_cell_other_families(cells, arch, tmp_path):
+    """The recurrent families (their states made on the placeholder card:
+    ``resolve_device`` lets a card through) and MoE (capacity dispatch
+    static under placeholders) walk a prefill cell."""
+    _, _, mesh, _ = cells
+    rec = dryrun.run_cell(arch, "smoke_prefill", cfg=get_arch(arch).smoke(),
+                          shape=smoke_shape("prefill"), mesh=mesh,
+                          out_dir=str(tmp_path), force=True)
+    assert rec["ok"], rec.get("error")
+    assert rec["roofline"]["device"] == "cuda:0"
+
+
+def test_variant_hints_are_recorded_not_applied(cells):
+    out, cfg, mesh, _ = cells
+    rec = dryrun.run_cell(SMOKE, "smoke_train", variant="optimized-sp",
+                          cfg=cfg, shape=smoke_shape("train"), mesh=mesh,
+                          out_dir=str(out), force=True)
+    assert rec["ok"] and rec["hints_not_applied"] == ["set_sp_residual"]
+
+
+def test_report_reads_the_records(cells, capsys):
+    out, _, _, _ = cells
+    rows = report.load("2x4", "baseline", str(out))
+    assert sorted(r["shape"] for r in rows) == [
+        "smoke_decode", "smoke_prefill", "smoke_train"]
+    assert report.summary(rows).startswith("3 ok / 0 failed")
+    worst, collective, paperish = report.pick_hillclimb(rows)
+    assert worst is None and paperish is None
+    assert collective["shape"] == "smoke_train"
+    report.main(["--mesh", "2x4", "--dir", str(out)])
+    text = capsys.readouterr().out
+    for kind in ("train", "prefill", "decode"):
+        assert f"| {SMOKE} | smoke_{kind} |" in text
+
+
+def test_stateful_cached_decode_steps_equal_the_stateless():
+    """The idxcache variant's path, with values: ``decode_step`` with
+    ``make_sparse_fn_cached`` (its index cache kept as per-shard stacks
+    across steps) gives the logits of the stateless
+    ``make_sparse_fn_distributed`` over two steps on two CPU shards, at
+    one-token pages (the cached fn averages a partial page over its live
+    tokens, the stateless one over the whole page, in both packages).
+    Before the dry run walked it, the stateful step could not stack the
+    per-shard caches it returns."""
+    import dataclasses
+
+    from repro_torch.core.methods import dsa
+    from repro_torch.launch.mesh import mesh_from_devices
+
+    cfg = dataclasses.replace(get_arch(SMOKE).smoke(), dtype="float32")
+    mem, tp, page, S = cfg.memory, 4, 1, 64
+    p = M.init_params(cfg, 0, tp=tp, device="cpu")
+    sp = dsa.dsa_init(cfg, mem, 1, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    tok = torch.randint(0, cfg.vocab_size, (2, 21), generator=gen)
+    _, ca = M.prefill(p, cfg, tok, max_len=S, tp=tp)
+    cb = dict(ca, k=ca["k"].clone(), v=ca["v"].clone())
+    kidx = torch.stack([dsa._matmul_promoted(
+        ca["k"][i].reshape(2, S, -1), sp["wk_idx"][i]).float().reshape(
+        2, S // page, page, -1).sum(2) for i in range(cfg.n_layers)])
+    devs = mesh_from_devices(["cpu", "cpu"])
+    stateless = dsa.make_sparse_fn_distributed(cfg, mem, devs, tp=tp,
+                                               page=page)
+    cached = dsa.make_sparse_fn_cached(cfg, mem, devs, tp=tp, page=page)
+    state = {"p": sp, "kidx_sum": kidx}
+    for _ in range(2):
+        t = torch.randint(0, cfg.vocab_size, (2,), generator=gen)
+        la, ca = M.decode_step(p, cfg, t, ca, tp=tp, sparse_fn=stateless,
+                               sparse_params=sp)
+        lb, cb, state = M.decode_step(p, cfg, t, cb, tp=tp,
+                                      sparse_fn=cached, sparse_params=state,
+                                      sparse_stateful=True)
+        assert float((la - lb).abs().max()) < 1e-4
+        assert len(state["kidx_sum"]) == 2
+        assert state["kidx_sum"][0].shape == (cfg.n_layers, 2,
+                                              S // page // 2, mem.index_dim)

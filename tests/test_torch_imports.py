@@ -49,6 +49,9 @@ def test_no_jax_or_reference_imports(path):
     "repro_torch.examples.train_mac_100m",
     "repro_torch.distributed.sharding", "repro_torch.distributed.collectives",
     "repro_torch.distributed.pipeline_parallel",
+    "repro_torch.kernels.cost", "repro_torch.launch.op_walk",
+    "repro_torch.launch.roofline", "repro_torch.launch.specs",
+    "repro_torch.launch.dryrun", "repro_torch.launch.report",
 ])
 def test_port_imports_without_cuda_toolchain(mod):
     importlib.import_module(mod)
