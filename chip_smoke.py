@@ -63,16 +63,21 @@ failure (the script then exits non-zero):
 3c. train_sharded: multi-device training on the one card, one process over
    a mesh whose entries are all ``cuda:0``: llama3.2-1b at full width,
    bf16, B 4 x S 2048, remat, tp 4, lr 1e-5; 3 single-device steps, then 3
-   on a (2, 4) ("data", "model") mesh from the same weights and batches
-   (losses within 2e-2, the worst leaf within its bf16 bound, 64 flash
-   launches a step on the tensor cores: 2 data indices x 16 layers x 2;
-   step ms, peak memory, one profiled
-   step's busy share, the gathers', the gradient all-reduce's and the
-   sharded AdamW's ms, which on one card are device-local copies); the
+   of the tensor-parallel step on a (2, 4) ("data", "model") mesh from the
+   same weights and batches (each coordinate computes its slice: 8 q / 2
+   kv heads, a quarter of the MLP and of the vocabulary; losses within
+   2e-2, the worst leaf within its bf16 bound, 256 flash launches a step on
+   the tensor cores: 2 data indices x 4 model shards x 16 layers x 2; step
+   ms, peak memory, one profiled step's busy share beside the gathered
+   step's (PR 22: 936.9 ms, 46.46 GB), the aten ops a step against one
+   device's, the data-axis gradient reduction's and the sharded AdamW's
+   ms, which on one card are device-local); the
    params saved from the mesh, restored onto a (4,) model mesh and onto
    one device, bit-equal; one fp32 step (S 512, lr 1e-3) sharded against
    single device within the CPU tests' tolerances, its data replicas
-   agreeing; the compressed pod sync on (2, 2, 2) ("pod", "data",
+   agreeing; granite-moe-1b-a400m at full width cut to 4 layers, one
+   expert-parallel step on a (1, 4) mesh (32 experts, 8 a shard) against
+   one device's; the compressed pod sync on (2, 2, 2) ("pod", "data",
    "model") at 4 layers, int8 and bf16 (step 1's loss bit-equal to the
    uncompressed step's, each residual held against one recomputed from
    the reduced gradients, int8's non-zero);
@@ -195,10 +200,12 @@ failure (the script then exits non-zero):
    launches a step on the tensor cores (one ``train_mac`` line);
 12. a ``{"kernels": [...]}`` line (flash's ``launches`` from the train
    phase, the train_families phase's by family and the train_sharded
-   phase's sharded steps and pipelined forward (``train_sharded``,
-   ``gpipe``) in ``launches_by_path``, flash also checked and timed at
-   those two paths' shapes, bf16 [2, 2048] and [1, 2048], and at the fp32
-   sharded step's [2, 512];
+   phase's sharded steps, granite's expert-parallel step and pipelined
+   forward (``train_sharded``, ``granite_tp``, ``gpipe``) in
+   ``launches_by_path``, flash also checked and timed at those paths'
+   shapes (a model shard's: bf16 [2, 2048] over 8 q / 2 kv heads, granite's
+   [4, 2048] over 4 / 2, the pod sync's [1, 2048] over 16 / 4; GPipe's [1,
+   2048] over 32 / 8), and at the fp32 sharded step's [2, 512] over 8 / 2;
    paged attention and flash also at the families' shapes: G = 1,
    2, 4 and 8, dh 112 and 128; relevancy and paged attention at the fleet
    phase's shard-local shapes; flash at MemAgent's prefills, with the
@@ -263,6 +270,14 @@ SHARDED_FP32_S, SHARDED_FP32_LR = 512, 1e-3
 SHARDED_MESH = ((2, 4), ("data", "model"))
 POD_MESH = ((2, 2, 2), ("pod", "data", "model"))
 POD_LAYERS = 4
+# granite-moe's expert-parallel step: (1, 4) splits its 32 experts 8 a
+# shard; its depth cut to 4 layers, its lr the train_families phase's
+GRANITE_TP, GRANITE_TP_MESH, GRANITE_TP_LAYERS = ("granite-moe-1b-a400m",
+                                                  ((1, 4), ("data", "model")),
+                                                  4)
+# PR 22's gathered sharded step on the same mesh and card (NVIDIA H100 80GB
+# HBM3, 700 W): the figures the tensor-parallel step is printed beside
+GATHERED_STEP_MS, GATHERED_PEAK_GB = 936.9, 46.46
 GPIPE_STAGES, GPIPE_MICRO, GPIPE_PAIRS = 4, 8, 6
 MAX_NEW = 16
 VIEW = 8192
@@ -1316,10 +1331,16 @@ def check_flash_attention(dev):
         # [memory 1024; question 64], B 2 (rows 3f and 3g)
         "memagent segment prefill": (2, 6024, 32, 8, 64, 0, 2),
         "memagent answer prefill": (2, 1088, 32, 8, 64, 0, 20),
-        # the train_sharded phase: each of the sharded step's 2 data indices
-        # (B 4 / 2); a GPipe microbatch, also each of the pod sync's 4 data
-        # indices (B 4 / 4)
-        "train_sharded": (TRAIN_B // 2, TRAIN_S, 32, 8, 64, 0, 20),
+        # the train_sharded phase: a model shard of each of the sharded
+        # step's 2 data indices (B 4 / 2; 32 / 4 q and 8 / 4 kv heads);
+        # granite's expert-parallel step (16 / 4 and 8 / 4); a model shard
+        # of each of the pod sync's 4 data indices (B 4 / 4; 32 / 2 and
+        # 8 / 2); a GPipe microbatch (no model split)
+        "train_sharded": (TRAIN_B // 2, TRAIN_S, 32 // CLI_TP, 8 // CLI_TP,
+                          64, 0, 20),
+        "granite_tp": (TRAIN_B, TRAIN_S, 16 // CLI_TP, 8 // CLI_TP, 64, 0,
+                       20),
+        "pod sync": (TRAIN_B // 4, TRAIN_S, 16, 4, 64, 0, 2),
         "gpipe": (1, TRAIN_S, 32, 8, 64, 0, 20),
     }
     def routed(name, fn, want_route):
@@ -1366,8 +1387,8 @@ def check_flash_attention(dev):
             ("bf16 G=1", 1, 300, 4, 4, 64, 0, bf16),
             ("bf16 dh 32", 1, 300, 4, 2, 32, 0, bf16),
             ("fp32 training heads", 1, 1024, 32, 8, 64, 0, f32),
-            ("fp32 sharded step's data index", TRAIN_B // 2,
-             SHARDED_FP32_S, 32, 8, 64, 0, f32),
+            ("fp32 sharded step's model shard", TRAIN_B // 2,
+             SHARDED_FP32_S, 32 // CLI_TP, 8 // CLI_TP, 64, 0, f32),
             ("fp32 window 96", 1, 700, 8, 2, 128, 96, f32),
             ("bf16 window 96", 1, 700, 8, 2, 128, 96, bf16),
             ("bf16 dh 112 G=1 ragged", 1, 300, 4, 4, 112, 0, bf16),
@@ -1882,6 +1903,19 @@ def _steps(tr, batches):
     return losses, step_s, per_step
 
 
+def _step_ops(tr, batch) -> int:
+    """The materializing aten ops of one train step on the card, as
+    ``op_walk.OpWalk`` counts them (each is a launch the host dispatches;
+    views and factories are not counted)."""
+    import torch
+    from repro_torch.launch import op_walk
+
+    with op_walk.OpWalk() as w:
+        tr.train_step(batch)
+    torch.cuda.synchronize()
+    return int(sum(row[0] for row in w.by_op.values()))
+
+
 def _worst_leaf(placed, host):
     """Max |a - b| over the leaves: a sharded tree on the card against full
     tensors on the host."""
@@ -1912,32 +1946,97 @@ def _bf16_leaf_bound(placed, host, steps, lr):
 
 
 def _sharded_parts(tr, dev):
-    """The sharded step's three collective parts, each timed alone at the
-    step's shapes on the card: one data index's gather of the full
-    parameters, the gradient all-reduce over the data indices (bf16), and
-    the sharded AdamW (in place: it moves the parameters)."""
+    """The tensor-parallel step's two exchange and update parts, each timed
+    alone at the step's shapes on the card: the gradient reduction
+    (``trainer._reduce_tp_grads``: each replicated leaf's copies summed over
+    its model group, every slice ring all-reduced over the data indices,
+    bf16), and the sharded AdamW (in place: it moves the parameters)."""
     import torch
-    from repro_torch.distributed import collectives, sharding as sh
+    from repro_torch.distributed import sharding as sh
     from repro_torch.train.optimizer import adamw_update, leaves
+    from repro_torch.train.trainer import (_differentiated, _reduce_tp_grads,
+                                           _unflatten)
 
     mesh = tr.mesh
-    groups = mesh.groups(sh.data_axes(mesh))
-    order = groups[0] + [i for i in range(mesh.size) if i not in groups[0]]
     ps = leaves(tr.params)
-    gather_ms = _event_ms(lambda: [p.full(dev, order) for p in ps])
-    grads = [[torch.full(p.shape, 1e-3 * (d + 1), dtype=p.dtype, device=dev)
-              for p in ps] for d in range(len(groups))]
-    reduce_ms = _event_ms(lambda: [collectives.all_reduce(list(g), "mean")
-                                   for g in zip(*grads)])
-    full = [collectives.all_reduce(list(g), "mean") for g in zip(*grads)]
-    del grads
-    by_leaf = {id(p): g for p, g in zip(ps, full)}
-    gtree = sh.tree_map(lambda p: by_leaf[id(p)], tr.params)
+    dp = len(sh.model_groups(mesh))
+    per_d = [{(i, c): torch.full(ps[i].shards[c].shape, 1e-3 * (d + 1),
+                                 dtype=ps[i].dtype, device=dev)
+              for i, c in _differentiated(ps, mesh, d)} for d in range(dp)]
+    reduce_ms = _event_ms(lambda: _reduce_tp_grads(ps, mesh, per_d, dp))
+    gtree = _unflatten(tr.params, _reduce_tp_grads(ps, mesh, per_d, dp))
+    del per_d
     adamw_ms = _event_ms(lambda: adamw_update(gtree, tr.opt_state, tr.params,
                                               tr.tc.opt), n=2)
-    del full, gtree
-    return {"gather_ms": gather_ms, "grad_all_reduce_ms": reduce_ms,
-            "sharded_adamw_ms": adamw_ms}
+    del gtree
+    return {"grad_reduce_ms": reduce_ms, "sharded_adamw_ms": adamw_ms}
+
+
+def _granite_tp(dev):
+    """granite-moe-1b-a400m at full width cut to GRANITE_TP_LAYERS layers,
+    bf16, B 4 x S 2048, remat, lr 1e-5 (the train_families phase's): two
+    single-device steps, then two expert-parallel steps on a (1, 4) mesh of
+    the card (32 experts, 8 a shard; the router, the dispatch, the capacity
+    and the aux on every shard) from the same weights and batches: losses
+    within 2e-2 relative, the worst leaf within its bf16 bound, tp x layers
+    x 2 flash launches a step on the tensor cores, step ms."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.moe import expert_parallel
+    from repro_torch.train import OptConfig, Trainer, TrainConfig
+    from repro_torch.train.optimizer import leaves
+
+    cfg = get_arch(GRANITE_TP).replace(n_layers=GRANITE_TP_LAYERS)
+    lr = TRAIN_FAMILIES[GRANITE_TP][3]
+    tc = TrainConfig(opt=OptConfig(lr=lr, warmup_steps=1,
+                                   total_steps=CLI_TOTAL_STEPS),
+                     remat=True, tp=CLI_TP)
+    mesh = make_mesh(*GRANITE_TP_MESH)
+    n = mesh.shape["model"]
+    batches = _train_batches(cfg, dev, 2, TRAIN_B, TRAIN_S, seed=2)
+    tr = Trainer(cfg, tc, init_params(cfg, 0, tp=tc.tp, device=dev))
+    single, single_s, _ = _steps(tr, batches)
+    host = [p.detach().cpu() for p in leaves(tr.params)]
+    del tr
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tc, _place(init_params(cfg, 0, tp=tc.tp, device=dev),
+                                 cfg, mesh), mesh)
+    ops.reset_launch_counts()
+    losses, step_s, per_step = _steps(tr, batches)
+    routes = ops.flash_route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, single)]
+    worst, bound = _bf16_leaf_bound(tr.params, host, len(batches), lr)
+    del tr, host
+    torch.cuda.empty_cache()
+    log(f"  granite expert-parallel ({GRANITE_TP_LAYERS} layers, "
+        f"{dict(mesh.shape)}, {cfg.n_experts // n} experts a shard): losses "
+        f"{[round(x, 5) for x in losses]} vs one device "
+        f"{[round(x, 5) for x in single]} (rel {max(rel):.3g}, tol 2e-2); "
+        f"worst leaf {worst:.3g} of its bf16 bound; step ms "
+        f"{1e3 * single_s[-1]:.1f} vs {1e3 * step_s[-1]:.1f}; flash "
+        f"launches a step {per_step}")
+    if not (expert_parallel(cfg, n) and all(map(math.isfinite, losses))
+            and max(rel) <= 2e-2 and worst <= 1.0):
+        raise AssertionError(f"granite expert-parallel: {losses} vs {single}"
+                             f", worst leaf {worst} of its bound")
+    if per_step != [n * GRANITE_TP_LAYERS * 2] * len(batches) or \
+            routes[fa.CUDA_CORES]:
+        raise AssertionError(f"granite expert-parallel: flash {per_step}, "
+                             f"{routes}")
+    return {"arch": GRANITE_TP, "layers": GRANITE_TP_LAYERS,
+            "mesh": dict(mesh.shape), "experts_per_shard": cfg.n_experts // n,
+            "batch": TRAIN_B, "seq": TRAIN_S, "lr": lr,
+            "single_losses": single, "tp_losses": losses,
+            "loss_rel_err": rel, "loss_tol": 2e-2,
+            "worst_leaf_of_bf16_bound": worst, "leaf_bound": bound,
+            "single_step_s": single_s, "tp_step_s": step_s,
+            "tp_peak_memory_bytes": peak, "flash_launches_per_step": per_step,
+            "flash_launches_by_route": routes}, sum(per_step), routes
 
 
 def _reshard(params, cfg, dev):
@@ -2069,16 +2168,21 @@ def phase_train_sharded(dev):
     entries are all ``cuda:0``: llama3.2-1b at full width, bf16, seeded
     weights, ``TokenStream`` batches, B 4 x S 2048, remat, tp 4, lr 1e-5.
     SHARDED_STEPS single-device steps first (the final parameters kept on
-    the host, then freed), then as many on a (2, 4) ("data", "model") mesh
-    from the same weights and batches: losses within 2e-2 relative, all
-    finite, the worst leaf within its bf16 bound (``_bf16_leaf_bound``),
-    2 data indices x 16 layers x 2 flash launches a step on the
-    tensor cores; step ms, peak memory, one profiled sharded step's busy
-    share, the gathers', the all-reduce's and the sharded AdamW's ms; the
-    params saved from the mesh and restored onto a (4,) model mesh and onto
-    one device bit-equal; one fp32 step (``_sharded_fp32``); the compressed
-    pod sync (``_pod_sync``); GPipe (``_gpipe``). One ``train_sharded`` line. Returns the flash launches and
-    routes of the sharded steps and of the pipelined forward."""
+    the host, then freed), then as many of the tensor-parallel step on a
+    (2, 4) ("data", "model") mesh from the same weights and batches: losses
+    within 2e-2 relative, all finite, the worst leaf within its bf16 bound
+    (``_bf16_leaf_bound``), 2 data indices x 4 model shards x 16 layers x 2
+    flash launches a step on the tensor cores; step ms and peak memory
+    beside the gathered step's (GATHERED_*), one profiled step's busy
+    share, the aten ops one step dispatches against one device's
+    (``_step_ops``), the gradient reduction's and the sharded AdamW's ms;
+    the params
+    saved from the mesh and restored onto a (4,) model mesh and onto one
+    device bit-equal; one fp32 step (``_sharded_fp32``); granite's
+    expert-parallel step (``_granite_tp``); the compressed pod sync
+    (``_pod_sync``); GPipe (``_gpipe``). One ``train_sharded`` line.
+    Returns {path: (flash launches, routes)} of the sharded steps, granite's
+    steps and the pipelined forward."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa, ops
@@ -2086,6 +2190,7 @@ def phase_train_sharded(dev):
     from repro_torch.models import init_params
     from repro_torch.train import OptConfig, Trainer, TrainConfig
     from repro_torch.train.optimizer import leaves
+    from repro_torch.train.trainer import splits_model
 
     cfg = get_arch(TRAIN_ARCH)
     B, S, L, n = TRAIN_B, TRAIN_S, cfg.n_layers, SHARDED_STEPS
@@ -2094,7 +2199,10 @@ def phase_train_sharded(dev):
                      remat=True, tp=CLI_TP)
     batches = _train_batches(cfg, dev, n + 1, B, S)
     mesh = make_mesh(*SHARDED_MESH)
-    dp = mesh.shape["data"]
+    dp, tp = mesh.shape["data"], mesh.shape["model"]
+    if not (splits_model(cfg, mesh) and cfg.kv_shardable(tp)):
+        raise AssertionError("train_sharded: the mesh does not split llama "
+                             "over the model axis with its kv heads")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2102,6 +2210,7 @@ def phase_train_sharded(dev):
     single_losses, single_s, _ = _steps(tr, batches[:n])
     single_peak = torch.cuda.max_memory_allocated()
     host = [p.detach().cpu() for p in leaves(tr.params)]
+    single_ops = _step_ops(tr, batches[n])
     del tr
     torch.cuda.empty_cache()
 
@@ -2117,21 +2226,23 @@ def phase_train_sharded(dev):
     worst = _worst_leaf(tr.params, host)
     worst_of_bound, bound = _bf16_leaf_bound(tr.params, host, n, SHARDED_LR)
     del host
+    want = dp * tp * L * 2
     log(f"  single-device losses {[round(x, 5) for x in single_losses]}, "
-        f"sharded {[round(x, 5) for x in losses]} (rel {max(rel):.3g}, tol "
-        f"2e-2); worst leaf |diff| after step {n} {worst:.3g}, at most "
-        f"{worst_of_bound:.3g} of its leaf's bf16 bound (that leaf's "
-        f"{bound:.3g}); step ms "
+        f"tensor-parallel {[round(x, 5) for x in losses]} (rel "
+        f"{max(rel):.3g}, tol 2e-2); worst leaf |diff| after step {n} "
+        f"{worst:.3g}, at most {worst_of_bound:.3g} of its leaf's bf16 bound "
+        f"(that leaf's {bound:.3g}); step ms "
         f"{1e3 * statistics.median(single_s):.1f} vs "
-        f"{1e3 * statistics.median(step_s):.1f}; peak "
-        f"{single_peak / 1e9:.2f} vs {peak / 1e9:.2f} GB; flash launches "
-        f"per sharded step {per_step} (expected {dp} x {L} x 2)")
+        f"{1e3 * statistics.median(step_s):.1f} (the gathered step: "
+        f"{GATHERED_STEP_MS}); peak {single_peak / 1e9:.2f} vs "
+        f"{peak / 1e9:.2f} GB (gathered: {GATHERED_PEAK_GB}); flash launches "
+        f"per step {per_step} (expected {dp} x {tp} x {L} x 2)")
     if not all(math.isfinite(x) for x in losses + single_losses):
         raise AssertionError(f"train_sharded: non-finite loss {losses}")
     if max(rel) > 2e-2:
         raise AssertionError(f"train_sharded: sharded {losses} vs single "
                              f"{single_losses}")
-    if per_step != [dp * L * 2] * n:
+    if per_step != [want] * n:
         raise AssertionError(f"train_sharded: flash launches {per_step}")
     if not worst_of_bound <= 1.0:
         raise AssertionError(f"train_sharded: a leaf {worst_of_bound} of its "
@@ -2142,24 +2253,28 @@ def phase_train_sharded(dev):
     if any(c for name, c in counts.items() if name != "flash_attention"):
         raise AssertionError(f"train_sharded: other kernels {counts}")
     profile = _profile_busy(tr, batches[n:])
-    if profile["flash_launches_profiled"] != dp * L * 2:
+    if profile["flash_launches_profiled"] != want:
         raise AssertionError(f"train_sharded: {profile} in the profiled step")
+    tp_ops = _step_ops(tr, batches[n])
     reshard = _reshard(tr.params, cfg, dev)
     parts = _sharded_parts(tr, dev)
-    log(f"  one profiled sharded step: busy "
-        f"{100 * profile['device_busy_share']:.1f} %; gathers "
-        f"{parts['gather_ms']:.2f} ms, grad all-reduce "
-        f"{parts['grad_all_reduce_ms']:.2f} ms, sharded AdamW "
-        f"{parts['sharded_adamw_ms']:.2f} ms")
+    log(f"  one profiled tensor-parallel step: busy "
+        f"{100 * profile['device_busy_share']:.1f} %; gradient reduction "
+        f"{parts['grad_reduce_ms']:.2f} ms, sharded AdamW "
+        f"{parts['sharded_adamw_ms']:.2f} ms; aten ops a step (op walk) "
+        f"{tp_ops} against one device's {single_ops}")
     del tr
     torch.cuda.empty_cache()
 
     fp32 = _sharded_fp32(cfg, mesh, dev)
+    granite, gr_launches, gr_routes = _granite_tp(dev)
     pod = _pod_sync(cfg, tc, batches[0], dev)
     gpipe, gp_launches, gp_routes = _gpipe(cfg, tc, dev)
     print(json.dumps({"train_sharded": {
         "card": card_line(), "arch": TRAIN_ARCH, "dtype": "bfloat16",
         "batch": B, "seq": S, "remat": True, "tp": tc.tp, "lr": SHARDED_LR,
+        "step": "tensor-parallel: each (data, model) coordinate computes its "
+                "slice",
         "mesh": dict(mesh.shape), "mesh_devices": sorted(
             set(map(str, mesh.devices.flat))), "steps": n,
         "single_losses": single_losses, "sharded_losses": losses,
@@ -2171,20 +2286,26 @@ def phase_train_sharded(dev):
         "single_step_s": single_s, "sharded_step_s": step_s,
         "single_step_ms_median": 1e3 * statistics.median(single_s),
         "sharded_step_ms_median": 1e3 * statistics.median(step_s),
+        "gathered_step_ms_pr22": GATHERED_STEP_MS,
         "single_tokens_per_s": B * S / statistics.median(single_s),
         "sharded_tokens_per_s": B * S / statistics.median(step_s),
         "single_peak_memory_bytes": single_peak,
         "sharded_peak_memory_bytes": peak,
+        "gathered_peak_gb_pr22": GATHERED_PEAK_GB,
         "flash_launches": counts["flash_attention"],
         "flash_launches_by_route": routes,
         "flash_launches_per_step": per_step,
         "profiled_step": profile, **parts,
+        "aten_ops_per_step": {"single": single_ops,
+                              "tensor_parallel": tp_ops},
         "collectives_note": "one card: every mesh entry is cuda:0, so the "
-                            "gathers and the all-reduce are device-local "
+                            "all-reduces and gathers are device-local "
                             "copies and adds, not interconnect transfers",
-        "reshard": reshard, "fp32": fp32, "pod_sync": pod,
-        "gpipe": gpipe}}), flush=True)
-    return (counts["flash_attention"], routes, gp_launches, gp_routes)
+        "reshard": reshard, "fp32": fp32, "granite_expert_parallel": granite,
+        "pod_sync": pod, "gpipe": gpipe}}), flush=True)
+    return {"train_sharded": (counts["flash_attention"], routes),
+            "granite_tp": (gr_launches, gr_routes),
+            "gpipe": (gp_launches, gp_routes)}
 
 
 def _sharded_fp32(cfg, mesh, dev):
@@ -2296,6 +2417,7 @@ def _pod_sync(cfg, tc, batch, dev):
     import dataclasses
 
     import torch
+    from repro_torch.distributed import sharding as sh
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_params
     from repro_torch.train import Trainer
@@ -2312,8 +2434,8 @@ def _pod_sync(cfg, tc, batch, dev):
                                                   device=dev), cut, mesh),
                      mesh)
         if grads is None:
-            grads = [g.detach() for g in leaves(sharded_loss_and_grads(
-                tr.params, cut, tcm, batch, mesh)[1])]
+            grads = [g.detach() for g in leaves(sh.gather(
+                sharded_loss_and_grads(tr.params, cut, tcm, batch, mesh)[1]))]
         t0 = time.perf_counter()
         loss = tr.train_step(batch)["loss"]
         torch.cuda.synchronize()
@@ -4112,9 +4234,8 @@ def main(argv=None):
     if "train_sharded" in phases:
         mark("[3c] train llama3.2-1b bf16 sharded on one card; pod sync; "
              "GPipe; reshard")
-        sh_n, sh_routes, gp_n, gp_routes = phase_train_sharded(dev)
-        trained["train_sharded"] = (sh_n, sh_routes)
-        trained["gpipe"] = (gp_n, gp_routes)
+        got = phase_train_sharded(dev)
+        trained.update(got)
     if "roofline" in phases:
         mark("[3d] roofline: walks on the card and on placeholders; the dry "
              "run")
@@ -4195,8 +4316,8 @@ def main(argv=None):
     for k in kernels:
         if k["name"] == "flash_attention":
             for row in k["other_shapes"]:
-                if row["path"] in ("train_sharded", "gpipe") and \
-                        row["path"] in trained:
+                if row["path"] in ("train_sharded", "granite_tp",
+                                   "gpipe") and row["path"] in trained:
                     row["launches"] = trained[row["path"]][0]
     torch.cuda.synchronize()
     mark("[12] the kernels line")

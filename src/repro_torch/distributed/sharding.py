@@ -11,13 +11,21 @@ archs, and return a tree of ``PartitionSpec`` of the same nesting. They read
 only ``mesh.shape``. A leaf that is no tensor (the cache's ``length``, a
 host int) gets ``P()``.
 
-The reference hands its specs to GSPMD. The port places and gathers itself,
+The reference hands its specs to GSPMD. The port places and splits itself,
 in one process: ``device_put`` gives each leaf as a ``ShardedTensor``, one
-owned copy of its slice per mesh coordinate on that coordinate's device, and
-``gather`` concatenates the slices back into full tensors. A mesh may name
-one card in every entry, so each slice is cloned: a full-extent slice would
-otherwise be a view of the one storage, and an in-place update would write
-it once per coordinate.
+owned copy of its slice per mesh coordinate on that coordinate's device. A
+mesh may name one card in every entry, so each slice is cloned: a
+full-extent slice would otherwise be a view of the one storage, and an
+in-place update would write it once per coordinate.
+
+The tensor-parallel step computes on the slices where they lie:
+``group_view`` gives each model shard of one data index its local tree
+(``local``: its own shards), where a leaf also cut over the data axes
+(FSDP, ``fsdp_dim``) is a ``DataSlices`` of its data group's shards,
+gathered one layer at a time where it is used (``materialize``,
+``gather_layer``). ``model_groups`` / ``data_groups`` name the coordinates
+each split runs over. ``gather`` (``ShardedTensor.full``) concatenates the
+slices back into full tensors, for checkpoints and tests.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.distributed import collectives
 from repro_torch.launch.op_walk import collective
 
 MODEL_AXIS = "model"
@@ -362,7 +371,7 @@ def _place(x, s: NamedSharding):
         x = x.full()
     if not isinstance(x, torch.Tensor):
         return x
-    shards = [x[sl].to(s.mesh.device(i), copy=True).contiguous()
+    shards = [x.detach()[sl].to(s.mesh.device(i), copy=True).contiguous()
               for i, sl in enumerate(s.slices(x.shape))]
     return ShardedTensor(shards, s, x.shape, x.dtype)
 
@@ -409,3 +418,104 @@ def copy_(dst, src: torch.Tensor):
             shard.copy_(src[sl])
     else:
         dst.copy_(src)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel split's views of a placed tree
+# ---------------------------------------------------------------------------
+
+
+def _present(mesh, axes) -> List[str]:
+    return [a for a in axes if a in mesh.shape]
+
+
+def model_groups(mesh) -> List[List[int]]:
+    """Per data index (the data axes raveled major to minor), its mesh
+    coordinates in model-index order: the group one data index's
+    tensor-parallel step runs over."""
+    axes = _present(mesh, data_axes(mesh))
+    return mesh.groups(axes) if axes else [list(range(mesh.size))]
+
+
+def data_groups(mesh) -> List[List[int]]:
+    """Per model index, its mesh coordinates in data-index order: the group
+    a gradient slice is reduced over, and an FSDP leaf gathered over."""
+    if MODEL_AXIS not in mesh.shape:
+        return [list(range(mesh.size))]
+    return mesh.groups((MODEL_AXIS,))
+
+
+def local(tree, i: int):
+    """The tree as mesh coordinate ``i`` holds it: each ``ShardedTensor`` as
+    its shard there."""
+    return tree_map(lambda x: x.shards[i] if isinstance(x, ShardedTensor)
+                    else x, tree)
+
+
+def cut_dim(x, axes) -> Optional[int]:
+    """The dim of a placed leaf cut over any of the mesh axes ``axes``, or
+    None."""
+    if not isinstance(x, ShardedTensor):
+        return None
+    for d, entry in enumerate(x.sharding.spec):
+        names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        if set(axes) & set(names):
+            return d
+    return None
+
+
+def fsdp_dim(x) -> Optional[int]:
+    """The dim of a placed leaf cut over the data axes (FSDP), or None."""
+    return (cut_dim(x, data_axes(x.sharding.mesh))
+            if isinstance(x, ShardedTensor) else None)
+
+
+@dataclasses.dataclass
+class DataSlices:
+    """One model shard's view of an FSDP leaf: its data group's shards
+    (``parts``, in data-index order, each on its coordinate's device), cut
+    on ``dim``. ``materialize`` gathers it where it is used."""
+    parts: List[torch.Tensor]
+    dim: int
+
+    def layers(self, n: int) -> List["DataSlices"]:
+        """Per layer of a stacked leaf, the parts' slices of that layer
+        (``torch.unbind``: under autograd their gradients meet in one stack
+        per part)."""
+        if self.dim == 0:
+            raise ValueError("an FSDP leaf cut over the data axes on its "
+                             "layer dim cannot be gathered one layer at a "
+                             "time")
+        per = [torch.unbind(p, 0) for p in self.parts]
+        return [DataSlices([u[i] for u in per], self.dim - 1)
+                for i in range(n)]
+
+
+def group_view(params, mesh, d: int) -> List:
+    """Data index ``d``'s model group's local trees, in model-index order:
+    each ``ShardedTensor`` leaf as that coordinate's shard, or, for an FSDP
+    leaf, a ``DataSlices`` of the shards of the coordinates that share its
+    model index."""
+    by_model = {c: g for g in data_groups(mesh) for c in g}
+
+    def view(x, own, c):
+        if fsdp_dim(x) is None:
+            return own
+        return DataSlices([x.shards[j] for j in by_model[c]], fsdp_dim(x))
+
+    return [tree_map(lambda x, own, c=c: view(x, own, c), params,
+                     local(params, c)) for c in model_groups(mesh)[d]]
+
+
+def gather_layer(parts: Sequence[torch.Tensor], dim: int, device
+                 ) -> torch.Tensor:
+    """One layer's slice of an FSDP leaf gathered over its data group onto
+    ``device``: the parts concatenated on ``dim`` (an all-gather; backward:
+    each part's slice of the gradient, sent back to its coordinate)."""
+    return collectives.group_all_gather(list(parts), dim, [device])[0]
+
+
+def materialize(tree, device):
+    """The tree with each ``DataSlices`` gathered onto ``device``."""
+    return tree_map(lambda x: gather_layer(x.parts, x.dim, device)
+                    if isinstance(x, DataSlices) else x, tree)

@@ -163,12 +163,14 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        from repro_torch.launch.op_walk import placing
         from repro_torch.models.attention import attend_causal
 
         q, k, v = ctx.saved_tensors
         G = q.shape[2] // k.shape[2]
-        # a named range, so a profile can tell the recompute's device time
-        with torch.enable_grad(), torch.profiler.record_function(
+        # a named range, so a profile can tell the recompute's device time;
+        # under placeholders the recompute's tensors go on q's card
+        with torch.enable_grad(), placing(), torch.profiler.record_function(
                 "flash_attention.backward"):
             q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
             out = attend_causal(q, k.repeat_interleave(G, dim=2),

@@ -13,13 +13,25 @@ nothing is allocated, ``cuda:0 .. cuda:511`` need no card), runs the step
 eagerly under ``op_walk.OpWalk`` and reads the walk. It runs on any
 machine, with or without a card; on the card it touches none.
 
-  * train cells walk the port's own sharded ``Trainer`` step
-    (``train.trainer.make_train_step``: each data index gathers the
-    parameters onto its first device and runs its microbatches there, the
-    gradients are all-reduced onto the mesh's first device, every
-    coordinate updates its slices) over the production mesh, with
-    ``pick_accum``'s accumulation;
-  * prefill and decode cells have no sharded step in the port: they walk
+  * train cells walk the port's own sharded step over the production mesh,
+    with ``pick_accum``'s accumulation. For the transformer families it is
+    the tensor-parallel step (``train.trainer.sharded_loss_and_grads``):
+    256 coordinates' ops would take hours to dispatch here, so data index
+    0's model group runs its part of the batch, and the other data indices
+    stand in (``stand_in``): their gradients are zeros of their shapes,
+    reduced over the data axes as the step reduces them (the ring
+    all-reduce, walked), and the FSDP gradients they send data index 0's
+    coordinates are counted from what data index 1's received from data
+    index 0 (by symmetry); then every coordinate's AdamW. The hybrid and
+    xLSTM families walk the gathered step (every data index gathers the
+    parameters onto its first device; the gradients are reduced onto the
+    mesh's first device);
+  * prefill cells of the transformer families walk data index 0's part of
+    the batch over its model group (``models.model.prefill_tp``, each
+    coordinate computing its slice, FSDP leaves gathered a layer at a
+    time); the hybrid's and xLSTM's on the first device of its group, its
+    parameters there in full;
+  * decode cells have no sharded step in the port yet (ROADMAP): they walk
     data index 0's part of the batch on the first device of its group, its
     parameters and cache there in full. A decode cell's cache holds
     ``seq_len - 1`` tokens (the shape's length, a host int). Variants
@@ -61,8 +73,10 @@ from repro_torch.launch.specs import (batch_structs, cache_structs,
                                       input_specs, param_structs,
                                       pick_accum, sparse_structs)
 from repro_torch.models import model as M
-from repro_torch.train.optimizer import init_opt_state, tree_map
-from repro_torch.train.trainer import TrainConfig, make_train_step
+from repro_torch.train.optimizer import (adamw_update, init_opt_state,
+                                         leaves, tree_map)
+from repro_torch.train.trainer import (TrainConfig, make_train_step,
+                                       sharded_loss_and_grads, splits_model)
 
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                        "..", "..", "build", "dryrun")
@@ -99,9 +113,10 @@ def _place(tree, dev):
 
 
 def _first_part(mesh, batch: int):
-    """Data index 0's first device, and its rows of a batch of ``batch``
-    (all of it when the batch does not split over the data axes)."""
-    groups = mesh.groups(sh.data_axes(mesh))
+    """Data index 0's coordinates and first device, and its rows of a batch
+    of ``batch`` (all of it when the batch does not split over the data
+    axes)."""
+    groups = sh.model_groups(mesh)
     dp = len(groups)
     rows = batch // dp if batch >= dp and batch % dp == 0 else batch
     return groups[0], mesh.device(groups[0][0]), rows
@@ -112,8 +127,25 @@ def _first_part(mesh, batch: int):
 # ---------------------------------------------------------------------------
 
 
+def _fsdp_symmetry(w: op_walk.OpWalk, mesh):
+    """The FSDP gradients the stand-in data indices send data index 0's
+    coordinates: each receives from every other data index what data index
+    1's coordinate of the same model index received from data index 0 (the
+    FSDP gathers' backward; nothing else reaches it as a reduce-scatter)."""
+    dp = len(sh.model_groups(mesh))
+    if dp < 2:
+        return
+    for m0, m1 in zip(sh.model_groups(mesh)[0], sh.model_groups(mesh)[1]):
+        src = w.costs[str(mesh.device(m1))]
+        got = src.per_collective["reduce-scatter"] * (dp - 1)
+        dst = w.costs[str(mesh.device(m0))]
+        dst.per_collective["reduce-scatter"] += got
+        dst.coll_bytes += got
+        dst.bytes += got
+
+
 def walk_train(cfg, shape, mesh, tp: int, rec: Dict) -> op_walk.OpWalk:
-    """One sharded ``Trainer`` step over ``mesh`` (inside placeholders)."""
+    """One sharded train step over ``mesh`` (inside placeholders)."""
     accum = pick_accum(cfg, shape, mesh.size // tp)
     rec["accum"] = accum
     specs = input_specs(cfg, shape, mesh, tp=tp)
@@ -126,28 +158,84 @@ def walk_train(cfg, shape, mesh, tp: int, rec: Dict) -> op_walk.OpWalk:
                      if k == "positions3" else
                      x.reshape((accum, mb) + x.shape[1:]))
                  for k, x in batch.items()}
-    step = make_train_step(cfg, TrainConfig(accum=accum, tp=tp, remat=True),
-                           mesh)
-    rec["walked"] = (f"the sharded Trainer step: {len(mesh.groups(sh.data_axes(mesh)))} "
-                     f"data indices, accum {accum}")
+    tc = TrainConfig(accum=accum, tp=tp, remat=True)
+    dp = len(sh.model_groups(mesh))
+    if not splits_model(cfg, mesh):
+        step = make_train_step(cfg, tc, mesh)
+        rec["walked"] = (f"the gathered sharded Trainer step: {dp} data "
+                         f"indices, accum {accum}")
+        with op_walk.OpWalk() as w:
+            w.track(params, opt.m, opt.v, batch)
+            step(params, opt, batch)
+        return w
+    rec["walked"] = (
+        f"the tensor-parallel step: data index 0's model group "
+        f"({mesh.size // dp} coordinates), accum {accum}; the other "
+        f"{dp - 1} data indices stand in (zero gradients reduced over the "
+        f"data axes as walked; the FSDP gradients they send data index 0's "
+        f"coordinates counted from data index 1's by symmetry); every "
+        f"coordinate's AdamW")
     with op_walk.OpWalk() as w:
         w.track(params, opt.m, opt.v, batch)
-        step(params, opt, batch)
+        _, grads = sharded_loss_and_grads(params, cfg, tc, batch, mesh,
+                                          stand_in=True)
+        adamw_update(grads, opt, params, tc.opt)
+        del grads
+    _fsdp_symmetry(w, mesh)
+    rec["grad_reduce"] = _grad_reduce(w, mesh, params, accum)
     return w
 
 
+def _grad_reduce(w: op_walk.OpWalk, mesh, params, accum: int) -> Dict:
+    """What data index 1's first coordinate (a stand-in: it computes
+    nothing, so all it receives is the gradient exchange) receives, against
+    its gradient slice (fp32 when accumulated): the slice it owns, or an
+    FSDP leaf's whole data extent, which it computes and reduce-scatters.
+    Of what it receives, the ring all-reduce over the model axis of the
+    leaves replicated there (2 (n - 1) / n of their shards) is set apart;
+    the rest is the data-axis reduction."""
+    groups = sh.model_groups(mesh)
+    if len(groups) < 2:
+        return {}
+    c, n, tp = groups[1][0], len(groups), len(groups[1])
+    slice_bytes = model_axis = 0
+    for x in leaves(params):
+        nbytes = x.shards[c].numel() * (4 if accum > 1 else
+                                        x.shards[c].element_size())
+        slice_bytes += nbytes * (1 if sh.fsdp_dim(x) is None else n)
+        if sh.cut_dim(x, (sh.MODEL_AXIS,)) is None:
+            model_axis += 2 * (tp - 1) * nbytes // tp
+    got = w.costs[str(mesh.device(c))].per_collective
+    data_axis = got["all-reduce"] + got["reduce-scatter"] * (n - 1) \
+        - model_axis
+    return {"card": str(mesh.device(c)), "slice_bytes": slice_bytes,
+            "data_axis_bytes_in": data_axis,
+            "model_axis_bytes_in": model_axis,
+            "ratio": data_axis / slice_bytes, "ring_ratio": 2 * (n - 1) / n}
+
+
 def walk_prefill(cfg, shape, mesh, tp: int, rec: Dict) -> op_walk.OpWalk:
-    _, dev, rows = _first_part(mesh, shape.global_batch)
-    batch = batch_structs(cfg, shape.__class__(shape.name, shape.seq_len,
-                                               rows, shape.kind))
+    group, dev, rows = _first_part(mesh, shape.global_batch)
+    batch = _place(batch_structs(cfg, shape.__class__(
+        shape.name, shape.seq_len, rows, shape.kind)), dev)
+    kw = dict(max_len=shape.seq_len, positions3=batch.get("positions3"),
+              img_embeds=batch.get("img_embeds"), tp=tp)
+    if splits_model(cfg, mesh):
+        structs = param_structs(cfg, tp)
+        params = sh.device_put(structs, sh.make_shardings(
+            sh.param_specs(structs, cfg, mesh), mesh))
+        rec["walked"] = (f"data index 0's {rows} rows over its model group "
+                         f"({len(group)} coordinates)")
+        with torch.no_grad(), op_walk.OpWalk() as w:
+            w.track(params, batch)
+            M.prefill_tp(sh.group_view(params, mesh, 0), cfg,
+                         batch["tokens"], **kw)
+        return w
     params = _place(param_structs(cfg, tp), dev)
-    batch = _place(batch, dev)
     rec["walked"] = f"data index 0's {rows} rows on {dev}"
     with torch.no_grad(), op_walk.OpWalk() as w:
         w.track(params, batch)
-        M.prefill(params, cfg, batch["tokens"], max_len=shape.seq_len,
-                  positions3=batch.get("positions3"),
-                  img_embeds=batch.get("img_embeds"), tp=tp)
+        M.prefill(params, cfg, batch["tokens"], **kw)
     return w
 
 

@@ -130,12 +130,15 @@ _KIND = {"kind": None}
 def collective(kind: str):
     """Label the copies between cards made inside as one collective of
     ``kind`` (one of ``COLLECTIVES``) for an active walk; with none it
-    changes nothing."""
+    changes nothing. Inside ``placeholders()`` the copies are placed on
+    their cards (``placing``) also where autograd runs them (a backward, a
+    remat's recompute)."""
     if kind not in COLLECTIVES:
         raise ValueError(f"collective kind {kind!r}: one of {COLLECTIVES}")
     prev, _KIND["kind"] = _KIND["kind"], kind
     try:
-        yield
+        with placing():
+            yield
     finally:
         _KIND["kind"] = prev
 
@@ -346,6 +349,23 @@ class _Place(TorchDispatchMode):
         return out
 
 
+@contextlib.contextmanager
+def placing():
+    """Inside ``placeholders()``, the function mode that places ``.to`` a
+    card and the factories: autograd runs a custom ``Function``'s backward
+    without the torch function modes of its forward, so a backward that
+    moves tensors between cards enters this first. Elsewhere, and where the
+    mode is already on, it changes nothing."""
+    on = _PLACE["mode"] is not None and not any(
+        isinstance(torch._C._get_function_stack_at(i), _PlaceFn)
+        for i in range(torch._C._len_torch_function_stack()))
+    if not on:
+        yield
+        return
+    with _PlaceFn():
+        yield
+
+
 def _clear_device_caches():
     """The per-device tensors the models cache (head masks, RoPE
     frequencies): a placeholder run must neither read a card's nor leave
@@ -353,7 +373,8 @@ def _clear_device_caches():
     from repro_torch.models import attention, layers
 
     for fn in (layers._inv_freq_on, layers._mrope_owner_on,
-               attention._head_mask_on, attention._head_to_kv_on):
+               attention._head_mask_on, attention._head_to_kv_on,
+               attention._index_on):
         fn.cache_clear()
 
 

@@ -10,6 +10,14 @@ o-proj columns are zero (``head_mask`` zeroes their outputs).
   * ``attention_decode``       one query token vs a KV view (dense decode);
   * ``attention_decode_chunk`` C new query tokens vs a KV view (chunked
                                prefill).
+
+A model shard of the tensor-parallel split (``shard=(m, n)``: shard m of n
+over the mesh's ``model`` axis) holds q heads ``[m Hp/n, (m+1) Hp/n)``;
+when ``kv_shardable(n)`` it holds kv heads ``[m KV/n, (m+1) KV/n)``, else
+replicated ``wk`` / ``wv``, from which it projects the kv heads its q heads
+read (all of them where a prefill's caches hold them: ``shard_kv_heads``);
+it attends with the kv heads its q heads map to (``shard_kv``). Dead
+padded heads fall on the last shards.
 """
 from __future__ import annotations
 
@@ -56,13 +64,16 @@ def attn_init(gen, cfg: ArchConfig, tp: int = 16, n: int = 1) -> Params:
     return p
 
 
-def head_mask(cfg: ArchConfig, tp: int = 16, device=None) -> torch.Tensor:
-    """[Hp] fp32: 1 for live heads, 0 for the TP padding. Made once per
-    (width, device) and shared: callers only read it (a copy from the host
-    per layer would stall decode and cannot be captured in a CUDA graph)."""
+def head_mask(cfg: ArchConfig, tp: int = 16, device=None, shard=None
+              ) -> torch.Tensor:
+    """[Hp] fp32: 1 for live heads, 0 for the TP padding (a model shard's
+    ``shard=(m, n)``: its heads' slice). Made once per (width, device) and
+    shared: callers only read it (a copy from the host per layer would
+    stall decode and cannot be captured in a CUDA graph)."""
     if device is None or type(device) is str:   # a name: one cache key
         device = torch.device(device or "cpu")
-    return _head_mask_on(cfg.padded_heads(tp), cfg.n_heads, device)
+    mask = _head_mask_on(cfg.padded_heads(tp), cfg.n_heads, device)
+    return mask if shard is None else mask[shard_heads(cfg, tp, shard)]
 
 
 @functools.lru_cache(maxsize=16)
@@ -87,16 +98,17 @@ def _head_to_kv_on(cfg: ArchConfig, tp: int, device) -> torch.Tensor:
 
 
 def project_qkv(p: Params, x, cos, sin, cfg: ArchConfig, tp: int = 16):
-    """x [B, S, d] -> q [B, S, Hp, hd], k/v [B, S, KV, hd] (rope applied)."""
+    """x [B, S, d] -> q [B, S, Hp, hd], k/v [B, S, KV, hd] (rope applied);
+    a model shard's weights give its heads."""
     B, S, _ = x.shape
-    hd, kv = cfg.hd, cfg.n_kv_heads
-    hp = cfg.padded_heads(tp)
+    hd = cfg.hd
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, hp, hd)
-    k = k.reshape(B, S, kv, hd)
-    v = v.reshape(B, S, kv, hd)
+    # a model shard's weights hold its slice of the heads
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = L.rms_norm({"w": p["q_norm"]}, q, cfg.norm_eps)
         k = L.rms_norm({"w": p["k_norm"]}, k, cfg.norm_eps)
@@ -104,6 +116,88 @@ def project_qkv(p: Params, x, cos, sin, cfg: ArchConfig, tp: int = 16):
         q = L.apply_rope(q, cos, sin)
         k = L.apply_rope(k, cos, sin)
     return q, k, v
+
+
+def shard_heads(cfg: ArchConfig, tp: int, shard) -> slice:
+    """The padded q heads model shard ``shard = (m, n)`` holds."""
+    m, n = shard
+    hp = cfg.padded_heads(tp)
+    if hp % n:
+        raise ValueError(f"{cfg.name}: {hp} padded heads do not split "
+                         f"{n} ways")
+    return slice(m * hp // n, (m + 1) * hp // n)
+
+
+def _kv_of(cfg: ArchConfig, tp: int) -> np.ndarray:
+    """The kv head each padded q head reads: ``expand_kv``'s map (groups of
+    Hp // KV when KV divides Hp, else ``head_to_kv``)."""
+    hp, kv = cfg.padded_heads(tp), cfg.n_kv_heads
+    return (np.arange(hp) // (hp // kv) if hp % kv == 0
+            else head_to_kv(cfg, tp))
+
+
+def shard_kv_heads(cfg: ArchConfig, tp: int, shard, all_kv: bool = False):
+    """[lo, hi): the kv heads shard ``(m, n)`` projects. Its own slice when
+    ``kv_shardable(n)``; else the span of those its q heads read, or, with
+    ``all_kv`` (a prefill's caches hold them), every one."""
+    m, n = shard
+    kv = cfg.n_kv_heads
+    if cfg.kv_shardable(n):
+        return m * kv // n, (m + 1) * kv // n
+    if all_kv:
+        return 0, kv
+    need = _kv_of(cfg, tp)[shard_heads(cfg, tp, shard)]
+    return int(need.min()), int(need.max()) + 1
+
+
+def shard_kv_params(p: Params, cfg: ArchConfig, tp: int, shard,
+                    all_kv: bool = False) -> Params:
+    """A shard's attention weights with replicated ``wk`` / ``wv`` (and
+    ``bk`` / ``bv``) narrowed to the columns of the kv heads it projects
+    (``shard_kv_heads``): a view, so the gradient reaches those columns of
+    its copy."""
+    lo, hi = shard_kv_heads(cfg, tp, shard, all_kv)
+    if cfg.kv_shardable(shard[1]) or (lo, hi) == (0, cfg.n_kv_heads):
+        return p
+    hd = cfg.hd
+    out = dict(p)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in p:
+            out[name] = p[name][..., lo * hd:hi * hd]
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _shard_kv_plan(cfg: ArchConfig, tp: int, shard, lo: int):
+    """The kv heads shard ``(m, n)``'s q heads read (``_kv_of``), as
+    positions in the kv heads it projects (from ``lo``): ("slice", a, b)
+    when its q heads read heads a..b-1 in equal groups, as the flash
+    kernel's GQA reads them, else ("index", one kv head per q head)."""
+    need = _kv_of(cfg, tp)[shard_heads(cfg, tp, shard)] - lo
+    u = np.unique(need)
+    if (u[-1] - u[0] + 1 == len(u) and len(need) % len(u) == 0
+            and np.array_equal(need, np.repeat(u, len(need) // len(u)))):
+        return ("slice", int(u[0]), int(u[-1]) + 1)
+    return ("index", need)
+
+
+@functools.lru_cache(maxsize=256)
+def _index_on(idx: tuple, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(idx), device=device).long()
+
+
+def shard_kv(k, v, cfg: ArchConfig, tp: int, shard, lo: int = 0):
+    """A shard's k / v [B, S, held, hd] (kv heads from ``lo``) -> the kv
+    heads its q heads read, [B, S, kv, hd] with q heads % kv == 0 (q head i
+    reads kv head i // G)."""
+    plan = _shard_kv_plan(cfg, tp, tuple(shard), lo)
+    if plan[0] == "slice":
+        _, a, b = plan
+        if b - a == k.shape[2]:
+            return k, v
+        return k[:, :, a:b], v[:, :, a:b]
+    idx = _index_on(tuple(int(i) for i in plan[1]), k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def expand_kv(kv_arr: torch.Tensor, cfg: ArchConfig, tp: int = 16):
@@ -146,12 +240,23 @@ def attend_causal(q, kexp, vexp, *, window: Optional[int] = None,
 
 
 def attention_full(q, k, v, cfg: ArchConfig, *, q_chunk: int = 256,
-                   window: Optional[int] = None, tp: int = 16):
-    """Causal attention; q [B,S,Hp,hd], k/v [B,S,KV,hd] -> [B,S,Hp,hd].
-    A CUDA tensor with kernels on goes through the flash kernel
-    (``attention_full_flash``), anything else through the plain chunked
+                   window: Optional[int] = None, tp: int = 16, shard=None,
+                   kv_lo: int = 0):
+    """Causal attention; q [B,S,Hp,hd], k/v [B,S,KV,hd] -> [B,S,Hp,hd]; a
+    model shard's (``shard=(m, n)``, its k / v holding kv heads from
+    ``kv_lo``) over its heads (``shard_kv``). A CUDA tensor with kernels on
+    goes through the flash kernel (``attention_full_flash``: one launch
+    over the shard's heads), anything else through the plain chunked
     ``attend_causal``."""
     window = window if window is not None else (cfg.sliding_window or None)
+    if shard is not None:
+        k, v = shard_kv(k, v, cfg, tp, shard, kv_lo)
+        if q.is_cuda and ops.kernels_enabled():
+            return FlashAttention.apply(q, k, v, window or 0)
+        g = q.shape[2] // k.shape[2]
+        return attend_causal(q, k.repeat_interleave(g, dim=2),
+                             v.repeat_interleave(g, dim=2), window=window,
+                             q_chunk=q_chunk)
     if q.is_cuda and ops.kernels_enabled():
         return attention_full_flash(q, k, v, cfg, window=window, tp=tp)
     return attend_causal(q, expand_kv(k, cfg, tp), expand_kv(v, cfg, tp),

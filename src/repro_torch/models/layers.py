@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives as col
 
 Params = Dict[str, torch.Tensor]
 
@@ -109,14 +110,17 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["w"][tokens.long()]
 
 
-def lm_head(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Logits over the PADDED vocab; pad rows masked to fp32's minimum."""
+def lm_head(p: Params, x: torch.Tensor, cfg: ArchConfig,
+            vocab_start: int = 0) -> torch.Tensor:
+    """Logits over the PADDED vocab; pad rows masked to fp32's minimum. A
+    model shard's weight holds the vocabulary's columns from
+    ``vocab_start``, and masks its slice of the pad rows."""
     logits = x @ p["w"]
-    pad = cfg.padded_vocab - cfg.vocab_size
-    if pad:
-        mask = torch.zeros((cfg.padded_vocab,), dtype=logits.dtype,
+    first_pad = cfg.vocab_size - vocab_start      # in this slice's columns
+    if first_pad < logits.shape[-1]:
+        mask = torch.zeros((logits.shape[-1],), dtype=logits.dtype,
                            device=logits.device)
-        mask[cfg.vocab_size:] = torch.finfo(torch.float32).min
+        mask[max(first_pad, 0):] = torch.finfo(torch.float32).min
         logits = logits + mask
     return logits
 
@@ -126,3 +130,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lf = logits.float()
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     return (torch.logsumexp(lf, dim=-1) - gold).mean()
+
+
+def cross_entropy_tp(logits, labels, starts) -> torch.Tensor:
+    """``cross_entropy`` of logits cut over the vocabulary across a model
+    group: member j's ``logits[j]`` hold the columns from ``starts[j]``,
+    ``labels[j]`` is its copy of the labels. The max (no gradient), the sum
+    of exps and the gold logit are all-reduced over the group in fp32; the
+    loss is member 0's, one scalar."""
+    lf = [x.float() for x in logits]
+    mx = col.group_max([x.max(-1).values for x in lf])
+    sums = col.group_all_reduce([torch.exp(x - m[..., None]).sum(-1)
+                                 for x, m in zip(lf, mx)])
+    golds = []
+    for x, lab, s in zip(lf, labels, starts):
+        i = lab.long() - s
+        inside = (i >= 0) & (i < x.shape[-1])
+        g = torch.gather(x, -1, i.clamp(0, x.shape[-1] - 1)[..., None])[..., 0]
+        golds.append(torch.where(inside, g, torch.zeros_like(g)))
+    gold = col.group_all_reduce(golds)
+    return (torch.log(sums[0]) + mx[0] - gold[0]).mean()

@@ -36,6 +36,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch import op_walk
 from repro_torch.kernels.page_pool import (pool_gather, pool_scatter_span,
                                            pool_scatter_token)
 from repro_torch.models import attention as A
@@ -142,18 +145,20 @@ def _rope_tables(cfg: ArchConfig, positions, positions3=None):
     return L.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
 
 
-def _attn_out(lp: Params, out, cfg: ArchConfig, tp: int):
-    """Dead-head mask, then the o-projection. out [B,S,Hp,hd] -> [B,S,d]."""
-    hm = A.head_mask(cfg, tp, device=out.device).to(out.dtype)
+def _attn_out(lp: Params, out, cfg: ArchConfig, tp: int, shard=None):
+    """Dead-head mask, then the o-projection. out [B,S,Hp,hd] -> [B,S,d]
+    (a model shard's: its heads, a row-parallel partial)."""
+    hm = A.head_mask(cfg, tp, device=out.device, shard=shard).to(out.dtype)
     out = out * hm[None, None, :, None]
     B, Sq, HP, hd = out.shape
     return out.reshape(B, Sq, HP * hd) @ lp["wo"]
 
 
-def _ffn(lp, h, cfg: ArchConfig):
-    """The FFN of a transformer layer on normed h -> (y, MoE aux or None)."""
+def _ffn(lp, h, cfg: ArchConfig, shard=None):
+    """The FFN of a transformer layer on normed h -> (y, MoE aux or None);
+    a model shard's y is a row-parallel partial."""
     if cfg.n_experts:
-        return MOE.moe_apply(lp["moe"], h, cfg)
+        return MOE.moe_apply(lp["moe"], h, cfg, shard=shard)
     return L.mlp(lp["mlp"], h), None
 
 
@@ -164,10 +169,13 @@ def _mlp_block(lp, x, cfg):
 def _unstack(tree, n: int):
     """A layer-stacked tree -> n per-layer trees of views (``torch.unbind``:
     under autograd the layers' gradients meet in one stack, not in n
-    full-size scatters into the stacked leaf)."""
+    full-size scatters into the stacked leaf); an FSDP leaf's
+    ``DataSlices`` -> one per layer."""
     if isinstance(tree, dict):
         per = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: per[k][i] for k in per} for i in range(n)]
+    if isinstance(tree, sh.DataSlices):
+        return tree.layers(n)
     return torch.unbind(tree, 0)
 
 
@@ -199,8 +207,14 @@ def _remat(fn, *args):
     """``fn(*args)`` under ``torch.utils.checkpoint`` (the twin of
     ``jax.checkpoint``): its activations are recomputed in the backward.
     The layers draw no random numbers, so no RNG state is saved and
-    restored around the recompute."""
-    return checkpoint(fn, *args, use_reentrant=False,
+    restored around the recompute. Under ``op_walk.placeholders()`` the
+    recompute places its tensors on their cards as the forward did
+    (``op_walk.placing``)."""
+    def run(*a):
+        with op_walk.placing():
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False,
                       preserve_rng_state=False)
 
 
@@ -383,6 +397,146 @@ def train_loss(params: Params, cfg: ArchConfig, batch: Dict, *,
                         tp=tp)
     logits = L.lm_head(params["lm_head"], x, cfg)
     return L.cross_entropy(logits, batch["labels"]) + MOE_AUX_COEF * aux
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the mesh's model axis
+# ---------------------------------------------------------------------------
+
+
+def _tp_devices(group):
+    return [g["final_norm"]["w"].device for g in group]
+
+
+def _tp_layer(lps, xs, cos, sin, cfg: ArchConfig, tp: int,
+              all_kv: bool = False):
+    """One transformer layer over a model group in lockstep. ``lps``, the
+    members' local layer trees (an FSDP leaf's ``DataSlices`` gathered here,
+    inside the remat, so the recompute gathers again); ``xs``, each
+    member's copy of the residual stream. Each member attends over its
+    heads and runs its slice of the FFN; the o-projection's and the FFN's
+    row-parallel partials are all-reduced over the group. A member whose
+    kv heads do not shard projects those its q heads read, or, with
+    ``all_kv``, all of them. -> (xs, member 0's MoE aux or None, ks, vs
+    per member)."""
+    n = len(xs)
+    lps = [sh.materialize(lp, x.device) for lp, x in zip(lps, xs)]
+    parts, ks, vs = [], [], []
+    for m, (lp, x) in enumerate(zip(lps, xs)):
+        h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+        ap = A.shard_kv_params(lp["attn"], cfg, tp, (m, n), all_kv)
+        q, k, v = A.project_qkv(ap, h, cos[m], sin[m], cfg, tp)
+        lo = A.shard_kv_heads(cfg, tp, (m, n), all_kv)[0]
+        attn = A.attention_full(q, k, v, cfg, tp=tp, shard=(m, n), kv_lo=lo)
+        parts.append(_attn_out(lp["attn"], attn, cfg, tp, shard=(m, n)))
+        ks.append(k)
+        vs.append(v)
+    xs = [x + y for x, y in zip(xs, col.group_all_reduce(parts))]
+    parts, auxs = [], []
+    for m, (lp, x) in enumerate(zip(lps, xs)):
+        y, aux = _ffn(lp, L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg,
+                      shard=(m, n))
+        parts.append(y)
+        auxs.append(aux)
+    xs = [x + y.to(x.dtype) for x, y in zip(xs, col.group_all_reduce(parts))]
+    return xs, auxs[0], ks, vs
+
+
+def forward_tp(group, cfg: ArchConfig, tokens, *, positions3=None,
+               img_embeds=None, collect_cache: bool = False,
+               remat: bool = False, tp: int = 16):
+    """``forward`` over one model group: ``group`` holds each model shard's
+    local parameter tree (``sharding.group_view``), in model-index order,
+    each on its member's device. -> (each member's hidden [B,S,d], member
+    0's aux, each member's caches or None).
+
+    The inputs are broadcast to the members. Each member looks up its
+    d-slice of the embedding, and an all-gather on d gives every member the
+    residual stream (vlm's ``img_embeds`` then overwrite the first rows).
+    The layers run in lockstep (``_tp_layer``, under remat as one function
+    of the whole group). A member's caches hold its own kv heads when
+    ``kv_shardable``, else all of them. Transformer families only."""
+    if cfg.family == "hybrid" or cfg.xlstm_pattern:
+        raise ValueError(f"{cfg.name}: the tensor-parallel split covers the "
+                         f"transformer families, not {cfg.family}")
+    devs = _tp_devices(group)
+    B, Sq = tokens.shape
+    toks = col.group_broadcast(tokens, devs)
+    xs = col.group_all_gather(
+        [L.embed(sh.materialize(g["embed"], d), t)
+         for g, t, d in zip(group, toks, devs)], -1)
+    if img_embeds is not None:
+        k = img_embeds.shape[1]
+        xs = [torch.cat([im.to(x.dtype), x[:, k:]], dim=1) for x, im in
+              zip(xs, col.group_broadcast(img_embeds, devs))]
+    p3 = (col.group_broadcast(positions3, devs) if positions3 is not None
+          else [None] * len(devs))
+    tables = [_rope_tables(cfg, torch.arange(Sq, device=d)[None]
+                           .expand(B, Sq), p) for d, p in zip(devs, p3)]
+    cos, sin = [t[0] for t in tables], [t[1] for t in tables]
+    per = [_unstack(g["layers"], cfg.n_layers) for g in group]
+    aux = torch.zeros((), dtype=torch.float32, device=devs[0])
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        args = ([p[i] for p in per], xs, cos, sin, cfg, tp, collect_cache)
+        xs, aux_l, k, v = (_remat(_tp_layer, *args) if remat
+                           else _tp_layer(*args))
+        aux = _add_aux(aux, aux_l)
+        if collect_cache:
+            ks.append(k)
+            vs.append(v)
+    xs = [L.rms_norm(g["final_norm"], x, cfg.norm_eps)
+          for g, x in zip(group, xs)]
+    caches = None
+    if collect_cache:
+        caches = [{"k": torch.stack([k[m] for k in ks]),
+                   "v": torch.stack([v[m] for v in vs]), "length": Sq}
+                  for m in range(len(devs))]
+    return xs, aux, caches
+
+
+def _tp_logits(group, cfg: ArchConfig, xs):
+    """Each member's vocabulary slice of the logits, and its first
+    column."""
+    devs = _tp_devices(group)
+    vl = cfg.padded_vocab // len(group)
+    starts = [m * vl for m in range(len(group))]
+    return [L.lm_head(sh.materialize(g["lm_head"], d), x, cfg, s)
+            for g, x, d, s in zip(group, xs, devs, starts)], starts
+
+
+def train_loss_tp(group, cfg: ArchConfig, batch: Dict, *, remat: bool = True,
+                  tp: int = 16) -> torch.Tensor:
+    """``train_loss`` over one model group (``forward_tp``): the logits cut
+    over the vocabulary, the vocabulary-parallel cross-entropy
+    (``layers.cross_entropy_tp``); one scalar, on member 0's device."""
+    xs, aux, _ = forward_tp(group, cfg, batch["tokens"],
+                            positions3=batch.get("positions3"),
+                            img_embeds=batch.get("img_embeds"), remat=remat,
+                            tp=tp)
+    logits, starts = _tp_logits(group, cfg, xs)
+    labels = col.group_broadcast(batch["labels"], _tp_devices(group))
+    return L.cross_entropy_tp(logits, labels, starts) + MOE_AUX_COEF * aux
+
+
+def prefill_tp(group, cfg: ArchConfig, tokens, *, max_len=None,
+               positions3=None, img_embeds=None, tp: int = 16):
+    """``prefill`` over one model group -> (the last logits [B, V] on member
+    0's device, gathered from the members' vocabulary slices; each member's
+    caches, zero-padded to ``max_len``)."""
+    Sq = tokens.shape[1]
+    max_len = max_len or Sq
+    xs, _, caches = forward_tp(group, cfg, tokens, positions3=positions3,
+                               img_embeds=img_embeds, collect_cache=True,
+                               tp=tp)
+    pad = (0, 0, 0, 0, 0, max_len - Sq)          # the sequence axis, dim 2
+    for c in caches:
+        for name in ("k", "v"):
+            if max_len > Sq:
+                c[name] = torch.nn.functional.pad(c[name], pad)
+    logits, _ = _tp_logits(group, cfg, [x[:, -1:] for x in xs])
+    last = col.group_all_gather(logits, -1, _tp_devices(group)[:1])[0]
+    return last[:, 0], caches
 
 
 def last_logits(params, cfg: ArchConfig, x):

@@ -18,6 +18,12 @@ The same function, without the one-hot (2048 x 32 x 640 x 4 B = 168 MB a
 group at granite's prefill). Every shape is fixed by (t, E, k, C): no host
 sync, no boolean indexing, so a decode step with MoE can be captured in a
 CUDA graph.
+
+A model shard of the tensor-parallel split (``shard=(m, n)``) runs the
+router, the dispatch, the capacity and the aux like every shard, then
+either its E/n experts (expert-parallel, when n divides E) or its 1/n of
+every expert's d_ff; its combine is a row-parallel partial in fp32, which
+the model group sums.
 """
 from __future__ import annotations
 
@@ -59,9 +65,17 @@ def capacity(t: int, cfg: ArchConfig) -> int:
     return max(4 * ((c + 3) // 4), 4)
 
 
-def _moe_group(p: Params, x: torch.Tensor, cfg: ArchConfig, cap: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [t, d] -> (y [t, d], aux scalar fp32). One dispatch group."""
+def expert_parallel(cfg: ArchConfig, n: int) -> bool:
+    """A model split n ways runs whole experts (E / n each) when n divides
+    E, as ``param_specs`` cuts the expert stacks; else a slice of every
+    expert's d_ff."""
+    return cfg.n_experts % n == 0
+
+
+def _moe_group(p: Params, x: torch.Tensor, cfg: ArchConfig, cap: int,
+               shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [t, d] -> (y [t, d], aux scalar fp32). One dispatch group; a model
+    shard's (``shard=(m, n)``) y is its fp32 partial."""
     t, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     probs = torch.softmax(x.float() @ p["router"], dim=-1)        # [t, E]
@@ -74,20 +88,29 @@ def _moe_group(p: Params, x: torch.Tensor, cfg: ArchConfig, cap: int
     pos = torch.cumsum(assign, dim=0) - assign
     pos_k = pos.gather(1, widx)                                   # [t, k]
     keep = pos_k < cap
-    # buffer row of each (token, expert) pair; dropped pairs write the
-    # trash row E * cap, which no expert reads
-    row = torch.where(keep, widx * cap + pos_k.long(),
-                      torch.full_like(widx, E * cap))
-    buf = x.new_zeros((E * cap + 1, d))
+    # the experts this shard runs: [e0, e0 + El)
+    e0, El = 0, E
+    if shard is not None and expert_parallel(cfg, shard[1]):
+        El = E // shard[1]
+        e0 = shard[0] * El
+    mine = keep & (widx >= e0) & (widx < e0 + El)
+    # buffer row of each (token, expert) pair; dropped pairs (and another
+    # shard's experts) write the trash row El * cap, which no expert reads
+    row = torch.where(mine, (widx - e0) * cap + pos_k.long(),
+                      torch.full_like(widx, El * cap))
+    buf = x.new_zeros((El * cap + 1, d))
     buf[row.reshape(-1)] = x.repeat_interleave(k, dim=0)
-    xe = buf[:E * cap].view(E, cap, d)
+    xe = buf[:El * cap].view(El, cap, d)
     h = F.silu(torch.bmm(xe, p["w1"])) * torch.bmm(xe, p["w3"])
-    ye = torch.bmm(h, p["w2"]).reshape(E * cap, d)
+    ye = torch.bmm(h, p["w2"]).reshape(El * cap, d)
     ye = torch.cat([ye, ye.new_zeros((1, d))])                    # + trash
     # the combine weights in the model dtype, as the reference rounds them;
-    # a token's k expert outputs summed in fp32, cast once
+    # a token's k expert outputs summed in fp32, cast once (a shard's
+    # partial stays fp32 until the group's sum)
     comb = (wgt * keep).to(x.dtype).float()
-    y = (comb[..., None] * ye[row].float()).sum(1).to(x.dtype)
+    y = (comb[..., None] * ye[row].float()).sum(1)
+    if shard is None:
+        y = y.to(x.dtype)
     # Switch load-balance aux: E * sum_e f_e * mean_prob_e
     aux = E * (assign.mean(0) * probs.mean(0)).sum()
     return y, aux
@@ -97,9 +120,11 @@ GROUP_SIZE = 2048   # tokens of a dispatch group (the last one padded)
 
 
 def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
-              group_size: int = GROUP_SIZE) -> Tuple[torch.Tensor, torch.Tensor]:
+              group_size: int = GROUP_SIZE, shard=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y [B, S, d], aux fp32 scalar, the mean over the
-    groups of the flattened tokens)."""
+    groups of the flattened tokens); a model shard's (``shard=(m, n)``) y
+    is its fp32 partial."""
     B, S, d = x.shape
     tokens = B * S
     g = min(group_size, tokens)
@@ -112,7 +137,7 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
     ys = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_groups):
-        y, a = _moe_group(p, flat[i * g:(i + 1) * g], cfg, cap)
+        y, a = _moe_group(p, flat[i * g:(i + 1) * g], cfg, cap, shard)
         ys.append(y)
         aux = aux + a
     y = torch.cat(ys)[:tokens].reshape(B, S, d)

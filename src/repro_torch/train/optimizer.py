@@ -10,10 +10,12 @@ writes the parameters and the moments IN PLACE under ``torch.no_grad()``
 returns the same tensors.
 
 Sharded parameters (``distributed.sharding.ShardedTensor`` leaves) get
-moments sharded like them; the gradients stay full tensors, and each mesh
-coordinate updates its own slice of the parameter and of the moments from
-its slice of the gradient. The clip's norm is taken once, from the full
-gradients, so it is the single-device norm.
+moments sharded like them; each mesh coordinate updates its own slice of
+the parameter and of the moments from its slice of the gradient (its shard
+of a gradient placed like the parameter, the tensor-parallel step's, or its
+slice of a full gradient, the gathered step's). The clip's norm is the
+single-device norm: of the full gradients, or of each distinct block of the
+placed ones once.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import ShardedTensor, zeros_like
+from repro_torch.launch.op_walk import collective
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,9 +89,28 @@ def schedule(oc: OptConfig, step: int) -> float:
                  * (f(oc.min_lr_frac) + f(1 - oc.min_lr_frac) * cos))
 
 
+def _sq_sum(g) -> torch.Tensor:
+    """fp32 sum of squares of a leaf: of a placed one, each distinct block
+    once (in coordinate order), summed on its first shard's device."""
+    if not isinstance(g, ShardedTensor):
+        return torch.sum(g.float() ** 2)
+    seen, total = set(), None
+    dev = g.shards[0].device
+    with collective("all-reduce"):
+        for shard, sl in zip(g.shards, g.slices):
+            block = tuple((s.start, s.stop) for s in sl)
+            if block in seen:
+                continue
+            seen.add(block)
+            sq = torch.sum(shard.float() ** 2).to(dev)
+            total = sq if total is None else total + sq
+    return total
+
+
 def global_norm(tree) -> torch.Tensor:
-    """fp32 L2 norm over every leaf (a 0-d tensor on the leaves' device)."""
-    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves(tree)))
+    """fp32 L2 norm over every leaf (a 0-d tensor on the leaves' device; a
+    placed tree's: on its first coordinate's)."""
+    return torch.sqrt(sum(_sq_sum(g) for g in leaves(tree)))
 
 
 @torch.no_grad()
@@ -103,8 +125,16 @@ def adamw_update(grads, state: OptState, params, oc: OptConfig):
     bc1 = float(f(1) - f(oc.b1) ** f(step))
     bc2 = float(f(1) - f(oc.b2) ** f(step))
 
+    scales = {}
+
+    def scale_on(dev):
+        if dev not in scales:
+            with collective("all-reduce"):
+                scales[dev] = scale.to(dev)
+        return scales[dev]
+
     def upd(g, m, v, p, decay: bool):
-        g = g.float() * scale.to(g.device)
+        g = g.float() * scale_on(g.device)
         m.mul_(oc.b1).add_((1 - oc.b1) * g)
         v.mul_(oc.b2).add_((1 - oc.b2) * g * g)
         delta = (m / bc1) / (torch.sqrt(v / bc2) + oc.eps)
@@ -116,8 +146,9 @@ def adamw_update(grads, state: OptState, params, oc: OptConfig):
                           leaves(params)):
         if isinstance(p, ShardedTensor):
             for i, sl in enumerate(p.slices):
-                upd(g[sl].to(p.shards[i].device), m.shards[i], v.shards[i],
-                    p.shards[i], p.dim() >= 2)
+                gi = (g.shards[i] if isinstance(g, ShardedTensor)
+                      else g[sl].to(p.shards[i].device))
+                upd(gi, m.shards[i], v.shards[i], p.shards[i], p.dim() >= 2)
         else:
             upd(g, m, v, p, p.dim() >= 2)
     stats = {"lr": lr, "grad_norm": gnorm}

@@ -16,18 +16,32 @@ in the reference.
 
 The sharded step: with parameters placed by ``sharding.device_put``, the
 step computes what the reference's ``jax.jit(step)`` computes under GSPMD,
-the single-device step's result. The batch is split over the data axes as
-``batch_specs`` says (not split when it does not divide); each data index
-gathers the full parameters onto its first device and runs
-``loss_and_grads`` on its slice (its microbatches in turn with accum > 1);
-the loss and the gradients are averaged over the data indices in index
-order (``collectives.all_reduce``); then the pod sync, if on; then each mesh
-coordinate updates its own slices of the parameters and of the fp32 moments
-(``optimizer.adamw_update``). MoE layers dispatch in groups of
-``moe.GROUP_SIZE`` tokens, with capacity and the aux loss per group, so a
-split keeps the single-device result only where each data index's tokens
-are a whole number of the global group; elsewhere the step raises (GSPMD
-has no such limit: ROADMAP Queue 3).
+the single-device step's result, and each mesh coordinate computes its own
+slice of it. The batch is split over the data axes as ``batch_specs`` says
+(not split when it does not divide). For the transformer families (dense,
+moe, audio, vlm) on a mesh whose ``model`` axis is > 1, each data index's
+model group runs the tensor-parallel ``loss_and_grads``
+(``models.model.train_loss_tp`` over ``sharding.group_view``: attention
+split by heads, the MLP and the vocabulary by columns, MoE by experts or
+d_ff, FSDP leaves gathered one layer at a time); each coordinate gets the
+gradient of its own shards. Then a leaf replicated over ``model`` sums its
+copies' gradients over the model group (each copy reaches the loss only
+through its own shard), and each slice's gradient is averaged over the data
+indices onto the coordinates that own it: a ring all-reduce for leaves
+replicated over the data axes, a reduce-scatter (the FSDP gather's
+backward) for FSDP leaves. The hybrid and xLSTM families, and every family
+on a mesh whose ``model`` axis is 1, take the gathered step instead: each
+data index gathers the full parameters onto its first device and runs
+``loss_and_grads`` there, and the gradients are averaged over the data
+indices in index order (``collectives.all_reduce``). Then the pod sync, if
+on (on the full gradients: the split step's slices are gathered first);
+then each mesh coordinate updates its own slices of the parameters and of
+the fp32 moments (``optimizer.adamw_update``). The loss is the mean over
+the data indices. MoE layers dispatch in groups of ``moe.GROUP_SIZE``
+tokens, with capacity and the aux loss per group, so a split keeps the
+single-device result only where each data index's tokens are a whole
+number of the global group; elsewhere the step raises (GSPMD has no such
+limit: ROADMAP Queue 3).
 
 The reference jits and donates; the port runs eagerly and updates the
 parameters and moments in place.
@@ -43,6 +57,7 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.distributed import collectives, sharding
 from repro_torch.distributed.sharding import ShardedTensor
+from repro_torch.launch import op_walk
 from repro_torch.models import model as M
 from repro_torch.models.moe import GROUP_SIZE
 from repro_torch.train.optimizer import (OptConfig, OptState, adamw_update,
@@ -151,14 +166,19 @@ def data_parts(batch, cfg: ArchConfig, tc: TrainConfig, mesh) -> List[Dict]:
     return parts
 
 
-def sharded_loss_and_grads(params, cfg: ArchConfig, tc: TrainConfig, batch,
-                           mesh):
-    """``loss_and_grads`` of a sharded parameter tree: each data index
-    gathers the full parameters onto its first device (blocks from its own
-    coordinates first) and runs its part of the batch; the loss and the
-    gradients are their mean over the data indices, on the mesh's first
-    coordinate's device (the result of ``collectives.all_reduce``)."""
-    groups = mesh.groups(sharding.data_axes(mesh))
+def splits_model(cfg: ArchConfig, mesh) -> bool:
+    """Whether the sharded step splits compute over the mesh's ``model``
+    axis: the transformer families on a ``model`` axis > 1."""
+    return (mesh.shape.get(sharding.MODEL_AXIS, 1) > 1
+            and cfg.family != "hybrid" and not cfg.xlstm_pattern)
+
+
+def _gathered_loss_and_grads(params, cfg, tc, batch, mesh):
+    """Each data index gathers the full parameters onto its first device
+    (blocks from its own coordinates first) and runs its part of the batch;
+    the loss and the gradients are their mean over the data indices, on the
+    mesh's first coordinate's device."""
+    groups = sharding.model_groups(mesh)
     losses, grads = [], []
     for d, part in enumerate(data_parts(batch, cfg, tc, mesh)):
         dev = mesh.device(groups[d][0])
@@ -181,6 +201,144 @@ def sharded_loss_and_grads(params, cfg: ArchConfig, tc: TrainConfig, batch,
     return collectives.all_reduce(losses, "mean"), _unflatten(params, reduced)
 
 
+def _differentiated(ps, mesh, d: int):
+    """(leaf index, coordinate) of every shard data index ``d``'s model
+    group differentiates: its own coordinates' shards, and an FSDP leaf's
+    shards on every coordinate (its gathers read them all)."""
+    own = sharding.model_groups(mesh)[d]
+    return [(i, c) for i, x in enumerate(ps)
+            for c in (own if sharding.fsdp_dim(x) is None
+                      else range(mesh.size))]
+
+
+def _tp_group_grads(params, cfg, tc, part, mesh, d: int):
+    """Data index ``d``'s tensor-parallel (loss, {(leaf, coordinate):
+    gradient of that shard}), its microbatches in turn with accum > 1 (the
+    loss and the gradients, fp32, their means)."""
+    ps = leaves(params)
+    group = sharding.group_view(params, mesh, d)
+    pairs = _differentiated(ps, mesh, d)
+    ts = [ps[i].shards[c] for i, c in pairs]
+    for t in ts:
+        t.requires_grad_(True)
+    dev = mesh.device(sharding.model_groups(mesh)[d][0])
+    part = {k: v.to(dev) for k, v in part.items()}
+
+    def one(b):
+        with torch.enable_grad():
+            loss = M.train_loss_tp(group, cfg, b, remat=tc.remat, tp=tc.tp)
+            got = torch.autograd.grad(loss, ts, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(t) if g is None else g
+                               for t, g in zip(ts, got)]
+
+    try:
+        if tc.accum <= 1:
+            loss, grads = one(part)
+        else:
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            grads = [torch.zeros(t.shape, dtype=torch.float32,
+                                 device=t.device) for t in ts]
+            for k in range(tc.accum):
+                l, g = one({n: v[k] for n, v in part.items()})
+                loss = loss + l / tc.accum
+                for a, gi in zip(grads, g):
+                    a += gi / tc.accum
+    finally:
+        for t in ts:
+            t.requires_grad_(False)
+    return loss, dict(zip(pairs, grads))
+
+
+def _reduce_tp_grads(ps, mesh, per_d, n_parts: int):
+    """Per leaf, its gradient's shards: ``per_d[d]`` is data index d's
+    {(leaf, coordinate): gradient} (None: a stand-in whose gradients are
+    zeros and whose exchange is not walked). A leaf replicated over
+    ``model`` first sums its copies over the model group; then the data
+    indices' gradients are averaged onto each owner: the ring all-reduce
+    over the data group (a copy from data index 0 when the batch was not
+    split), or, for an FSDP leaf, the sum of the contributions its
+    coordinate received (the gather's backward sent them there)."""
+    mgroups, dgroups = sharding.model_groups(mesh), sharding.data_groups(mesh)
+    out = []
+    for i, x in enumerate(ps):
+        shards = [None] * mesh.size
+        rep = sharding.cut_dim(x, (sharding.MODEL_AXIS,)) is None
+
+        def grad(d, c):
+            g = per_d[d]
+            if g is not None:
+                return g[(i, c)]
+            return torch.zeros(x.shards[c].shape, device=x.shards[c].device,
+                               dtype=per_d[0][(i, mgroups[0][0])].dtype)
+
+        if sharding.fsdp_dim(x) is None:
+            for d in range(n_parts):
+                gs = [grad(d, c) for c in mgroups[d]]
+                if rep and len(gs) > 1:
+                    gs = collectives.ring_all_reduce(gs)
+                for c, g in zip(mgroups[d], gs):
+                    shards[c] = g
+            for dg in dgroups:
+                if n_parts > 1:
+                    red = collectives.ring_all_reduce([shards[c] for c in dg],
+                                                      "mean")
+                else:
+                    with op_walk.collective("collective-permute"):
+                        red = [shards[dg[0]].to(mesh.device(c)) for c in dg]
+                for c, g in zip(dg, red):
+                    shards[c] = g
+        else:
+            for c in range(mesh.size):
+                acc = None
+                for g in per_d[:n_parts]:
+                    if g is None:
+                        continue
+                    acc = (g[(i, c)].to(torch.float32, copy=True)
+                           if acc is None else acc + g[(i, c)].float())
+                shards[c] = (acc / n_parts).to(per_d[0][(i, c)].dtype)
+            if rep:
+                for mg in mgroups:
+                    for c, g in zip(mg, collectives.ring_all_reduce(
+                            [shards[c] for c in mg])):
+                        shards[c] = g
+        out.append(ShardedTensor(shards, x.sharding, x.shape,
+                                 shards[0].dtype))
+    return out
+
+
+def sharded_loss_and_grads(params, cfg: ArchConfig, tc: TrainConfig, batch,
+                           mesh, *, stand_in: bool = False):
+    """``loss_and_grads`` of a sharded parameter tree -> (the loss, the mean
+    over the data indices, on the mesh's first coordinate's device; the
+    gradients): with ``splits_model``, a tree of ``ShardedTensor``
+    gradients placed like the parameters (the tensor-parallel step), else
+    full gradients on the first coordinate's device (the gathered step).
+    ``stand_in`` (the dry run's walk of one model group) runs data index 0
+    alone; the others' gradients are zeros of their shapes, their exchange
+    over the data axes walked, their FSDP contributions not."""
+    if not splits_model(cfg, mesh):
+        return _gathered_loss_and_grads(params, cfg, tc, batch, mesh)
+    ps = leaves(params)
+    if not all(isinstance(p, ShardedTensor) for p in ps):
+        raise ValueError("the tensor-parallel step needs every parameter "
+                         "placed on the mesh (sharding.device_put)")
+    parts = data_parts(batch, cfg, tc, mesh)
+    losses, per_d = [], []
+    for d, part in enumerate(parts):
+        if stand_in and d:
+            dev = mesh.device(sharding.model_groups(mesh)[d][0])
+            losses.append(torch.zeros((), dtype=torch.float32, device=dev))
+            per_d.append(None)
+            continue
+        loss, g = _tp_group_grads(params, cfg, tc, part, mesh, d)
+        losses.append(loss)
+        per_d.append(g)
+    grads = _reduce_tp_grads(ps, mesh, per_d, len(parts))
+    del per_d
+    return (collectives.all_reduce(losses, "mean"),
+            _unflatten(params, grads))
+
+
 def make_train_step(cfg: ArchConfig, tc: TrainConfig, mesh=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, stats), the params
     and moments updated in place. stats: loss, lr, grad_norm. Parameters
@@ -199,6 +357,7 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig, mesh=None) -> Callable:
                                                  placed)
         residual = opt_state.residual
         if pod_sync:
+            grads = sharding.gather(grads)
             grads, residual = collectives.compressed_grads_with_feedback(
                 grads, residual, tc.compress)
             if tc.compress == "bf16":

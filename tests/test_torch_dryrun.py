@@ -169,30 +169,53 @@ def test_run_cell_writes_an_ok_record(cells, kind):
     ma = rec["memory_analysis"]
     assert ma["device"] == "cuda:0" and ma["fits"]
     assert ma["peak_live_bytes"] >= ma["argument_size_in_bytes"] > 0
-    want = {"train": {"flash_attention": 8}, "prefill": {
-        "flash_attention": 2}, "decode": {"relevancy_topk_candidates": 2,
-                                          "paged_decode_attention": 2}}
+    # train and prefill: data index 0's model group, one launch per shard
+    # a layer (train: forward and recompute); decode: one device
+    want = {"train": {"flash_attention": 4 * 2 * 2}, "prefill": {
+        "flash_attention": 4 * 2}, "decode": {
+            "relevancy_topk_candidates": 2, "paged_decode_attention": 2}}
     assert rec["kernel_calls"] == want[kind]
 
 
 def test_train_cell_is_the_sharded_step(cells):
-    """The sharded step's work over all cards equals one device's step
-    of the whole batch (FLOPs); its gradients are all-reduced onto cuda:0
-    and each data index gathers the parameters (all-gather)."""
+    """The train cell walks the tensor-parallel step: data index 0's model
+    group does one device's step of its half of the batch, plus the k/v
+    projections the shards repeat (2 kv heads do not split 4 ways: each
+    shard projects the one its q head reads, so 4 heads' worth against one
+    device's 2; forward, recompute and a backward of twice the FLOPs),
+    plus the w2 products of all shards but the last in the remat's
+    recompute (the recompute stops at the last tensor the backward saves:
+    one device skips its w2, a group only its last shard's); the
+    embedding's d-slices are all-gathered (the only all-gather: no
+    parameter is gathered), the gradients all-reduced over the data
+    axes, each coordinate receiving 2 (n - 1) / n of its slice."""
     _, cfg, mesh, recs = cells
     rec = recs["train"]
     coll = rec["collective_bytes"]
-    assert coll["all-gather"] > 0 and coll["all-reduce"] > 0
-    assert rec["roofline"]["device"] == "cuda:0"
+    assert coll["all-reduce"] > 0 and coll["reduce-scatter"] > 0
     sh = smoke_shape("train")
+    tokens = sh.global_batch // 2 * sh.seq_len
+    n = mesh.shape["model"]
+    assert coll["all-gather"] == (n - 1) * tokens * cfg.d_model * 2
+    assert rec["roofline"]["device"].startswith("cuda:")
     with op_walk.placeholders():
         p = tree_map(lambda t: t.to("cuda:0"),
-                     M.init_params(cfg, 0, tp=4, device="cpu"))
-        b = {k: torch.zeros(sh.global_batch, sh.seq_len, dtype=torch.int32
-                            ).to("cuda:0") for k in ("tokens", "labels")}
+                     M.init_params(cfg, 0, tp=n, device="cpu"))
+        b = {k: torch.zeros(sh.global_batch // 2, sh.seq_len,
+                            dtype=torch.int32).to("cuda:0")
+             for k in ("tokens", "labels")}
         with op_walk.OpWalk() as w:
-            loss_and_grads(p, cfg, TrainConfig(tp=4), b)
-    assert rec["roofline"]["total_flops"] == w.total().flops
+            loss_and_grads(p, cfg, TrainConfig(tp=n), b)
+    # data index 1's coordinates receive 2 (n - 1) / n of their gradient
+    # slices over the data axis, and two fp32 scalars (the loss's mean,
+    # the clip scale)
+    gr = rec["grad_reduce"]
+    assert gr["ring_ratio"] == 1.0 and gr["model_axis_bytes_in"] > 0
+    assert gr["data_axis_bytes_in"] == gr["slice_bytes"] + 2 * 4
+    kv_head = 2 * tokens * cfg.d_model * 2 * cfg.hd      # k and v, a head
+    w2 = 2 * tokens * cfg.d_ff // n * cfg.d_model
+    assert rec["roofline"]["total_flops"] == w.total().flops + cfg.n_layers * (
+        4 * kv_head * (n - cfg.n_kv_heads) + (n - 1) * w2)
 
 
 @pytest.mark.parametrize("variant", ["optimized-spdecode",
@@ -239,7 +262,9 @@ def test_report_reads_the_records(cells, capsys):
     assert report.summary(rows).startswith("3 ok / 0 failed")
     worst, collective, paperish = report.pick_hillclimb(rows)
     assert worst is None and paperish is None
-    assert collective["shape"] == "smoke_train"
+    # the prefill now splits over the model axis: two all-reduces of the
+    # activations a layer against a forward's FLOPs
+    assert collective["shape"] == "smoke_prefill"
     report.main(["--mesh", "2x4", "--dir", str(out)])
     text = capsys.readouterr().out
     for kind in ("train", "prefill", "decode"):

@@ -8,9 +8,17 @@ that skipped a shard or a replica fails; at 1e-2 Adam's first step,
 g / (|g| + eps), turns fp32 rounding in gradients near eps into parameter
 differences of 3e-5):
 - sharded vs the port's single-device step: loss within 1e-5 relative,
-  every parameter and moment leaf within 1e-5 abs, every leaf moved by at
-  least lr / 2 somewhere, and every shard equal to its slice of the gathered
-  tensor (the data replicas of a leaf agree);
+  every moment leaf within 1e-5 abs, every parameter within 1e-5 abs but
+  where Adam's step does not follow the gradient smoothly (``_adam_close``),
+  every leaf moved by at least lr / 2 somewhere, and every shard equal to
+  its slice of the gathered tensor (the data replicas of a leaf agree). The
+  sharded step splits its products over the ``model`` axis (tensor
+  parallelism), so its fp32 sums run in another order than one device's and
+  its gradients differ from one device's by about one ulp of each leaf's
+  largest; where sqrt(v-hat) (at step 1 the clipped |g|) is below 100 eps =
+  1e-6, Adam's step, lr m-hat / (sqrt(v-hat) + eps), turns that into up to
+  2 lr a step (the pod sync's rule below); at most 0.1 % of the parameters
+  are more than 1e-5 apart;
 - sharded vs the JAX single-device step: the reference test's own
   tolerances (``tests/test_distributed.py``): loss 2e-3 abs, parameters
   rtol 3e-2 / atol 3e-3;
@@ -138,6 +146,27 @@ def _max_abs(a, b):
                for x, y in zip(leaves(a), leaves(b)))
 
 
+def _adam_close(got, want, v_want, lr=LR):
+    """Parameters within 1e-5 abs, but where sqrt(v-hat) of the run held
+    against is below 100 eps after any of its steps (``v_want``: the second
+    moment after step 1, or a list of (second moment, step)): there within
+    2 lr a step. At most 0.1 % of the elements beyond 1e-5."""
+    vs = v_want if isinstance(v_want, list) else [(v_want, 1)]
+    steps = max(k for _, k in vs)
+    loose = total = 0
+    for i, (a, b) in enumerate(zip(leaves(got), leaves(want))):
+        d = (a.detach().float() - b.detach().float()).abs()
+        flat = torch.zeros(d.shape, dtype=torch.bool)
+        for v, k in vs:
+            flat |= (leaves(v)[i] / (1 - OPT.b2 ** k)).sqrt() < 100 * OPT.eps
+        assert float(torch.where(flat, 0.0, d).max()) <= 1e-5, a.shape
+        assert float(torch.where(flat, d, 0.0).max()) <= 2 * lr * steps, \
+            a.shape
+        loose += int((d > 1e-5).sum())
+        total += d.numel()
+    assert loose <= 1e-3 * total, (loose, total)
+
+
 @pytest.mark.parametrize("accum", [1, 2])
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_sharded_step_matches_single_device(smoke32, mesh_name, accum):
@@ -156,7 +185,7 @@ def test_sharded_step_matches_single_device(smoke32, mesh_name, accum):
     assert abs(l2 - l1) / abs(l1) <= 1e-5, (l1, l2)
     assert float(st2["grad_norm"]) == pytest.approx(float(st1["grad_norm"]),
                                                     rel=1e-5)
-    assert _max_abs(p2, p1) <= 1e-5
+    _adam_close(p2, p1, s1.v)
     _moved(p2, from_jax_params(np_params, device="cpu"))
     assert _max_abs(sh.gather(s2.m), s1.m) <= 1e-5
     assert _max_abs(sh.gather(s2.v), s1.v) <= 1e-5
@@ -241,12 +270,12 @@ def test_unsplit_batch_runs_whole(smoke32):
     batch = _batch(tcfg.vocab_size, 3)
     assert len(data_parts(_tb(batch), tcfg, TrainConfig(), mesh)) == 1
     tc = TrainConfig(opt=OPT, tp=TP)
-    p1, _, st1 = _port_step(tcfg, tc, from_jax_params(np_params, "cpu"),
-                            batch)
+    p1, s1, st1 = _port_step(tcfg, tc, from_jax_params(np_params, "cpu"),
+                             batch)
     p2, _, st2 = _port_step(tcfg, tc, _placed(np_params, tcfg, mesh), batch,
                             mesh)
     assert float(st2["loss"]) == pytest.approx(float(st1["loss"]), rel=1e-5)
-    assert _max_abs(p2, p1) <= 1e-5
+    _adam_close(p2, p1, s1.v)
 
 
 def _family(arch):
@@ -266,14 +295,14 @@ def test_moe_split_keeps_whole_groups():
     batch = _tb(_batch(cfg.vocab_size, 4, S=1024))
     tc = TrainConfig(opt=OPT, tp=TP)
     s1 = make_train_step(cfg, tc)
-    p1, _, st1 = s1(_clone(params), init_opt_state(params), batch)
+    p1, o1, st1 = s1(_clone(params), init_opt_state(params), batch)
     placed = sh.device_put(_clone(params), sh.make_shardings(
         sh.param_specs(params, cfg, mesh), mesh))
     p2, s2, st2 = make_train_step(cfg, tc, mesh)(
         placed, init_opt_state(placed), batch)
     _replicas_agree(p2, s2.m, s2.v)
     assert float(st2["loss"]) == pytest.approx(float(st1["loss"]), rel=1e-5)
-    assert _max_abs(sh.gather(p2), p1) <= 1e-5
+    _adam_close(sh.gather(p2), p1, o1.v)
     _moved(p1, params)
 
 
@@ -305,15 +334,15 @@ def test_vlm_batch_split():
     assert torch.equal(parts[1]["positions3"], batch["positions3"][:, 1:2])
     assert torch.equal(parts[2]["img_embeds"], batch["img_embeds"][2:3])
     tc = TrainConfig(opt=OPT, tp=TP)
-    p1, _, st1 = make_train_step(cfg, tc)(_clone(params),
-                                          init_opt_state(params), batch)
+    p1, o1, st1 = make_train_step(cfg, tc)(_clone(params),
+                                           init_opt_state(params), batch)
     placed = sh.device_put(_clone(params), sh.make_shardings(
         sh.param_specs(params, cfg, mesh), mesh))
     p2, s2, st2 = make_train_step(cfg, tc, mesh)(
         placed, init_opt_state(placed), batch)
     _replicas_agree(p2, s2.m, s2.v)
     assert float(st2["loss"]) == pytest.approx(float(st1["loss"]), rel=1e-5)
-    assert _max_abs(sh.gather(p2), p1) <= 1e-5
+    _adam_close(sh.gather(p2), p1, o1.v)
     _moved(p1, params)
 
 
@@ -344,7 +373,10 @@ def test_trainer_resumes_on_another_mesh(smoke32, tmp_path):
     batches = [_tb(_batch(tcfg.vocab_size, 4, seed=s)) for s in range(3)]
     ref = Trainer(tcfg, TrainConfig(opt=OPT, tp=TP),
                   from_jax_params(np_params, device="cpu"))
-    want = [ref.train_step(b)["loss"] for b in batches]
+    want, vs = [], []
+    for k, b in enumerate(batches, 1):
+        want.append(ref.train_step(b)["loss"])
+        vs.append((_clone(ref.opt_state.v), k))
     tc = TrainConfig(opt=OPT, tp=TP, ckpt_dir=str(tmp_path / "ck"),
                      ckpt_every=2)
     mesh8 = _mesh("2x4")
@@ -363,5 +395,5 @@ def test_trainer_resumes_on_another_mesh(smoke32, tmp_path):
     got = tr2.train_step(batches[2])["loss"]
     _replicas_agree(tr2.params, tr2.opt_state.m, tr2.opt_state.v)
     assert got == pytest.approx(want[2], rel=1e-5)
-    assert _max_abs(sh.gather(tr2.params), ref.params) <= 1e-5
+    _adam_close(sh.gather(tr2.params), ref.params, vs)
     assert _max_abs(sh.gather(tr2.opt_state.m), ref.opt_state.m) <= 1e-5
