@@ -63,15 +63,20 @@ failure (the script then exits non-zero):
 3c. train_sharded: multi-device training on the one card, one process over
    a mesh whose entries are all ``cuda:0``: llama3.2-1b at full width,
    bf16, B 4 x S 2048, remat, tp 4, lr 1e-5; 3 single-device steps, then 3
-   of the tensor-parallel step on a (2, 4) ("data", "model") mesh from the
+   of the gathered step on a (2, 1) mesh (each data index gathers the
+   parameters and runs its rows: losses within 2e-2, the worst leaf within
+   its bf16 bound, 64 flash launches a step), then 3 of the
+   tensor-parallel step on a (2, 4) ("data", "model") mesh from the
    same weights and batches (each coordinate computes its slice: 8 q / 2
    kv heads, a quarter of the MLP and of the vocabulary; losses within
    2e-2, the worst leaf within its bf16 bound, 256 flash launches a step on
    the tensor cores: 2 data indices x 4 model shards x 16 layers x 2; step
    ms, peak memory, one profiled step's busy share beside the gathered
-   step's (PR 22: 936.9 ms, 46.46 GB), the aten ops a step against one
-   device's, the data-axis gradient reduction's and the sharded AdamW's
-   ms, which on one card are device-local); the
+   step's (on (2, 1), and its earlier figures on (2, 4): 936.9 ms, 46.46
+   GB), the device
+   ops of a profiled step against one device's, the data-axis gradient
+   reduction's and the sharded AdamW's ms, which on one card are
+   device-local); the
    params saved from the mesh, restored onto a (4,) model mesh and onto
    one device, bit-equal; one fp32 step (S 512, lr 1e-3) sharded against
    single device within the CPU tests' tolerances, its data replicas
@@ -82,7 +87,8 @@ failure (the script then exits non-zero):
    uncompressed step's, each residual held against one recomputed from
    the reduced gradients, int8's non-zero);
    GPipe: 4 stages of 4 layers, 8 microbatches of [1, 2048], 176 flash
-   launches, equal to the unpipelined forward; one ``train_sharded`` line;
+   launches, equal to the unpipelined forward; the seconds each part took;
+   one ``train_sharded`` line;
 3d. roofline: the dry-run and roofline tools (``launch.op_walk``,
    ``launch.roofline``, ``launch.dryrun``): one train step of full-width
    llama3.2-1b (bf16, B 4 x S 2048, remat, one card) and one DSA
@@ -200,10 +206,11 @@ failure (the script then exits non-zero):
    launches a step on the tensor cores (one ``train_mac`` line);
 12. a ``{"kernels": [...]}`` line (flash's ``launches`` from the train
    phase, the train_families phase's by family and the train_sharded
-   phase's sharded steps, granite's expert-parallel step and pipelined
-   forward (``train_sharded``, ``granite_tp``, ``gpipe``) in
-   ``launches_by_path``, flash also checked and timed at those paths'
-   shapes (a model shard's: bf16 [2, 2048] over 8 q / 2 kv heads, granite's
+   phase's gathered and tensor-parallel steps, granite's expert-parallel
+   step and pipelined forward (``gathered``, ``train_sharded``,
+   ``granite_tp``, ``gpipe``) in ``launches_by_path``, flash also checked
+   and timed at those paths' shapes (a gathered data index's: bf16 [2,
+   2048] over 32 q / 8 kv heads; a model shard's: over 8 / 2, granite's
    [4, 2048] over 4 / 2, the pod sync's [1, 2048] over 16 / 4; GPipe's [1,
    2048] over 32 / 8), and at the fp32 sharded step's [2, 512] over 8 / 2;
    paged attention and flash also at the families' shapes: G = 1,
@@ -275,9 +282,13 @@ POD_LAYERS = 4
 GRANITE_TP, GRANITE_TP_MESH, GRANITE_TP_LAYERS = ("granite-moe-1b-a400m",
                                                   ((1, 4), ("data", "model")),
                                                   4)
-# PR 22's gathered sharded step on the same mesh and card (NVIDIA H100 80GB
-# HBM3, 700 W): the figures the tensor-parallel step is printed beside
+# the gathered sharded step measured on the (2, 4) mesh of one NVIDIA H100
+# 80GB HBM3 at 700 W, before the model-axis split: the figures the
+# tensor-parallel step is printed beside. The
+# gathered step still runs (the hybrid's and xLSTM's, and every family's on
+# a model axis of 1): llama on a (2, 1) mesh
 GATHERED_STEP_MS, GATHERED_PEAK_GB = 936.9, 46.46
+GATHERED_MESH = ((2, 1), ("data", "model"))
 GPIPE_STAGES, GPIPE_MICRO, GPIPE_PAIRS = 4, 8, 6
 MAX_NEW = 16
 VIEW = 8192
@@ -1331,11 +1342,14 @@ def check_flash_attention(dev):
         # [memory 1024; question 64], B 2 (rows 3f and 3g)
         "memagent segment prefill": (2, 6024, 32, 8, 64, 0, 2),
         "memagent answer prefill": (2, 1088, 32, 8, 64, 0, 20),
-        # the train_sharded phase: a model shard of each of the sharded
-        # step's 2 data indices (B 4 / 2; 32 / 4 q and 8 / 4 kv heads);
+        # the train_sharded phase: each of the gathered step's 2 data
+        # indices (B 4 / 2, all heads); a model shard of each of the
+        # sharded step's 2 data indices (B 4 / 2; 32 / 4 q and 8 / 4 kv
+        # heads);
         # granite's expert-parallel step (16 / 4 and 8 / 4); a model shard
         # of each of the pod sync's 4 data indices (B 4 / 4; 32 / 2 and
         # 8 / 2); a GPipe microbatch (no model split)
+        "gathered": (TRAIN_B // 2, TRAIN_S, 32, 8, 64, 0, 20),
         "train_sharded": (TRAIN_B // 2, TRAIN_S, 32 // CLI_TP, 8 // CLI_TP,
                           64, 0, 20),
         "granite_tp": (TRAIN_B, TRAIN_S, 16 // CLI_TP, 8 // CLI_TP, 64, 0,
@@ -1537,8 +1551,8 @@ def _profile_steps(tr, batches):
 
 def _profile_busy(tr, batches):
     """Train steps under torch.profiler (CUDA activity only): wall and
-    device-busy time and the flash kernel's mean in-situ time, summed over
-    the raw kineto events. No ``FunctionEvent`` tree is built: for eager
+    device-busy time, the flash kernel's mean in-situ time and the device
+    ops (kernels, copies, fills) a step, from the raw kineto events. No ``FunctionEvent`` tree is built: for eager
     loops of many small ops (the SSD chunks, xLSTM's tokens) that tree costs
     tens of seconds a step."""
     import torch
@@ -1554,11 +1568,12 @@ def _profile_busy(tr, batches):
     wall_us = (time.perf_counter() - t0) * 1e6
     prof.stop()
     cuda = torch.autograd.DeviceType.CUDA
-    busy_ns = flash_ns = n_flash = 0
+    busy_ns = flash_ns = n_flash = n_events = 0
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != cuda or e.is_user_annotation():
             continue
         busy_ns += e.duration_ns()
+        n_events += 1
         if KERNEL_SYMBOLS["flash_attention"] in e.name():
             flash_ns += e.duration_ns()
             n_flash += 1
@@ -1566,7 +1581,8 @@ def _profile_busy(tr, batches):
     return {"steps": len(batches), "wall_us": wall_us,
             "device_busy_us": dev_us, "device_busy_share": dev_us / wall_us,
             "flash_ms_in_situ": flash_ns / n_flash / 1e6 if n_flash else None,
-            "flash_launches_profiled": n_flash}
+            "flash_launches_profiled": n_flash,
+            "device_ops_per_step": n_events / len(batches)}
 
 
 def phase_train(dev):
@@ -1903,19 +1919,6 @@ def _steps(tr, batches):
     return losses, step_s, per_step
 
 
-def _step_ops(tr, batch) -> int:
-    """The materializing aten ops of one train step on the card, as
-    ``op_walk.OpWalk`` counts them (each is a launch the host dispatches;
-    views and factories are not counted)."""
-    import torch
-    from repro_torch.launch import op_walk
-
-    with op_walk.OpWalk() as w:
-        tr.train_step(batch)
-    torch.cuda.synchronize()
-    return int(sum(row[0] for row in w.by_op.values()))
-
-
 def _worst_leaf(placed, host):
     """Max |a - b| over the leaves: a sharded tree on the card against full
     tensors on the host."""
@@ -1974,10 +1977,10 @@ def _sharded_parts(tr, dev):
 
 def _granite_tp(dev):
     """granite-moe-1b-a400m at full width cut to GRANITE_TP_LAYERS layers,
-    bf16, B 4 x S 2048, remat, lr 1e-5 (the train_families phase's): two
-    single-device steps, then two expert-parallel steps on a (1, 4) mesh of
+    bf16, B 4 x S 2048, remat, lr 1e-5 (the train_families phase's): one
+    single-device step, then one expert-parallel step on a (1, 4) mesh of
     the card (32 experts, 8 a shard; the router, the dispatch, the capacity
-    and the aux on every shard) from the same weights and batches: losses
+    and the aux on every shard) from the same weights and batch: loss
     within 2e-2 relative, the worst leaf within its bf16 bound, tp x layers
     x 2 flash launches a step on the tensor cores, step ms."""
     import torch
@@ -1996,7 +1999,7 @@ def _granite_tp(dev):
                      remat=True, tp=CLI_TP)
     mesh = make_mesh(*GRANITE_TP_MESH)
     n = mesh.shape["model"]
-    batches = _train_batches(cfg, dev, 2, TRAIN_B, TRAIN_S, seed=2)
+    batches = _train_batches(cfg, dev, 1, TRAIN_B, TRAIN_S, seed=2)
     tr = Trainer(cfg, tc, init_params(cfg, 0, tp=tc.tp, device=dev))
     single, single_s, _ = _steps(tr, batches)
     host = [p.detach().cpu() for p in leaves(tr.params)]
@@ -2036,6 +2039,60 @@ def _granite_tp(dev):
             "worst_leaf_of_bf16_bound": worst, "leaf_bound": bound,
             "single_step_s": single_s, "tp_step_s": step_s,
             "tp_peak_memory_bytes": peak, "flash_launches_per_step": per_step,
+            "flash_launches_by_route": routes}, sum(per_step), routes
+
+
+def _gathered_step(cfg, tc, batches, single, host, dev):
+    """The gathered sharded step on a GATHERED_MESH of the card (a model
+    axis of 1: each data index gathers the parameters onto its device and
+    runs its B / 2 rows, the gradients averaged onto the first) from the
+    same weights and batches as the single-device steps (``single``: their
+    losses; ``host``: their final parameters): losses within 2e-2
+    relative, the worst leaf within its bf16 bound, data indices x layers
+    x 2 flash launches a step on the tensor cores, step ms, peak memory."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import Trainer
+    from repro_torch.train.trainer import splits_model
+
+    mesh = make_mesh(*GATHERED_MESH)
+    dp, L = mesh.shape["data"], cfg.n_layers
+    if splits_model(cfg, mesh):
+        raise AssertionError("gathered: the mesh splits the model axis")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tc, _place(init_params(cfg, 0, tp=tc.tp, device=dev),
+                                 cfg, mesh), mesh)
+    ops.reset_launch_counts()
+    losses, step_s, per_step = _steps(tr, batches)
+    counts = ops.launch_counts()
+    routes = ops.flash_route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, single)]
+    worst, bound = _bf16_leaf_bound(tr.params, host, len(batches),
+                                    tc.opt.lr)
+    del tr
+    torch.cuda.empty_cache()
+    log(f"  gathered step on {dict(mesh.shape)}: losses "
+        f"{[round(x, 5) for x in losses]} (rel {max(rel):.3g}, tol 2e-2); "
+        f"worst leaf {worst:.3g} of its bf16 bound; step ms "
+        f"{1e3 * statistics.median(step_s):.1f}; peak {peak / 1e9:.2f} GB; "
+        f"flash launches a step {per_step} (expected {dp} x {L} x 2)")
+    if not (all(map(math.isfinite, losses)) and max(rel) <= 2e-2
+            and worst <= 1.0):
+        raise AssertionError(f"gathered: {losses} vs {single}, worst leaf "
+                             f"{worst} of its bound")
+    if per_step != [dp * L * 2] * len(batches) or routes[fa.CUDA_CORES] or \
+            any(c for name, c in counts.items() if name != "flash_attention"):
+        raise AssertionError(f"gathered: flash {per_step}, {routes}, "
+                             f"{counts}")
+    return {"mesh": dict(mesh.shape), "losses": losses, "loss_rel_err": rel,
+            "loss_tol": 2e-2, "worst_leaf_of_bf16_bound": worst,
+            "leaf_bound": bound, "step_s": step_s,
+            "step_ms_median": 1e3 * statistics.median(step_s),
+            "peak_memory_bytes": peak, "flash_launches_per_step": per_step,
             "flash_launches_by_route": routes}, sum(per_step), routes
 
 
@@ -2164,25 +2221,27 @@ def _gpipe(cfg, tc, dev):
 
 
 def phase_train_sharded(dev):
-    """Multi-device training on the one card, one process over a mesh whose
+    """Multi-device training on the one card, one process over meshes whose
     entries are all ``cuda:0``: llama3.2-1b at full width, bf16, seeded
     weights, ``TokenStream`` batches, B 4 x S 2048, remat, tp 4, lr 1e-5.
     SHARDED_STEPS single-device steps first (the final parameters kept on
-    the host, then freed), then as many of the tensor-parallel step on a
-    (2, 4) ("data", "model") mesh from the same weights and batches: losses
-    within 2e-2 relative, all finite, the worst leaf within its bf16 bound
-    (``_bf16_leaf_bound``), 2 data indices x 4 model shards x 16 layers x 2
-    flash launches a step on the tensor cores; step ms and peak memory
-    beside the gathered step's (GATHERED_*), one profiled step's busy
-    share, the aten ops one step dispatches against one device's
-    (``_step_ops``), the gradient reduction's and the sharded AdamW's ms;
-    the params
-    saved from the mesh and restored onto a (4,) model mesh and onto one
-    device bit-equal; one fp32 step (``_sharded_fp32``); granite's
+    the host, then freed; one more step profiled), then as many of the
+    gathered step on a (2, 1) mesh (``_gathered_step``), then of the
+    tensor-parallel step on a (2, 4) ("data", "model") mesh, all from the
+    same weights and batches: losses within 2e-2 relative, all finite, the
+    worst leaf within its bf16 bound (``_bf16_leaf_bound``), 2 data indices
+    x 4 model shards x 16 layers x 2 flash launches a step on the tensor
+    cores; step ms and peak memory beside the gathered step's earlier
+    figures on (2, 4)
+    (GATHERED_*), one profiled step's busy share and device ops against one
+    device's, the gradient reduction's and the sharded AdamW's ms; the
+    params saved from the mesh and restored onto a (4,) model mesh and onto
+    one device bit-equal; one fp32 step (``_sharded_fp32``); granite's
     expert-parallel step (``_granite_tp``); the compressed pod sync
-    (``_pod_sync``); GPipe (``_gpipe``). One ``train_sharded`` line.
-    Returns {path: (flash launches, routes)} of the sharded steps, granite's
-    steps and the pipelined forward."""
+    (``_pod_sync``); GPipe (``_gpipe``). The seconds each part took. One
+    ``train_sharded`` line. Returns {path: (flash launches, routes)} of the
+    gathered and the tensor-parallel steps, granite's step and the
+    pipelined forward."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa, ops
@@ -2191,6 +2250,13 @@ def phase_train_sharded(dev):
     from repro_torch.train import OptConfig, Trainer, TrainConfig
     from repro_torch.train.optimizer import leaves
     from repro_torch.train.trainer import splits_model
+
+    split_s, t_part = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        split_s[name] = now - t_part[0]
+        t_part[0] = now
 
     cfg = get_arch(TRAIN_ARCH)
     B, S, L, n = TRAIN_B, TRAIN_S, cfg.n_layers, SHARDED_STEPS
@@ -2210,9 +2276,14 @@ def phase_train_sharded(dev):
     single_losses, single_s, _ = _steps(tr, batches[:n])
     single_peak = torch.cuda.max_memory_allocated()
     host = [p.detach().cpu() for p in leaves(tr.params)]
-    single_ops = _step_ops(tr, batches[n])
+    single_profile = _profile_busy(tr, batches[n:])
     del tr
     torch.cuda.empty_cache()
+    lap("single_device")
+
+    gathered, ga_launches, ga_routes = _gathered_step(
+        cfg, tc, batches[:n], single_losses, host, dev)
+    lap("gathered")
 
     torch.cuda.reset_peak_memory_stats()
     tr = Trainer(cfg, tc, _place(init_params(cfg, 0, tp=tc.tp, device=dev),
@@ -2233,10 +2304,13 @@ def phase_train_sharded(dev):
         f"{worst:.3g}, at most {worst_of_bound:.3g} of its leaf's bf16 bound "
         f"(that leaf's {bound:.3g}); step ms "
         f"{1e3 * statistics.median(single_s):.1f} vs "
-        f"{1e3 * statistics.median(step_s):.1f} (the gathered step: "
+        f"{1e3 * statistics.median(step_s):.1f} (the gathered step: on "
+        f"(2, 1) {gathered['step_ms_median']:.1f}, earlier on (2, 4) "
         f"{GATHERED_STEP_MS}); peak {single_peak / 1e9:.2f} vs "
-        f"{peak / 1e9:.2f} GB (gathered: {GATHERED_PEAK_GB}); flash launches "
-        f"per step {per_step} (expected {dp} x {tp} x {L} x 2)")
+        f"{peak / 1e9:.2f} GB (gathered: on (2, 1) "
+        f"{gathered['peak_memory_bytes'] / 1e9:.2f}, earlier on (2, 4) "
+        f"{GATHERED_PEAK_GB}); flash launches per step {per_step} (expected "
+        f"{dp} x {tp} x {L} x 2)")
     if not all(math.isfinite(x) for x in losses + single_losses):
         raise AssertionError(f"train_sharded: non-finite loss {losses}")
     if max(rel) > 2e-2:
@@ -2252,24 +2326,35 @@ def phase_train_sharded(dev):
         raise AssertionError(f"train_sharded bf16: flash routes {routes}")
     if any(c for name, c in counts.items() if name != "flash_attention"):
         raise AssertionError(f"train_sharded: other kernels {counts}")
+    lap("tensor_parallel_steps")
     profile = _profile_busy(tr, batches[n:])
     if profile["flash_launches_profiled"] != want:
         raise AssertionError(f"train_sharded: {profile} in the profiled step")
-    tp_ops = _step_ops(tr, batches[n])
+    lap("tensor_parallel_profiled_step")
     reshard = _reshard(tr.params, cfg, dev)
+    lap("reshard")
     parts = _sharded_parts(tr, dev)
     log(f"  one profiled tensor-parallel step: busy "
-        f"{100 * profile['device_busy_share']:.1f} %; gradient reduction "
-        f"{parts['grad_reduce_ms']:.2f} ms, sharded AdamW "
-        f"{parts['sharded_adamw_ms']:.2f} ms; aten ops a step (op walk) "
-        f"{tp_ops} against one device's {single_ops}")
+        f"{100 * profile['device_busy_share']:.1f} % (one device's "
+        f"{100 * single_profile['device_busy_share']:.1f} %); gradient "
+        f"reduction {parts['grad_reduce_ms']:.2f} ms, sharded AdamW "
+        f"{parts['sharded_adamw_ms']:.2f} ms; device ops a step (profiler) "
+        f"{profile['device_ops_per_step']:.0f} against one device's "
+        f"{single_profile['device_ops_per_step']:.0f}")
     del tr
     torch.cuda.empty_cache()
+    lap("exchange_parts")
 
     fp32 = _sharded_fp32(cfg, mesh, dev)
+    lap("fp32")
     granite, gr_launches, gr_routes = _granite_tp(dev)
+    lap("granite_expert_parallel")
     pod = _pod_sync(cfg, tc, batches[0], dev)
+    lap("pod_sync")
     gpipe, gp_launches, gp_routes = _gpipe(cfg, tc, dev)
+    lap("gpipe")
+    log(f"  seconds by part: "
+        f"{ {k: round(v, 1) for k, v in split_s.items()} }")
     print(json.dumps({"train_sharded": {
         "card": card_line(), "arch": TRAIN_ARCH, "dtype": "bfloat16",
         "batch": B, "seq": S, "remat": True, "tp": tc.tp, "lr": SHARDED_LR,
@@ -2295,15 +2380,16 @@ def phase_train_sharded(dev):
         "flash_launches": counts["flash_attention"],
         "flash_launches_by_route": routes,
         "flash_launches_per_step": per_step,
-        "profiled_step": profile, **parts,
-        "aten_ops_per_step": {"single": single_ops,
-                              "tensor_parallel": tp_ops},
+        "profiled_step": profile, "single_profiled_step": single_profile,
+        **parts,
         "collectives_note": "one card: every mesh entry is cuda:0, so the "
                             "all-reduces and gathers are device-local "
                             "copies and adds, not interconnect transfers",
-        "reshard": reshard, "fp32": fp32, "granite_expert_parallel": granite,
-        "pod_sync": pod, "gpipe": gpipe}}), flush=True)
-    return {"train_sharded": (counts["flash_attention"], routes),
+        "gathered": gathered, "reshard": reshard, "fp32": fp32,
+        "granite_expert_parallel": granite, "pod_sync": pod, "gpipe": gpipe,
+        "seconds_by_part": split_s}}), flush=True)
+    return {"gathered": (ga_launches, ga_routes),
+            "train_sharded": (counts["flash_attention"], routes),
             "granite_tp": (gr_launches, gr_routes),
             "gpipe": (gp_launches, gp_routes)}
 
@@ -2329,10 +2415,12 @@ def _sharded_fp32(cfg, mesh, dev):
     oc = tc32.opt
     batch = _train_batches(cfg32, dev, 1, TRAIN_B, SHARDED_FP32_S, seed=1)[0]
     tr = Trainer(cfg32, tc32, init_params(cfg32, 2, tp=tc32.tp, device=dev))
-    p0 = [p.detach().to("cpu", copy=True) for p in leaves(tr.params)]
+    # the single-device results stay on the card (15 GB beside the mesh's
+    # 40): copies through the host cost seconds
+    p0 = [p.detach().clone() for p in leaves(tr.params)]
     single = tr.train_step(batch)["loss"]
-    host = [p.detach().cpu() for p in leaves(tr.params)]
-    host_m = [m.cpu() for m in leaves(tr.opt_state.m)]
+    host = [p.detach() for p in leaves(tr.params)]
+    host_m = list(leaves(tr.opt_state.m))
     del tr
     torch.cuda.empty_cache()
     tr = Trainer(cfg32, tc32, _place(init_params(cfg32, 2, tp=tc32.tp,
@@ -2350,9 +2438,9 @@ def _sharded_fp32(cfg, mesh, dev):
             full = t.full()
             replicas &= all(torch.equal(sd, full[sl])
                             for sd, sl in zip(t.shards, t.slices))
-        full, hm = p.full(), hm.to(dev)
-        d = (full - h.to(dev)).abs()
-        moved = min(moved, float((full - h0.to(dev)).abs().max()))
+        full = p.full()
+        d = (full - h).abs()
+        moved = min(moved, float((full - h0).abs().max()))
         worst = max(worst, float(d.max()))
         worst_m = max(worst_m, float((m.full() - hm).abs().max()))
         off = d > 1e-5
@@ -4316,8 +4404,9 @@ def main(argv=None):
     for k in kernels:
         if k["name"] == "flash_attention":
             for row in k["other_shapes"]:
-                if row["path"] in ("train_sharded", "granite_tp",
-                                   "gpipe") and row["path"] in trained:
+                if row["path"] in ("gathered", "train_sharded",
+                                   "granite_tp", "gpipe") and \
+                        row["path"] in trained:
                     row["launches"] = trained[row["path"]][0]
     torch.cuda.synchronize()
     mark("[12] the kernels line")

@@ -10,10 +10,13 @@ run (Karimireddy et al., arXiv:1901.09847).
 
 The in-process collectives take one tensor per participant (each on its
 participant's device) and reduce in participant order, accumulating in
-fp32, so a run is bit-reproducible. ``ring_all_reduce`` is a reduce-scatter
-of one chunk per participant followed by an all-gather: each participant
-sends and receives 2 (n-1)/n of the tensor's bytes, as
-``all_reduce_seconds`` reckons. The group operations of the
+fp32, so a run is bit-reproducible. ``all_reduce`` sums onto the first
+participant, for a caller that needs the one result (the gathered step).
+``ring_all_reduce`` is a reduce-scatter of one chunk per participant
+followed by an all-gather, for callers whose every participant needs the
+result (the tensor-parallel step's gradients): each participant sends and
+receives 2 (n-1)/n of the tensor's bytes, as ``all_reduce_seconds``
+reckons. The group operations of the
 tensor-parallel split (``group_broadcast``, ``group_all_reduce``,
 ``group_all_gather``) are ``autograd.Function``s over the members'
 tensors; each backward is the exact adjoint of its forward (a broadcast's
@@ -168,12 +171,19 @@ def ring_all_reduce(xs: Sequence[torch.Tensor], op: str = "sum"
 
 
 def all_reduce(xs: Sequence[torch.Tensor], op: str = "sum") -> torch.Tensor:
-    """``ring_all_reduce``'s sum (or mean) on the first participant's
+    """Sum (or mean) of the participants' tensors on the first participant's
     device: accumulated in fp32 in participant order, then cast to the
-    inputs' dtype."""
+    inputs' dtype. For a caller that needs the one result; where every
+    participant needs it, ``ring_all_reduce``."""
     if op not in ("sum", "mean"):
         raise ValueError(f"all_reduce op {op!r}: sum | mean")
-    return ring_all_reduce(xs, op)[0]
+    acc = xs[0].to(torch.float32, copy=True)
+    with collective("all-reduce"):
+        for x in xs[1:]:
+            acc += x.to(acc.device, torch.float32)
+    if op == "mean":
+        acc /= len(xs)
+    return acc.to(xs[0].dtype)
 
 
 def reduce_scatter(xs: Sequence[torch.Tensor], dim: int, sizes=None,

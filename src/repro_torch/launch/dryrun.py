@@ -17,10 +17,12 @@ machine, with or without a card; on the card it touches none.
     with ``pick_accum``'s accumulation. For the transformer families it is
     the tensor-parallel step (``train.trainer.sharded_loss_and_grads``):
     256 coordinates' ops would take hours to dispatch here, so data index
-    0's model group runs its part of the batch, and the other data indices
-    stand in (``stand_in``): their gradients are zeros of their shapes,
-    reduced over the data axes as the step reduces them (the ring
-    all-reduce, walked), and the FSDP gradients they send data index 0's
+    0's model group runs its part of the batch
+    (``train.trainer._tp_group_grads``), and the other data indices stand
+    in (``_StandIn``): their gradients are zeros of their shapes, reduced
+    over the data axes as the step reduces them
+    (``train.trainer._reduce_tp_grads``: the ring all-reduce and the FSDP
+    sums, walked), and the FSDP gradients they send data index 0's
     coordinates are counted from what data index 1's received from data
     index 0 (by symmetry); then every coordinate's AdamW. The hybrid and
     xLSTM families walk the gathered step (every data index gathers the
@@ -75,8 +77,10 @@ from repro_torch.launch.specs import (batch_structs, cache_structs,
 from repro_torch.models import model as M
 from repro_torch.train.optimizer import (adamw_update, init_opt_state,
                                          leaves, tree_map)
-from repro_torch.train.trainer import (TrainConfig, make_train_step,
-                                       sharded_loss_and_grads, splits_model)
+from repro_torch.train.trainer import (TrainConfig, _reduce_tp_grads,
+                                       _tp_group_grads, _unflatten,
+                                       data_parts, make_train_step,
+                                       splits_model)
 
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                        "..", "..", "build", "dryrun")
@@ -127,6 +131,21 @@ def _first_part(mesh, batch: int):
 # ---------------------------------------------------------------------------
 
 
+class _StandIn:
+    """A stand-in data index's gradients for ``trainer._reduce_tp_grads``:
+    zeros of each shard's shape (fp32 when accumulated), made on its card
+    when the exchange reads them."""
+
+    def __init__(self, ps, fp32: bool):
+        self.ps, self.fp32 = ps, fp32
+
+    def __getitem__(self, key):
+        i, c = key
+        s = self.ps[i].shards[c]
+        return torch.zeros(s.shape, device=s.device,
+                           dtype=torch.float32 if self.fp32 else s.dtype)
+
+
 def _fsdp_symmetry(w: op_walk.OpWalk, mesh):
     """The FSDP gradients the stand-in data indices send data index 0's
     coordinates: each receives from every other data index what data index
@@ -175,10 +194,15 @@ def walk_train(cfg, shape, mesh, tp: int, rec: Dict) -> op_walk.OpWalk:
         f"data axes as walked; the FSDP gradients they send data index 0's "
         f"coordinates counted from data index 1's by symmetry); every "
         f"coordinate's AdamW")
+    ps = leaves(params)
+    parts = data_parts(batch, cfg, tc, mesh)
     with op_walk.OpWalk() as w:
         w.track(params, opt.m, opt.v, batch)
-        _, grads = sharded_loss_and_grads(params, cfg, tc, batch, mesh,
-                                          stand_in=True)
+        _, mine = _tp_group_grads(params, cfg, tc, parts[0], mesh, 0)
+        per_d = [mine] + [_StandIn(ps, accum > 1) for _ in parts[1:]]
+        grads = _unflatten(params, _reduce_tp_grads(ps, mesh, per_d,
+                                                    len(parts)))
+        del per_d, mine
         adamw_update(grads, opt, params, tc.opt)
         del grads
     _fsdp_symmetry(w, mesh)

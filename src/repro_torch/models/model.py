@@ -154,16 +154,35 @@ def _attn_out(lp: Params, out, cfg: ArchConfig, tp: int, shard=None):
     return out.reshape(B, Sq, HP * hd) @ lp["wo"]
 
 
-def _ffn(lp, h, cfg: ArchConfig, shard=None):
-    """The FFN of a transformer layer on normed h -> (y, MoE aux or None);
-    a model shard's y is a row-parallel partial."""
+def _ffn_part(lp, x, cfg: ArchConfig, shard=None):
+    """The FFN half of a transformer layer on the residual x -> (its output
+    before the residual add, MoE aux or None); a model shard's is a
+    row-parallel partial."""
+    h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
     if cfg.n_experts:
         return MOE.moe_apply(lp["moe"], h, cfg, shard=shard)
     return L.mlp(lp["mlp"], h), None
 
 
+def _attn_part(lp, x, cos, sin, cfg: ArchConfig, tp: int, shard=None,
+               all_kv: bool = False):
+    """The attention half of a transformer layer on the residual x -> (its
+    output before the residual add, k, v, q). A model shard's
+    (``shard=(m, n)``) attends over its heads and gives a row-parallel
+    partial; a shard whose kv heads do not shard projects those its q heads
+    read, or, with ``all_kv``, all of them."""
+    h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+    ap, lo = lp["attn"], 0
+    if shard is not None:
+        ap = A.shard_kv_params(ap, cfg, tp, shard, all_kv)
+        lo = A.shard_kv_heads(cfg, tp, shard, all_kv)[0]
+    q, k, v = A.project_qkv(ap, h, cos, sin, cfg, tp)
+    attn = A.attention_full(q, k, v, cfg, tp=tp, shard=shard, kv_lo=lo)
+    return _attn_out(lp["attn"], attn, cfg, tp, shard=shard), k, v, q
+
+
 def _mlp_block(lp, x, cfg):
-    return x + _ffn(lp, L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)[0]
+    return x + _ffn_part(lp, x, cfg)[0]
 
 
 def _unstack(tree, n: int):
@@ -181,11 +200,9 @@ def _unstack(tree, n: int):
 
 def _layer_full(lp, x, cos, sin, cfg: ArchConfig, tp: int):
     """One full-sequence transformer layer -> (x, aux or None, k, v, q)."""
-    h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
-    q, k, v = A.project_qkv(lp["attn"], h, cos, sin, cfg, tp)
-    attn = A.attention_full(q, k, v, cfg, tp=tp)
-    x = x + _attn_out(lp["attn"], attn, cfg, tp)
-    y, aux = _ffn(lp, L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
+    y, k, v, q = _attn_part(lp, x, cos, sin, cfg, tp)
+    x = x + y
+    y, aux = _ffn_part(lp, x, cfg)
     return x + y, aux, k, v, q
 
 
@@ -413,33 +430,22 @@ def _tp_layer(lps, xs, cos, sin, cfg: ArchConfig, tp: int,
     """One transformer layer over a model group in lockstep. ``lps``, the
     members' local layer trees (an FSDP leaf's ``DataSlices`` gathered here,
     inside the remat, so the recompute gathers again); ``xs``, each
-    member's copy of the residual stream. Each member attends over its
-    heads and runs its slice of the FFN; the o-projection's and the FFN's
-    row-parallel partials are all-reduced over the group. A member whose
-    kv heads do not shard projects those its q heads read, or, with
-    ``all_kv``, all of them. -> (xs, member 0's MoE aux or None, ks, vs
-    per member)."""
+    member's copy of the residual stream. Each member runs its shard of the
+    attention half and of the FFN half (``_attn_part``, ``_ffn_part``);
+    each half's row-parallel partials are all-reduced over the group before
+    the residual add. -> (xs, member 0's MoE aux or None, ks, vs per
+    member)."""
     n = len(xs)
     lps = [sh.materialize(lp, x.device) for lp, x in zip(lps, xs)]
-    parts, ks, vs = [], [], []
-    for m, (lp, x) in enumerate(zip(lps, xs)):
-        h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
-        ap = A.shard_kv_params(lp["attn"], cfg, tp, (m, n), all_kv)
-        q, k, v = A.project_qkv(ap, h, cos[m], sin[m], cfg, tp)
-        lo = A.shard_kv_heads(cfg, tp, (m, n), all_kv)[0]
-        attn = A.attention_full(q, k, v, cfg, tp=tp, shard=(m, n), kv_lo=lo)
-        parts.append(_attn_out(lp["attn"], attn, cfg, tp, shard=(m, n)))
-        ks.append(k)
-        vs.append(v)
-    xs = [x + y for x, y in zip(xs, col.group_all_reduce(parts))]
-    parts, auxs = [], []
-    for m, (lp, x) in enumerate(zip(lps, xs)):
-        y, aux = _ffn(lp, L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg,
-                      shard=(m, n))
-        parts.append(y)
-        auxs.append(aux)
-    xs = [x + y.to(x.dtype) for x, y in zip(xs, col.group_all_reduce(parts))]
-    return xs, auxs[0], ks, vs
+    att = [_attn_part(lp, x, cos[m], sin[m], cfg, tp, (m, n), all_kv)[:3]
+           for m, (lp, x) in enumerate(zip(lps, xs))]
+    xs = [x + y for x, y in zip(xs, col.group_all_reduce([a[0]
+                                                          for a in att]))]
+    ffn = [_ffn_part(lp, x, cfg, (m, n))
+           for m, (lp, x) in enumerate(zip(lps, xs))]
+    xs = [x + y.to(x.dtype) for x, y in zip(
+        xs, col.group_all_reduce([f[0] for f in ffn]))]
+    return xs, ffn[0][1], [a[1] for a in att], [a[2] for a in att]
 
 
 def forward_tp(group, cfg: ArchConfig, tokens, *, positions3=None,

@@ -251,8 +251,7 @@ def _tp_group_grads(params, cfg, tc, part, mesh, d: int):
 
 def _reduce_tp_grads(ps, mesh, per_d, n_parts: int):
     """Per leaf, its gradient's shards: ``per_d[d]`` is data index d's
-    {(leaf, coordinate): gradient} (None: a stand-in whose gradients are
-    zeros and whose exchange is not walked). A leaf replicated over
+    {(leaf, coordinate): gradient}. A leaf replicated over
     ``model`` first sums its copies over the model group; then the data
     indices' gradients are averaged onto each owner: the ring all-reduce
     over the data group (a copy from data index 0 when the batch was not
@@ -263,17 +262,9 @@ def _reduce_tp_grads(ps, mesh, per_d, n_parts: int):
     for i, x in enumerate(ps):
         shards = [None] * mesh.size
         rep = sharding.cut_dim(x, (sharding.MODEL_AXIS,)) is None
-
-        def grad(d, c):
-            g = per_d[d]
-            if g is not None:
-                return g[(i, c)]
-            return torch.zeros(x.shards[c].shape, device=x.shards[c].device,
-                               dtype=per_d[0][(i, mgroups[0][0])].dtype)
-
         if sharding.fsdp_dim(x) is None:
             for d in range(n_parts):
-                gs = [grad(d, c) for c in mgroups[d]]
+                gs = [per_d[d][(i, c)] for c in mgroups[d]]
                 if rep and len(gs) > 1:
                     gs = collectives.ring_all_reduce(gs)
                 for c, g in zip(mgroups[d], gs):
@@ -291,8 +282,6 @@ def _reduce_tp_grads(ps, mesh, per_d, n_parts: int):
             for c in range(mesh.size):
                 acc = None
                 for g in per_d[:n_parts]:
-                    if g is None:
-                        continue
                     acc = (g[(i, c)].to(torch.float32, copy=True)
                            if acc is None else acc + g[(i, c)].float())
                 shards[c] = (acc / n_parts).to(per_d[0][(i, c)].dtype)
@@ -307,15 +296,12 @@ def _reduce_tp_grads(ps, mesh, per_d, n_parts: int):
 
 
 def sharded_loss_and_grads(params, cfg: ArchConfig, tc: TrainConfig, batch,
-                           mesh, *, stand_in: bool = False):
+                           mesh):
     """``loss_and_grads`` of a sharded parameter tree -> (the loss, the mean
     over the data indices, on the mesh's first coordinate's device; the
     gradients): with ``splits_model``, a tree of ``ShardedTensor``
     gradients placed like the parameters (the tensor-parallel step), else
-    full gradients on the first coordinate's device (the gathered step).
-    ``stand_in`` (the dry run's walk of one model group) runs data index 0
-    alone; the others' gradients are zeros of their shapes, their exchange
-    over the data axes walked, their FSDP contributions not."""
+    full gradients on the first coordinate's device (the gathered step)."""
     if not splits_model(cfg, mesh):
         return _gathered_loss_and_grads(params, cfg, tc, batch, mesh)
     ps = leaves(params)
@@ -325,11 +311,6 @@ def sharded_loss_and_grads(params, cfg: ArchConfig, tc: TrainConfig, batch,
     parts = data_parts(batch, cfg, tc, mesh)
     losses, per_d = [], []
     for d, part in enumerate(parts):
-        if stand_in and d:
-            dev = mesh.device(sharding.model_groups(mesh)[d][0])
-            losses.append(torch.zeros((), dtype=torch.float32, device=dev))
-            per_d.append(None)
-            continue
         loss, g = _tp_group_grads(params, cfg, tc, part, mesh, d)
         losses.append(loss)
         per_d.append(g)

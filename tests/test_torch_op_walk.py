@@ -293,11 +293,9 @@ def test_views_and_factories_cost_nothing():
 
 def test_collectives_per_device_on_a_placeholder_mesh():
     """On a (2, 4) mesh of placeholder cards: the all-gather of a sharded
-    tensor lands its remote blocks on the receiving card, the ring
-    all-reduce 2 (n - 1) / n of the tensor on every participant (the three
-    others' chunks of the one it reduces, then the three others' reduced
-    chunks, in the inputs' dtype), a ring shift each tensor on the next
-    card; a copy from the host counts nothing."""
+    tensor lands its remote blocks on the receiving card, an all-reduce
+    the other participants' tensors on the first, a ring shift each
+    tensor on the next card; a copy from the host counts nothing."""
     mesh = make_mesh((2, 4), ("data", "model"), devices=op_walk.cards(8))
     with op_walk.placeholders():
         x = torch.empty(8, 16, dtype=torch.float32)        # 512 bytes
@@ -317,12 +315,12 @@ def test_collectives_per_device_on_a_placeholder_mesh():
     c = w.costs
     block = 2 * 16 * 4                   # a quarter of x's rows
     assert c["cuda:0"].per_collective["all-gather"] == 3 * block
-    # each participant receives 2 x 3 chunks of 8 bf16 elements
+    # the first participant receives the three others, cast to fp32
+    assert c["cuda:0"].per_collective["all-reduce"] == 3 * 32 * 4
     for i in range(4):
-        assert c[f"cuda:{i}"].per_collective["all-reduce"] == 2 * 3 * 8 * 2
         assert c[f"cuda:{i}"].per_collective["collective-permute"] == 64
     assert "cuda:5" not in c or c["cuda:5"].coll_bytes == 0
-    assert c["cuda:0"].coll_bytes == 3 * block + 96 + 64
+    assert c["cuda:0"].coll_bytes == 3 * block + 3 * 128 + 64
     assert sum(v.coll_bytes for v in c.values()) == \
         sum(sum(v.per_collective.values()) for v in c.values())
 
