@@ -89,6 +89,28 @@ failure (the script then exits non-zero):
    GPipe: 4 stages of 4 layers, 8 microbatches of [1, 2048], 176 flash
    launches, equal to the unpipelined forward; the seconds each part took;
    one ``train_sharded`` line;
+3e. decode_sharded: decode over a sequence-split cache
+   (``models.model.decode_step_tp``), llama3.2-1b at full width, seeded
+   weights, DSA at 64-token pages through ``SplitDSA`` (each shard's
+   relevancy top-k and paged attention over its own slice; only (value,
+   index) candidates, page ids and (out, lse) pairs cross), one process
+   over meshes of ``cuda:0`` entries: (a) decode_32k's layout on (2, 4),
+   bf16, B 4: ``prefill_tp`` of 32,760 tokens a row, its caches
+   resharded onto the mesh (``reshard_prefill_caches``), 8 greedy steps
+   against one device's ``prefill`` + ``decode_step``; (b) long_500k's
+   layout on (2, 4), bf16, B 1: a seeded cache of 524,284 tokens in
+   524,288 (65,536 a coordinate), 4 steps against one device's; the
+   logits of (a) and (b) within DECODE_BF16_TOL, prefill_tp's last
+   logits within PREFILL_BF16_TOL of prefill's; (c) one fp32 step on an
+   8192-token cache in each layout (B 2 on (1, 4), B 2 and B 1 on
+   (2, 2)): logits within LOGIT_TOL, the selected pages equal. Tokens
+   equal (a near-tie, its top-2 margin below DECODE_BF16_TOL, reported
+   with its margin), 128 launches of each kernel a split step in (a), the
+   two kernels at each layout's per-shard shape against their plain
+   versions and timed (rows of the kernels line), step ms of both in the
+   same call, peak memory, a profiled step's busy share and device ops,
+   the bytes a split step exchanges (counted on placeholder cards), the
+   phase's seconds; one ``decode_sharded`` line;
 3d. roofline: the dry-run and roofline tools (``launch.op_walk``,
    ``launch.roofline``, ``launch.dryrun``): one train step of full-width
    llama3.2-1b (bf16, B 4 x S 2048, remat, one card) and one DSA
@@ -98,7 +120,8 @@ failure (the script then exits non-zero):
    train step; 16 relevancy and 16 paged attention a decode step), with
    the walk's terms, its bound, the median of 3 timed steps, MFU, and the
    walk's peak live bytes beside ``max_memory_allocated``; then the dry
-   run of llama3.2-1b's decode_32k cell on the 16 x 16 mesh of
+   run of llama3.2-1b's decode_32k cell, cut to 2 layers (the decode
+   split walks 16 coordinates a layer), on the 16 x 16 mesh of
    placeholder cards (its record under ``chiprun_out/dryrun/``); one
    ``roofline`` line;
 4. serve: full-width llama3.2-1b in bf16 with seeded random weights,
@@ -215,13 +238,19 @@ failure (the script then exits non-zero):
    2048] over 32 / 8), and at the fp32 sharded step's [2, 512] over 8 / 2;
    paged attention and flash also at the families' shapes: G = 1,
    2, 4 and 8, dh 112 and 128; relevancy and paged attention at the fleet
-   phase's shard-local shapes; flash at MemAgent's prefills, with the
-   methods phase's launches), the card line, and ``{"ok": true, ...}``
+   phase's shard-local shapes and at decode_sharded's per-shard shapes
+   (its launches in ``launches_by_path``); flash at MemAgent's prefills,
+   with the methods phase's launches), the card line, and ``{"ok": true,
+   ...}``
    as the last line.
 
 ``--phases`` runs a subset of kernels, train, train_families,
-train_sharded, roofline, serve, modes, compare, pipeline, families, fleet,
-methods and examples (the default is all thirteen);
+train_sharded, decode_sharded, roofline, serve, modes, compare, pipeline,
+families, fleet, methods and examples (the default is all fourteen);
+``--phases decode_bounds`` takes the readings behind DECODE_BF16_TOL
+(``phase_decode_bounds``: one device's bf16 logits against fp32 at (a)'s
+and (b)'s shapes, and the split's with its merge right and deliberately
+wrong), a phase that runs only when named;
 ``--runs`` a subset of the serve runs, ``--family-runs`` of the families
 phase's.
 """
@@ -404,8 +433,9 @@ FLEET_RUNS = {
                      mesh=2, equals="dsa-offload-overlap")}
 ALL_RUNS = {**RUNS, **FAMILY_RUNS, **FLEET_RUNS}
 PHASES = ("kernels", "train", "train_families", "train_sharded",
-          "roofline", "serve", "modes", "compare", "pipeline", "families",
-          "fleet", "methods", "examples")
+          "decode_sharded", "roofline", "serve", "modes", "compare",
+          "pipeline", "families", "fleet", "methods", "examples")
+EXTRA_PHASES = ("decode_bounds",)        # run only when named
 # the run whose serve phase gives a kernel's launches and in-situ time in
 # its row: the first run that launches it
 HOME_PATH = {name: label for label, run in reversed(RUNS.items())
@@ -2587,6 +2617,7 @@ def _pod_sync(cfg, tc, batch, dev):
 ROOFLINE_DECODE_B = 4
 ROOFLINE_DECODE_LEN = VIEW - 1      # inside [min_context, fallback_context]
 ROOFLINE_TIMED = 3
+ROOFLINE_DRYRUN_LAYERS = 2          # the dry run's decode_32k cell, cut
 
 
 def _walks_equal(name, real, fake):
@@ -2818,20 +2849,24 @@ def phase_roofline(dev):
     meshes only: a mesh of one card's entries aliases ``.to``), with the
     terms, the bound, the measured step and MFU, and the walk's peak live
     bytes beside ``max_memory_allocated``; (c) the dry run of llama3.2-1b's
-    decode_32k cell on the 16 x 16 mesh of placeholder cards. One
-    ``roofline`` line."""
+    decode_32k cell on the 16 x 16 mesh of placeholder cards, cut to
+    ROOFLINE_DRYRUN_LAYERS layers (the decode split walks 16 coordinates a
+    layer: the whole depth takes a minute here). One ``roofline`` line."""
+    from repro_torch.configs import get_arch
     from repro_torch.launch import dryrun
 
     out = {"card": card_line(), "train": _roofline_train(dev),
            "decode": _roofline_decode(dev)}
     t0 = time.perf_counter()
-    rec = dryrun.run_cell("llama3.2-1b", "decode_32k", force=True,
+    cfg = get_arch("llama3.2-1b").replace(n_layers=ROOFLINE_DRYRUN_LAYERS)
+    rec = dryrun.run_cell("llama3.2-1b", "decode_32k", force=True, cfg=cfg,
                           out_dir=os.path.join(ROOT, "chiprun_out", "dryrun"))
     if not rec.get("ok"):
         raise AssertionError(f"roofline dry run: {rec.get('error')}")
     rl, ma = rec["roofline"], rec["memory_analysis"]
     out["dryrun"] = {
-        "cell": "llama3.2-1b decode_32k 16x16 baseline", "wall_s":
+        "cell": f"llama3.2-1b decode_32k 16x16 baseline, "
+                f"{ROOFLINE_DRYRUN_LAYERS} of 16 layers", "wall_s":
         time.perf_counter() - t0, "device": rl["device"],
         "compute_s": rl["compute_s"], "memory_s": rl["memory_s"],
         "collective_s": rl["collective_s"], "bottleneck": rl["bottleneck"],
@@ -2842,6 +2877,652 @@ def phase_roofline(dev):
     log(f"  dry run decode_32k 16x16: {out['dryrun']}")
     print(json.dumps({"roofline": out}), flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: decode over a sequence-split cache
+# ---------------------------------------------------------------------------
+
+DECODE_MESH = ((2, 4), ("data", "model"))
+DECODE_PAGE = 64                    # DSA's micro-page in the decode cells
+DECODE_A = (4, 32768, 8)            # decode_32k's layout: B, cache, steps
+DECODE_B = (1, 524288, 4)           # long_500k's: B, cache, steps
+# the fp32 steps: (mesh, B) on an 8192-token cache, one step each: the
+# sequence on model (B 2 on (1, 4)), rows on data (B 2 on (2, 2)), the
+# sequence over (data, model) (B 1 on (2, 2))
+DECODE_C = (8192, 1)
+DECODE_C_CASES = ((((1, 4), ("data", "model")), 2),
+                  (((2, 2), ("data", "model")), 2),
+                  (((2, 2), ("data", "model")), 1))
+# abs bound on the split's bf16 logits against one device's in (a) and
+# (b), and on the top-2 margin below which a differing greedy token
+# counts as a near-tie. From ``--phases decode_bounds`` (PERF.md): one
+# device's bf16 logits against fp32 reach 1.14 (a page picked otherwise
+# near a selection tie); the split with a faulty (out, lse) merge is off
+# by 1.58 or more at every step of (b) but one and 2.06 or more in (a)
+DECODE_BF16_TOL = 1.5
+# abs bound on prefill_tp's last bf16 logits against prefill's: five times
+# prefill's bf16-against-fp32 reading, 0.10 (dense attention: no page
+# selection adds to its noise)
+PREFILL_BF16_TOL = 0.5
+# deliberate faults in the merge of the shards' (out, lse) pairs, for the
+# decode_bounds readings
+DECODE_WRONG_MERGES = ("the last shard's pair dropped",
+                       "the pairs weighed equally")
+
+
+def _profile_call(fn):
+    """``fn()`` under torch.profiler (CUDA activity only): wall and device
+    busy time and the device ops, from the raw kineto events."""
+    import torch
+
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    prof.stop()
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_ns = n_events = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda and not e.is_user_annotation():
+            busy_ns += e.duration_ns()
+            n_events += 1
+    return {"wall_us": wall_us, "device_busy_us": busy_ns / 1e3,
+            "device_busy_share": busy_ns / 1e3 / wall_us,
+            "device_ops": n_events}
+
+
+class _FirstCall:
+    """Keeps a clone of the arguments of the first call of ``ops.<name>``
+    that ``pick`` accepts while installed (the kernel at the shape the main
+    path gives it), and passes every call through."""
+
+    def __init__(self, name, pick=lambda *a: True):
+        from repro_torch.kernels import ops
+
+        self.name, self.real, self.args = name, getattr(ops, name), None
+        self.pick = pick
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        def call(*a, **kw):
+            if self.args is None and self.pick(*a):
+                self.args = ([x.clone() if hasattr(x, "clone") else x
+                              for x in a], dict(kw))
+            return self.real(*a, **kw)
+        setattr(ops, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        setattr(ops, self.name, self.real)
+
+
+def _split_cache(k, v, cfg, mesh, B, S):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+
+    shp = ShapeConfig("decode", S, B, "decode")
+    c = sh.device_put({"k": k, "v": v}, sh.make_shardings(
+        sh.cache_specs({"k": 0, "v": 0}, cfg, shp, mesh), mesh))
+    return c
+
+
+def _decode_pair(cfg, tp, one, placed, mesh, c1, c2, tok, steps, sp1, sp2,
+                 record=False):
+    """``steps`` greedy steps of one device's ``decode_step`` (DSA,
+    ``make_sparse_fn``) and of ``decode_step_tp`` (``SplitDSA``), both fed
+    one device's tokens. -> per step (ms one, ms split, max |logit diff|,
+    one device's tokens, the split's, one device's top-2 margins), the
+    split's launches, the first shard's kernel inputs."""
+    import torch
+    from repro_torch.core.methods import dsa
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    sfn = dsa.make_sparse_fn(cfg, cfg.memory, tp=tp, page=DECODE_PAGE)
+    split = dsa.SplitDSA(cfg, cfg.memory, page=DECODE_PAGE,
+                         record=record)
+    rows, launches = [], {k: 0 for k in _DSA}
+    caps = None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l1, c1 = M.decode_step(one, cfg, tok, c1, tp=tp, sparse_fn=sfn,
+                               sparse_params=sp1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        c0 = ops.launch_counts()
+        if i == 0:
+            # the first shard that owns selected pages
+            owns = lambda q, kc, vc, pages, *a: bool((pages >= 0).any())
+            with _FirstCall("relevancy_topk") as rel, \
+                    _FirstCall("paged_decode_attention", owns) as pda:
+                l2, c2 = M.decode_step_tp(placed, cfg, tok, c2, mesh, tp=tp,
+                                          sparse=split, sparse_params=sp2)
+            caps = (rel.args, pda.args)
+        else:
+            l2, c2 = M.decode_step_tp(placed, cfg, tok, c2, mesh, tp=tp,
+                                      sparse=split, sparse_params=sp2)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        cn = ops.launch_counts()
+        for k in _DSA:
+            launches[k] += cn[k] - c0[k]
+        top2 = l1.float().topk(2, dim=-1).values
+        rows.append({"ms_one": 1e3 * (t1 - t0), "ms_split": 1e3 * (t2 - t1),
+                     "err": float((l1.float() - l2.float()).abs().max()),
+                     "tok_one": l1.argmax(-1).tolist(),
+                     "tok_split": l2.argmax(-1).tolist(),
+                     "margin": (top2[:, 0] - top2[:, 1]).tolist()})
+        tok = l1.argmax(-1)
+    return rows, launches, caps, split, c1, c2, tok
+
+
+def _tokens_check(name, rows):
+    """Every step's logits within DECODE_BF16_TOL of one device's; equal
+    greedy tokens, a differing one only where one device's top-2 margin is
+    below DECODE_BF16_TOL (a near-tie), reported with its margin."""
+    ties, near = [], min(min(r["margin"]) for r in rows)
+    for i, r in enumerate(rows):
+        if not r["err"] <= DECODE_BF16_TOL:
+            raise AssertionError(f"{name}: step {i} logits differ by "
+                                 f"{r['err']} > {DECODE_BF16_TOL}")
+        for b, (a, c) in enumerate(zip(r["tok_one"], r["tok_split"])):
+            if a != c:
+                if not r["margin"][b] < DECODE_BF16_TOL:
+                    raise AssertionError(
+                        f"{name}: step {i} row {b} token {c} against one "
+                        f"device's {a}, margin {r['margin'][b]} >= "
+                        f"{DECODE_BF16_TOL}")
+                ties.append({"step": i, "row": b, "margin": r["margin"][b]})
+    log(f"  {name}: tokens equal but {len(ties)} near-ties {ties}; smallest "
+        f"top-2 margin {near:.4g}; logits max abs diff "
+        f"{max(r['err'] for r in rows):.4g} (bound {DECODE_BF16_TOL})")
+    return ties, near
+
+
+def _shard_rows(label, caps, launches, steps):
+    """The two kernels at the first shard's shapes as the main path gave
+    them: kernel against plain (the relevancy top-k through
+    ``ops.relevancy_topk`` with kernels on and off; paged attention against
+    ``paged_decode_attention_plain``), then times, bound and library time
+    (``_relevancy_timing``, ``_paged_timing``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparse_decode_attention as sda
+
+    (rq, rk, rw, rkk), rkw = caps[0][0][:4], caps[0][1]
+    kv, ki = ops.relevancy_topk(rq, rk, rw, rkk, **rkw)
+    ops.use_kernels(False)
+    try:
+        pv, pi = ops.relevancy_topk(rq, rk, rw, rkk, **rkw)
+    finally:
+        ops.use_kernels(True)
+    rel_err = _topk_check(f"relevancy, {label}", kv, ki, pv, pi)
+    blk = ops._pow2_block(max(rk.shape[1], 2), rkw.get("block", 2048))
+    rel = dict(_relevancy_timing(rq, rk, rw, blk), path=f"decode_sharded "
+               f"{label}", library_ms=None, max_abs_err=rel_err,
+               launches=launches["relevancy_topk_candidates"] // steps,
+               launches_note="a split step (all shards, all layers)",
+               shape=f"q [{', '.join(map(str, rq.shape))}] {rq.dtype}, keys "
+                     f"[{', '.join(map(str, rk.shape))}] (a shard's pages), "
+                     f"top {rkk}, block {blk}")
+    (q, kc, vc, pages, lens), pkw = caps[1][0][:5], caps[1][1]
+    ps = pkw.get("page_size", DECODE_PAGE)
+    ko, kl = sda.paged_decode_attention(q, kc, vc, pages, lens, page_size=ps)
+    po, pl_ = sda.paged_decode_attention_plain(q, kc, vc, pages, lens,
+                                               page_size=ps)
+    err = _attn_check(f"paged attention, {label}", ko, kl, po, pl_)
+    paged = dict(_paged_timing(q, kc, vc, pages, lens, ps),
+                 path=f"decode_sharded {label}", max_abs_err=err,
+                 launches=launches["paged_decode_attention"] // steps,
+                 launches_note="a split step (all shards, all layers)",
+                 shape=f"q [{', '.join(map(str, q.shape))}] {q.dtype}, k/v "
+                       f"[{', '.join(map(str, kc.shape))}] (a shard's slice), "
+                       f"{int((pages >= 0).sum())} of {pages.numel()} "
+                       f"selected pages its own")
+    return rel, paged
+
+
+def _exchange_walk(cfg, B, S, tp):
+    """One split step's bytes between cards, counted on 8 placeholder
+    cards at the same shapes (the dry run's walk): per card, by kind."""
+    import torch
+    from repro_torch.core.methods import dsa
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import op_walk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import (cache_structs, param_structs,
+                                          sparse_structs)
+    from repro_torch.models import model as M
+
+    shape, axes = DECODE_MESH
+    mesh = make_mesh(shape, axes, devices=op_walk.cards(8))
+    with op_walk.placeholders():
+        p = param_structs(cfg, tp)
+        placed = sh.device_put(p, sh.make_shardings(
+            sh.param_specs(p, cfg, mesh), mesh))
+        sp = sparse_structs(cfg, tp)
+        sp = sh.device_put(sp, sh.make_shardings(
+            sh.method_specs(sp, cfg, mesh), mesh))
+        c = cache_structs(cfg, B, S, tp)
+        caches = _split_cache(c["k"], c["v"], cfg, mesh, B, S)
+        caches["length"] = S - 1
+        tok = torch.zeros(B, dtype=torch.int32).to("cuda:0")
+        with torch.no_grad(), op_walk.OpWalk() as w:
+            M.decode_step_tp(placed, cfg, tok, caches, mesh, tp=tp,
+                             sparse=dsa.SplitDSA(cfg, cfg.memory,
+                                                 page=DECODE_PAGE),
+                             sparse_params=sp)
+    cards = {d: c for d, c in w.costs.items() if d.startswith("cuda")}
+    return {"per_card_bytes_in": {d: int(c.coll_bytes)
+                                  for d, c in sorted(cards.items())},
+            "by_kind_all_cards": {k: int(sum(c.per_collective[k]
+                                             for c in cards.values()))
+                                  for k in op_walk.COLLECTIVES},
+            "how": "counted on 8 placeholder cards (op_walk), the same "
+                   "shapes and mesh"}
+
+
+def _rewind(c, ctx, mesh=None):
+    """A cache back to ``ctx`` tokens: every position from ``ctx`` on
+    zeroed, as the seeded and prefilled caches hold them (one device's, or
+    the split's with ``mesh``)."""
+    from repro_torch.distributed import sharding as sh
+
+    for t in (c["k"], c["v"]):
+        if mesh is None:
+            t[:, :, ctx:] = 0
+            continue
+        B, S = t.shape[1], t.shape[2]
+        for seq in sh.seq_groups(mesh, B):
+            Sl = S // len(seq)
+            for j, coord in enumerate(seq):
+                t.shards[coord][:, :, min(max(ctx - j * Sl, 0), Sl):] = 0
+    c["length"] = ctx
+
+
+def _forced(step, c, feed):
+    """fp32 logits of ``step(token, caches) -> (logits, caches)`` a step,
+    fed the tokens ``feed`` [steps, B]."""
+    out = []
+    for t in feed:
+        lg, c = step(t, c)
+        out.append(lg.float())
+    return out
+
+
+def _wrong_merge(kind):
+    """``topk.merge_partials`` with the fault ``kind`` (one of
+    DECODE_WRONG_MERGES)."""
+    import torch
+    from repro_torch.distributed import topk
+
+    real = topk.merge_partials
+    if kind == DECODE_WRONG_MERGES[0]:
+        return lambda parts, targets: real(parts[:-1], targets)
+    return lambda parts, targets: real(
+        [(o, torch.zeros_like(lse)) for o, lse in parts], targets)
+
+
+def phase_decode_bounds(dev):
+    """The readings behind DECODE_BF16_TOL (``--phases decode_bounds``, not
+    a default phase). At (a)'s and (b)'s shapes and mesh, every run fed
+    the same seeded tokens: (1) one device's bf16 logits against the fp32
+    logits of the same weights (the bf16 ones cast) on the same cache
+    (at (a) also prefill's last logits, bf16 against fp32); (2) the
+    split's bf16 logits against one device's on a copy of its cache, with
+    the merge of the shards' (out, lse) pairs right and with each fault of
+    DECODE_WRONG_MERGES. One ``decode_bounds`` line."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.methods import dsa
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import topk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import tree_map
+
+    t_start = time.perf_counter()
+    cfg = get_arch(SERVE_ARCH)
+    cfg32 = cfg.replace(dtype="float32")
+    mesh = make_mesh(*DECODE_MESH)
+    tp = mesh.shape["model"]
+    one = init_params(cfg, 0, tp=tp, device=dev)
+    one32 = tree_map(lambda t: t.float(), one)
+    placed = _place(init_params(cfg, 0, tp=tp, device=dev), cfg, mesh)
+    sp1 = dsa.dsa_init(cfg, cfg.memory, 1, device=dev)
+    sp2 = sh.device_put(sp1, sh.make_shardings(
+        sh.method_specs(sp1, cfg, mesh), mesh))
+    sfn = dsa.make_sparse_fn(cfg, cfg.memory, tp=tp, page=DECODE_PAGE)
+    split = dsa.SplitDSA(cfg, cfg.memory, page=DECODE_PAGE)
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def one_step(params, c_cfg):
+        return lambda t, c: M.decode_step(params, c_cfg, t, c, tp=tp,
+                                          sparse_fn=sfn, sparse_params=sp1)
+
+    def split_step(t, c):
+        return M.decode_step_tp(placed, cfg, t, c, mesh, tp=tp,
+                                sparse=split, sparse_params=sp2)
+
+    def diffs(a, b):
+        return [float((x - y).abs().max()) for x, y in zip(a, b)]
+
+    out = {"card": card_line(), "arch": SERVE_ARCH, "mesh": dict(mesh.shape),
+           "page": DECODE_PAGE, "faults": list(DECODE_WRONG_MERGES),
+           "tolerance_in_use": DECODE_BF16_TOL}
+    for label, (B, S, steps) in (("a", DECODE_A), ("b", DECODE_B)):
+        ctx = S - steps
+        feed = torch.randint(0, cfg.vocab_size, (steps, B), generator=g,
+                             device=dev, dtype=torch.int32)
+        r = {"batch": B, "cache": S, "context": ctx, "steps": steps}
+        with torch.no_grad():
+            if label == "a":
+                toks = torch.randint(0, cfg.vocab_size, (B, ctx),
+                                     generator=g, device=dev,
+                                     dtype=torch.int32)
+                l1, c1 = M.prefill(one, cfg, toks, max_len=S, tp=tp)
+                l32, c32 = M.prefill(one32, cfg32, toks, max_len=S, tp=tp)
+                r["prefill_bf16_vs_fp32"] = float(
+                    (l1.float() - l32).abs().max())
+                del toks, l1, l32
+            else:
+                shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
+                k = torch.randn(shape, generator=g, device=dev,
+                                dtype=torch.bfloat16)
+                v = torch.randn(shape, generator=g, device=dev,
+                                dtype=torch.bfloat16)
+                _rewind({"k": k, "v": v}, ctx)
+                c1 = {"k": k, "v": v, "length": ctx}
+                c32 = {"k": k.float(), "v": v.float(), "length": ctx}
+                del k, v
+            ref = _forced(one_step(one, cfg), c1, feed)
+            r["bf16_vs_fp32"] = diffs(
+                ref, _forced(one_step(one32, cfg32), c32, feed))
+            del c32
+            torch.cuda.empty_cache()
+            _rewind(c1, ctx)
+            c2 = _split_cache(c1["k"], c1["v"], cfg, mesh, B, S)
+            c2["length"] = ctx
+            del c1
+            r["split_vs_one"] = diffs(_forced(split_step, c2, feed), ref)
+            real = topk.merge_partials
+            for kind in DECODE_WRONG_MERGES:
+                _rewind(c2, ctx, mesh)
+                topk.merge_partials = _wrong_merge(kind)
+                try:
+                    r[f"wrong merge, {kind}"] = diffs(
+                        _forced(split_step, c2, feed), ref)
+                finally:
+                    topk.merge_partials = real
+            del c2
+            torch.cuda.empty_cache()
+        out[label] = r
+        log(f"  ({label}) {json.dumps(r)}")
+    out["seconds"] = time.perf_counter() - t_start
+    print(json.dumps({"decode_bounds": out}), flush=True)
+
+
+def phase_decode_sharded(dev):
+    """Decode over a sequence-split cache (``models.model.decode_step_tp``)
+    on the one card, one process over meshes whose entries are all
+    ``cuda:0``: llama3.2-1b at full width with seeded weights, DSA at
+    64-token pages (``SplitDSA``: per shard the relevancy top-k and paged
+    attention kernels; only (value, index) candidates, page ids and (out,
+    lse) pairs cross). (a) decode_32k's layout, bf16: B 4, ``prefill_tp``
+    of 32,760 tokens a row over each data index's model group (the flash
+    kernel), resharded (``reshard_prefill_caches``) onto a (2, 4) mesh,
+    then 8 greedy steps against one device's ``prefill`` +
+    ``decode_step``; (b) long_500k's layout, bf16: B 1, a seeded cache of
+    524,284 tokens in 524,288 on (2, 4) (65,536 a coordinate), 4 steps
+    against one device's on the same cache; the bf16 logits of (a) and
+    (b) within DECODE_BF16_TOL, prefill_tp's last logits within
+    PREFILL_BF16_TOL; (c) fp32: a
+    seeded 8192-token cache, one step in each of ``DECODE_C_CASES``'
+    layouts, logits within LOGIT_TOL and the selected page ids equal.
+    Tokens equal (a near-tie, its top-2 margin below DECODE_BF16_TOL,
+    reported with its margin); 2 x 4 x 16 = 128 launches of each kernel a
+    split step; the
+    two kernels at each layout's per-shard shape against their plain
+    versions, timed beside their bound and library time; step ms of both
+    in the same call, peak memory, a profiled step's busy share and device
+    ops against one device's, the bytes a split step exchanges (counted on
+    placeholder cards). One ``decode_sharded`` line; returns the kernel
+    rows and launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.methods import dsa
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+
+    t_start = time.perf_counter()
+    cfg = get_arch(SERVE_ARCH)
+    mesh = make_mesh(*DECODE_MESH)
+    tp = mesh.shape["model"]
+    dp = mesh.shape["data"]
+    L = cfg.n_layers
+    want = dp * tp * L
+    out = {"card": card_line(), "arch": SERVE_ARCH, "mesh": dict(mesh.shape),
+           "mesh_devices": sorted(set(map(str, mesh.devices.flat))),
+           "page": DECODE_PAGE, "top_k": cfg.memory.top_k}
+    rows_out = {k: [] for k in _DSA}
+    launches_out = {}
+    one = init_params(cfg, 0, tp=tp, device=dev)
+    placed = _place(init_params(cfg, 0, tp=tp, device=dev), cfg, mesh)
+    sp1 = dsa.dsa_init(cfg, cfg.memory, 1, device=dev)
+    sp2 = sh.device_put(sp1, sh.make_shardings(
+        sh.method_specs(sp1, cfg, mesh), mesh))
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    # (a) decode_32k's layout: prefill_tp, reshard, 8 steps
+    B, S, steps = DECODE_A
+    ctx = S - steps
+    toks = torch.randint(0, cfg.vocab_size, (B, ctx), generator=g,
+                         device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l1, c1 = M.prefill(one, cfg, toks, max_len=S, tp=tp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        parts, lasts = [], []
+        for d in range(dp):
+            last, part = M.prefill_tp(sh.group_view(placed, mesh, d), cfg,
+                                      toks[sh.row_block(mesh, B, d)],
+                                      max_len=S, tp=tp)
+            parts.append(part)
+            lasts.append(last)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        c2 = M.reshard_prefill_caches(parts, cfg, mesh)
+        del parts
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        pre_err = float((torch.cat(lasts).float() - l1.float()).abs().max())
+        if not pre_err <= PREFILL_BF16_TOL:
+            raise AssertionError(f"decode_sharded (a): prefill_tp's last "
+                                 f"logits differ from prefill's by {pre_err}"
+                                 f" > {PREFILL_BF16_TOL}")
+        torch.cuda.reset_peak_memory_stats()
+        rows, launches, caps, _, c1, c2, tok = _decode_pair(
+            cfg, tp, one, placed, mesh, c1, c2, l1.argmax(-1), steps, sp1,
+            sp2)
+        peak = torch.cuda.max_memory_allocated()
+    ties, near = _tokens_check("(a) decode_32k layout", rows)
+    if launches != {k: want * steps for k in _DSA}:
+        raise AssertionError(f"decode_sharded (a): launches {launches}, "
+                             f"want {want} a step")
+    rel, paged = _shard_rows("(a) decode_32k: a shard of 4", caps, launches,
+                             steps)
+    rows_out["relevancy_topk_candidates"].append(rel)
+    rows_out["paged_decode_attention"].append(paged)
+    launches_out["decode_sharded (a)"] = launches
+    out["a"] = {
+        "layout": "decode_32k: rows on data, the sequence on model",
+        "batch": B, "cache": S, "prompt": ctx, "steps": steps,
+        "dtype": "bfloat16",
+        "prefill_s_one_device": t1 - t0, "prefill_tp_s": t2 - t1,
+        "reshard_s": t3 - t2, "prefill_logits_max_abs_diff": pre_err,
+        "prefill_logits_tolerance": PREFILL_BF16_TOL,
+        "logits_tolerance": DECODE_BF16_TOL,
+        "step_ms_one_device": [r["ms_one"] for r in rows],
+        "step_ms_split": [r["ms_split"] for r in rows],
+        "step_ms_one_device_median": statistics.median(
+            r["ms_one"] for r in rows[1:]),
+        "step_ms_split_median": statistics.median(
+            r["ms_split"] for r in rows[1:]),
+        "logits_max_abs_diff": [r["err"] for r in rows],
+        "near_ties": ties, "smallest_top2_margin": near,
+        "launches": launches, "launches_per_step": {
+            k: v // steps for k, v in launches.items()},
+        "peak_memory_bytes": peak,
+        "peak_note": "one device's and the split's caches and weights "
+                     "both resident"}
+    log(f"  (a) prefill {t1 - t0:.2f} s one device, {t2 - t1:.2f} s "
+        f"prefill_tp, reshard {t3 - t2:.2f} s (last logits within "
+        f"{pre_err:.3g}); step ms one device "
+        f"{out['a']['step_ms_one_device_median']:.2f}, split "
+        f"{out['a']['step_ms_split_median']:.2f}; peak {peak / 1e9:.2f} GB")
+
+    # the profiled step of each, on (a)'s caches
+    sfn = dsa.make_sparse_fn(cfg, cfg.memory, tp=tp, page=DECODE_PAGE)
+    split = dsa.SplitDSA(cfg, cfg.memory, page=DECODE_PAGE)
+    c1["length"] = c2["length"] = S - 1     # re-run the last position
+    with torch.no_grad():
+        p_one = _profile_call(lambda: M.decode_step(
+            one, cfg, tok, dict(c1), tp=tp, sparse_fn=sfn,
+            sparse_params=sp1))
+        p_split = _profile_call(lambda: M.decode_step_tp(
+            placed, cfg, tok, dict(c2), mesh, tp=tp, sparse=split,
+            sparse_params=sp2))
+    out["a"]["profiled_step_one_device"] = p_one
+    out["a"]["profiled_step_split"] = p_split
+    log(f"  (a) profiled step: split busy "
+        f"{100 * p_split['device_busy_share']:.1f} % with "
+        f"{p_split['device_ops']} device ops, one device "
+        f"{100 * p_one['device_busy_share']:.1f} % with "
+        f"{p_one['device_ops']}")
+    out["a"]["exchange_per_step"] = _exchange_walk(cfg, B, S, tp)
+    del c1, c2
+    torch.cuda.empty_cache()
+
+    # (b) long_500k's layout: a seeded cache, the sequence over the mesh
+    B, S, steps = DECODE_B
+    ctx = S - steps
+    shape = (L, B, S, cfg.n_kv_heads, cfg.hd)
+    k = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    k[:, :, ctx:] = 0
+    v[:, :, ctx:] = 0
+    c2 = _split_cache(k, v, cfg, mesh, B, S)
+    c1 = {"k": k, "v": v, "length": ctx}
+    c2["length"] = ctx
+    del k, v
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        tok = torch.randint(0, cfg.vocab_size, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+        rows, launches, caps, _, c1, c2, _ = _decode_pair(
+            cfg, tp, one, placed, mesh, c1, c2, tok, steps, sp1, sp2)
+        peak = torch.cuda.max_memory_allocated()
+    del c1, c2          # the kernel rows' cold copies need the room
+    torch.cuda.empty_cache()
+    ties, near = _tokens_check("(b) long_500k layout", rows)
+    if launches != {k: mesh.size * L * steps for k in _DSA}:
+        raise AssertionError(f"decode_sharded (b): launches {launches}")
+    rel, paged = _shard_rows("(b) long_500k: a shard of 8", caps, launches,
+                             steps)
+    rows_out["relevancy_topk_candidates"].append(rel)
+    rows_out["paged_decode_attention"].append(paged)
+    launches_out["decode_sharded (b)"] = launches
+    out["b"] = {
+        "layout": "long_500k: the sequence over (data, model), data-major",
+        "batch": B, "cache": S, "seeded_tokens": ctx, "steps": steps,
+        "tokens_a_coordinate": S // mesh.size, "dtype": "bfloat16",
+        "step_ms_one_device": [r["ms_one"] for r in rows],
+        "step_ms_split": [r["ms_split"] for r in rows],
+        "step_ms_one_device_median": statistics.median(
+            r["ms_one"] for r in rows[1:]),
+        "step_ms_split_median": statistics.median(
+            r["ms_split"] for r in rows[1:]),
+        "logits_max_abs_diff": [r["err"] for r in rows],
+        "logits_tolerance": DECODE_BF16_TOL,
+        "near_ties": ties, "smallest_top2_margin": near,
+        "launches": launches, "peak_memory_bytes": peak,
+        "exchange_per_step": _exchange_walk(cfg, B, S, tp)}
+    log(f"  (b) step ms one device {out['b']['step_ms_one_device_median']:.2f}"
+        f", split {out['b']['step_ms_split_median']:.2f}; peak "
+        f"{peak / 1e9:.2f} GB (both copies)")
+    del one, placed
+    torch.cuda.empty_cache()
+
+    # (c) one fp32 step in each layout: logits and the selected pages
+    S, steps = DECODE_C
+    cfg32 = cfg.replace(dtype="float32")
+    out["c"] = []
+    for mesh_c, B in DECODE_C_CASES:
+        meshc = make_mesh(*mesh_c)
+        one = init_params(cfg32, 0, tp=tp, device=dev)
+        placed = _place(init_params(cfg32, 0, tp=tp, device=dev), cfg32,
+                        meshc)
+        sp2 = sh.device_put(sp1, sh.make_shardings(
+            sh.method_specs(sp1, cfg32, meshc), meshc))
+        shape = (L, B, S, cfg.n_kv_heads, cfg.hd)
+        ctx = S - 1
+        k = torch.randn(shape, generator=g, device=dev)
+        v = torch.randn(shape, generator=g, device=dev)
+        k[:, :, ctx:] = 0
+        v[:, :, ctx:] = 0
+        c2 = _split_cache(k, v, cfg32, meshc, B, S)
+        c2["length"] = ctx
+        c1 = {"k": k, "v": v, "length": ctx}
+        picked = []
+        real = dsa.select_pages
+        dsa.select_pages = lambda *a, **kw: picked.append(real(*a, **kw)) \
+            or picked[-1]
+        try:
+            with torch.no_grad():
+                tok = torch.randint(0, cfg.vocab_size, (B,), generator=g,
+                                    device=dev, dtype=torch.int32)
+                rows, _, _, split, _, _, _ = _decode_pair(
+                    cfg32, tp, one, placed, meshc, c1, c2, tok, steps, sp1,
+                    sp2, record=True)
+        finally:
+            dsa.select_pages = real
+        err = rows[0]["err"]
+        # a layer's selections: one a computing group, in data-index order
+        G = len(split.selected) // L
+        same = len(picked) == L and len(split.selected) == G * L and all(
+            torch.equal(torch.sort(torch.cat(split.selected[G * i:G * i + G])
+                                   .long(), 1).values[:, -b.shape[1]:],
+                        torch.sort(b.long(), 1).values)
+            for i, b in enumerate(picked))
+        log(f"  (c) fp32 on {meshc.shape['data']} x {meshc.shape['model']},"
+            f" B {B}: logits max abs diff {err:.3g} (tol {LOGIT_TOL}), "
+            f"selected pages equal: {same}")
+        if not (err <= LOGIT_TOL and same):
+            raise AssertionError(f"decode_sharded (c) {dict(meshc.shape)} B "
+                                 f"{B}: err {err}, pages equal {same}")
+        out["c"].append({"batch": B, "cache": S, "mesh": dict(meshc.shape),
+                         "dtype": "float32", "logits_max_abs_diff": err,
+                         "tolerance": LOGIT_TOL,
+                         "selected_pages_equal": same})
+        del c1, c2, one, placed, k, v
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    out["kernel_rows"] = rows_out
+    print(json.dumps({"decode_sharded": out}), flush=True)
+    return rows_out, launches_out
 
 
 # ---------------------------------------------------------------------------
@@ -4272,9 +4953,10 @@ def main(argv=None):
                          "FAMILY_RUNS)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
-    if not phases <= set(PHASES):
-        raise ValueError(f"unknown phases {sorted(phases - set(PHASES))}: "
-                         f"choose from {PHASES}")
+    if not phases <= set(PHASES + EXTRA_PHASES):
+        raise ValueError(f"unknown phases "
+                         f"{sorted(phases - set(PHASES + EXTRA_PHASES))}: "
+                         f"choose from {PHASES + EXTRA_PHASES}")
     serve_runs = args.runs.split(",")
     if not set(serve_runs) <= set(RUNS):
         raise ValueError(f"unknown runs {sorted(set(serve_runs) - set(RUNS))}"
@@ -4324,6 +5006,16 @@ def main(argv=None):
              "GPipe; reshard")
         got = phase_train_sharded(dev)
         trained.update(got)
+    if "decode_bounds" in phases:
+        mark("[3f] the readings behind DECODE_BF16_TOL: bf16 against fp32 "
+             "on one device, the split's merge right and wrong")
+        phase_decode_bounds(dev)
+    decode_rows = decode_launches = None
+    if "decode_sharded" in phases:
+        mark("[3e] decode over a sequence-split cache: llama3.2-1b on (2, 4)"
+             ", decode_32k's and long_500k's layouts; fp32 on (1, 4) and "
+             "(2, 2)")
+        decode_rows, decode_launches = phase_decode_sharded(dev)
     if "roofline" in phases:
         mark("[3d] roofline: walks on the card and on placeholders; the dry "
              "run")
@@ -4355,6 +5047,11 @@ def main(argv=None):
                 for m, (_, p, _, _) in runs.items()
                 if p["kernel_ms_in_situ"].get(k["name"]) is not None}
             k["ms_in_situ"] = k["ms_in_situ_by_path"].get(HOME_PATH[k["name"]])
+    for k in kernels:
+        if decode_rows and k["name"] in decode_rows:
+            k.setdefault("other_shapes", []).extend(decode_rows[k["name"]])
+            k.setdefault("launches_by_path", {}).update(
+                {path: c[k["name"]] for path, c in decode_launches.items()})
     for k in kernels:
         if k["name"] != "flash_attention":
             continue

@@ -137,26 +137,13 @@ def make_sparse_fn(cfg: ArchConfig, mem: MemoryConfig, *, tp: int = 16,
 def make_sparse_fn_distributed(cfg: ArchConfig, mem: MemoryConfig, devices,
                                *, tp: int = 16, page: int = 64):
     """Sequence-parallel sparse decode over the device tuple ``devices``
-    (``launch.mesh``): distributed top-k with an index-only exchange, then
-    per-shard paged attention with the LSE merge (``distributed.topk``)."""
-    from repro_torch.distributed.topk import (distributed_relevancy_topk,
-                                              distributed_sparse_decode)
-
-    n_pages_sel = max(mem.top_k // page, 1)
+    (``launch.mesh``): ``SplitDSA`` over the cache cut into one slice per
+    device (distributed top-k with an index-only exchange, per-shard paged
+    attention), its (out, lse) pairs merged onto ``devices[0]``."""
+    split = SplitDSA(cfg, mem, page=page)
 
     def sparse_fn(q, kc, vc, length, sp, k_new=None):
-        B = q.shape[0]
-        q_idx, w = _index_qw(sp, q[:, 0])
-        kp = _index_k(sp, kc, page)
-        _, pidx = distributed_relevancy_topk(q_idx, kp, w, n_pages_sel,
-                                             devices, block=2048)
-        lb = torch.as_tensor(length, dtype=torch.int32,
-                             device=q.device).reshape(-1).expand(B)
-        pidx = torch.where(pidx * page < lb[:, None], pidx,
-                           torch.full_like(pidx, -1)).to(torch.int32)
-        out = distributed_sparse_decode(strip_dead_heads(q, cfg), kc, vc,
-                                        pidx, lb, devices, page_size=page)
-        return repad_dead_heads(out, q, cfg)
+        return _split_over(split, devices, q, kc, vc, length, sp)
 
     return sparse_fn
 
@@ -179,49 +166,163 @@ def make_sparse_fn_cached(cfg: ArchConfig, mem: MemoryConfig, devices, *,
     """Stateful sequence-parallel sparse decode: ``sp = {"p": indexer
     weights, "kidx_sum": pooled index cache}`` (one tensor, or its per-shard
     tensors). Per step it projects ONLY the new token's key, adds it into
-    the owning shard's page (``sharded_page_add``), scores the pooled index
-    and runs the distributed top-k and LSE-merged paged attention. ``length``
-    is the step's context length (an int or a 0-d tensor). Returns (out,
-    sp with ``kidx_sum`` as per-shard tensors)."""
-    from repro_torch.distributed.topk import (_shards,
-                                              distributed_relevancy_topk,
-                                              distributed_sparse_decode,
-                                              sharded_page_add)
+    the owning shard's page (``sharded_page_add``), then runs the stateful
+    ``SplitDSA`` over the per-shard caches, merged onto ``devices[0]``.
+    ``length`` is the step's context length (an int or a 0-d tensor).
+    Returns (out, sp with ``kidx_sum`` as per-shard tensors)."""
+    from repro_torch.distributed.topk import sharded_page_add
 
-    n_pages_sel = max(mem.top_k // page, 1)
+    split = SplitDSA(cfg, mem, page=page, stateful=True)
 
     def sparse_fn(q, kc, vc, length, sp, k_new=None):
         B = q.shape[0]
-        p = sp["p"]
         # prepare, incremental: index the ONE key written this step; the
         # page update stays on the shard that owns the page
         k_idx_new = _matmul_promoted(k_new.reshape(B, -1),
-                                     p["wk_idx"]).float()
+                                     sp["p"]["wk_idx"]).float()
         kidx_sum = sharded_page_add(sp["kidx_sum"], k_idx_new,
                                     (length - 1) // page, devices)
-        q_idx, w = _index_qw(p, q[:, 0])
-        # page means over each shard's own pages (its token counts)
-        local_np = kidx_sum[0].shape[1]
-        kp = []
-        for s, kx in enumerate(_shards(kidx_sum, len(devices))):
-            first = (s * local_np + torch.arange(local_np,
-                                                 device=kx.device)) * page
-            counts = (torch.as_tensor(length, device=kx.device)
-                      - first).clamp(0, page)
-            kp.append(kx * (1.0 / counts.clamp(min=1).float())[None, :,
-                                                               None])
-        _, pidx = distributed_relevancy_topk(q_idx, kp, w, n_pages_sel,
-                                             devices, block=2048)
-        pidx = torch.where(pidx * page < torch.as_tensor(
-            length, device=pidx.device), pidx, torch.full_like(pidx, -1))
-        lb = torch.as_tensor(length, dtype=torch.int32,
-                             device=q.device).reshape(-1).expand(B)
-        out = distributed_sparse_decode(strip_dead_heads(q, cfg), kc, vc,
-                                        pidx.to(torch.int32), lb, devices,
-                                        page_size=page)
-        return repad_dead_heads(out, q, cfg), dict(sp, kidx_sum=kidx_sum)
+        out = _split_over(split, devices, q, kc, vc, length,
+                          [dict(sp, kidx_sum=kx) for kx in kidx_sum])
+        return out, dict(sp, kidx_sum=kidx_sum)
 
     return sparse_fn
+
+
+def _split_over(split, devices, q, kc, vc, length, sp):
+    """The one-device sparse fn's contract over ``split``: q [B,1,Hp,hd]
+    on ``devices[0]``, the caches whole (cut here, a slice to each device)
+    or per-shard, ``sp`` this layer's indexer weights or per-shard dicts
+    -> out [B,1,Hp,hd] merged onto ``devices[0]``."""
+    from repro_torch.distributed.topk import (_per_shard, _shards,
+                                              merge_partials)
+
+    n = len(devices)
+    sps = _per_shard(sp, n)
+    iq = _index_qw(sps[0]["p"] if split.stateful else sps[0], q[:, 0])
+    shards = [{"q": q, "iq": iq, "kc": k.to(d), "vc": v.to(d),
+               "sp": s if split.stateful else
+               {name: w.to(d) for name, w in s.items()}}
+              for d, k, v, s in zip(devices, _shards(kc, n), _shards(vc, n),
+                                    sps)]
+    (out, _), = merge_partials(split(shards, length),
+                               [(devices[0], slice(None))])
+    return out[:, None].to(q.dtype)
+
+
+class SplitDSA:
+    """DSA over a sequence-split cache, for ``models.model.decode_step_tp``
+    (the reference's ``make_sparse_fn_distributed`` / ``_cached`` as GSPMD
+    partitions them over ``cache_specs``): every shard holds its own slice
+    of K/V and, stateful, of the pooled index cache ``kidx_sum``; no KV
+    page and no raw score crosses between shards.
+
+      prepare    the query side per model group (``index_query``: each
+                 member's columns of ``wq_idx`` / ``w_wgt``, all-gathered);
+                 the key side per shard over its own slice (``_index_k``),
+                 or, stateful, the new token's index key added into the
+                 owning shard's page and each shard's page means;
+      relevancy  + retrieve: ``ops.relevancy_topk`` per shard, the (value,
+                 index) candidates merged on the sequence group's first
+                 device (``distributed_relevancy_topk``), the page ids
+                 delivered to every shard;
+      apply      ``ops.paged_decode_attention`` per shard over the selected
+                 pages it owns -> (out, lse) per shard
+                 (``sparse_decode_partials``), merged by the caller for
+                 each member's heads.
+
+    ``make_sparse_fn_distributed`` / ``_cached`` run it over one device
+    tuple with the one-device sparse fn's contract. ``record=True`` keeps
+    each call's merged page ids (``selected``)."""
+
+    def __init__(self, cfg: ArchConfig, mem: MemoryConfig, *,
+                 page: int = 64, stateful: bool = False,
+                 record: bool = False):
+        self.cfg, self.page = cfg, page
+        self.stateful, self.record = stateful, record
+        self.n_sel = max(mem.top_k // page, 1)
+        self.selected = []
+
+    def index_query(self, sps, qs):
+        """One model group: each member's indexer weights (its columns of
+        ``wq_idx`` / ``w_wgt``; stateful: ``sp["p"]``) and its gathered
+        query [B,1,Hp,hd] -> each member's (q_idx [B,Hi,di], w [B,Hi])."""
+        from repro_torch.distributed import collectives as col
+
+        sps = [sp["p"] if self.stateful else sp for sp in sps]
+        di = sps[0]["wk_idx"].shape[1]
+        qis, lgs = [], []
+        for sp, q in zip(sps, qs):
+            qf = q[:, 0].reshape(q.shape[0], -1)[:, : sp["wq_idx"].shape[0]]
+            qis.append(_matmul_promoted(qf, sp["wq_idx"]))
+            lgs.append(qf.float() @ sp["w_wgt"])
+        qis = col.group_all_gather(qis, -1)
+        lgs = col.group_all_gather(lgs, -1)
+        return [(qi.reshape(qi.shape[0], -1, di), torch.softmax(lg, dim=-1))
+                for qi, lg in zip(qis, lgs)]
+
+    def __call__(self, shards, length):
+        """One sequence group. ``shards``: per shard, in sequence order, a
+        dict of its q [B,1,Hp,hd], (q_idx, w) ``iq``, cache slices ``kc``
+        / ``vc`` [B,S_l,KV,hd] (the new token written), indexer weights
+        ``sp`` (stateful: ``{"p", "kidx_sum" [B,n_l,di]}``, this layer's)
+        and, on the shard owning the new token, ``k_new`` [B,1,KV,hd];
+        ``length`` the context length with it (an int or a 0-d tensor;
+        stateless also per row, [B]). -> each shard's (out
+        [B,Hp,hd], lse [B,Hp]) fp32 on its device, zero for dead heads
+        (stateful: the owner's ``kidx_sum`` page updated in place)."""
+        from repro_torch.distributed.topk import (distributed_relevancy_topk,
+                                                  page_add_,
+                                                  sparse_decode_partials)
+
+        page, cfg = self.page, self.cfg
+        devices = [s["kc"].device for s in shards]
+        Sl = shards[0]["kc"].shape[1]
+        if Sl % page:
+            raise ValueError(f"a shard's {Sl} tokens hold no whole number "
+                             f"of {page}-token pages")
+        n_l = Sl // page
+        kp = []
+        if self.stateful:
+            for i, s in enumerate(shards):
+                kx = s["sp"]["kidx_sum"]
+                if s.get("k_new") is not None:   # the owner: one page add
+                    B = s["k_new"].shape[0]
+                    new = _matmul_promoted(s["k_new"].reshape(B, -1),
+                                           s["sp"]["p"]["wk_idx"]).float()
+                    page_add_(kx, new, (length - 1) // page - i * n_l)
+                first = (i * n_l + torch.arange(n_l, device=kx.device)) * page
+                counts = (torch.as_tensor(length, device=kx.device)
+                          - first).clamp(0, page)
+                kp.append(kx * (1.0 / counts.clamp(min=1).float())[None, :,
+                                                                   None])
+        else:
+            kp = [_index_k(s["sp"], s["kc"], page) for s in shards]
+        _, pids = distributed_relevancy_topk(
+            [s["iq"][0] for s in shards], kp, [s["iq"][1] for s in shards],
+            self.n_sel, devices, block=2048, deliver=devices)
+        pids = [torch.where(p * page < torch.as_tensor(
+            length, device=p.device).reshape(-1, 1), p,
+            torch.full_like(p, -1)).to(torch.int32) for p in pids]
+        if self.record:
+            self.selected.append(pids[0])
+        parts = sparse_decode_partials(
+            [strip_dead_heads(s["q"], cfg) for s in shards],
+            [s["kc"] for s in shards], [s["vc"] for s in shards], pids,
+            length, devices, page_size=page)
+        return [_repad_partial(o, lse, s["q"]) for (o, lse), s in
+                zip(parts, shards)]
+
+
+def _repad_partial(out, lse, q_like):
+    """A shard's (out [B,H,hd], lse [B,H]) over the live heads -> over the
+    padded heads Hp of ``q_like`` [B,1,Hp,hd]: dead heads out 0, lse 0."""
+    B, _, HP, hd = q_like.shape
+    H = out.shape[1]
+    if H == HP:
+        return out, lse
+    return (torch.cat([out, out.new_zeros((B, HP - H, hd))], 1),
+            torch.cat([lse, lse.new_zeros((B, HP - H))], 1))
 
 
 def build_pipeline(cfg: ArchConfig, mem: MemoryConfig, sp: Params, *,

@@ -16,7 +16,9 @@ participant, for a caller that needs the one result (the gathered step).
 followed by an all-gather, for callers whose every participant needs the
 result (the tensor-parallel step's gradients): each participant sends and
 receives 2 (n-1)/n of the tensor's bytes, as ``all_reduce_seconds``
-reckons. The group operations of the
+reckons. ``all_to_all`` turns the tensor-parallel prefill's caches (a
+member's kv heads over the whole sequence) into the decode split's (every
+kv head over a member's sequence slice). The group operations of the
 tensor-parallel split (``group_broadcast``, ``group_all_reduce``,
 ``group_all_gather``) are ``autograd.Function``s over the members'
 tensors; each backward is the exact adjoint of its forward (a broadcast's
@@ -96,6 +98,13 @@ def all_gather_seconds(bytes_per_dev: float, n: int, links: float = NVLINK_BW):
 
 def reduce_scatter_seconds(bytes_per_dev: float, n: int,
                            links: float = NVLINK_BW):
+    return (n - 1) / max(n, 1) * bytes_per_dev / links
+
+
+def all_to_all_seconds(bytes_per_dev: float, n: int,
+                       links: float = NVLINK_BW):
+    """All-to-all: each participant keeps 1/n of its tensor and sends the
+    other (n-1)/n, one block to each peer."""
     return (n - 1) / max(n, 1) * bytes_per_dev / links
 
 
@@ -285,6 +294,26 @@ def group_max(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     gradient (a softmax's stabilizer)."""
     with torch.no_grad():
         return ring_all_reduce([x.detach() for x in xs], "max")
+
+
+def all_to_all(xs: Sequence[torch.Tensor], split_dim: int, cat_dim: int,
+               devices=None) -> List[torch.Tensor]:
+    """Twin of ``lax.all_to_all``: each participant's tensor cut into one
+    equal block per destination on ``split_dim``; destination j gets block
+    j of every participant, concatenated on ``cat_dim`` in participant
+    order, on ``devices[j]`` (default: the participants' own devices).
+    Each participant sends the blocks of the others, (n - 1) / n of its
+    tensor when the destinations are the participants; a block already on
+    its destination's device is not copied."""
+    devices = [x.device for x in xs] if devices is None else list(devices)
+    n = len(devices)
+    if xs[0].shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of "
+                         f"{tuple(xs[0].shape)} does not split {n} ways")
+    blocks = [torch.chunk(x, n, split_dim) for x in xs]
+    with collective("all-to-all"):
+        return [torch.cat([b[j].to(dev) for b in blocks], cat_dim)
+                for j, dev in enumerate(devices)]
 
 
 def ring_shift(xs: Sequence[torch.Tensor], shift: int = 1

@@ -26,6 +26,10 @@ gathered one layer at a time where it is used (``materialize``,
 ``gather_layer``). ``model_groups`` / ``data_groups`` name the coordinates
 each split runs over. ``gather`` (``ShardedTensor.full``) concatenates the
 slices back into full tensors, for checkpoints and tests.
+
+The decode split reads a cache placed by ``cache_specs`` where it lies:
+``seq_groups`` names the coordinates that share a sequence split,
+``row_block`` the rows each data index computes.
 """
 from __future__ import annotations
 
@@ -272,6 +276,45 @@ def cache_specs(cache, cfg: ArchConfig, shape: ShapeConfig, mesh):
         return P()
 
     return tree_map_with_path(rule, cache)
+
+
+def sparse_cache_specs(sp, cfg: ArchConfig, shape: ShapeConfig, mesh):
+    """Specs of a stateful sparse method's ``{"p": indexer weights,
+    "kidx_sum": pooled index cache [L, B, n_pages, di]}``: the weights by
+    ``method_specs``, the index cache's rows and pages placed as K's rows
+    and sequence (the reference's dry run, ``launch/dryrun.py:204-208``)."""
+    kspec = cache_specs({"k": sp["kidx_sum"]}, cfg, shape, mesh)["k"]
+    return {"p": method_specs(sp["p"], cfg, mesh),
+            "kidx_sum": P(None, kspec[1], kspec[2], None)}
+
+
+def big_batch(mesh, batch: int) -> bool:
+    """Whether ``cache_specs`` cuts a decode batch of ``batch`` rows over
+    the data axes (decode_32k) rather than the sequence over (data, model)
+    jointly (long_500k)."""
+    dp = data_ways(mesh)
+    return batch >= dp and batch % max(dp, 1) == 0
+
+
+def seq_groups(mesh, batch: int) -> List[List[int]]:
+    """The coordinates that share one sequence split of a decode cache of
+    ``batch`` rows, each group in the order its sequence blocks run:
+    decode_32k's model groups (rows on the data axes, the sequence on
+    ``model``), or long_500k's whole mesh, data-major (the sequence over
+    ``data_axes + ("model",)``, raveled as the reference cuts it)."""
+    if big_batch(mesh, batch):
+        return model_groups(mesh)
+    return [[c for g in model_groups(mesh) for c in g]]
+
+
+def row_block(mesh, batch: int, d: int) -> slice:
+    """The rows of a decode batch that data index ``d`` computes: its block
+    where the batch is cut over the data axes, else every row (each data
+    index then computes them, as GSPMD replicates an uncut batch)."""
+    if not big_batch(mesh, batch):
+        return slice(0, batch)
+    n = batch // data_ways(mesh)
+    return slice(d * n, (d + 1) * n)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,13 @@ Each shard body calls ``ops.relevancy_topk`` / ``ops.paged_decode_attention``:
 the kernels on the card, their plain versions on the CPU.
 
 A sharded input is either one tensor, cut here (each shard's slice copied
-to its device), or a list of per-shard tensors already resident.
+to its device), or a list of per-shard tensors already resident. The
+decode split (``models.model.decode_step_tp``) passes resident lists
+throughout: its queries per shard, each shard's own cache slice and index
+keys; it has the selected page ids delivered to every shard
+(``deliver``), and the (out, lse) pairs of ``sparse_decode_partials``
+merged for each member that applies ``wo``, on its head slice
+(``merge_partials``).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import topk_stable
+from repro_torch.launch.op_walk import collective
 
 
 def _shards(x, n: int, axis: int = 1) -> List[torch.Tensor]:
@@ -41,6 +48,15 @@ def _shards(x, n: int, axis: int = 1) -> List[torch.Tensor]:
     return [x.narrow(axis, s * local, local) for s in range(n)]
 
 
+def _per_shard(x, n: int) -> List:
+    """A per-shard list as it is, or one tensor for every shard."""
+    if isinstance(x, (list, tuple)):
+        if len(x) != n:
+            raise ValueError(f"{len(x)} shards for a mesh of {n}")
+        return list(x)
+    return [x] * n
+
+
 def gather_shards(parts, device=None, axis: int = 1) -> torch.Tensor:
     """Per-shard tensors -> one tensor on ``device`` (default: the first
     shard's)."""
@@ -50,12 +66,13 @@ def gather_shards(parts, device=None, axis: int = 1) -> torch.Tensor:
 
 def distributed_relevancy_topk(q, keys, weights, k: int,
                                devices: Sequence[torch.device], *,
-                               block: int = 2048
-                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+                               block: int = 2048, deliver=None):
     """Exact global top-k with an index-only exchange. q [B, Hq, dk];
-    keys [B, S, dk] sharded on S; weights [B, Hq]. Returns (vals, idx)
-    [B, k] in GLOBAL sequence coordinates on ``devices[0]``, padded with
-    (-inf, -1) past ``n_shards * min(k, S / n_shards)`` candidates.
+    keys [B, S, dk] sharded on S; weights [B, Hq] (q and weights may also
+    be per-shard lists, resident). Returns (vals, idx) [B, k] in GLOBAL
+    sequence coordinates on ``devices[0]``, padded with (-inf, -1) past
+    ``n_shards * min(k, S / n_shards)`` candidates; with ``deliver`` (a
+    list of devices) (vals, [idx on each of them]).
 
     Shard s returns its own exact top-min(k, local) in index order among
     ties; the candidates concatenate in shard order, so a stable sort by
@@ -64,14 +81,16 @@ def distributed_relevancy_topk(q, keys, weights, k: int,
     n = len(devices)
     main = devices[0]
     parts = _shards(keys, n)
+    qs, ws = _per_shard(q, n), _per_shard(weights, n)
     local_S = parts[0].shape[1]
     k_local = min(k, local_S)
     vals, idx = [], []
     for s, (dev, kl) in enumerate(zip(devices, parts)):
-        v, i = ops.relevancy_topk(q.to(dev), kl.to(dev), weights.to(dev),
+        v, i = ops.relevancy_topk(qs[s].to(dev), kl.to(dev), ws[s].to(dev),
                                   k_local, block=block)
-        vals.append(v.to(main))
-        idx.append((i + s * local_S).to(main))
+        with collective("all-gather"):          # (value, index) pairs only
+            vals.append(v.to(main))
+            idx.append((i + s * local_S).to(main))
     top_v, pos = topk_stable(torch.cat(vals, dim=1), min(k, n * k_local))
     top_i = torch.gather(torch.cat(idx, dim=1), 1, pos.long())
     if top_v.shape[1] < k:           # cannot select more than exist
@@ -80,30 +99,35 @@ def distributed_relevancy_topk(q, keys, weights, k: int,
                                                  float("-inf"))], dim=1)
         top_i = torch.cat([top_i, top_i.new_full((top_i.shape[0], pad),
                                                  -1)], dim=1)
-    return top_v, top_i
+    if deliver is None:
+        return top_v, top_i
+    with collective("collective-permute"):      # the page ids, to each
+        return top_v, [top_i.to(d) for d in deliver]
+
+
+def page_add_(kx, delta, lpg) -> torch.Tensor:
+    """In place: add ``delta`` [B, di] into local page ``lpg`` (an int or a
+    0-d tensor) of one shard's index cache ``kx`` [B, n_l, di]; nothing
+    where the page lies outside the shard (the reference's masked local
+    update). Returns ``kx``."""
+    n_l = kx.shape[1]
+    lpg = torch.as_tensor(lpg, device=kx.device).reshape(1).long()
+    ok = ((lpg >= 0) & (lpg < n_l)).to(torch.float32)
+    return kx.index_add_(1, lpg.clamp(0, n_l - 1),
+                         (ok * delta.to(kx.device))[:, None].to(kx.dtype))
 
 
 def sharded_page_add(kidx, delta, pg, devices: Sequence[torch.device]
                      ) -> List[torch.Tensor]:
     """Add ``delta`` [B, di] into page ``pg`` (an int or a 0-d tensor) of
     the page-sharded index cache ``kidx`` [B, n_pages, di] without
-    gathering it: every shard runs the reference's masked local update, and
-    only the one owning the page changes. Returns the per-shard tensors
-    (new tensors; the inputs stay as they were)."""
-    n = len(devices)
-    parts = _shards(kidx, n)
+    gathering it: every shard runs ``page_add_`` on a copy of its slice,
+    and only the one owning the page changes. Returns the per-shard
+    tensors (new tensors; the inputs stay as they were)."""
+    parts = _shards(kidx, len(devices))
     local_np = parts[0].shape[1]
-    out = []
-    for s, (dev, kx) in enumerate(zip(devices, parts)):
-        kx = kx.to(dev)
-        lpg = torch.as_tensor(pg, device=dev).reshape(1).long() \
-            - s * local_np
-        ok = ((lpg >= 0) & (lpg < local_np)).to(torch.float32)
-        idx = lpg.clamp(0, local_np - 1)
-        cur = kx.index_select(1, idx)                    # [B, 1, di]
-        new = cur + ok * delta.to(dev)[:, None]
-        out.append(kx.index_copy(1, idx, new.to(kx.dtype)))
-    return out
+    return [page_add_(kx.to(dev, copy=True), delta, pg - s * local_np)
+            for s, (dev, kx) in enumerate(zip(devices, parts))]
 
 
 def distributed_sparse_decode(q, k_cache, v_cache, page_ids, length,
@@ -138,26 +162,49 @@ def distributed_paged_sparse_decode(q, k_cache, v_cache, page_ids, lengths,
     output (the mean of v over the first page of its slice), not the
     unsharded kernel's; the engine always selects the current page, so
     serving never meets that case."""
+    parts = sparse_decode_partials(q, k_cache, v_cache, page_ids, lengths,
+                                   devices, page_size=page_size)
+    return merge_partials(parts, [(devices[0], slice(None))])[0]
+
+
+def sparse_decode_partials(q, k_cache, v_cache, page_ids, lengths,
+                           devices: Sequence[torch.device], *,
+                           page_size: int = 64) -> List[Tuple]:
+    """The ONE shard body of the sequence-parallel apply: each shard's
+    (out [B, Hq, dh], lse [B, Hq]) fp32 on its device, over the selected
+    pages it owns. q and page_ids may be per-shard lists (resident); the
+    caches one tensor sharded on S or per-shard slices."""
     n = len(devices)
-    main = devices[0]
-    S = k_cache[0].shape[1] * n if isinstance(k_cache, (list, tuple)) \
-        else k_cache.shape[1]
-    assert S % (n * page_size) == 0, (S, n, page_size)
-    local_S = S // n
-    local_pages = local_S // page_size
     ks, vs = _shards(k_cache, n), _shards(v_cache, n)
-    B = q.shape[0]
-    outs, lses = [], []
+    local_S = ks[0].shape[1]
+    assert local_S % page_size == 0, (local_S, n, page_size)
+    local_pages = local_S // page_size
+    qs, pids_s = _per_shard(q, n), _per_shard(page_ids, n)
+    B = qs[0].shape[0]
+    out = []
     for s, dev in enumerate(devices):
-        pids = page_ids.to(dev)
+        pids = pids_s[s].to(dev)
         local = pids - s * local_pages
         mine = (pids >= 0) & (local >= 0) & (local < local_pages)
         local = torch.where(mine, local, torch.full_like(local, -1))
         len_g = torch.as_tensor(lengths, device=dev).reshape(-1).expand(B)
         len_l = (len_g - s * local_S).clamp(0, local_S).to(torch.int32)
-        out, lse = ops.paged_decode_attention(
-            q.to(dev), ks[s].to(dev), vs[s].to(dev), local.to(torch.int32),
-            len_l, page_size=page_size)
-        outs.append(out.to(main))
-        lses.append(lse.to(main))
-    return ops.lse_merge(torch.stack(outs), torch.stack(lses))
+        out.append(ops.paged_decode_attention(
+            qs[s].to(dev), ks[s].to(dev), vs[s].to(dev),
+            local.to(torch.int32), len_l, page_size=page_size))
+    return out
+
+
+def merge_partials(parts, targets) -> List[Tuple]:
+    """Per target ``(device, head slice)``: every shard's (out, lse) on
+    those heads, brought to the device and merged by ``ops.lse_merge``
+    (shard order). One target gathers; one a member, each its own heads,
+    is an all-to-all of the heads."""
+    kind = "all-gather" if len(targets) == 1 else "all-to-all"
+    res = []
+    for dev, heads in targets:
+        with collective(kind):
+            outs = [o[:, heads].to(dev) for o, _ in parts]
+            lses = [lse[:, heads].to(dev) for _, lse in parts]
+        res.append(ops.lse_merge(torch.stack(outs), torch.stack(lses)))
+    return res

@@ -33,13 +33,26 @@ machine, with or without a card; on the card it touches none.
     coordinate computing its slice, FSDP leaves gathered a layer at a
     time); the hybrid's and xLSTM's on the first device of its group, its
     parameters there in full;
-  * decode cells have no sharded step in the port yet (ROADMAP): they walk
-    data index 0's part of the batch on the first device of its group, its
-    parameters and cache there in full. A decode cell's cache holds
-    ``seq_len - 1`` tokens (the shape's length, a host int). Variants
+  * decode cells of the transformer families walk the decode split
+    (``models.model.decode_step_tp``): the cache placed by ``cache_specs``,
+    the parameters by ``param_specs``, DSA at 64-token pages through
+    ``core.methods.dsa.SplitDSA`` (stateless for ``baseline`` and
+    ``optimized-spdecode``, the index cache for ``optimized-idxcache``),
+    the optimized variants with the weights TP-resident (no FSDP), as the
+    reference's ``dryrun.py:166-167``. decode_32k walks data index 0's
+    model group (its rows, the sequence over its members); the other data
+    indices' work is the same by symmetry, and their MoE router inputs
+    stand in as zeros. long_500k walks every coordinate: the sequence runs
+    over the whole mesh, data index 0's model group computes the row and
+    every coordinate attends over its slice. The
+    hybrid's and xLSTM's decode cells (and any on a ``model`` axis of 1)
+    walk data index 0's part of the batch on the first device of its
+    group, its parameters and cache there in full; there the variants
     ``optimized-spdecode`` and ``optimized-idxcache`` run DSA through
     ``make_sparse_fn_distributed`` / ``make_sparse_fn_cached`` over that
-    group's ``model`` devices.
+    group's ``model`` devices (the hybrid's step carries no index cache,
+    so its idxcache cell fails). A decode cell's cache holds
+    ``seq_len - 1`` tokens (the shape's length, a host int).
 
 The reference's variant hints ``set_ep_constraint`` (shard-local MoE
 dispatch) and ``set_sp_residual`` (Megatron-SP residual) are GSPMD
@@ -265,6 +278,8 @@ def walk_prefill(cfg, shape, mesh, tp: int, rec: Dict) -> op_walk.OpWalk:
 
 def walk_decode(cfg, shape, mesh, tp: int, variant: str,
                 rec: Dict) -> op_walk.OpWalk:
+    if splits_model(cfg, mesh):
+        return _walk_decode_split(cfg, shape, mesh, tp, variant, rec)
     group, dev, rows = _first_part(mesh, shape.global_batch)
     S = shape.seq_len
     params = _place(param_structs(cfg, tp), dev)
@@ -283,6 +298,10 @@ def walk_decode(cfg, shape, mesh, tp: int, variant: str,
             sparse_fn = dsa.make_sparse_fn_distributed(
                 cfg, cfg.memory, devices, tp=tp, page=PAGE)
         elif variant == "optimized-idxcache":
+            if cfg.family == "hybrid":
+                raise ValueError(f"{cfg.name}: the hybrid's decode_step "
+                                 f"carries no index cache (its shared "
+                                 f"block's sites share one indexer)")
             sparse_fn = dsa.make_sparse_fn_cached(cfg, cfg.memory, devices,
                                                   tp=tp, page=PAGE)
             stateful = True
@@ -293,12 +312,78 @@ def walk_decode(cfg, shape, mesh, tp: int, variant: str,
             sparse_fn = mk(cfg, cfg.memory, tp=tp,
                            **sparse_kwargs(cfg.memory.method, PAGE))
     rec["walked"] = (f"data index 0's {rows} rows on {dev}, a cache of "
-                     f"{S - 1} tokens")
+                     f"{S - 1} tokens (no model-axis split for "
+                     f"{cfg.family})")
     with torch.no_grad(), op_walk.OpWalk() as w:
         w.track(params, caches, token, sp)
         M.decode_step(params, cfg, token, caches, tp=tp,
                       sparse_fn=sparse_fn, sparse_params=sp,
                       sparse_stateful=stateful)
+    return w
+
+
+def _walk_decode_split(cfg, shape, mesh, tp: int, variant: str,
+                       rec: Dict) -> op_walk.OpWalk:
+    """One step of the decode split over ``mesh`` (inside placeholders)."""
+    from repro_torch.core.methods import dsa
+
+    S, B = shape.seq_len, shape.global_batch
+    fsdp = False if variant.startswith("optimized") else None
+    structs = param_structs(cfg, tp)
+    params = sh.device_put(structs, sh.make_shardings(
+        sh.param_specs(structs, cfg, mesh, fsdp=fsdp), mesh))
+    c = cache_structs(cfg, B, S, tp)
+    caches = sh.device_put({"k": c["k"], "v": c["v"]}, sh.make_shardings(
+        sh.cache_specs(c, cfg, shape, mesh), mesh))
+    caches["length"] = S - 1
+    token = batch_structs(cfg, shape)["token"].to(mesh.device(0))
+    sparse = sp = None
+    if S >= cfg.memory.min_context:
+        if cfg.memory.method != "dsa":
+            raise ValueError(f"{cfg.name}: the decode split runs DSA, not "
+                             f"{cfg.memory.method} (ROADMAP)")
+        stateful = variant == "optimized-idxcache"
+        sparse = dsa.SplitDSA(cfg, cfg.memory, page=PAGE,
+                              stateful=stateful)
+        sp = sparse_structs(cfg, tp)
+        if stateful:
+            sp = {"p": sp, "kidx_sum": dsa.idx_cache_init(
+                cfg, cfg.memory, B, S, page=PAGE, device="cpu")}
+            specs = sh.sparse_cache_specs(sp, cfg, shape, mesh)
+        else:
+            specs = sh.method_specs(sp, cfg, mesh)
+        sp = sh.device_put(sp, sh.make_shardings(specs, mesh))
+    big = sh.big_batch(mesh, B)
+    groups = sh.model_groups(mesh)
+    seq = len(sh.seq_groups(mesh, B)[0])
+    rows = B // len(groups) if big else B
+    rec["sparse"] = (None if sparse is None else
+                     f"DSA, {PAGE}-token pages, "
+                     f"{'index cache' if sparse.stateful else 'stateless'}")
+    rec["walked"] = (
+        f"the decode split: data index 0's model group ({len(groups[0])} "
+        f"coordinates, {rows} rows, {S // seq} tokens of the cache each); "
+        f"the other {len(groups) - 1} data indices' work is the same by "
+        f"symmetry (their MoE router inputs stand in as zeros)" if big else
+        f"the decode split: every coordinate ({mesh.size}), the sequence "
+        f"over (data, model), {S // seq} tokens each; data index 0's model "
+        f"group computes the {B} row(s)")
+    with torch.no_grad(), op_walk.OpWalk() as w:
+        w.track(params, caches, token, sp)
+        if not big:
+            M.decode_step_tp(params, cfg, token, caches, mesh, tp=tp,
+                             sparse=sparse, sparse_params=sp)
+            return w
+        g = M.DecodeGroup(params, cfg, token, caches, mesh, 0, tp=tp,
+                          sparse=sparse, sparse_params=sp)
+        for i in range(cfg.n_layers):
+            router = [g.attention(i)]
+            if g.moe_gather:   # the other data indices' inputs: zeros
+                router += [[torch.zeros_like(h, device=mesh.device(c))
+                            for h, c in zip(router[0], grp)]
+                           for grp in groups[1:]]
+            g.ffn(i, router)
+        g.logits()
     return w
 
 

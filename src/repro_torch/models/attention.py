@@ -9,7 +9,10 @@ o-proj columns are zero (``head_mask`` zeroes their outputs).
   * ``attention_full``         causal attention over a prompt (query chunks);
   * ``attention_decode``       one query token vs a KV view (dense decode);
   * ``attention_decode_chunk`` C new query tokens vs a KV view (chunked
-                               prefill).
+                               prefill);
+  * ``attention_decode_partial`` one query token vs a sequence slice of
+                               the cache -> (out, lse), for the decode
+                               split's merge.
 
 A model shard of the tensor-parallel split (``shard=(m, n)``: shard m of n
 over the mesh's ``model`` axis) holds q heads ``[m Hp/n, (m+1) Hp/n)``;
@@ -186,6 +189,15 @@ def _index_on(idx: tuple, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(idx), device=device).long()
 
 
+def project_qkv_shard(p: Params, x, cos, sin, cfg: ArchConfig, tp: int,
+                      shard):
+    """``project_qkv`` on model shard ``shard = (m, n)``'s head slice: its
+    q heads, and its kv heads when ``kv_shardable(n)``, else all of them
+    (the decode split's every shard then holds the whole new k / v)."""
+    return project_qkv(shard_kv_params(p, cfg, tp, shard, all_kv=True), x,
+                       cos, sin, cfg, tp)
+
+
 def shard_kv(k, v, cfg: ArchConfig, tp: int, shard, lo: int = 0):
     """A shard's k / v [B, S, held, hd] (kv heads from ``lo``) -> the kv
     heads its q heads read, [B, S, kv, hd] with q heads % kv == 0 (q head i
@@ -293,6 +305,35 @@ def attention_decode(q, k_cache, v_cache, length, cfg: ArchConfig, *,
     if window:
         mask &= pos[None, :] >= (lb[:, None] - window)
     return _softmax_attend(sc, mask[:, None, None, :], vexp).to(q.dtype)
+
+
+def attention_decode_partial(q, k_cache, v_cache, length, offset: int,
+                             cfg: ArchConfig, *, window: Optional[int] = None,
+                             tp: int = 16):
+    """``attention_decode`` over one sequence slice of the cache, for the
+    decode split's LSE merge: q [B,1,Hp,hd]; k/v [B,S_l,KV,hd] holding
+    positions ``offset .. offset + S_l - 1``; ``length`` [] or [B] the
+    context's global length -> (out [B,Hp,hd] fp32, lse [B,Hp] fp32). A
+    slice with no live position (every score masked) gives an lse near
+    -1e30, which ``ops.lse_merge`` weighs zero."""
+    B, Sl = k_cache.shape[0], k_cache.shape[1]
+    hd = q.shape[-1]
+    window = window if window is not None else (cfg.sliding_window or None)
+    kexp = expand_kv(k_cache, cfg, tp).float()
+    vexp = expand_kv(v_cache, cfg, tp).float()
+    sc = torch.einsum("bhd,bkhd->bhk", q[:, 0].float() * (1.0 / np.sqrt(hd)),
+                      kexp)
+    pos = offset + torch.arange(Sl, device=q.device)
+    lb = torch.as_tensor(length, device=q.device).reshape(-1).expand(B)
+    mask = pos[None, :] < lb[:, None]
+    if window:
+        mask &= pos[None, :] >= (lb[:, None] - window)
+    sc = torch.where(mask[:, None, :], sc, torch.full_like(sc, NEG_INF))
+    m = sc.amax(-1)
+    p = torch.exp(sc - m[..., None])
+    den = p.sum(-1)
+    out = torch.einsum("bhk,bkhd->bhd", p, vexp) / den[..., None]
+    return out, m + torch.log(den)
 
 
 def attention_decode_chunk(q, k_cache, v_cache, start, cfg: ArchConfig, *,

@@ -28,7 +28,7 @@ extend steps and asserts in ``forward``; the port applies the rule in
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -38,6 +38,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as sh
+from repro_torch.distributed import topk
 from repro_torch.launch import op_walk
 from repro_torch.kernels.page_pool import (pool_gather, pool_scatter_span,
                                            pool_scatter_token)
@@ -543,6 +544,255 @@ def prefill_tp(group, cfg: ArchConfig, tokens, *, max_len=None,
     logits, _ = _tp_logits(group, cfg, [x[:, -1:] for x in xs])
     last = col.group_all_gather(logits, -1, _tp_devices(group)[:1])[0]
     return last[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# decode over a sequence-split cache (the mesh's decode layout)
+# ---------------------------------------------------------------------------
+
+
+def reshard_prefill_caches(parts, cfg: ArchConfig, mesh) -> Dict:
+    """``prefill_tp``'s caches -> the decode split's, placed by
+    ``cache_specs``. ``parts``: per data index, its model group's caches
+    (each member's kv heads over the whole sequence, or all kv heads where
+    they do not shard); long_500k's layout (a batch the data axes do not
+    cut) takes one part, its group's. Each coordinate gets every kv head
+    over its sequence slice: an all-to-all over the group (each member
+    keeps 1/n of its part and sends the rest), or, where every member
+    already holds every kv head, its own slice of its copy. -> {"k", "v":
+    ``ShardedTensor``, "length"}."""
+    from repro_torch.configs.base import ShapeConfig
+
+    groups = sh.model_groups(mesh)
+    n = len(groups[0])
+    B = sum(p[0]["k"].shape[1] for p in parts)
+    S = parts[0][0]["k"].shape[2]
+    big = sh.big_batch(mesh, B)
+    seqs = sh.seq_groups(mesh, B)
+    if len(parts) != (len(groups) if big else 1):
+        raise ValueError(f"{len(parts)} prefill parts for the decode layout "
+                         f"of {B} rows on {dict(mesh.shape)}")
+    out = {"k": [None] * mesh.size, "v": [None] * mesh.size}
+    for g, seq in enumerate(seqs):
+        src = parts[g if big else 0]
+        devs = [mesh.device(c) for c in seq]
+        Sl = S // len(seq)
+        for name in ("k", "v"):
+            if cfg.kv_shardable(n):
+                got = col.all_to_all([p[name] for p in src], 2, 3, devs)
+            else:
+                with op_walk.collective("collective-permute"):
+                    got = [src[j % n][name].narrow(2, j * Sl, Sl).to(
+                        dev, copy=True) for j, dev in enumerate(devs)]
+            for c, t in zip(seq, got):
+                out[name][c] = t
+    full = list(parts[0][0]["k"].shape)
+    full[1], full[3] = B, cfg.n_kv_heads
+    length = parts[0][0]["length"]
+    spec = sh.cache_specs({"k": 0}, cfg, ShapeConfig("decode", S, B,
+                                                     "decode"), mesh)["k"]
+    ns = sh.NamedSharding(mesh, spec)
+    return {name: sh.ShardedTensor(out[name], ns, full, out[name][0].dtype)
+            for name in ("k", "v")} | {"length": length}
+
+
+def decode_step_tp(params, cfg: ArchConfig, token, caches, mesh, *,
+                   tp: int = 16, sparse=None, sparse_params=None,
+                   positions3=None):
+    """``decode_step`` over the mesh's decode layout: token [B] + caches
+    placed by ``cache_specs`` (``ShardedTensor`` k / v: decode_32k's rows
+    on the data axes and sequence on ``model``; long_500k's sequence over
+    (data, model), data-major) -> (logits [B, V] on the first
+    coordinate's device, the caches; with a stateful ``sparse``, the
+    sparse params too). ``params``: placed by ``param_specs``;
+    ``sparse``: ``core.methods.dsa.SplitDSA`` or None (dense);
+    ``sparse_params``: its indexer weights placed by ``method_specs``
+    (stateful: ``{"p": those, "kidx_sum": placed like K}``).
+
+    Each computing data index runs its ``DecodeGroup`` (decode_32k: every
+    data index over its rows; long_500k, a batch the data axes do not cut:
+    data index 0 over the whole batch), the groups a layer at a time: the
+    attention half of each, then the FFN half of each, with the MoE
+    router's inputs of every data index (``moe.moe_apply_gathered``: the
+    batch's one dispatch group, as on one device). The logits are gathered
+    onto each group's first device, then the rows onto the first
+    coordinate's. The new K/V (and a stateful index cache) are written in
+    place. Transformer families only."""
+    if cfg.family == "hybrid" or cfg.xlstm_pattern:
+        raise ValueError(f"{cfg.name}: the tensor-parallel split covers the "
+                         f"transformer families, not {cfg.family}")
+    B = token.shape[0]
+    big = sh.big_batch(mesh, B)
+    dis = range(len(sh.model_groups(mesh))) if big else [0]
+    groups = [DecodeGroup(params, cfg, token, caches, mesh, d, tp=tp,
+                          sparse=sparse, sparse_params=sparse_params,
+                          positions3=positions3) for d in dis]
+    for i in range(cfg.n_layers):
+        hs = [g.attention(i) for g in groups]
+        for g in groups:
+            g.ffn(i, hs)
+    lasts = [g.logits() for g in groups]
+    dev0 = lasts[0].device
+    with op_walk.collective("all-gather"):
+        logits = torch.cat([t.to(dev0) for t in lasts], 0)
+    caches = dict(caches, length=int(caches["length"]) + 1)
+    if sparse is not None and sparse.stateful:
+        return logits, caches, sparse_params
+    return logits, caches
+
+
+class DecodeGroup:
+    """One computing data index's share of ``decode_step_tp``: its model
+    group's parameter slices and activations, its sequence group's caches
+    (decode_32k: its model group's; long_500k: the whole mesh's). A layer
+    is ``attention(i)`` then ``ffn(i, router)``; ``logits()`` ends the
+    step.
+
+    Attention: the members project the new token on their head slices and
+    all-gather q (and k / v where the kv heads shard); the coordinate
+    owning position ``length`` writes k / v into its slice; every
+    coordinate of the sequence group attends over its own slice
+    (``sparse``, or dense ``attention_decode_partial``) and only (out,
+    lse) pairs cross: member m's head slice merged by ``lse_merge``, into
+    its row-parallel ``wo``, all-reduced. Under long_500k a coordinate of
+    another data index attends with the query of the member of its model
+    index (sent to it, with the new k / v to the owner). The FFN is
+    ``prefill_tp``'s."""
+
+    def __init__(self, params, cfg: ArchConfig, token, caches, mesh, d: int,
+                 *, tp: int = 16, sparse=None, sparse_params=None,
+                 positions3=None):
+        if cfg.family == "hybrid" or cfg.xlstm_pattern:
+            raise ValueError(f"{cfg.name}: the tensor-parallel split covers "
+                             f"the transformer families, not {cfg.family}")
+        B = token.shape[0]
+        self.length = length = int(caches["length"])
+        self.kc, self.vc = caches["k"], caches["v"]
+        S = self.kc.shape[2]
+        if length >= S:
+            raise ValueError(f"cache full: length {length} of {S}")
+        groups = sh.model_groups(mesh)
+        dp = len(groups)
+        self.n = n = len(groups[0])
+        big = sh.big_batch(mesh, B)
+        if not (big or d == 0):
+            raise ValueError("long_500k's layout: data index 0 computes for "
+                             "all")
+        self.seq = sh.seq_groups(mesh, B)[d if big else 0]
+        self.Sl = S // len(self.seq)
+        if self.kc.shards[self.seq[0]].shape[1:3] != (
+                (B // dp if big else B), self.Sl):
+            raise ValueError("the caches are not placed by cache_specs")
+        self.cfg, self.mesh, self.d, self.tp = cfg, mesh, d, tp
+        self.sparse, self.group = sparse, groups[d]
+        self.view = sh.group_view(params, mesh, d)
+        self.devs = _tp_devices(self.view)
+        # the coordinate -> the member of its model index in this group
+        self.member = {c: self.group[m] for g in groups
+                       for m, c in enumerate(g)}
+        self.sp = ({c: sh.local(sparse_params, c) for c in self.seq}
+                   if sparse is not None else {})
+        self.heads = [A.shard_heads(cfg, tp, (m, n)) for m in range(n)]
+        self.moe_gather = bool(cfg.n_experts) and big and dp > 1
+        rows = sh.row_block(mesh, B, d)
+        toks = col.group_broadcast(token[rows], self.devs)
+        self.xs = col.group_all_gather(
+            [L.embed(sh.materialize(g["embed"], dv), t[:, None])
+             for g, t, dv in zip(self.view, toks, self.devs)], -1)
+        p3 = (col.group_broadcast(positions3[:, rows], self.devs)
+              if positions3 is not None else [None] * n)
+        tables = [_rope_tables(cfg, torch.full(
+            (t.shape[0], 1), length, dtype=torch.long, device=dv), p)
+            for t, dv, p in zip(toks, self.devs, p3)]
+        self.cos, self.sin = zip(*tables)
+        self.per = [_unstack(g["layers"], cfg.n_layers) for g in self.view]
+
+    def attention(self, i: int) -> List[torch.Tensor]:
+        """Layer ``i``'s attention half -> each member's FFN input (the
+        normed residual)."""
+        cfg, tp, n, mesh = self.cfg, self.tp, self.n, self.mesh
+        self.lps = [sh.materialize(p[i], dv)
+                    for p, dv in zip(self.per, self.devs)]
+        qkv = [A.project_qkv_shard(
+            lp["attn"], L.rms_norm(lp["attn_norm"], x, cfg.norm_eps),
+            self.cos[m], self.sin[m], cfg, tp, (m, n))
+            for m, (lp, x) in enumerate(zip(self.lps, self.xs))]
+        q = col.group_all_gather([t[0] for t in qkv], 2)
+        if cfg.kv_shardable(n):
+            k = col.group_all_gather([t[1] for t in qkv], 2)
+            v = col.group_all_gather([t[2] for t in qkv], 2)
+        else:
+            k, v = [t[1] for t in qkv], [t[2] for t in qkv]
+        iq = (self.sparse.index_query([layer(self.sp[c], i)
+                                       for c in self.group], q)
+              if self.sparse is not None else [None] * n)
+        new = {c: (q[m], k[m], v[m], iq[m]) for m, c in enumerate(self.group)}
+        owner = self.seq[self.length // self.Sl]
+        loc = self.length % self.Sl
+        shards = []
+        for c in self.seq:
+            dev = mesh.device(c)
+            if c not in new:        # long_500k: its model index's query
+                src = new[self.member[c]]
+                with op_walk.collective("collective-permute"):
+                    qc = src[0].to(dev)
+                    iqc = (None if src[3] is None else
+                           tuple(t.to(dev) for t in src[3]))
+                    kv = ((src[1].to(dev), src[2].to(dev))
+                          if c == owner else (None, None))
+                new[c] = (qc, *kv, iqc)
+            qc, kn, vn, iqc = new[c]
+            kc, vc = self.kc.shards[c][i], self.vc.shards[c][i]
+            if c == owner:
+                kc[:, loc] = kn[:, 0].to(kc.dtype)
+                vc[:, loc] = vn[:, 0].to(vc.dtype)
+            s = {"q": qc, "kc": kc, "vc": vc,
+                 "k_new": kn if c == owner else None}
+            if self.sparse is not None:
+                s["iq"], s["sp"] = iqc, layer(self.sp[c], i)
+            shards.append(s)
+        if self.sparse is not None:
+            parts = self.sparse(shards, self.length + 1)
+        else:
+            parts = [A.attention_decode_partial(
+                s["q"], s["kc"], s["vc"], self.length + 1, j * self.Sl, cfg,
+                tp=tp) for j, s in enumerate(shards)]
+        merged = topk.merge_partials(parts, [
+            (mesh.device(c), hs) for c, hs in zip(self.group, self.heads)])
+        ys = [_attn_out(lp["attn"], o[:, None].to(qm.dtype), cfg, tp,
+                        shard=(m, n))
+              for m, (lp, (o, _), qm) in enumerate(zip(self.lps, merged, q))]
+        self.xs = [x + y for x, y in zip(self.xs, col.group_all_reduce(ys))]
+        return [L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
+                for lp, x in zip(self.lps, self.xs)]
+
+    def ffn(self, i: int, router) -> None:
+        """Layer ``i``'s FFN half. ``router``: every data index's
+        ``attention`` outputs, in data-index order (this group's at its
+        own index); a gathered MoE dispatch (``moe_gather``) reads them
+        all, anything else only its own."""
+        cfg, n = self.cfg, self.n
+        hs = router[self.d]
+        ys = []
+        for m, lp in enumerate(self.lps):
+            if not cfg.n_experts:
+                ys.append(L.mlp(lp["mlp"], hs[m]))
+            elif self.moe_gather:      # the batch's one dispatch group
+                ys.append(MOE.moe_apply_gathered(
+                    lp["moe"], [h[m] for h in router], self.d, self.devs[m],
+                    cfg, shard=(m, n)))
+            else:
+                ys.append(MOE.moe_apply(lp["moe"], hs[m], cfg,
+                                        shard=(m, n))[0])
+        self.xs = [x + y.to(x.dtype) for x, y in zip(
+            self.xs, col.group_all_reduce(ys))]
+
+    def logits(self) -> torch.Tensor:
+        """The group's rows' logits [B_d, V] on its first device."""
+        xs = [L.rms_norm(g["final_norm"], x, self.cfg.norm_eps)
+              for g, x in zip(self.view, self.xs)]
+        logits, _ = _tp_logits(self.view, self.cfg, xs)
+        return col.group_all_gather(logits, -1, self.devs[:1])[0][:, 0]
 
 
 def last_logits(params, cfg: ArchConfig, x):

@@ -23,7 +23,9 @@ A model shard of the tensor-parallel split (``shard=(m, n)``) runs the
 router, the dispatch, the capacity and the aux like every shard, then
 either its E/n experts (expert-parallel, when n divides E) or its 1/n of
 every expert's d_ff; its combine is a row-parallel partial in fp32, which
-the model group sums.
+the model group sums. A decode step whose rows are cut over the data axes
+gathers the router's inputs over the data indices first
+(``moe_apply_gathered``), so the dispatch group is the whole batch's.
 """
 from __future__ import annotations
 
@@ -142,3 +144,20 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
         aux = aux + a
     y = torch.cat(ys)[:tokens].reshape(B, S, d)
     return y, aux / n_groups
+
+
+def moe_apply_gathered(p: Params, parts, d: int, device, cfg: ArchConfig,
+                       shard=None) -> torch.Tensor:
+    """``moe_apply`` of data index ``d``'s rows with the dispatch group
+    taken over the whole batch: ``parts``, every data index's router inputs
+    [B_d, S, d_model] in data-index order, all-gathered onto ``device``,
+    so capacity and drops are decided as on one device (a decode step's
+    one token a row would otherwise cut the reference's dispatch group).
+    -> data index ``d``'s rows of y (a model shard's fp32 partial)."""
+    from repro_torch.distributed import collectives as col
+
+    x = col.group_all_gather(list(parts), 0, [device])[0]
+    y, _ = moe_apply(p, x, cfg, shard=shard)
+    n = parts[d].shape[0]
+    return y[d * n:(d + 1) * n]
+

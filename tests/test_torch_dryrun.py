@@ -143,8 +143,12 @@ def cells(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
     cfg = get_arch(SMOKE).smoke()
     mesh = make_mesh((2, 4), ("data", "model"), devices=op_walk.cards(8))
+    # the decode cell's cache splits 4 ways into whole 64-token pages
+    shapes = {"train": smoke_shape("train"),
+              "prefill": smoke_shape("prefill"),
+              "decode": ShapeConfig("smoke_decode", 1024, 2, "decode")}
     recs = {kind: dryrun.run_cell(SMOKE, f"smoke_{kind}", cfg=cfg,
-                                  shape=smoke_shape(kind), mesh=mesh,
+                                  shape=shapes[kind], mesh=mesh,
                                   out_dir=str(out), force=True)
             for kind in ("train", "prefill", "decode")}
     return out, cfg, mesh, recs
@@ -169,11 +173,13 @@ def test_run_cell_writes_an_ok_record(cells, kind):
     ma = rec["memory_analysis"]
     assert ma["device"] == "cuda:0" and ma["fits"]
     assert ma["peak_live_bytes"] >= ma["argument_size_in_bytes"] > 0
-    # train and prefill: data index 0's model group, one launch per shard
-    # a layer (train: forward and recompute); decode: one device
+    # data index 0's model group, one launch per shard a layer (train:
+    # forward and recompute; decode: each shard's relevancy and apply over
+    # its slice of the cache)
     want = {"train": {"flash_attention": 4 * 2 * 2}, "prefill": {
         "flash_attention": 4 * 2}, "decode": {
-            "relevancy_topk_candidates": 2, "paged_decode_attention": 2}}
+            "relevancy_topk_candidates": 4 * 2,
+            "paged_decode_attention": 4 * 2}}
     assert rec["kernel_calls"] == want[kind]
 
 
@@ -218,18 +224,82 @@ def test_train_cell_is_the_sharded_step(cells):
         4 * kv_head * (n - cfg.n_kv_heads) + (n - 1) * w2)
 
 
-@pytest.mark.parametrize("variant", ["optimized-spdecode",
-                                     "optimized-idxcache"])
-def test_decode_variants_run_over_the_model_devices(cells, variant):
-    out, cfg, mesh, _ = cells
+@pytest.mark.parametrize("variant,arch", [
+    ("optimized-spdecode", SMOKE), ("optimized-idxcache", SMOKE),
+    ("optimized-spdecode", "zamba2-7b"), ("optimized-idxcache", "zamba2-7b")],
+    ids=["optimized-spdecode", "optimized-idxcache",
+         "optimized-spdecode-zamba2", "optimized-idxcache-zamba2"])
+def test_decode_variants_run_over_the_model_devices(cells, variant, arch,
+                                                    tmp_path):
+    """The optimized decode variants run DSA sequence-parallel over data
+    index 0's 4 model devices: llama through the decode split, the hybrid
+    (no model-axis split) through ``make_sparse_fn_distributed`` on its
+    unsplit step, one paged launch per shard an attention site. The
+    hybrid's step carries no index cache, so its idxcache cell fails
+    rather than walk another variant."""
+    out, _, mesh, _ = cells
+    cfg = get_arch(arch).smoke()
     # 16 pages of 64 tokens: 4 a model device
-    rec = dryrun.run_cell(SMOKE, "smoke_decode_1k", variant=variant,
+    rec = dryrun.run_cell(arch, "smoke_decode_1k", variant=variant,
                           cfg=cfg, shape=ShapeConfig("smoke_decode_1k", 1024,
                                                      2, "decode"),
-                          mesh=mesh, out_dir=str(out), force=True)
+                          mesh=mesh, out_dir=str(tmp_path), force=True)
+    assert rec["variant"] == variant
+    if arch != SMOKE and variant == "optimized-idxcache":
+        assert not rec["ok"] and "no index cache" in rec["error"]
+        return
     assert rec["ok"], rec.get("error")
-    # the sequence-parallel top-k and apply: one launch per shard a layer
-    assert rec["kernel_calls"]["paged_decode_attention"] == 2 * 4
+    sites = cfg.n_layers if arch == SMOKE else M._hybrid_shape(cfg)[0]
+    # the sequence-parallel top-k and apply: one launch per shard a site
+    assert rec["kernel_calls"] == {"relevancy_topk_candidates": 4 * sites,
+                                   "paged_decode_attention": 4 * sites}
+    assert rec["walked"].startswith("the decode split" if arch == SMOKE
+                                    else "data index 0's 1 rows")
+
+
+@pytest.mark.parametrize("B,coords", [(2, 4), (1, 8)],
+                         ids=["decode_32k-layout", "long_500k-layout"])
+def test_decode_cells_walk_the_split(cells, B, coords, tmp_path):
+    """A decode cell walks the decode split: with the rows cut over the
+    data axes (decode_32k) data index 0's model group, each of its 4
+    coordinates over a quarter of the sequence; with one row (long_500k)
+    all 8 coordinates, the sequence over (data, model). One relevancy and
+    one paged attention launch a coordinate a layer, and the busiest
+    card's peak holds its slice of the cache, not the whole."""
+    _, cfg, mesh, _ = cells
+    S = 8192
+    rec = dryrun.run_cell(SMOKE, "smoke_decode_split", cfg=cfg,
+                          shape=ShapeConfig("smoke_decode_split", S, B,
+                                            "decode"),
+                          mesh=mesh, out_dir=str(tmp_path), force=True)
+    assert rec["ok"], rec.get("error")
+    assert rec["walked"].startswith("the decode split")
+    assert rec["kernel_calls"] == {
+        "relevancy_topk_candidates": coords * cfg.n_layers,
+        "paged_decode_attention": coords * cfg.n_layers}
+    whole = 2 * cfg.n_layers * B * S * cfg.n_kv_heads * cfg.hd * 2
+    ma = rec["memory_analysis"]
+    assert whole // 8 <= ma["max_peak_live_bytes"] < whole // 2
+    assert rec["collective_bytes"]["all-to-all"] > 0   # the (out, lse)
+
+
+def test_moe_decode_walk_stands_in_for_the_other_data_indices(cells,
+                                                              tmp_path):
+    """MoE on decode_32k's layout: the walk runs data index 0's
+    ``DecodeGroup``; its dispatch group is the whole batch's, and the other
+    data index's router inputs stand in as zeros on its cards."""
+    _, _, mesh, _ = cells
+    arch = "granite-moe-1b-a400m"
+    cfg = get_arch(arch).smoke()
+    rec = dryrun.run_cell(arch, "smoke_decode_moe", cfg=cfg,
+                          shape=ShapeConfig("smoke_decode_moe", 1024, 2,
+                                            "decode"),
+                          mesh=mesh, out_dir=str(tmp_path), force=True)
+    assert rec["ok"], rec.get("error")
+    assert "stand in as zeros" in rec["walked"]
+    assert rec["kernel_calls"] == {
+        "relevancy_topk_candidates": 4 * cfg.n_layers,
+        "paged_decode_attention": 4 * cfg.n_layers}
 
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b",

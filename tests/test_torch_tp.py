@@ -180,11 +180,16 @@ def test_tp_prefill_matches_single_device(case):
 
 def test_unsplit_families_raise():
     """The hybrid and xLSTM families keep the gathered step; their TP
-    forward names the condition."""
+    forward and their split decode step name the condition."""
     cfg = get_arch("zamba2-7b").smoke()
     with pytest.raises(ValueError, match="transformer families"):
         M.forward_tp([{}], cfg, torch.zeros(1, 4, dtype=torch.int32))
     mesh = make_mesh((1, 2), AXES[2], devices=["cpu"])
+    for arch in ("zamba2-7b", "xlstm-125m"):
+        with pytest.raises(ValueError, match="transformer families"):
+            M.decode_step_tp({}, get_arch(arch).smoke(),
+                             torch.zeros(1, dtype=torch.int32),
+                             {"k": None, "v": None, "length": 0}, mesh)
     assert not splits_model(cfg, mesh)
     assert not splits_model(get_arch("xlstm-125m").smoke(), mesh)
     assert not splits_model(get_arch("llama3.2-1b").smoke(),
