@@ -53,8 +53,8 @@ failure (the script then exits non-zero):
 3b. train_families: granite-moe-1b-a400m, musicgen-medium, zamba2-7b and
    xlstm-125m (``TRAIN_FAMILIES``) trained the same way at their published
    widths at a constant lr (1e-5; musicgen 3e-6, xLSTM 3e-4), zamba2 cut
-   to 12 layers (2 shared-block sites at dh 112) and xLSTM to S 128 (its
-   token loops): batch 0's loss after one step at the train phase's
+   to 12 layers (2 shared-block sites at dh 112) and xLSTM to 6 of its 12
+   layers and S 128 (its token loops): batch 0's loss after one step at the train phase's
    schedule and at the family's (the lr probe); 4 steps with finite,
    falling loss, 2 flash launches per attention layer per step, all on the
    tensor cores (none for xLSTM), one profiled step (busy share), and one
@@ -111,6 +111,29 @@ failure (the script then exits non-zero):
    same call, peak memory, a profiled step's busy share and device ops,
    the bytes a split step exchanges (counted on placeholder cards), the
    phase's seconds; one ``decode_sharded`` line;
+3g. hybrid_sharded: the hybrid's Mamba2 split over the model axis
+   (``models.ssm.mamba_tp``: each member its
+   heads, the gated norm's variance all-reduced, ``out_proj``
+   row-parallel), zamba2-7b at full width with seeded weights, one process
+   over a (2, 4) mesh of ``cuda:0`` entries, depth cut for memory and time
+   (``HYBRID_*``): (t) one tensor-parallel train step at 12 layers (bf16,
+   B 4 x S 2048, remat, lr 1e-5) against one device's from the same
+   weights and batch (losses within 2e-2, the worst leaf within its bf16
+   bound, 32 flash launches a step on the tensor cores, step ms, peak
+   memory, a profiled step's busy share and device ops of each) and an
+   fp32 step (S 512) within the CPU tests' tolerances; (p) ``prefill_tp``
+   of B 4 x 4096 at 27 layers against ``prefill`` (HYBRID_PREFILL_TOL);
+   (a) decode_32k's layout at 27 layers, B 4, a cache of 32,760 tokens in
+   32,768 drawn from ``--seed`` (``shared_k`` / ``shared_v``, SSM and conv
+   states), DSA at 64-token pages, 8 greedy steps, and (b) long_500k's at
+   13 layers, B 1, 524,284 in 524,288, 4 steps, each against one device's
+   (logits within HYBRID_DECODE_TOL, tokens, every shard of the states,
+   32 / 16 launches of each kernel a split step, a profiled step in (a),
+   the bytes a card receives on placeholder cards, the kernels at the
+   per-shard shapes: rows 1h / 2h); (c) one fp32 step at 7 layers on an
+   8192-token cache in each of ``DECODE_C_CASES``' layouts (logits and
+   states within LOGIT_TOL, pages equal); the seconds by part; one
+   ``hybrid_sharded`` line;
 3d. roofline: the dry-run and roofline tools (``launch.op_walk``,
    ``launch.roofline``, ``launch.dryrun``): one train step of full-width
    llama3.2-1b (bf16, B 4 x S 2048, remat, one card) and one DSA
@@ -238,19 +261,24 @@ failure (the script then exits non-zero):
    2048] over 32 / 8), and at the fp32 sharded step's [2, 512] over 8 / 2;
    paged attention and flash also at the families' shapes: G = 1,
    2, 4 and 8, dh 112 and 128; relevancy and paged attention at the fleet
-   phase's shard-local shapes and at decode_sharded's per-shard shapes
-   (its launches in ``launches_by_path``); flash at MemAgent's prefills,
+   phase's shard-local shapes and at decode_sharded's and
+   hybrid_sharded's per-shard shapes (their launches in
+   ``launches_by_path``); flash at a model shard of the hybrid's train
+   step ([2, 2048] over 8 / 8 heads at dh 112); flash at MemAgent's prefills,
    with the methods phase's launches), the card line, and ``{"ok": true,
    ...}``
    as the last line.
 
 ``--phases`` runs a subset of kernels, train, train_families,
-train_sharded, decode_sharded, roofline, serve, modes, compare, pipeline,
-families, fleet, methods and examples (the default is all fourteen);
-``--phases decode_bounds`` takes the readings behind DECODE_BF16_TOL
-(``phase_decode_bounds``: one device's bf16 logits against fp32 at (a)'s
-and (b)'s shapes, and the split's with its merge right and deliberately
-wrong), a phase that runs only when named;
+train_sharded, decode_sharded, hybrid_sharded, roofline, serve, modes,
+compare, pipeline, families, fleet, methods and examples (the default is
+all fifteen); ``--phases decode_bounds`` takes the readings behind
+DECODE_BF16_TOL (``phase_decode_bounds``: one device's bf16 logits against
+fp32 at (a)'s and (b)'s shapes, and the split's with its merge right and
+deliberately wrong) and behind the hybrid's HYBRID_DECODE_TOL and
+HYBRID_PREFILL_TOL (``_hybrid_bounds``: the same at the hybrid_sharded
+phase's shapes, and with a per-member gated norm), a phase that runs only
+when named; ``--seed`` seeds the hybrid_sharded phase's caches;
 ``--runs`` a subset of the serve runs, ``--family-runs`` of the families
 phase's.
 """
@@ -287,15 +315,16 @@ CLI_TP, CLI_TOTAL_STEPS = 4, 20          # launch/train.py's --tp, --steps
 # of the fp32 kernel-vs-plain step at B 1), at published widths. zamba2-7b's
 # 81 layers do not fit 80 GB with fp32 AdamW moments (~12 bytes a
 # parameter): 12 layers keep 2 shared-block sites. xLSTM's token loops (one
-# step of host code per token) cut its S; no kernel is on its path, so its
-# fp32 step is a short one. The lr is constant (one warm-up step): Adam's
+# step of host code per token) cut its S, and its depth to 6 of 12 layers
+# (3 pairs: the script's time, since the hybrid_sharded phase); no kernel
+# is on its path, so its fp32 step is a short one. The lr is constant (one warm-up step): Adam's
 # first steps move every parameter by about lr, and at 1.4-1.8 B parameters
 # the train phase's schedule (lr 3e-3, 5 warm-up steps: 6e-4 at step 1)
 # overshoots, musicgen's even at 1e-5 (``_lr_probe``).
 TRAIN_FAMILIES = {"granite-moe-1b-a400m": (0, TRAIN_B, TRAIN_S, 1e-5, 512),
                   "musicgen-medium": (0, TRAIN_B, TRAIN_S, 3e-6, 512),
                   "zamba2-7b": (12, TRAIN_B, TRAIN_S, 1e-5, 512),
-                  "xlstm-125m": (0, TRAIN_B, 128, 3e-4, 32)}
+                  "xlstm-125m": (6, TRAIN_B, 128, 3e-4, 32)}
 TRAIN_FAMILY_STEPS = 4
 # the train_sharded phase: llama3.2-1b at full width on a (2, 4) mesh of the
 # card. The pod sync's (2, 2, 2) mesh holds 4 copies of every leaf and of
@@ -433,8 +462,8 @@ FLEET_RUNS = {
                      mesh=2, equals="dsa-offload-overlap")}
 ALL_RUNS = {**RUNS, **FAMILY_RUNS, **FLEET_RUNS}
 PHASES = ("kernels", "train", "train_families", "train_sharded",
-          "decode_sharded", "roofline", "serve", "modes", "compare",
-          "pipeline", "families", "fleet", "methods", "examples")
+          "decode_sharded", "hybrid_sharded", "roofline", "serve", "modes",
+          "compare", "pipeline", "families", "fleet", "methods", "examples")
 EXTRA_PHASES = ("decode_bounds",)        # run only when named
 # the run whose serve phase gives a kernel's launches and in-situ time in
 # its row: the first run that launches it
@@ -1386,6 +1415,10 @@ def check_flash_attention(dev):
                        20),
         "pod sync": (TRAIN_B // 4, TRAIN_S, 16, 4, 64, 0, 2),
         "gpipe": (1, TRAIN_S, 32, 8, 64, 0, 20),
+        # the hybrid_sharded phase's train step: a model shard of zamba2's
+        # shared block (B 4 / 2; 32 / 4 q and kv heads, dh 112)
+        "hybrid_sharded": (TRAIN_B // 2, TRAIN_S, 32 // CLI_TP, 32 // CLI_TP,
+                           112, 0, 2),
     }
     def routed(name, fn, want_route):
         """``fn()``, checked to launch once on ``want_route``."""
@@ -1592,8 +1625,7 @@ def _profile_busy(tr, batches):
     torch.cuda.synchronize()
     prof.start()
     t0 = time.perf_counter()
-    for b in batches:
-        tr.train_step(b)
+    losses = [tr.train_step(b)["loss"] for b in batches]
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     prof.stop()
@@ -1608,7 +1640,7 @@ def _profile_busy(tr, batches):
             flash_ns += e.duration_ns()
             n_flash += 1
     dev_us = busy_ns / 1e3
-    return {"steps": len(batches), "wall_us": wall_us,
+    return {"steps": len(batches), "wall_us": wall_us, "losses": losses,
             "device_busy_us": dev_us, "device_busy_share": dev_us / wall_us,
             "flash_ms_in_situ": flash_ns / n_flash / 1e6 if n_flash else None,
             "flash_launches_profiled": n_flash,
@@ -1951,11 +1983,13 @@ def _steps(tr, batches):
 
 def _worst_leaf(placed, host):
     """Max |a - b| over the leaves: a sharded tree on the card against full
-    tensors on the host."""
+    tensors on the host (a leaf of no elements, as zamba2's empty tail,
+    has none)."""
     from repro_torch.train.optimizer import leaves
 
     return max(float((p.full().float() - h.to(p.shards[0].device).float())
-                     .abs().max()) for p, h in zip(leaves(placed), host))
+                     .abs().max()) for p, h in zip(leaves(placed), host)
+               if h.numel())
 
 
 def _bf16_leaf_bound(placed, host, steps, lr):
@@ -1968,6 +2002,8 @@ def _bf16_leaf_bound(placed, host, steps, lr):
 
     worst, at = 0.0, None
     for p, h in zip(leaves(placed), host):
+        if not h.numel():
+            continue
         big = float(h.float().abs().max())
         ulp = 2.0 ** (math.floor(math.log2(big)) - 7) if big > 0 else 0.0
         bound = steps * (4 * lr + ulp)
@@ -2424,7 +2460,7 @@ def phase_train_sharded(dev):
             "gpipe": (gp_launches, gp_routes)}
 
 
-def _sharded_fp32(cfg, mesh, dev):
+def _sharded_fp32(cfg, mesh, dev, label="train_sharded fp32"):
     """One fp32 step (B 4 x S SHARDED_FP32_S, lr SHARDED_FP32_LR from step
     1, so that an update is 100 x the tolerance) on one device and on
     ``mesh``: loss within 1e-5 relative, every shard equal to its slice of
@@ -2464,6 +2500,8 @@ def _sharded_fp32(cfg, mesh, dev):
     replicas = True
     for p, m, h, hm, h0 in zip(leaves(tr.params), leaves(tr.opt_state.m),
                                host, host_m, p0):
+        if not h.numel():           # zamba2's empty tail
+            continue
         for t in (p, m):
             full = t.full()
             replicas &= all(torch.equal(sd, full[sl])
@@ -2475,8 +2513,8 @@ def _sharded_fp32(cfg, mesh, dev):
         worst_m = max(worst_m, float((m.full() - hm).abs().max()))
         off = d > 1e-5
         if bool((off & (hm.abs() / (1 - oc.b1) >= 100 * oc.eps)).any()):
-            raise AssertionError("train_sharded fp32: a parameter whose "
-                                 "gradient is above 100 eps is 1e-5 apart")
+            raise AssertionError(f"{label}: a parameter whose gradient is "
+                                 f"above 100 eps is 1e-5 apart")
         if off.any():
             worst_loose = max(worst_loose, float(d[off].max()))
         loose += int(off.sum())
@@ -2492,7 +2530,7 @@ def _sharded_fp32(cfg, mesh, dev):
         f"{moved:.3g}; replicas agree: {replicas}")
     if not (rel <= 1e-5 and worst_m <= 1e-5 and worst_loose <= 2 * lr
             and loose <= 1e-3 * total and moved >= lr / 2 and replicas):
-        raise AssertionError("train_sharded fp32: sharded != single")
+        raise AssertionError(f"{label}: sharded != single")
     return {"batch": TRAIN_B, "seq": SHARDED_FP32_S, "lr": lr,
             "single_loss": single, "sharded_loss": sharded,
             "loss_rel_err": rel, "worst_leaf_abs_diff": worst,
@@ -2964,14 +3002,17 @@ class _FirstCall:
         setattr(ops, self.name, self.real)
 
 
-def _split_cache(k, v, cfg, mesh, B, S):
+def _place_cache(c, cfg, mesh, B, S):
+    """A cache tree (k / v, or the hybrid's) placed by ``cache_specs`` on
+    ``mesh``'s devices; its ``length`` kept."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import sharding as sh
 
     shp = ShapeConfig("decode", S, B, "decode")
-    c = sh.device_put({"k": k, "v": v}, sh.make_shardings(
-        sh.cache_specs({"k": 0, "v": 0}, cfg, shp, mesh), mesh))
-    return c
+    out = sh.device_put(c, sh.make_shardings(
+        sh.cache_specs(c, cfg, shp, mesh), mesh))
+    out["length"] = c.get("length", 0)
+    return out
 
 
 def _decode_pair(cfg, tp, one, placed, mesh, c1, c2, tok, steps, sp1, sp2,
@@ -3025,30 +3066,31 @@ def _decode_pair(cfg, tp, one, placed, mesh, c1, c2, tok, steps, sp1, sp2,
     return rows, launches, caps, split, c1, c2, tok
 
 
-def _tokens_check(name, rows):
-    """Every step's logits within DECODE_BF16_TOL of one device's; equal
-    greedy tokens, a differing one only where one device's top-2 margin is
-    below DECODE_BF16_TOL (a near-tie), reported with its margin."""
+def _tokens_check(name, rows, tol=None):
+    """Every step's logits within ``tol`` (default DECODE_BF16_TOL) of one
+    device's; equal greedy tokens, a differing one only where one device's
+    top-2 margin is below ``tol`` (a near-tie), reported with its
+    margin."""
+    tol = DECODE_BF16_TOL if tol is None else tol
     ties, near = [], min(min(r["margin"]) for r in rows)
     for i, r in enumerate(rows):
-        if not r["err"] <= DECODE_BF16_TOL:
+        if not r["err"] <= tol:
             raise AssertionError(f"{name}: step {i} logits differ by "
-                                 f"{r['err']} > {DECODE_BF16_TOL}")
+                                 f"{r['err']} > {tol}")
         for b, (a, c) in enumerate(zip(r["tok_one"], r["tok_split"])):
             if a != c:
-                if not r["margin"][b] < DECODE_BF16_TOL:
+                if not r["margin"][b] < tol:
                     raise AssertionError(
                         f"{name}: step {i} row {b} token {c} against one "
-                        f"device's {a}, margin {r['margin'][b]} >= "
-                        f"{DECODE_BF16_TOL}")
+                        f"device's {a}, margin {r['margin'][b]} >= {tol}")
                 ties.append({"step": i, "row": b, "margin": r["margin"][b]})
     log(f"  {name}: tokens equal but {len(ties)} near-ties {ties}; smallest "
         f"top-2 margin {near:.4g}; logits max abs diff "
-        f"{max(r['err'] for r in rows):.4g} (bound {DECODE_BF16_TOL})")
+        f"{max(r['err'] for r in rows):.4g} (bound {tol})")
     return ties, near
 
 
-def _shard_rows(label, caps, launches, steps):
+def _shard_rows(label, caps, launches, steps, phase="decode_sharded"):
     """The two kernels at the first shard's shapes as the main path gave
     them: kernel against plain (the relevancy top-k through
     ``ops.relevancy_topk`` with kernels on and off; paged attention against
@@ -3066,8 +3108,8 @@ def _shard_rows(label, caps, launches, steps):
         ops.use_kernels(True)
     rel_err = _topk_check(f"relevancy, {label}", kv, ki, pv, pi)
     blk = ops._pow2_block(max(rk.shape[1], 2), rkw.get("block", 2048))
-    rel = dict(_relevancy_timing(rq, rk, rw, blk), path=f"decode_sharded "
-               f"{label}", library_ms=None, max_abs_err=rel_err,
+    rel = dict(_relevancy_timing(rq, rk, rw, blk), path=f"{phase} {label}",
+               library_ms=None, max_abs_err=rel_err,
                launches=launches["relevancy_topk_candidates"] // steps,
                launches_note="a split step (all shards, all layers)",
                shape=f"q [{', '.join(map(str, rq.shape))}] {rq.dtype}, keys "
@@ -3080,7 +3122,7 @@ def _shard_rows(label, caps, launches, steps):
                                                page_size=ps)
     err = _attn_check(f"paged attention, {label}", ko, kl, po, pl_)
     paged = dict(_paged_timing(q, kc, vc, pages, lens, ps),
-                 path=f"decode_sharded {label}", max_abs_err=err,
+                 path=f"{phase} {label}", max_abs_err=err,
                  launches=launches["paged_decode_attention"] // steps,
                  launches_note="a split step (all shards, all layers)",
                  shape=f"q [{', '.join(map(str, q.shape))}] {q.dtype}, k/v "
@@ -3092,7 +3134,8 @@ def _shard_rows(label, caps, launches, steps):
 
 def _exchange_walk(cfg, B, S, tp):
     """One split step's bytes between cards, counted on 8 placeholder
-    cards at the same shapes (the dry run's walk): per card, by kind."""
+    cards at the same shapes (the dry run's walk; the hybrid's states and
+    its one set of indexer weights too): per card, by kind."""
     import torch
     from repro_torch.core.methods import dsa
     from repro_torch.distributed import sharding as sh
@@ -3112,8 +3155,8 @@ def _exchange_walk(cfg, B, S, tp):
         sp = sh.device_put(sp, sh.make_shardings(
             sh.method_specs(sp, cfg, mesh), mesh))
         c = cache_structs(cfg, B, S, tp)
-        caches = _split_cache(c["k"], c["v"], cfg, mesh, B, S)
-        caches["length"] = S - 1
+        c["length"] = S - 1
+        caches = _place_cache(c, cfg, mesh, B, S)
         tok = torch.zeros(B, dtype=torch.int32).to("cuda:0")
         with torch.no_grad(), op_walk.OpWalk() as w:
             M.decode_step_tp(placed, cfg, tok, caches, mesh, tp=tp,
@@ -3250,7 +3293,7 @@ def phase_decode_bounds(dev):
             del c32
             torch.cuda.empty_cache()
             _rewind(c1, ctx)
-            c2 = _split_cache(c1["k"], c1["v"], cfg, mesh, B, S)
+            c2 = _place_cache({"k": c1["k"], "v": c1["v"]}, cfg, mesh, B, S)
             c2["length"] = ctx
             del c1
             r["split_vs_one"] = diffs(_forced(split_step, c2, feed), ref)
@@ -3267,8 +3310,157 @@ def phase_decode_bounds(dev):
             torch.cuda.empty_cache()
         out[label] = r
         log(f"  ({label}) {json.dumps(r)}")
+    del one, one32, placed, sp1, sp2
+    torch.cuda.empty_cache()
+    out["hybrid"] = _hybrid_bounds(dev)
     out["seconds"] = time.perf_counter() - t_start
     print(json.dumps({"decode_bounds": out}), flush=True)
+
+
+def _hybrid_bounds(dev):
+    """The readings behind HYBRID_DECODE_TOL, HYBRID_STATE_TOL and
+    HYBRID_PREFILL_TOL, at the hybrid_sharded phase's (p), (a) and (b)
+    shapes on its mesh, every run fed the same seeded tokens from the same
+    seeded cache: (1) one device's bf16 logits (and final recurrent
+    states) against the fp32 ones of the same weights (the bf16 ones
+    cast); (2) the split's against one device's, right, with each fault of
+    DECODE_WRONG_MERGES (decode), and with the gated norm's variance over
+    each member's channels alone (each its sum of squares times n, in
+    place of the all-reduce). (3) At (c)'s fp32 shape on its first
+    layout, one step of the split right and with each fault: what
+    LOGIT_TOL holds there."""
+    import torch
+    from repro_torch.core.methods import dsa
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import topk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    from repro_torch.train.optimizer import tree_map
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    real_merge, real_norm = topk.merge_partials, ssm.norm_sums
+    faults = {f"wrong merge, {k}": (_wrong_merge(k), real_norm)
+              for k in DECODE_WRONG_MERGES}
+    faults["per-member gated norm"] = (
+        real_merge, lambda xs: [x * len(xs) for x in xs])
+
+    def diffs(a, b):
+        return [float((x - y).abs().max()) for x, y in zip(a, b)]
+
+    out = {"mesh": dict(make_mesh(*HYBRID_MESH).shape), "tolerance_in_use": {
+        "decode": HYBRID_DECODE_TOL, "states": HYBRID_STATE_TOL,
+        "prefill": HYBRID_PREFILL_TOL, "fp32 (c)": LOGIT_TOL}}
+    layouts = (("a", HYBRID_A, HYBRID_MESH, None),
+               ("b", HYBRID_B, HYBRID_MESH, None),
+               ("c", (HYBRID_C[0], DECODE_C_CASES[0][1], HYBRID_C[1], 1),
+                DECODE_C_CASES[0][0], "float32"))
+    for label, (layers, B, S, steps), mesh_l, dtype in layouts:
+        mesh = make_mesh(*mesh_l)
+        tp = mesh.shape["model"]
+        cfg, one, placed, sp1, sp2 = _hybrid_params(layers, dev, mesh,
+                                                    dtype)
+        sfn = dsa.make_sparse_fn(cfg, cfg.memory, tp=tp, page=DECODE_PAGE)
+        split = dsa.SplitDSA(cfg, cfg.memory, page=DECODE_PAGE)
+        r = {"layers": layers, "batch": B, "cache": S, "steps": steps,
+             "dtype": cfg.dtype, "mesh": dict(mesh.shape)}
+        with torch.no_grad():
+            if label == "a":     # (p) at its shape, on (a)'s weights
+                _, Bp, Sp = HYBRID_PREFILL
+                toks = torch.randint(0, cfg.vocab_size, (Bp, Sp),
+                                     generator=g, device=dev,
+                                     dtype=torch.int32)
+                ref = M.prefill(one, cfg, toks, tp=tp)[0].float()
+                one32 = tree_map(lambda t: t.float(), one)
+                p = {"bf16_vs_fp32": float((M.prefill(
+                    one32, cfg.replace(dtype="float32"), toks, tp=tp)[0]
+                    - ref).abs().max())}
+                del one32
+
+                def split_prefill():
+                    return torch.cat([M.prefill_tp(
+                        sh.group_view(placed, mesh, d), cfg,
+                        toks[sh.row_block(mesh, Bp, d)], tp=tp)[0]
+                        for d in range(mesh.shape["data"])]).float()
+
+                p["split_vs_one"] = float((split_prefill() - ref).abs().max())
+                ssm.norm_sums = faults["per-member gated norm"][1]
+                try:
+                    p["per-member gated norm"] = float(
+                        (split_prefill() - ref).abs().max())
+                finally:
+                    ssm.norm_sums = real_norm
+                out["p"] = p
+                log(f"  (hybrid p) {json.dumps(p)}")
+                del toks, ref
+            ctx = S - steps
+            c0 = _hybrid_cache(cfg, B, S, ctx, g, dev)
+            feed = torch.randint(0, cfg.vocab_size, (steps, B), generator=g,
+                                 device=dev, dtype=torch.int32)
+
+            def forced(step, c):
+                """fp32 logits a step and the final recurrent states (the
+                K / V, 15 GB a copy at (b), dropped)."""
+                got = []
+                for t in feed:
+                    lg, c = step(t, c)
+                    got.append(lg.float())
+                return got, {k: v for k, v in c.items()
+                             if k not in ("shared_k", "shared_v")}
+
+            ref, c_ref = forced(lambda t, c: M.decode_step(
+                one, cfg, t, c, tp=tp, sparse_fn=sfn, sparse_params=sp1),
+                _copy_cache(c0))
+            if dtype is None:
+                one32 = tree_map(lambda t: t.float(), one)
+                got, c32 = forced(lambda t, c: M.decode_step(
+                    one32, cfg.replace(dtype="float32"), t, c, tp=tp,
+                    sparse_fn=sfn, sparse_params=sp1),
+                    _copy_cache(c0, torch.float32))
+                r["bf16_vs_fp32"] = diffs(ref, got)
+                r["states_bf16_vs_fp32"] = _states_gap(c_ref, c32)
+                del one32, c32, got
+                torch.cuda.empty_cache()
+
+            def split_run(name):
+                got, c2 = forced(lambda t, c: M.decode_step_tp(
+                    placed, cfg, t, c, mesh, tp=tp, sparse=split,
+                    sparse_params=sp2), _place_cache(c0, cfg, mesh, B, S))
+                r[name] = diffs(got, ref)
+                r[f"states, {name}"] = _states_gap(c2, c_ref)
+
+            split_run("split_vs_one")
+            for name, (merge, norm) in faults.items():
+                topk.merge_partials, ssm.norm_sums = merge, norm
+                try:
+                    split_run(name)
+                finally:
+                    topk.merge_partials, ssm.norm_sums = real_merge, real_norm
+            del c0, c_ref
+        del one, placed
+        torch.cuda.empty_cache()
+        out[label] = r
+        log(f"  (hybrid {label}) {json.dumps(r)}")
+    return out
+
+
+def _states_gap(got, want):
+    """Max |got - want| over the hybrid's recurrent states: ``want`` one
+    device's cache, ``got`` another's or the split's (each shard against
+    its slice)."""
+    from repro_torch.distributed import sharding as sh
+
+    worst = 0.0
+    for name in ("body_ssm", "body_conv", "tail_ssm", "tail_conv"):
+        tup = lambda t: t if isinstance(t, tuple) else (t,)
+        for x, y in zip(tup(got[name]), tup(want[name])):
+            pairs = (zip(x.shards, (y[sl] for sl in x.slices))
+                     if isinstance(x, sh.ShardedTensor) else [(x, y)])
+            for a, b in pairs:
+                if a.numel():
+                    worst = max(worst, float((a.float() - b.float()).abs()
+                                             .max()))
+    return worst
 
 
 def phase_decode_sharded(dev):
@@ -3424,7 +3616,7 @@ def phase_decode_sharded(dev):
     v = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
     k[:, :, ctx:] = 0
     v[:, :, ctx:] = 0
-    c2 = _split_cache(k, v, cfg, mesh, B, S)
+    c2 = _place_cache({"k": k, "v": v}, cfg, mesh, B, S)
     c1 = {"k": k, "v": v, "length": ctx}
     c2["length"] = ctx
     del k, v
@@ -3483,7 +3675,7 @@ def phase_decode_sharded(dev):
         v = torch.randn(shape, generator=g, device=dev)
         k[:, :, ctx:] = 0
         v[:, :, ctx:] = 0
-        c2 = _split_cache(k, v, cfg32, meshc, B, S)
+        c2 = _place_cache({"k": k, "v": v}, cfg32, meshc, B, S)
         c2["length"] = ctx
         c1 = {"k": k, "v": v, "length": ctx}
         picked = []
@@ -3523,6 +3715,442 @@ def phase_decode_sharded(dev):
     out["kernel_rows"] = rows_out
     print(json.dumps({"decode_sharded": out}), flush=True)
     return rows_out, launches_out
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the hybrid's Mamba2 split over the model axis
+# ---------------------------------------------------------------------------
+
+# zamba2-7b at full width (32 q / 32 kv heads at dh 112, 112 SSM heads of
+# 64 channels, d_inner 7168) on a (2, 4) mesh of the card, its depth cut for
+# memory and time: the train step at 12 layers (2 shared-block sites, as
+# train_families runs it), the prefill and decode_32k's layout at 27 (4
+# sites and the 3-layer tail, as zamba2-dsa-generate), long_500k's layout at
+# 13 (2 sites and a 1-layer tail: one site's shared_k + shared_v hold 7.5
+# GB at 524,288 tokens, and the phase keeps one device's copy beside the
+# split's), the fp32 checks at 7 (1 site and a 1-layer tail)
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_MESH = ((2, 4), ("data", "model"))
+HYBRID_TRAIN = (12, 1e-5)               # layers, lr (the train step)
+HYBRID_PREFILL = (27, 4, 4096)          # layers, B, S
+HYBRID_A = (27, 4, 32768, 8)            # decode_32k's: layers, B, cache, steps
+HYBRID_B = (13, 1, 524288, 4)           # long_500k's
+HYBRID_C = (7, 8192)                    # fp32: layers, cache (DECODE_C_CASES)
+# abs bounds on the split's bf16 logits against one device's: decode ((a)
+# and (b)), its final recurrent states, and prefill ((p)); from the
+# hybrid's own readings (``--phases decode_bounds``, PERF.md): the right
+# split and one device's bf16 against fp32 reach 0.203 / 0.109 at (a) /
+# (b) and 0.223 at (p), their states 0.420; a per-member gated norm moves
+# the logits by 1.77 or more, the states by 4.05 or more. The (out, lse)
+# merge faults move the bf16 logits no more than rounding does here
+# (attention is 4 of 27 layers, over a random cache): (c)'s fp32 check
+# holds them (they move its logits by 0.0245 or more)
+HYBRID_DECODE_TOL = 0.5
+HYBRID_STATE_TOL = 1.0
+HYBRID_PREFILL_TOL = 0.5
+
+
+def _hybrid_cache(cfg, B, S, ctx, g, dev, dtype=None):
+    """The hybrid's decode cache drawn from ``g``: ``shared_k`` /
+    ``shared_v`` N(0, 1) in the model dtype (or ``dtype``), zero from
+    ``ctx`` on; the SSM and conv states N(0, 1) in ``make_cache``'s fp32.
+    ``length`` = ctx."""
+    import torch
+    from repro_torch.models import model as M
+
+    c = M.make_cache(cfg, B, S, dtype=dtype, device=dev)
+    for name, t in list(c.items()):
+        for x in (t if isinstance(t, tuple) else (t,)):
+            if isinstance(x, torch.Tensor):
+                x.copy_(torch.randn(x.shape, generator=g, device=dev))
+    c["shared_k"][:, :, ctx:] = 0
+    c["shared_v"][:, :, ctx:] = 0
+    c["length"] = ctx
+    return c
+
+
+def _copy_cache(c, dtype=None):
+    """A copy of a one-device cache tree; ``shared_k`` / ``shared_v`` cast
+    to ``dtype`` if given (the states keep theirs)."""
+    out = {}
+    for name, t in c.items():
+        if isinstance(t, tuple):
+            out[name] = tuple(x.clone() for x in t)
+        elif hasattr(t, "clone"):
+            out[name] = t.to(dtype, copy=True) if dtype and name in (
+                "shared_k", "shared_v") else t.clone()
+        else:
+            out[name] = t
+    return out
+
+
+def _hybrid_params(layers, dev, mesh, dtype=None):
+    """zamba2-7b cut to ``layers``: (cfg, one device's seeded weights, the
+    same placed by ``param_specs``, one set of DSA indexer weights and
+    that placed by ``method_specs``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.methods import dsa
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import init_params
+
+    cfg = get_arch(HYBRID_ARCH).replace(n_layers=layers)
+    if dtype:
+        cfg = cfg.replace(dtype=dtype)
+    tp = mesh.shape["model"]
+    one = init_params(cfg, 0, tp=tp, device=dev)
+    placed = _place(init_params(cfg, 0, tp=tp, device=dev), cfg, mesh)
+    sp1 = dsa.dsa_init(cfg, cfg.memory, 1, stacked=False, device=dev)
+    sp2 = sh.device_put(sp1, sh.make_shardings(
+        sh.method_specs(sp1, cfg, mesh), mesh))
+    return cfg, one, placed, sp1, sp2
+
+
+def _hybrid_train(dev, mesh):
+    """(t): one step of one device, its final parameters kept on the host
+    and its copies freed, then one tensor-parallel step on ``mesh`` from the
+    same weights and batch; each also profiled on a second batch. -> (the
+    line's dict, flash launches of the split step, by route)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.models import init_params
+    from repro_torch.models.model import _hybrid_shape
+    from repro_torch.train import OptConfig, Trainer, TrainConfig
+    from repro_torch.train.optimizer import leaves
+    from repro_torch.train.trainer import splits_model
+
+    layers, lr = HYBRID_TRAIN
+    cfg = get_arch(HYBRID_ARCH).replace(n_layers=layers)
+    dp, tp = mesh.shape["data"], mesh.shape["model"]
+    if not (splits_model(cfg, mesh) and cfg.kv_shardable(tp)):
+        raise AssertionError("hybrid_sharded: the mesh does not split "
+                             "zamba2 over the model axis")
+    B, S = TRAIN_B, TRAIN_S
+    tc = TrainConfig(opt=OptConfig(lr=lr, warmup_steps=1,
+                                   total_steps=CLI_TOTAL_STEPS),
+                     remat=True, tp=CLI_TP)
+    batches = _train_batches(cfg, dev, 2, B, S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tc, init_params(cfg, 0, tp=tc.tp, device=dev))
+    single_losses, single_s, _ = _steps(tr, batches[:1])
+    single_peak = torch.cuda.max_memory_allocated()
+    host = [p.detach().cpu() for p in leaves(tr.params)]
+    single_profile = _profile_busy(tr, batches[1:])
+    del tr
+    torch.cuda.empty_cache()
+
+    # the split's one step, profiled (host-bound: its wall under the
+    # profiler is its unprofiled wall, 13.8-15.3 s against 14.6-19.2 s)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tc, _place(init_params(cfg, 0, tp=tc.tp, device=dev),
+                                 cfg, mesh), mesh)
+    ops.reset_launch_counts()
+    profile = _profile_busy(tr, batches[:1])
+    losses, step_s = profile["losses"], [profile["wall_us"] / 1e6]
+    counts = ops.launch_counts()
+    routes = ops.flash_route_counts()
+    per_step = [counts["flash_attention"]]
+    peak = torch.cuda.max_memory_allocated()
+    rel = abs(losses[0] - single_losses[0]) / abs(single_losses[0])
+    worst = _worst_leaf(tr.params, host)
+    worst_of_bound, bound = _bf16_leaf_bound(tr.params, host, 1, lr)
+    del host
+    sites = _hybrid_shape(cfg)[0]
+    want = sites * 2 * tp * dp
+    del tr
+    torch.cuda.empty_cache()
+    log(f"  (t) losses one device {single_losses[0]:.5f}, split "
+        f"{losses[0]:.5f} (rel {rel:.3g}, tol 2e-2); worst leaf {worst:.3g},"
+        f" {worst_of_bound:.3g} of its bf16 bound; step ms "
+        f"{1e3 * single_s[0]:.1f} (warm, profiled: "
+        f"{single_profile['wall_us'] / 1e3:.1f}) vs {1e3 * step_s[0]:.1f} "
+        f"(profiled); peak "
+        f"{single_peak / 1e9:.2f} vs {peak / 1e9:.2f} GB; flash {per_step} "
+        f"a step (want {want}); busy {profile['device_busy_share']:.3f} "
+        f"with {profile['device_ops_per_step']:.0f} device ops (one device "
+        f"{single_profile['device_busy_share']:.3f}, "
+        f"{single_profile['device_ops_per_step']:.0f})")
+    if not all(math.isfinite(x) for x in losses + single_losses):
+        raise AssertionError(f"hybrid_sharded (t): non-finite loss {losses}")
+    if rel > 2e-2:
+        raise AssertionError(f"hybrid_sharded (t): split {losses} vs one "
+                             f"device {single_losses}")
+    if per_step != [want] or profile["flash_launches_profiled"] != want:
+        raise AssertionError(f"hybrid_sharded (t): flash launches "
+                             f"{per_step}, profiled "
+                             f"{profile['flash_launches_profiled']}")
+    if not worst_of_bound <= 1.0:
+        raise AssertionError(f"hybrid_sharded (t): a leaf {worst_of_bound} "
+                             f"of its bf16 bound apart")
+    if routes != {fa.TENSOR_CORES: counts["flash_attention"],
+                  fa.CUDA_CORES: 0}:
+        raise AssertionError(f"hybrid_sharded (t): flash routes {routes}")
+    if any(c for name, c in counts.items() if name != "flash_attention"):
+        raise AssertionError(f"hybrid_sharded (t): other kernels {counts}")
+    fp32 = _sharded_fp32(cfg, mesh, dev, label="hybrid_sharded (t) fp32")
+    return {
+        "layers": layers, "sites": sites, "batch": B, "seq": S, "lr": lr,
+        "remat": True, "tp": tc.tp, "dtype": "bfloat16",
+        "single_loss": single_losses[0], "split_loss": losses[0],
+        "loss_rel_err": rel, "loss_tol": 2e-2,
+        "worst_leaf_abs_diff": worst,
+        "worst_leaf_of_bf16_bound": worst_of_bound,
+        "leaf_bound": "1 step x (4 lr + one bf16 ulp of the leaf's max |p|)",
+        "single_step_ms": 1e3 * single_s[0],
+        "single_warm_step_ms": single_profile["wall_us"] / 1e3,
+        "split_step_ms": 1e3 * step_s[0],
+        "step_ms_note": "one device's first step unprofiled, its second "
+                        "profiled (warm); the split's one step profiled",
+        "single_peak_memory_bytes": single_peak,
+        "split_peak_memory_bytes": peak,
+        "flash_launches_per_step": per_step, "flash_launches_by_route": routes,
+        "profiled_step": profile, "single_profiled_step": single_profile,
+        "fp32": fp32}, counts["flash_attention"], routes
+
+
+def _hybrid_prefill(dev, mesh, cfg, one, placed, g):
+    """(p): ``prefill_tp`` over each data index's model group against one
+    device's ``prefill``: the last logits within HYBRID_PREFILL_TOL."""
+    import torch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    _, B, S = HYBRID_PREFILL
+    tp, dp = mesh.shape["model"], mesh.shape["data"]
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev,
+                         dtype=torch.int32)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l1, _ = M.prefill(one, cfg, toks, tp=tp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n0 = ops.launch_counts()["flash_attention"]
+        lasts = [M.prefill_tp(sh.group_view(placed, mesh, d), cfg,
+                              toks[sh.row_block(mesh, B, d)], tp=tp)[0]
+                 for d in range(dp)]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        flash = ops.launch_counts()["flash_attention"] - n0
+    err = float((torch.cat(lasts).float() - l1.float()).abs().max())
+    sites = M._hybrid_shape(cfg)[0]
+    log(f"  (p) prefill {B} x {S}: one device {t1 - t0:.2f} s, split "
+        f"{t2 - t1:.2f} s; last logits within {err:.4g} (bound "
+        f"{HYBRID_PREFILL_TOL}); flash {flash} (want {sites * tp * dp})")
+    if not err <= HYBRID_PREFILL_TOL:
+        raise AssertionError(f"hybrid_sharded (p): prefill_tp's last logits "
+                             f"{err} from prefill's > {HYBRID_PREFILL_TOL}")
+    if flash != sites * tp * dp:
+        raise AssertionError(f"hybrid_sharded (p): {flash} flash launches")
+    return {"layers": cfg.n_layers, "batch": B, "seq": S,
+            "prefill_s_one_device": t1 - t0, "prefill_tp_s": t2 - t1,
+            "logits_max_abs_diff": err, "tolerance": HYBRID_PREFILL_TOL,
+            "flash_launches": flash}
+
+
+def _hybrid_decode(dev, mesh, label, cfg, one, placed, sp1, sp2, B, S,
+                   steps, g):
+    """(a) / (b): a seeded cache of S - steps tokens in S, placed by
+    ``cache_specs`` on ``mesh``, ``steps`` greedy steps of the split
+    against one device's (``_decode_pair``); tokens and logits within
+    HYBRID_DECODE_TOL, launches, the shard kernel rows, the states' gap."""
+    import torch
+    from repro_torch.core.methods import dsa
+    from repro_torch.models import model as M
+
+    ctx = S - steps
+    c1 = _hybrid_cache(cfg, B, S, ctx, g, dev)
+    c2 = _place_cache(c1, cfg, mesh, B, S)
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=g, device=dev,
+                        dtype=torch.int32)
+    tp = mesh.shape["model"]
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        rows, launches, caps, _, c1, c2, tok = _decode_pair(
+            cfg, tp, one, placed, mesh, c1, c2, tok, steps, sp1, sp2)
+        peak = torch.cuda.max_memory_allocated()
+    states = _states_gap(c2, c1)
+    sites = M._hybrid_shape(cfg)[0]
+    want = sites * mesh.size
+    out = {"layers": cfg.n_layers, "sites": sites, "batch": B, "cache": S,
+           "seeded_tokens": ctx, "steps": steps, "dtype": "bfloat16",
+           "tokens_a_coordinate": S // (mesh.size if B == 1
+                                        else mesh.shape["model"]),
+           "step_ms_one_device": [r["ms_one"] for r in rows],
+           "step_ms_split": [r["ms_split"] for r in rows],
+           "step_ms_one_device_median": statistics.median(
+               r["ms_one"] for r in rows[1:]),
+           "step_ms_split_median": statistics.median(
+               r["ms_split"] for r in rows[1:]),
+           "logits_max_abs_diff": [r["err"] for r in rows],
+           "logits_tolerance": HYBRID_DECODE_TOL,
+           "states_max_abs_diff": states,
+           "states_tolerance": HYBRID_STATE_TOL, "launches": launches,
+           "launches_per_step": {k: v // steps for k, v in launches.items()},
+           "peak_memory_bytes": peak}
+    ties, near = _tokens_check(f"hybrid_sharded ({label})", rows,
+                               HYBRID_DECODE_TOL)
+    out["near_ties"], out["smallest_top2_margin"] = ties, near
+    if launches != {k: want * steps for k in _DSA}:
+        raise AssertionError(f"hybrid_sharded ({label}): launches "
+                             f"{launches}, want {want} a step")
+    if label == "a":     # a profiled step of each, re-running the last one
+        split = dsa.SplitDSA(cfg, cfg.memory, page=DECODE_PAGE)
+        one_fn = dsa.make_sparse_fn(cfg, cfg.memory, tp=tp, page=DECODE_PAGE)
+        c1["length"] = c2["length"] = S - 1
+        with torch.no_grad():
+            out["profiled_step_one_device"] = _profile_call(
+                lambda: M.decode_step(one, cfg, tok, dict(c1), tp=tp,
+                                      sparse_fn=one_fn, sparse_params=sp1))
+            out["profiled_step_split"] = _profile_call(
+                lambda: M.decode_step_tp(placed, cfg, tok, dict(c2), mesh,
+                                         tp=tp, sparse=split,
+                                         sparse_params=sp2))
+    del c1, c2
+    torch.cuda.empty_cache()
+    log(f"  ({label}) {B} x {S}, {cfg.n_layers} layers: step ms one device "
+        f"{out['step_ms_one_device_median']:.2f}, split "
+        f"{out['step_ms_split_median']:.2f}; states within {states:.3g}; "
+        f"peak {peak / 1e9:.2f} GB (both copies)")
+    if not states <= HYBRID_STATE_TOL:
+        raise AssertionError(f"hybrid_sharded ({label}): the split's states "
+                             f"{states} from one device's > "
+                             f"{HYBRID_STATE_TOL}")
+    out["exchange_per_step"] = _exchange_walk(cfg, B, S, tp)
+    rel, paged = _shard_rows(f"({label}) zamba2: a shard of "
+                             f"{mesh.size if B == 1 else tp}", caps,
+                             launches, steps, phase="hybrid_sharded")
+    return out, rel, paged, launches
+
+
+def _hybrid_fp32(dev, g):
+    """(c): one fp32 step in each of DECODE_C_CASES' layouts at
+    HYBRID_C's depth and cache: logits within LOGIT_TOL of one device's,
+    the selected pages equal, the states within LOGIT_TOL."""
+    import torch
+    from repro_torch.core.methods import dsa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+
+    layers, S = HYBRID_C
+    out = []
+    for mesh_c, B in DECODE_C_CASES:
+        meshc = make_mesh(*mesh_c)
+        tp = meshc.shape["model"]
+        cfg, one, placed, sp1, sp2 = _hybrid_params(layers, dev, meshc,
+                                                    "float32")
+        c1 = _hybrid_cache(cfg, B, S, S - 1, g, dev)
+        c2 = _place_cache(c1, cfg, meshc, B, S)
+        tok = torch.randint(0, cfg.vocab_size, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+        picked = []
+        real = dsa.select_pages
+        dsa.select_pages = lambda *a, **kw: picked.append(real(*a, **kw)) \
+            or picked[-1]
+        try:
+            with torch.no_grad():
+                rows, _, _, split, c1, c2, _ = _decode_pair(
+                    cfg, tp, one, placed, meshc, c1, c2, tok, 1, sp1, sp2,
+                    record=True)
+        finally:
+            dsa.select_pages = real
+        err = rows[0]["err"]
+        states = _states_gap(c2, c1)
+        sites = M._hybrid_shape(cfg)[0]
+        G = len(split.selected) // sites
+        same = len(picked) == sites and len(split.selected) == G * sites \
+            and all(torch.equal(torch.sort(torch.cat(
+                split.selected[G * i:G * i + G]).long(), 1).values[
+                    :, -b.shape[1]:], torch.sort(b.long(), 1).values)
+                for i, b in enumerate(picked))
+        log(f"  (c) fp32 {layers} layers on {meshc.shape['data']} x {tp}, B "
+            f"{B}: logits within {err:.3g} (tol {LOGIT_TOL}), states "
+            f"{states:.3g}, selected pages equal: {same}")
+        if not (err <= LOGIT_TOL and states <= LOGIT_TOL and same):
+            raise AssertionError(f"hybrid_sharded (c) {dict(meshc.shape)} B "
+                                 f"{B}: err {err}, states {states}, pages "
+                                 f"equal {same}")
+        out.append({"layers": layers, "batch": B, "cache": S,
+                    "mesh": dict(meshc.shape), "dtype": "float32",
+                    "logits_max_abs_diff": err, "states_max_abs_diff": states,
+                    "tolerance": LOGIT_TOL, "selected_pages_equal": same})
+        del c1, c2, one, placed
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_hybrid_sharded(dev, seed: int = 0):
+    """The hybrid's Mamba2 split on the one card, one process over meshes
+    whose entries are all ``cuda:0``: zamba2-7b at full width, seeded
+    weights, depth cut as HYBRID_* say. (t) one tensor-parallel train step
+    on (2, 4) against one device's from the same weights and batch (bf16,
+    B 4 x S 2048, remat, lr 1e-5): losses within 2e-2, the worst leaf
+    within its bf16 bound, 2 sites x 2 x 4 members x 2 data indices = 32
+    flash launches a step on the tensor cores, step ms, peak memory, a
+    profiled step's busy share and device ops of each, one fp32 step (S
+    512) within the CPU tests' tolerances; (p) ``prefill_tp`` of B 4 x
+    4096 against ``prefill``, within HYBRID_PREFILL_TOL; (a) decode_32k's
+    layout: B 4, a cache of 32,760 tokens in 32,768 (``shared_k`` /
+    ``shared_v``, SSM and conv states drawn from ``seed``), DSA at 64-token
+    pages, 8 greedy steps against one device's, 4 sites x 8 coordinates =
+    32 launches of each kernel a split step; (b) long_500k's: B 1,
+    524,284 tokens in 524,288, 4 steps; the logits of (a) and (b) within
+    HYBRID_DECODE_TOL; (c) fp32, 8192 tokens, one step in each of
+    DECODE_C_CASES' layouts. Peaks, the bytes a card receives a split step
+    (placeholder cards), the phase's seconds. One ``hybrid_sharded`` line;
+    returns the kernel rows, launches by path and the train step's flash
+    launches."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+
+    t_start = time.perf_counter()
+    mesh = make_mesh(*HYBRID_MESH)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {"card": card_line(), "arch": HYBRID_ARCH, "seed": seed,
+           "mesh": dict(mesh.shape),
+           "mesh_devices": sorted(set(map(str, mesh.devices.flat))),
+           "page": DECODE_PAGE}
+    seconds = {}
+
+    def lap(name, t=[t_start]):
+        now = time.perf_counter()
+        seconds[name] = now - t[0]
+        t[0] = now
+
+    out["t"], flash, flash_routes = _hybrid_train(dev, mesh)
+    lap("t")
+    rows = {k: [] for k in _DSA}
+    launches = {}
+    cfg, one, placed, sp1, sp2 = _hybrid_params(HYBRID_A[0], dev, mesh)
+    out["p"] = _hybrid_prefill(dev, mesh, cfg, one, placed, g)
+    lap("p")
+    _, B, S, steps = HYBRID_A
+    out["a"], rel, paged, launches["hybrid_sharded (a)"] = _hybrid_decode(
+        dev, mesh, "a", cfg, one, placed, sp1, sp2, B, S, steps, g)
+    rows["relevancy_topk_candidates"].append(rel)
+    rows["paged_decode_attention"].append(paged)
+    del one, placed
+    torch.cuda.empty_cache()
+    lap("a")
+    layers, B, S, steps = HYBRID_B
+    cfg, one, placed, sp1, sp2 = _hybrid_params(layers, dev, mesh)
+    out["b"], rel, paged, launches["hybrid_sharded (b)"] = _hybrid_decode(
+        dev, mesh, "b", cfg, one, placed, sp1, sp2, B, S, steps, g)
+    rows["relevancy_topk_candidates"].append(rel)
+    rows["paged_decode_attention"].append(paged)
+    del one, placed
+    torch.cuda.empty_cache()
+    lap("b")
+    out["c"] = _hybrid_fp32(dev, g)
+    lap("c")
+    out["seconds_by_part"] = seconds
+    out["seconds"] = time.perf_counter() - t_start
+    out["kernel_rows"] = rows
+    log(f"  seconds by part {json.dumps(seconds)}")
+    print(json.dumps({"hybrid_sharded": out}), flush=True)
+    return rows, launches, (flash, flash_routes)
 
 
 # ---------------------------------------------------------------------------
@@ -4951,6 +5579,8 @@ def main(argv=None):
     ap.add_argument("--family-runs", default=",".join(FAMILY_RUNS),
                     help="the families phase's runs (default: all of "
                          "FAMILY_RUNS)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the hybrid_sharded phase's seeded caches")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES + EXTRA_PHASES):
@@ -5016,6 +5646,14 @@ def main(argv=None):
              ", decode_32k's and long_500k's layouts; fp32 on (1, 4) and "
              "(2, 2)")
         decode_rows, decode_launches = phase_decode_sharded(dev)
+    if "hybrid_sharded" in phases:
+        mark("[3g] the hybrid's Mamba2 split: zamba2-7b on (2, 4), train, "
+             "prefill, decode_32k's and long_500k's layouts; fp32")
+        hybrid_rows, hybrid_launches, trained["hybrid_sharded"] = \
+            phase_hybrid_sharded(dev, args.seed)
+        decode_rows = {k: (decode_rows or {}).get(k, []) + v
+                       for k, v in hybrid_rows.items()}
+        decode_launches = dict(decode_launches or {}, **hybrid_launches)
     if "roofline" in phases:
         mark("[3d] roofline: walks on the card and on placeholders; the dry "
              "run")
@@ -5102,7 +5740,8 @@ def main(argv=None):
         if k["name"] == "flash_attention":
             for row in k["other_shapes"]:
                 if row["path"] in ("gathered", "train_sharded",
-                                   "granite_tp", "gpipe") and \
+                                   "granite_tp", "gpipe",
+                                   "hybrid_sharded") and \
                         row["path"] in trained:
                     row["launches"] = trained[row["path"]][0]
     torch.cuda.synchronize()

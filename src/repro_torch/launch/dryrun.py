@@ -14,8 +14,9 @@ eagerly under ``op_walk.OpWalk`` and reads the walk. It runs on any
 machine, with or without a card; on the card it touches none.
 
   * train cells walk the port's own sharded step over the production mesh,
-    with ``pick_accum``'s accumulation. For the transformer families it is
-    the tensor-parallel step (``train.trainer.sharded_loss_and_grads``):
+    with ``pick_accum``'s accumulation. For the transformer families and
+    the hybrid it is the tensor-parallel step
+    (``train.trainer.sharded_loss_and_grads``):
     256 coordinates' ops would take hours to dispatch here, so data index
     0's model group runs its part of the batch
     (``train.trainer._tp_group_grads``), and the other data indices stand
@@ -24,17 +25,19 @@ machine, with or without a card; on the card it touches none.
     (``train.trainer._reduce_tp_grads``: the ring all-reduce and the FSDP
     sums, walked), and the FSDP gradients they send data index 0's
     coordinates are counted from what data index 1's received from data
-    index 0 (by symmetry); then every coordinate's AdamW. The hybrid and
-    xLSTM families walk the gathered step (every data index gathers the
-    parameters onto its first device; the gradients are reduced onto the
-    mesh's first device);
-  * prefill cells of the transformer families walk data index 0's part of
-    the batch over its model group (``models.model.prefill_tp``, each
-    coordinate computing its slice, FSDP leaves gathered a layer at a
-    time); the hybrid's and xLSTM's on the first device of its group, its
-    parameters there in full;
-  * decode cells of the transformer families walk the decode split
-    (``models.model.decode_step_tp``): the cache placed by ``cache_specs``,
+    index 0 (by symmetry); then every coordinate's AdamW. xLSTM walks the
+    gathered step (every data index gathers the parameters onto its first
+    device; the gradients are reduced onto the mesh's first device);
+  * prefill cells of the transformer families and the hybrid walk data
+    index 0's part of the batch over its model group
+    (``models.model.prefill_tp``, each coordinate computing its slice,
+    FSDP leaves gathered a layer at a time; the hybrid's Mamba2 blocks cut
+    by heads); xLSTM's on the first device of its group, its parameters
+    there in full;
+  * decode cells of the transformer families and the hybrid walk the
+    decode split (``models.model.decode_step_tp``): the cache placed by
+    ``cache_specs`` (the hybrid's SSM states by heads, its conv states
+    whole on every model member),
     the parameters by ``param_specs``, DSA at 64-token pages through
     ``core.methods.dsa.SplitDSA`` (stateless for ``baseline`` and
     ``optimized-spdecode``, the index cache for ``optimized-idxcache``),
@@ -44,14 +47,14 @@ machine, with or without a card; on the card it touches none.
     indices' work is the same by symmetry, and their MoE router inputs
     stand in as zeros. long_500k walks every coordinate: the sequence runs
     over the whole mesh, data index 0's model group computes the row and
-    every coordinate attends over its slice. The
-    hybrid's and xLSTM's decode cells (and any on a ``model`` axis of 1)
-    walk data index 0's part of the batch on the first device of its
-    group, its parameters and cache there in full; there the variants
-    ``optimized-spdecode`` and ``optimized-idxcache`` run DSA through
-    ``make_sparse_fn_distributed`` / ``make_sparse_fn_cached`` over that
-    group's ``model`` devices (the hybrid's step carries no index cache,
-    so its idxcache cell fails). A decode cell's cache holds
+    every coordinate attends over its slice. The hybrid's step carries no
+    index cache, so its idxcache cell fails. xLSTM's decode cells (and any
+    on a ``model`` axis of 1) walk data index 0's part of the batch on the
+    first device of its group, its parameters and cache there in full;
+    there the variants ``optimized-spdecode`` and ``optimized-idxcache``
+    run DSA through ``make_sparse_fn_distributed`` /
+    ``make_sparse_fn_cached`` over that group's ``model`` devices (the
+    hybrid's idxcache cell fails there too). A decode cell's cache holds
     ``seq_len - 1`` tokens (the shape's length, a host int).
 
 The reference's variant hints ``set_ep_constraint`` (shard-local MoE
@@ -333,7 +336,7 @@ def _walk_decode_split(cfg, shape, mesh, tp: int, variant: str,
     params = sh.device_put(structs, sh.make_shardings(
         sh.param_specs(structs, cfg, mesh, fsdp=fsdp), mesh))
     c = cache_structs(cfg, B, S, tp)
-    caches = sh.device_put({"k": c["k"], "v": c["v"]}, sh.make_shardings(
+    caches = sh.device_put(c, sh.make_shardings(
         sh.cache_specs(c, cfg, shape, mesh), mesh))
     caches["length"] = S - 1
     token = batch_structs(cfg, shape)["token"].to(mesh.device(0))
@@ -376,13 +379,15 @@ def _walk_decode_split(cfg, shape, mesh, tp: int, variant: str,
             return w
         g = M.DecodeGroup(params, cfg, token, caches, mesh, 0, tp=tp,
                           sparse=sparse, sparse_params=sp)
-        for i in range(cfg.n_layers):
-            router = [g.attention(i)]
+
+        def router(hs):
             if g.moe_gather:   # the other data indices' inputs: zeros
-                router += [[torch.zeros_like(h, device=mesh.device(c))
-                            for h, c in zip(router[0], grp)]
+                hs = hs + [[torch.zeros_like(h, device=mesh.device(c))
+                            for h, c in zip(hs[0], grp)]
                            for grp in groups[1:]]
-            g.ffn(i, router)
+            return hs
+
+        M._decode_layers([g], cfg, router)
         g.logits()
     return w
 

@@ -449,6 +449,31 @@ def _tp_layer(lps, xs, cos, sin, cfg: ArchConfig, tp: int,
     return xs, ffn[0][1], [a[1] for a in att], [a[2] for a in att]
 
 
+def _mamba_tp(lps, xs, cfg: ArchConfig, states=None):
+    """One Mamba2 layer over a model group in lockstep (pre-norm,
+    residual): each member its block shard (``ssm.mamba_tp``: the chunked
+    forward, or from ``states`` one decode step), its ``out_proj``
+    partials all-reduced before the residual add. An FSDP leaf's
+    ``DataSlices`` is gathered here. -> (xs, each member's new state)."""
+    lps = [sh.materialize(lp, x.device) for lp, x in zip(lps, xs)]
+    hs = [L.rms_norm(lp["norm"], x, cfg.norm_eps) for lp, x in zip(lps, xs)]
+    ys, sts = S.mamba_tp([lp["mamba"] for lp in lps], hs, cfg, states)
+    return [x + y for x, y in zip(xs, col.group_all_reduce(ys))], sts
+
+
+def _split_families(cfg: ArchConfig, n: int):
+    """Raise for a family the tensor-parallel split does not cover (xLSTM:
+    the reference replicates its parameters) or a hybrid whose SSM heads
+    do not split ``n`` ways."""
+    if cfg.xlstm_pattern:
+        raise ValueError(f"{cfg.name}: the tensor-parallel split covers the "
+                         f"transformer families and the hybrid, not "
+                         f"{cfg.family} (the reference replicates xLSTM's "
+                         f"parameters)")
+    if cfg.family == "hybrid":
+        S.shard_widths(cfg, (0, n))
+
+
 def forward_tp(group, cfg: ArchConfig, tokens, *, positions3=None,
                img_embeds=None, collect_cache: bool = False,
                remat: bool = False, tp: int = 16):
@@ -461,11 +486,11 @@ def forward_tp(group, cfg: ArchConfig, tokens, *, positions3=None,
     d-slice of the embedding, and an all-gather on d gives every member the
     residual stream (vlm's ``img_embeds`` then overwrite the first rows).
     The layers run in lockstep (``_tp_layer``, under remat as one function
-    of the whole group). A member's caches hold its own kv heads when
-    ``kv_shardable``, else all of them. Transformer families only."""
-    if cfg.family == "hybrid" or cfg.xlstm_pattern:
-        raise ValueError(f"{cfg.name}: the tensor-parallel split covers the "
-                         f"transformer families, not {cfg.family}")
+    of the whole group; the hybrid's ``_hybrid_forward_tp``). A member's
+    caches hold its own kv heads when ``kv_shardable``, else all of them
+    (the hybrid's also its heads of the SSM states and its channels of x's
+    conv states). Not xLSTM."""
+    _split_families(cfg, len(group))
     devs = _tp_devices(group)
     B, Sq = tokens.shape
     toks = col.group_broadcast(tokens, devs)
@@ -481,6 +506,9 @@ def forward_tp(group, cfg: ArchConfig, tokens, *, positions3=None,
     tables = [_rope_tables(cfg, torch.arange(Sq, device=d)[None]
                            .expand(B, Sq), p) for d, p in zip(devs, p3)]
     cos, sin = [t[0] for t in tables], [t[1] for t in tables]
+    if cfg.family == "hybrid":
+        return _hybrid_forward_tp(group, cfg, xs, cos, sin, collect_cache,
+                                  remat, tp)
     per = [_unstack(g["layers"], cfg.n_layers) for g in group]
     aux = torch.zeros((), dtype=torch.float32, device=devs[0])
     ks, vs = [], []
@@ -499,6 +527,73 @@ def forward_tp(group, cfg: ArchConfig, tokens, *, positions3=None,
         caches = [{"k": torch.stack([k[m] for k in ks]),
                    "v": torch.stack([v[m] for v in vs]), "length": Sq}
                   for m in range(len(devs))]
+    return xs, aux, caches
+
+
+def _member_empty(cfg: ArchConfig, B: int, n: int, device, dtype):
+    """A zero-length stack of a member's Mamba2 states (an empty tail's):
+    fp32 ssm of its heads, conv states in the model dtype (x's of its
+    channels)."""
+    di, H = S.shard_widths(cfg, (0, n))
+    K = cfg.ssm_conv
+    z = lambda *shape, dt=dtype: torch.zeros((0, B) + shape, dtype=dt,
+                                              device=device)
+    return (z(H, cfg.ssm_head_dim, cfg.ssm_state, dt=torch.float32),
+            (z(di, K - 1), z(cfg.ssm_state, K - 1), z(cfg.ssm_state, K - 1)))
+
+
+def _hybrid_forward_tp(group, cfg, xs, cos, sin, collect_cache, remat, tp):
+    """The split twin of ``_hybrid_forward``: per super block each Mamba2
+    layer's shard (``_mamba_tp``), then the shared attention + MLP block at
+    that site through ``_tp_layer``, under remat as one function of the
+    group (the group ops inside it, so the recompute reduces again); then
+    the tail's layers. An FSDP leaf of the double-stacked body is gathered
+    one Mamba2 layer at a time (``DataSlices.layers`` twice)."""
+    n_super, per, tail = _hybrid_shape(cfg)
+    n = len(group)
+    B = xs[0].shape[0]
+    shared = [g["shared"] for g in group]
+    bodies = [_unstack(g["body"], n_super) for g in group]
+    tails = [_unstack(g["tail"], tail) for g in group]
+
+    def super_fn(blps, xs):
+        sts = []
+        for lps in zip(*[_unstack(b, per) for b in blps]):
+            xs, st = _mamba_tp(list(lps), xs, cfg)
+            sts.append(st)
+        xs, _, ks, vs = _tp_layer(shared, xs, cos, sin, cfg, tp,
+                                  collect_cache)
+        return xs, sts, ks, vs
+
+    def run(fn, *a):
+        return _remat(fn, *a) if remat else fn(*a)
+
+    body_st, ks, vs, tail_st = [], [], [], []
+    for s in range(n_super):
+        xs, sts, k, v = run(super_fn, [b[s] for b in bodies], xs)
+        body_st += sts
+        ks.append(k)
+        vs.append(v)
+    for t in range(tail):
+        xs, st = run(_mamba_tp, [tl[t] for tl in tails], xs, cfg)
+        tail_st.append(st)
+    xs = [L.rms_norm(g["final_norm"], x, cfg.norm_eps)
+          for g, x in zip(group, xs)]
+    caches = None
+    if collect_cache:
+        caches = []
+        for m, x in enumerate(xs):
+            bs, bc = _stack_mamba([st[m] for st in body_st], (n_super, per),
+                                  None)
+            ts, tc = _stack_mamba([st[m] for st in tail_st], (tail,),
+                                  _member_empty(cfg, B, n, x.device,
+                                                x.dtype))
+            caches.append({"body_ssm": bs, "body_conv": bc, "tail_ssm": ts,
+                           "tail_conv": tc,
+                           "shared_k": torch.stack([k[m] for k in ks]),
+                           "shared_v": torch.stack([v[m] for v in vs]),
+                           "length": x.shape[1]})
+    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
     return xs, aux, caches
 
 
@@ -538,8 +633,8 @@ def prefill_tp(group, cfg: ArchConfig, tokens, *, max_len=None,
                                tp=tp)
     pad = (0, 0, 0, 0, 0, max_len - Sq)          # the sequence axis, dim 2
     for c in caches:
-        for name in ("k", "v"):
-            if max_len > Sq:
+        for name in ("k", "v", "shared_k", "shared_v"):
+            if name in c and max_len > Sq:
                 c[name] = torch.nn.functional.pad(c[name], pad)
     logits, _ = _tp_logits(group, cfg, [x[:, -1:] for x in xs])
     last = col.group_all_gather(logits, -1, _tp_devices(group)[:1])[0]
@@ -559,25 +654,30 @@ def reshard_prefill_caches(parts, cfg: ArchConfig, mesh) -> Dict:
     cut) takes one part, its group's. Each coordinate gets every kv head
     over its sequence slice: an all-to-all over the group (each member
     keeps 1/n of its part and sends the rest), or, where every member
-    already holds every kv head, its own slice of its copy. -> {"k", "v":
-    ``ShardedTensor``, "length"}."""
+    already holds every kv head, its own slice of its copy. The hybrid's
+    ``shared_k`` / ``shared_v`` go as k / v, and its recurrent states as
+    ``_reshard_states`` places them. -> {"k", "v" (the hybrid's
+    "shared_k", "shared_v", and its states): ``ShardedTensor``,
+    "length"}."""
     from repro_torch.configs.base import ShapeConfig
 
+    hybrid = "shared_k" in parts[0][0]
+    names = ("shared_k", "shared_v") if hybrid else ("k", "v")
     groups = sh.model_groups(mesh)
     n = len(groups[0])
-    B = sum(p[0]["k"].shape[1] for p in parts)
-    S = parts[0][0]["k"].shape[2]
+    B = sum(p[0][names[0]].shape[1] for p in parts)
+    S = parts[0][0][names[0]].shape[2]
     big = sh.big_batch(mesh, B)
     seqs = sh.seq_groups(mesh, B)
     if len(parts) != (len(groups) if big else 1):
         raise ValueError(f"{len(parts)} prefill parts for the decode layout "
                          f"of {B} rows on {dict(mesh.shape)}")
-    out = {"k": [None] * mesh.size, "v": [None] * mesh.size}
+    out = {name: [None] * mesh.size for name in names}
     for g, seq in enumerate(seqs):
         src = parts[g if big else 0]
         devs = [mesh.device(c) for c in seq]
         Sl = S // len(seq)
-        for name in ("k", "v"):
+        for name in names:
             if cfg.kv_shardable(n):
                 got = col.all_to_all([p[name] for p in src], 2, 3, devs)
             else:
@@ -586,59 +686,173 @@ def reshard_prefill_caches(parts, cfg: ArchConfig, mesh) -> Dict:
                         dev, copy=True) for j, dev in enumerate(devs)]
             for c, t in zip(seq, got):
                 out[name][c] = t
-    full = list(parts[0][0]["k"].shape)
+    full = list(parts[0][0][names[0]].shape)
     full[1], full[3] = B, cfg.n_kv_heads
     length = parts[0][0]["length"]
-    spec = sh.cache_specs({"k": 0}, cfg, ShapeConfig("decode", S, B,
-                                                     "decode"), mesh)["k"]
+    shape = ShapeConfig("decode", S, B, "decode")
+    spec = sh.cache_specs({"k": 0}, cfg, shape, mesh)["k"]
     ns = sh.NamedSharding(mesh, spec)
-    return {name: sh.ShardedTensor(out[name], ns, full, out[name][0].dtype)
-            for name in ("k", "v")} | {"length": length}
+    res = {name: sh.ShardedTensor(out[name], ns, full, out[name][0].dtype)
+           for name in names}
+    if hybrid:
+        res.update(_reshard_states(parts, cfg, mesh, shape, big))
+    return res | {"length": length}
+
+
+def _state_tree(per_coord, cfg, mesh, shape):
+    """Per coordinate (ssm, (conv x, B, C)) -> those trees as
+    ``ShardedTensor``s placed by ``cache_specs``."""
+    def full(t, axes):
+        out = list(t.shape)
+        for dim, size in axes.items():
+            out[dim] = size
+        return out
+
+    B = shape.global_batch
+    ssm0, conv0 = per_coord[0]
+    specs = sh.cache_specs({"ssm": ssm0, "conv": conv0}, cfg, shape, mesh)
+
+    def place(spec, get, axes):
+        shards = [get(per_coord[c]) for c in range(mesh.size)]
+        return sh.ShardedTensor(shards, sh.NamedSharding(mesh, spec),
+                                full(shards[0], axes), shards[0].dtype)
+
+    return (place(specs["ssm"], lambda t: t[0], {-4: B, -3: cfg.ssm_heads}),
+            tuple(place(specs["conv"][k], lambda t, k=k: t[1][k], {-3: B})
+                  for k in range(3)))
+
+
+def _reshard_states(parts, cfg: ArchConfig, mesh, shape, big: bool) -> Dict:
+    """The hybrid's recurrent states from ``prefill_tp``'s caches into
+    ``cache_specs``' layout: the SSM states cut by heads over ``model``
+    (each member's already are), rows over the data axes where the batch
+    is cut, else replicated over them (long_500k: data index 0's states
+    copied to the other data indices' coordinates); the conv states whole
+    on every model member (x's channels all-gathered over the group)."""
+    groups = sh.model_groups(mesh)
+    out = {}
+    for part in ("body", "tail"):
+        per_coord = {}
+        for d, grp in enumerate(groups):
+            src = parts[d if big else 0]
+            devs = [mesh.device(c) for c in grp]
+            conv = [p[f"{part}_conv"] for p in src]
+            with op_walk.collective("collective-permute"):
+                ssm = [p[f"{part}_ssm"].to(dv) for p, dv in zip(src, devs)]
+                bc = [tuple(c[k].to(dv) for k in (1, 2))
+                      for c, dv in zip(conv, devs)]
+            cx = col.group_all_gather([c[0] for c in conv], -2, devs)
+            for m, c in enumerate(grp):
+                per_coord[c] = (ssm[m], (cx[m],) + bc[m])
+        out[f"{part}_ssm"], out[f"{part}_conv"] = _state_tree(
+            per_coord, cfg, mesh, shape)
+    return out
 
 
 def decode_step_tp(params, cfg: ArchConfig, token, caches, mesh, *,
                    tp: int = 16, sparse=None, sparse_params=None,
                    positions3=None):
     """``decode_step`` over the mesh's decode layout: token [B] + caches
-    placed by ``cache_specs`` (``ShardedTensor`` k / v: decode_32k's rows
-    on the data axes and sequence on ``model``; long_500k's sequence over
-    (data, model), data-major) -> (logits [B, V] on the first
-    coordinate's device, the caches; with a stateful ``sparse``, the
-    sparse params too). ``params``: placed by ``param_specs``;
+    placed by ``cache_specs`` (``ShardedTensor`` k / v, the hybrid's
+    ``shared_k`` / ``shared_v``: decode_32k's rows on the data axes and
+    sequence on ``model``; long_500k's sequence over (data, model),
+    data-major; the hybrid's SSM states by heads over ``model`` and its
+    conv states whole on every model member) -> (logits [B, V] on the
+    first coordinate's device, the caches; with a stateful ``sparse``,
+    the sparse params too). ``params``: placed by ``param_specs``;
     ``sparse``: ``core.methods.dsa.SplitDSA`` or None (dense);
-    ``sparse_params``: its indexer weights placed by ``method_specs``
-    (stateful: ``{"p": those, "kidx_sum": placed like K}``).
+    ``sparse_params``: its indexer weights placed by ``method_specs`` (the
+    hybrid's: one set, used at every site of its shared block;
+    stateful: ``{"p": those, "kidx_sum": placed like K}``).
 
     Each computing data index runs its ``DecodeGroup`` (decode_32k: every
     data index over its rows; long_500k, a batch the data axes do not cut:
-    data index 0 over the whole batch), the groups a layer at a time: the
-    attention half of each, then the FFN half of each, with the MoE
-    router's inputs of every data index (``moe.moe_apply_gathered``: the
-    batch's one dispatch group, as on one device). The logits are gathered
-    onto each group's first device, then the rows onto the first
+    data index 0 over the whole batch), the groups a layer at a time
+    (``_decode_layers``): the attention half of each, then the FFN half of
+    each, with the MoE router's inputs of every data index
+    (``moe.moe_apply_gathered``: the batch's one dispatch group, as on one
+    device); the hybrid's Mamba2 layers between its sites. The logits are
+    gathered onto each group's first device, then the rows onto the first
     coordinate's. The new K/V (and a stateful index cache) are written in
-    place. Transformer families only."""
-    if cfg.family == "hybrid" or cfg.xlstm_pattern:
-        raise ValueError(f"{cfg.name}: the tensor-parallel split covers the "
-                         f"transformer families, not {cfg.family}")
+    place; the hybrid's new states come back as new ``ShardedTensor``s
+    placed as before (``_place_states``). Not xLSTM."""
+    _split_families(cfg, mesh.shape.get(sh.MODEL_AXIS, 1))
     B = token.shape[0]
     big = sh.big_batch(mesh, B)
     dis = range(len(sh.model_groups(mesh))) if big else [0]
     groups = [DecodeGroup(params, cfg, token, caches, mesh, d, tp=tp,
                           sparse=sparse, sparse_params=sparse_params,
                           positions3=positions3) for d in dis]
-    for i in range(cfg.n_layers):
-        hs = [g.attention(i) for g in groups]
-        for g in groups:
-            g.ffn(i, hs)
+    _decode_layers(groups, cfg)
     lasts = [g.logits() for g in groups]
     dev0 = lasts[0].device
     with op_walk.collective("all-gather"):
         logits = torch.cat([t.to(dev0) for t in lasts], 0)
     caches = dict(caches, length=int(caches["length"]) + 1)
+    if cfg.family == "hybrid":
+        caches.update(_place_states(groups, caches, cfg, mesh))
     if sparse is not None and sparse.stateful:
         return logits, caches, sparse_params
     return logits, caches
+
+
+def _decode_layers(groups, cfg: ArchConfig, router=lambda hs: hs) -> None:
+    """Every layer of a split step over the computing groups in lockstep:
+    a transformer's attention half of each group, then the FFN half of
+    each with ``router(hs)`` (every data index's FFN inputs: the dry run
+    stands the groups it does not walk in); the hybrid's Mamba2 layers of
+    each super block, its shared block's site, then the tail."""
+    def site(i):
+        hs = router([g.attention(i) for g in groups])
+        for g in groups:
+            g.ffn(i, hs)
+
+    if cfg.family != "hybrid":
+        for i in range(cfg.n_layers):
+            site(i)
+        return
+    n_super, per, tail = _hybrid_shape(cfg)
+    for s in range(n_super):
+        for j in range(per):
+            for g in groups:
+                g.mamba("body", (s, j))
+        site(s)
+    for t in range(tail):
+        for g in groups:
+            g.mamba("tail", (t,))
+
+
+def _place_states(groups, caches, cfg: ArchConfig, mesh) -> Dict:
+    """The hybrid's new recurrent states, placed as ``caches``' old ones:
+    each computing group's members give their coordinates'; a coordinate
+    of a data index that did not compute (long_500k's layout) gets a copy
+    of its model index's member's, so every shard stays equal to its
+    slice."""
+    from repro_torch.configs.base import ShapeConfig
+
+    n_super, per, tail = _hybrid_shape(cfg)
+    out = {}
+    shape = ShapeConfig("decode", caches["shared_k"].shape[2],
+                        caches["shared_k"].shape[1], "decode")
+    member = groups[0].member
+    for part, lead in (("body", (n_super, per)), ("tail", (tail,))):
+        if not int(np.prod(lead)):
+            continue
+        per_coord = {}
+        for g in groups:
+            for m, c in enumerate(g.group):
+                per_coord[c] = _stack_mamba(
+                    [st[m] for st in g.new_states[part]], lead, None)
+        for c in range(mesh.size):
+            if c not in per_coord:
+                src, dev = per_coord[member[c]], mesh.device(c)
+                with op_walk.collective("collective-permute"):
+                    per_coord[c] = (src[0].to(dev, copy=True),
+                                    tuple(t.to(dev, copy=True)
+                                          for t in src[1]))
+        out[f"{part}_ssm"], out[f"{part}_conv"] = _state_tree(
+            per_coord, cfg, mesh, shape)
+    return out
 
 
 class DecodeGroup:
@@ -657,17 +871,26 @@ class DecodeGroup:
     its row-parallel ``wo``, all-reduced. Under long_500k a coordinate of
     another data index attends with the query of the member of its model
     index (sent to it, with the new k / v to the owner). The FFN is
-    ``prefill_tp``'s."""
+    ``prefill_tp``'s. The hybrid's sites read its shared block and
+    ``shared_k`` / ``shared_v``, with one set of indexer weights at every
+    site (its ``decode_step``'s); between them ``mamba`` runs a Mamba2
+    layer's decode shard, and ``new_states`` keeps each member's new
+    states."""
 
     def __init__(self, params, cfg: ArchConfig, token, caches, mesh, d: int,
                  *, tp: int = 16, sparse=None, sparse_params=None,
                  positions3=None):
-        if cfg.family == "hybrid" or cfg.xlstm_pattern:
-            raise ValueError(f"{cfg.name}: the tensor-parallel split covers "
-                             f"the transformer families, not {cfg.family}")
+        self.hybrid = hybrid = cfg.family == "hybrid"
+        _split_families(cfg, mesh.shape.get(sh.MODEL_AXIS, 1))
+        if hybrid and sparse is not None and sparse.stateful:
+            raise ValueError(f"{cfg.name}: the hybrid's decode_step carries "
+                             f"no index cache (its shared block's sites "
+                             f"share one indexer)")
         B = token.shape[0]
         self.length = length = int(caches["length"])
-        self.kc, self.vc = caches["k"], caches["v"]
+        self.caches = caches
+        self.kc = caches["shared_k" if hybrid else "k"]
+        self.vc = caches["shared_v" if hybrid else "v"]
         S = self.kc.shape[2]
         if length >= S:
             raise ValueError(f"cache full: length {length} of {S}")
@@ -705,7 +928,38 @@ class DecodeGroup:
             (t.shape[0], 1), length, dtype=torch.long, device=dv), p)
             for t, dv, p in zip(toks, self.devs, p3)]
         self.cos, self.sin = zip(*tables)
-        self.per = [_unstack(g["layers"], cfg.n_layers) for g in self.view]
+        if hybrid:
+            n_super, per, tail = _hybrid_shape(cfg)
+            self.per = [[g["shared"]] * n_super for g in self.view]
+            self.body = [[_unstack(b, per) for b in _unstack(g["body"],
+                                                             n_super)]
+                         for g in self.view]
+            self.tail = [_unstack(g["tail"], tail) for g in self.view]
+            self.new_states = {"body": [], "tail": []}
+        else:
+            self.per = [_unstack(g["layers"], cfg.n_layers)
+                        for g in self.view]
+
+    def _sp(self, c: int, i: int):
+        """Coordinate c's indexer weights at layer (the hybrid: site) i."""
+        return self.sp[c] if self.hybrid else layer(self.sp[c], i)
+
+    def mamba(self, part: str, idx: tuple) -> None:
+        """One Mamba2 layer's decode shard (``part`` "body" at (site,
+        layer), "tail" at (layer,)): each member from its coordinate's
+        heads of the SSM state and its channels of the conv state of x
+        (``ssm.mamba_tp``); its new x channels are all-gathered over
+        the group, as the layout keeps the conv states whole on every
+        member."""
+        lps = [self.body[m][idx[0]][idx[1]] if part == "body" else
+               self.tail[m][idx[0]] for m in range(self.n)]
+        ssm, conv = self.caches[f"{part}_ssm"], self.caches[f"{part}_conv"]
+        states = [(ssm.shards[c][idx], tuple(t.shards[c][idx] for t in conv))
+                  for c in self.group]
+        self.xs, new = _mamba_tp(lps, self.xs, self.cfg, states)
+        cx = col.group_all_gather([st[1][0] for st in new], 1)
+        self.new_states[part].append(
+            [(st[0], (x,) + st[1][1:]) for st, x in zip(new, cx)])
 
     def attention(self, i: int) -> List[torch.Tensor]:
         """Layer ``i``'s attention half -> each member's FFN input (the
@@ -723,8 +977,8 @@ class DecodeGroup:
             v = col.group_all_gather([t[2] for t in qkv], 2)
         else:
             k, v = [t[1] for t in qkv], [t[2] for t in qkv]
-        iq = (self.sparse.index_query([layer(self.sp[c], i)
-                                       for c in self.group], q)
+        iq = (self.sparse.index_query([self._sp(c, i) for c in self.group],
+                                      q)
               if self.sparse is not None else [None] * n)
         new = {c: (q[m], k[m], v[m], iq[m]) for m, c in enumerate(self.group)}
         owner = self.seq[self.length // self.Sl]
@@ -749,7 +1003,7 @@ class DecodeGroup:
             s = {"q": qc, "kc": kc, "vc": vc,
                  "k_new": kn if c == owner else None}
             if self.sparse is not None:
-                s["iq"], s["sp"] = iqc, layer(self.sp[c], i)
+                s["iq"], s["sp"] = iqc, self._sp(c, i)
             shards.append(s)
         if self.sparse is not None:
             parts = self.sparse(shards, self.length + 1)

@@ -23,6 +23,17 @@ fp32. The SSM state and the scan are fp32.
 
 State: ssm [B, H, P, N]; conv (x [B, di, K-1], B [B, N, K-1], C [B, N,
 K-1]).
+
+A model shard (``shard=(m, n)``: the reference's ``param_specs`` slice,
+as GSPMD cuts the block) projects its columns of z / x / dt (its
+d_inner / n channels, which are its ssm_heads / n heads: the x reshape is
+head-major), convolves its channels of x, runs the replicated B / C convs
+in full, and scans its heads. ``mamba_tp`` runs a model group in
+lockstep: the gated norm's variance is over all of d_inner, each member's
+fp32 sum of squares all-reduced over the group (``norm_sums``, an
+autograd op, so the backward crosses members too), and ``out_proj`` is
+row-parallel: each member returns its partial, which the caller
+all-reduces.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives as col
 from repro_torch.models import layers as L
 
 Params = Dict
@@ -110,9 +122,32 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
     return y * torch.rsqrt(var + eps) * w
 
 
-def _project(p: Params, x: torch.Tensor, cfg: ArchConfig, conv_state=None):
-    """Shared prologue: projections, causal convs, dt and A."""
+def shard_widths(cfg: ArchConfig, shard=None) -> Tuple[int, int]:
+    """(d_inner, ssm_heads) that model shard ``shard = (m, n)`` computes
+    (None: all). ``param_specs`` cuts ``w_dt``'s columns over ``model``,
+    so heads that do not split n ways cannot be placed (jit's
+    in_shardings refuse the uneven cut too)."""
+    if shard is None:
+        return cfg.d_inner, cfg.ssm_heads
+    n = shard[1]
+    if cfg.ssm_heads % n:
+        raise ValueError(f"{cfg.name}: {cfg.ssm_heads} SSM heads do not split "
+                         f"{n} ways over the model axis (param_specs cuts "
+                         f"w_dt's columns: an uneven cut)")
+    return cfg.d_inner // n, cfg.ssm_heads // n
+
+
+def _project(p: Params, x: torch.Tensor, cfg: ArchConfig, conv_state=None,
+             shard=None):
+    """Shared prologue: projections, causal convs, dt and A. A model
+    shard's ``p`` is its slice; a conv state of x that holds every channel
+    (the decode layout keeps the conv states whole on every member) is
+    narrowed to the shard's."""
     cs_x, cs_B, cs_C = conv_state if conv_state else (None, None, None)
+    if shard is not None and cs_x is not None:
+        di = shard_widths(cfg, shard)[0]
+        if cs_x.shape[1] != di:
+            cs_x = cs_x.narrow(1, shard[0] * di, di)
     z = x @ p["w_z"]
     xr, ns_x = _causal_conv(x @ p["w_x"], p["conv_x"], p["conv_bx"], cs_x)
     Br, ns_B = _causal_conv(x @ p["w_B"], p["conv_B"], p["conv_bB"], cs_B)
@@ -140,18 +175,19 @@ def _intra_chunk(scores, cum, x_c, mask):
     return torch.cat(out, dim=2)
 
 
-def mamba_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                  init_state: Tuple = None):
-    """x [B, S, d] -> (y [B, S, d], (ssm_state, conv_states)); chunked SSD
-    over chunks of min(ssm_chunk, S) tokens (S must be a multiple)."""
+def _chunks(p: Params, x: torch.Tensor, cfg: ArchConfig,
+            init_state: Tuple = None, shard=None):
+    """The chunked SSD before the gated norm -> (y [B, S, di] fp32, z,
+    (ssm_state, conv_states)); a model shard's over its channels."""
     B, S, _ = x.shape
-    di, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    di, H = shard_widths(cfg, shard)
+    P = cfg.ssm_head_dim
     cs = min(cfg.ssm_chunk, S)
     if S % cs:
         raise ValueError(f"sequence {S} is not a multiple of the SSD chunk "
                          f"{cs}")
     conv_in = None if init_state is None else init_state[1]
-    z, xr, Br, Cr, dt, A, conv_state = _project(p, x, cfg, conv_in)
+    z, xr, Br, Cr, dt, A, conv_state = _project(p, x, cfg, conv_in, shard)
     xs = xr.reshape(B, S, H, P).float()
     Bm, Cm = Br.float(), Cr.float()
     dA = dt * A                                                  # [B, S, H]
@@ -176,18 +212,27 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
                  + torch.einsum("bjn,bjhp->bhpn", B_c,
                                 decay_to_end[..., None] * x_c))
         ys.append(y)
-    y = torch.cat(ys, dim=1).reshape(B, S, di)
+    return torch.cat(ys, dim=1).reshape(B, S, di), z, (state, conv_state)
+
+
+def mamba_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                  init_state: Tuple = None):
+    """x [B, S, d] -> (y [B, S, d], (ssm_state, conv_states)); chunked SSD
+    over chunks of min(ssm_chunk, S) tokens (S must be a multiple)."""
+    y, z, st = _chunks(p, x, cfg, init_state)
     y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
-    return y.to(x.dtype) @ p["out_proj"], (state, conv_state)
+    return y.to(x.dtype) @ p["out_proj"], st
 
 
-def mamba_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, state: Tuple):
-    """Single-token step. x [B, 1, d]; state (ssm, conv_states) -> (y [B, 1,
-    d], new state)."""
+def _step(p: Params, x: torch.Tensor, cfg: ArchConfig, state: Tuple,
+          shard=None):
+    """One decode step before the gated norm -> (y [B, 1, di] fp32, z, new
+    state); a model shard's over its heads."""
     B = x.shape[0]
-    di, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    di, H = shard_widths(cfg, shard)
+    P = cfg.ssm_head_dim
     ssm_state, conv_in = state
-    z, xr, Br, Cr, dt, A, conv_state = _project(p, x, cfg, conv_in)
+    z, xr, Br, Cr, dt, A, conv_state = _project(p, x, cfg, conv_in, shard)
     xs = xr[:, 0].reshape(B, H, P).float()
     Bm, Cm = Br[:, 0].float(), Cr[:, 0].float()
     dt = dt[:, 0]                                                # [B, H]
@@ -196,8 +241,51 @@ def mamba_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, state: Tuple):
                  + torch.einsum("bhp,bn->bhpn", xs * dt[..., None], Bm))
     y = torch.einsum("bhpn,bn->bhp", ssm_state, Cm) \
         + xs * p["D"][None, :, None]
-    y = _gated_norm(y.reshape(B, 1, di), z, p["norm"], cfg.norm_eps)
-    return y.to(x.dtype) @ p["out_proj"], (ssm_state, conv_state)
+    return y.reshape(B, 1, di), z, (ssm_state, conv_state)
+
+
+def mamba_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, state: Tuple):
+    """Single-token step. x [B, 1, d]; state (ssm, conv_states) -> (y [B, 1,
+    d], new state)."""
+    y, z, st = _step(p, x, cfg, state)
+    y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
+    return y.to(x.dtype) @ p["out_proj"], st
+
+
+def norm_sums(sums):
+    """The members' fp32 sums of squares of the gated output, summed over
+    the model group onto every member (forward and backward: a ring
+    all-reduce in member order)."""
+    return col.group_all_reduce(sums)
+
+
+def _norm_out_tp(ps, pre, cfg: ArchConfig, dtype):
+    """The gated norm over a model group, each member's (y, z) over its
+    channels, the variance over all of d_inner; then each member's
+    row-parallel ``out_proj`` partial [B, S, d] in ``dtype``."""
+    gs = [y * F.silu(z.float()) for y, z, _ in pre]
+    tot = norm_sums([(g * g).sum(-1, keepdim=True) for g in gs])
+    return [(g * torch.rsqrt(t / cfg.d_inner + cfg.norm_eps)
+             * p["norm"]).to(dtype) @ p["out_proj"]
+            for p, g, t in zip(ps, gs, tot)]
+
+
+def mamba_tp(ps, xs, cfg: ArchConfig, states=None):
+    """A model group's Mamba2 blocks in lockstep: ``ps`` the members'
+    block slices, ``xs`` each member's normed input [B, S, d]; the chunked
+    forward from zero states (``mamba_forward``'s), or from ``states``
+    (each member's SSM state of its heads and conv states, x's whole or
+    its channels) one decode step (``mamba_decode``'s). -> (each member's
+    ``out_proj`` partial, each member's new state: its heads, x's conv
+    state of its channels, B's and C's whole)."""
+    n = len(ps)
+    if states is None:
+        pre = [_chunks(p, x, cfg, None, (m, n))
+               for m, (p, x) in enumerate(zip(ps, xs))]
+    else:
+        pre = [_step(p, x, cfg, st, (m, n))
+               for m, (p, x, st) in enumerate(zip(ps, xs, states))]
+    return _norm_out_tp(ps, pre, cfg, xs[0].dtype), [r[2] for r in pre]
 
 
 def mamba_state_init(cfg: ArchConfig, batch: int, dtype=torch.float32,

@@ -19,18 +19,20 @@ step computes what the reference's ``jax.jit(step)`` computes under GSPMD,
 the single-device step's result, and each mesh coordinate computes its own
 slice of it. The batch is split over the data axes as ``batch_specs`` says
 (not split when it does not divide). For the transformer families (dense,
-moe, audio, vlm) on a mesh whose ``model`` axis is > 1, each data index's
-model group runs the tensor-parallel ``loss_and_grads``
+moe, audio, vlm) and the hybrid on a mesh whose ``model`` axis is > 1,
+each data index's model group runs the tensor-parallel ``loss_and_grads``
 (``models.model.train_loss_tp`` over ``sharding.group_view``: attention
 split by heads, the MLP and the vocabulary by columns, MoE by experts or
-d_ff, FSDP leaves gathered one layer at a time); each coordinate gets the
+d_ff, the hybrid's Mamba2 blocks by heads, FSDP leaves gathered one layer
+at a time); each coordinate gets the
 gradient of its own shards. Then a leaf replicated over ``model`` sums its
 copies' gradients over the model group (each copy reaches the loss only
 through its own shard), and each slice's gradient is averaged over the data
 indices onto the coordinates that own it: a ring all-reduce for leaves
 replicated over the data axes, a reduce-scatter (the FSDP gather's
-backward) for FSDP leaves. The hybrid and xLSTM families, and every family
-on a mesh whose ``model`` axis is 1, take the gathered step instead: each
+backward) for FSDP leaves. xLSTM (the reference replicates its
+parameters), and every family on a mesh whose ``model`` axis is 1, take the
+gathered step instead: each
 data index gathers the full parameters onto its first device and runs
 ``loss_and_grads`` there, and the gradients are averaged over the data
 indices in index order (``collectives.all_reduce``). Then the pod sync, if
@@ -168,9 +170,10 @@ def data_parts(batch, cfg: ArchConfig, tc: TrainConfig, mesh) -> List[Dict]:
 
 def splits_model(cfg: ArchConfig, mesh) -> bool:
     """Whether the sharded step splits compute over the mesh's ``model``
-    axis: the transformer families on a ``model`` axis > 1."""
+    axis: the transformer families and the hybrid on a ``model`` axis >
+    1."""
     return (mesh.shape.get(sharding.MODEL_AXIS, 1) > 1
-            and cfg.family != "hybrid" and not cfg.xlstm_pattern)
+            and not cfg.xlstm_pattern)
 
 
 def _gathered_loss_and_grads(params, cfg, tc, batch, mesh):

@@ -8,14 +8,16 @@ weights, and computes its part.
 Each case (llama with kv heads sharded and replicated, a data axis, the
 long_500k layout, a ``pod`` axis, MoE expert-parallel and d_ff-split and
 on (2, 2) through the gathered dispatch group, audio, vlm with M-RoPE,
-FSDP; DSA stateless, DSA's index cache, the dense branch) runs 4 greedy
-fp32 steps from a seeded cache (smoke configs, DSA pages of 4 tokens: each
-shard owns several pages and several are selected), held
+FSDP, the Mamba2 hybrid in both layouts (its SSM states cut by heads, its
+conv states whole on every member); DSA stateless, DSA's index cache, the
+dense branch) runs 4 greedy fp32 steps from a seeded cache (smoke
+configs, DSA pages of 4 tokens: each shard owns several pages and several
+are selected), held
 - against the port's one-device ``decode_step`` at the same weights and
   cache: logits within 2e-5 abs (the split's sums run in another order, as
   ``prefill_tp``'s in ``tests/test_torch_tp.py``), the selected page ids
-  equal, each shard's cache slice within 1e-5 abs of its slice of one
-  device's, greedy tokens equal;
+  equal, each shard's cache slice (the hybrid's states too) within 1e-5
+  abs of its slice of one device's, greedy tokens equal;
 - against the JAX package's ``decode_step`` (plain route): logits within
   1e-4 (``tests/test_torch_methods.py``'s ``LOGIT_TOL``).
 
@@ -25,7 +27,7 @@ K/V is its 1/n of the sequence, no card holds a full-shape tensor of a
 leaf cut over ``model``, and the bytes that cross between cards are only
 the named small tensors, to the byte; in a subprocess with 4 host devices
 the reference's jitted ``decode_step`` with ``cache_specs`` on a (1, 4)
-mesh (GSPMD) gives the split's logits within 1e-4.
+mesh (GSPMD) gives the split's logits within 1e-4, llama's and zamba2's.
 """
 import json
 import os
@@ -58,6 +60,7 @@ from repro_torch.weights import from_jax_params  # noqa: E402
 torch.set_num_threads(2)
 AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 FSDP_WIDTH = {"d_ff": 16384, "vocab_size": 32768}   # leaves of 2^22
+HYBRID_TAIL = {"n_layers": 3, "shared_attn_every": 2}   # a 1-layer tail
 LOGIT_TOL, CACHE_TOL, JAX_TOL = 2e-5, 1e-5, 1e-4
 S, CTX, STEPS, PAGE = 64, 37, 4, 4
 # name: (arch, mesh shape, batch, config changes, fsdp, method)
@@ -82,6 +85,14 @@ CASES = {
     "qwen2vl-1x4": ("qwen2-vl-72b", (1, 4), 2, {}, None, "dsa"),
     "llama-fsdp-2x2": ("llama3.2-1b", (2, 2), 4, FSDP_WIDTH, True,
                        "idxcache"),
+    # the hybrid: its shared block's sites over shared_k / shared_v (one
+    # set of indexer weights), its Mamba2 layers from the SSM states cut
+    # by heads and the conv states whole on every member
+    "zamba2-2x2-data": ("zamba2-7b", (2, 2), 4, {}, None, "dsa"),
+    "zamba2-1x4-dense": ("zamba2-7b", (1, 4), 2, HYBRID_TAIL, None,
+                         "dense"),
+    "zamba2-long-2x2": ("zamba2-7b", (2, 2), 1, HYBRID_TAIL, None, "dsa"),
+    "zamba2-long-2x2-dense": ("zamba2-7b", (2, 2), 1, {}, None, "dense"),
 }
 
 
@@ -99,6 +110,41 @@ def _cache(cfg, B, seed=0):
     k[:, :, CTX:] = 0
     v[:, :, CTX:] = 0
     return k, v
+
+
+def _caches(cfg, B, seed=0):
+    """A cache tree of numpy arrays from a seed: a transformer's k / v
+    (``_cache``); the hybrid's ``make_cache`` tree, shared_k / shared_v
+    zero past CTX tokens, every recurrent state drawn."""
+    if cfg.family != "hybrid":
+        k, v = _cache(cfg, B, seed)
+        return {"k": k, "v": v}
+    rng = np.random.default_rng(seed)
+    draw = lambda t: rng.standard_normal(tuple(t.shape)).astype(np.float32)
+    out = {}
+    for name, t in M.make_cache(cfg, B, S, device="cpu").items():
+        if name != "length":
+            out[name] = tuple(map(draw, t)) if isinstance(t, tuple) \
+                else draw(t)
+    for name in ("shared_k", "shared_v"):
+        out[name][:, :, CTX:] = 0
+    return out
+
+
+def _tree(c, fn):
+    return {k: tuple(map(fn, v)) if isinstance(v, tuple) else fn(v)
+            for k, v in c.items()}
+
+
+def _shards_agree(c2, c1):
+    """Every shard of every placed cache leaf (K / V, the hybrid's SSM and
+    conv states) within CACHE_TOL of its slice of one device's."""
+    for x, want in zip(leaves(c2), leaves(c1)):
+        if isinstance(x, sh.ShardedTensor):
+            assert tuple(x.shape) == tuple(want.shape)
+            for s_, sl in zip(x.shards, x.slices):
+                if s_.numel():
+                    assert float((s_ - want[sl]).abs().max()) <= CACHE_TOL
 
 
 def _kidx(sp, k):
@@ -157,28 +203,37 @@ def test_split_decode_matches_one_device_and_jax(case, monkeypatch):
                                one, tcfg, mesh, fsdp=fsdp), mesh))
     assert any(sh.fsdp_dim(x) is not None for x in leaves(placed)) == \
         bool(fsdp)
-    k, v = _cache(tcfg, B)
+    hybrid = tcfg.family == "hybrid"
+    kname = "shared_k" if hybrid else "k"
+    sites = M._hybrid_shape(tcfg)[0] if hybrid else tcfg.n_layers
+    npc = _caches(tcfg, B)
+    k = npc.get("k")
     shp = ShapeConfig("decode", S, B, "decode")
-    c1 = {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy()),
-          "length": CTX}
-    c2 = sh.device_put({"k": torch.from_numpy(k), "v": torch.from_numpy(v)},
-                       sh.make_shardings(sh.cache_specs(
-                           {"k": 0, "v": 0}, tcfg, shp, mesh), mesh))
+    c1 = _tree(npc, lambda a: torch.from_numpy(a.copy()))
+    c1["length"] = CTX
+    c2 = _tree(npc, torch.from_numpy)
+    c2 = sh.device_put(c2, sh.make_shardings(sh.cache_specs(
+        c2, tcfg, shp, mesh), mesh))
     c2["length"] = CTX
-    jc = {"k": jnp.asarray(k), "v": jnp.asarray(v),
-          "length": jnp.asarray(CTX, jnp.int32)}
+    jc = _tree(npc, jnp.asarray)
+    jc["length"] = jnp.asarray(CTX, jnp.int32)
     # each coordinate holds its rows and its sequence slice, every kv head
     n_seq = len(sh.seq_groups(mesh, B)[0])
     rows = B // sh.data_ways(mesh) if sh.big_batch(mesh, B) else B
-    for s in c2["k"].shards:
-        assert s.shape == (tcfg.n_layers, rows, S // n_seq,
-                           tcfg.n_kv_heads, tcfg.hd)
+    for s in c2[kname].shards:
+        assert s.shape == (sites, rows, S // n_seq, tcfg.n_kv_heads, tcfg.hd)
+    if hybrid:      # the SSM states' heads cut over model, conv rows only
+        n = shape[-1]
+        for s in c2["body_ssm"].shards:
+            assert s.shape[-4:-2] == (rows, tcfg.ssm_heads // n)
+        for s in c2["body_conv"][0].shards:
+            assert s.shape[-3:-1] == (rows, tcfg.d_inner)
 
     sfn = split = sp1 = sp2 = jsp = None
     stateful = method == "idxcache"
     if method != "dense":
         np_sp = jax.tree.map(np.asarray, jdsa.dsa_init(
-            jax.random.PRNGKey(7), jcfg, jcfg.memory))
+            jax.random.PRNGKey(7), jcfg, jcfg.memory, stacked=not hybrid))
         sp = from_jax_params(np_sp, "cpu")
         split = dsa.SplitDSA(tcfg, tcfg.memory, page=PAGE,
                              stateful=stateful, record=True)
@@ -224,19 +279,15 @@ def test_split_decode_matches_one_device_and_jax(case, monkeypatch):
             assert float(np.abs(l2.numpy() - np.asarray(jl)).max()) <= \
                 JAX_TOL
             assert c2["length"] == c1["length"] == CTX + step + 1
-            for name in ("k", "v"):
-                x = c2[name]
-                for s, sl in zip(x.shards, x.slices):
-                    assert float((s - c1[name][sl]).abs().max()) <= \
-                        CACHE_TOL
+            _shards_agree(c2, c1)
             if split is not None:
-                # one selection a sequence group a layer: the rows of each
-                # data index in turn
+                # one selection a sequence group an attention layer (the
+                # hybrid: a site): the rows of each data index in turn
                 ng = len(sh.seq_groups(mesh, B))
                 sel = [torch.cat(split.selected[i * ng:(i + 1) * ng])
-                       for i in range(tcfg.n_layers)]
-                assert len(split.selected) == ng * tcfg.n_layers
-                assert len(rec.pages) == tcfg.n_layers
+                       for i in range(sites)]
+                assert len(split.selected) == ng * sites
+                assert len(rec.pages) == sites
                 for a, b in zip(sel, rec.pages):
                     got, want = _sorted_pages(a), _sorted_pages(b)
                     assert got.shape[1] >= want.shape[1] > 1
@@ -251,14 +302,21 @@ def test_split_decode_matches_one_device_and_jax(case, monkeypatch):
             assert float((s - full[sl]).abs().max()) <= CACHE_TOL
 
 
-@pytest.mark.parametrize("shape,B", [((1, 4), 2), ((2, 2), 4)],
-                         ids=["1x4-kv-replicated", "2x2-kv-sharded"])
-def test_prefill_tp_reshard_decode_matches_one_device(shape, B):
-    """``prefill_tp`` over each data index's model group, its caches
-    resharded to the decode layout (an all-to-all where the kv heads
-    shard, each member's own slice where they do not), then two split
-    steps: equal to ``prefill`` + ``decode_step`` on one device."""
-    jcfg, tcfg = _cfgs("llama3.2-1b", {})
+@pytest.mark.parametrize("arch,shape,B", [
+    ("llama3.2-1b", (1, 4), 2), ("llama3.2-1b", (2, 2), 4),
+    ("zamba2-7b", (2, 2), 4), ("zamba2-7b", (2, 2), 1)],
+    ids=["1x4-kv-replicated", "2x2-kv-sharded", "zamba2-2x2",
+         "zamba2-long-2x2"])
+def test_prefill_tp_reshard_decode_matches_one_device(arch, shape, B):
+    """``prefill_tp`` over each data index's model group (long_500k's
+    layout: data index 0's), its caches resharded to the decode layout (an
+    all-to-all where the kv heads shard, each member's own slice where they
+    do not; the hybrid's SSM states by heads, its conv states' x channels
+    all-gathered, copied to the other data indices where the batch is not
+    cut), then two split steps: equal to ``prefill`` + ``decode_step`` on
+    one device."""
+    kw = HYBRID_TAIL if arch == "zamba2-7b" else {}
+    jcfg, tcfg = _cfgs(arch, kw)
     tp = shape[-1]
     mesh = make_mesh(shape, AXES[2], devices=["cpu"])
     np_params = jax.tree.map(np.asarray, JM.init_params(
@@ -267,9 +325,11 @@ def test_prefill_tp_reshard_decode_matches_one_device(shape, B):
     placed = sh.device_put(from_jax_params(np_params, "cpu"),
                            sh.make_shardings(sh.param_specs(
                                one, tcfg, mesh), mesh))
+    # the hybrid's prompt: whole SSD chunks of 16
+    P_ = 32 if tcfg.family == "hybrid" else 24
     toks = torch.from_numpy(np.random.default_rng(5).integers(
-        0, tcfg.vocab_size, (B, 24)).astype(np.int32))
-    dp = len(sh.model_groups(mesh))
+        0, tcfg.vocab_size, (B, P_)).astype(np.int32))
+    dp = len(sh.model_groups(mesh)) if sh.big_batch(mesh, B) else 1
     with torch.no_grad():
         l1, c1 = M.prefill(one, tcfg, toks, max_len=S, tp=tp)
         parts, lasts = [], []
@@ -281,17 +341,18 @@ def test_prefill_tp_reshard_decode_matches_one_device(shape, B):
             lasts.append(last)
         assert float((torch.cat(lasts) - l1).abs().max()) <= LOGIT_TOL
         c2 = M.reshard_prefill_caches(parts, tcfg, mesh)
-        assert c2["length"] == 24
-        for name in ("k", "v"):
-            for s, sl in zip(c2[name].shards, c2[name].slices):
-                assert s.shape[2] == S // tp
-                assert float((s - c1[name][sl]).abs().max()) <= CACHE_TOL
+        assert c2["length"] == P_
+        kname = "shared_k" if tcfg.family == "hybrid" else "k"
+        for s_ in c2[kname].shards:
+            assert s_.shape[2] == S // len(sh.seq_groups(mesh, B)[0])
+        _shards_agree(c2, c1)
         tok = l1.argmax(-1)
         for _ in range(2):
             a, c1 = M.decode_step(one, tcfg, tok, c1, tp=tp)
             b, c2 = M.decode_step_tp(placed, tcfg, tok, c2, mesh, tp=tp)
             assert float((a - b).abs().max()) <= LOGIT_TOL
             assert torch.equal(a.argmax(-1), b.argmax(-1))
+            _shards_agree(c2, c1)
             tok = a.argmax(-1)
 
 
@@ -467,18 +528,27 @@ from repro.kernels import ops
 from repro.launch.mesh import make_mesh
 from repro.models import model as JM
 ops.use_pallas(False)
-cfg = get_arch("llama3.2-1b").smoke().replace(dtype="float32")
+cfg = get_arch(ARCH).smoke().replace(dtype="float32", **KW)
 mesh = make_mesh((1, N), ("data", "model"))
 z = np.load(PATH)
 p = JM.init_params(cfg, jax.random.PRNGKey(0), tp=N)
-sp = dsa.dsa_init(jax.random.PRNGKey(7), cfg, cfg.memory)
-caches = {"k": jnp.asarray(z["k"]), "v": jnp.asarray(z["v"]),
-          "length": jnp.asarray(CTX, jnp.int32)}
+sp = dsa.dsa_init(jax.random.PRNGKey(7), cfg, cfg.memory,
+                  stacked=cfg.family != "hybrid")
+caches = {}
+for name in z.files:
+    if name == "tok":
+        continue
+    key, _, i = name.partition(":")
+    if i:
+        caches[key] = caches.get(key, ()) + (jnp.asarray(z[name]),)
+    else:
+        caches[key] = jnp.asarray(z[name])
+caches["length"] = jnp.asarray(CTX, jnp.int32)
 put = lambda t, s: jax.tree.map(
     lambda x, y: jax.device_put(x, NamedSharding(mesh, y)), t, s)
 p = put(p, param_specs(p, cfg, mesh))
 sp = put(sp, method_specs(sp, cfg, mesh))
-cs = cache_specs(caches, cfg, ShapeConfig("d", z["k"].shape[2], B,
+cs = cache_specs(caches, cfg, ShapeConfig("d", z[KNAME].shape[2], B,
                                           "decode"), mesh)
 caches = put(caches, cs)
 out = {}
@@ -488,7 +558,7 @@ for name, fn in (("dense", None),
     step = jax.jit(lambda p, t, c, s: JM.decode_step(
         p, cfg, t, c, tp=N, sparse_fn=fn, sparse_params=s))
     logits, _ = step(p, jnp.asarray(z["tok"]), caches, sp)
-    assert "model" in str(caches["k"].sharding.spec)
+    assert "model" in str(caches[KNAME].sharding.spec)
     out[name] = np.asarray(logits).tolist()
 print(json.dumps(out))
 """
@@ -499,18 +569,38 @@ def test_split_decode_agrees_with_gspmd(tmp_path):
     ``method_specs`` and ``cache_specs`` on a (1, 4) mesh of host devices
     (GSPMD partitions it: the cache's sequence on ``model``), dense and
     DSA, against the port's split at the same weights and cache."""
+    _against_gspmd("llama3.2-1b", tmp_path)
+
+
+def test_hybrid_split_decode_agrees_with_gspmd(tmp_path):
+    """As above for zamba2 with a tail layer: GSPMD cuts the SSM states by
+    heads and the Mamba2 weights as ``param_specs`` says, the shared
+    block's caches' sequence on ``model``."""
+    _against_gspmd("zamba2-7b", tmp_path)
+
+
+def _against_gspmd(arch, tmp_path):
     n, B = 4, 2
-    jcfg, tcfg = _cfgs("llama3.2-1b", {})
-    k, v = _cache(tcfg, B, seed=2)
+    kw = HYBRID_TAIL if arch == "zamba2-7b" else {}
+    jcfg, tcfg = _cfgs(arch, kw)
+    npc = _caches(tcfg, B, seed=2)
     tok = np.random.default_rng(4).integers(0, tcfg.vocab_size, B) \
         .astype(np.int32)
     path = tmp_path / "decode.npz"
-    np.savez(path, k=k, v=v, tok=tok)
+    flat = {}
+    for name, a in npc.items():
+        if isinstance(a, tuple):
+            flat.update({f"{name}:{i}": t for i, t in enumerate(a)})
+        else:
+            flat[name] = a
+    np.savez(path, tok=tok, **flat)
+    kname = "shared_k" if tcfg.family == "hybrid" else "k"
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))) + "/src",
         XLA_FLAGS="--xla_force_host_platform_device_count=4",
         JAX_PLATFORMS="cpu")
     code = (f"N, B, CTX, PAGE = {n}, {B}, {CTX}, {PAGE}\n"
+            f"ARCH, KW, KNAME = {arch!r}, {kw!r}, {kname!r}\n"
             f"PATH = {str(path)!r}\n" + _GSPMD)
     run = subprocess.run([sys.executable, "-c", code], env=env,
                          cwd=str(tmp_path), capture_output=True, text=True,
@@ -524,15 +614,15 @@ def test_split_decode_agrees_with_gspmd(tmp_path):
     placed = sh.device_put(params, sh.make_shardings(
         sh.param_specs(params, tcfg, mesh), mesh))
     np_sp = jax.tree.map(np.asarray, jdsa.dsa_init(
-        jax.random.PRNGKey(7), jcfg, jcfg.memory))
+        jax.random.PRNGKey(7), jcfg, jcfg.memory,
+        stacked=tcfg.family != "hybrid"))
     sp = sh.device_put(from_jax_params(np_sp, "cpu"), sh.make_shardings(
         sh.method_specs(from_jax_params(np_sp, "cpu"), tcfg, mesh), mesh))
     shp = ShapeConfig("decode", S, B, "decode")
     for name in ("dense", "dsa"):
-        caches = sh.device_put(
-            {"k": torch.from_numpy(k), "v": torch.from_numpy(v)},
-            sh.make_shardings(sh.cache_specs({"k": 0, "v": 0}, tcfg, shp,
-                                             mesh), mesh))
+        caches = _tree(npc, torch.from_numpy)
+        caches = sh.device_put(caches, sh.make_shardings(
+            sh.cache_specs(caches, tcfg, shp, mesh), mesh))
         caches["length"] = CTX
         split = (dsa.SplitDSA(tcfg, tcfg.memory, page=PAGE)
                  if name == "dsa" else None)

@@ -232,11 +232,10 @@ def test_train_cell_is_the_sharded_step(cells):
 def test_decode_variants_run_over_the_model_devices(cells, variant, arch,
                                                     tmp_path):
     """The optimized decode variants run DSA sequence-parallel over data
-    index 0's 4 model devices: llama through the decode split, the hybrid
-    (no model-axis split) through ``make_sparse_fn_distributed`` on its
-    unsplit step, one paged launch per shard an attention site. The
-    hybrid's step carries no index cache, so its idxcache cell fails
-    rather than walk another variant."""
+    index 0's 4 model devices through the decode split (llama, and the
+    hybrid at its shared block's sites), one paged launch per shard an
+    attention site. The hybrid's step carries no index cache, so its
+    idxcache cell fails rather than walk another variant."""
     out, _, mesh, _ = cells
     cfg = get_arch(arch).smoke()
     # 16 pages of 64 tokens: 4 a model device
@@ -253,8 +252,7 @@ def test_decode_variants_run_over_the_model_devices(cells, variant, arch,
     # the sequence-parallel top-k and apply: one launch per shard a site
     assert rec["kernel_calls"] == {"relevancy_topk_candidates": 4 * sites,
                                    "paged_decode_attention": 4 * sites}
-    assert rec["walked"].startswith("the decode split" if arch == SMOKE
-                                    else "data index 0's 1 rows")
+    assert rec["walked"].startswith("the decode split")
 
 
 @pytest.mark.parametrize("B,coords", [(2, 4), (1, 8)],

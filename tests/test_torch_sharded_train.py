@@ -11,16 +11,16 @@ differences of 3e-5):
   every parameter and moment leaf within 1e-5 abs, every leaf moved by at
   least lr / 2 somewhere, and every shard equal to its slice of the gathered
   tensor (the data replicas of a leaf agree). Where the step splits its
-  products over the ``model`` axis (tensor parallelism: llama, MoE and vlm
-  on a ``model`` axis > 1), its fp32 sums run in another order than one
-  device's, and Adam's first step, lr g / (|g| + eps), turns that rounding
+  products over the ``model`` axis (tensor parallelism: llama, MoE, vlm
+  and the hybrid on a ``model`` axis > 1), its fp32 sums run in another
+  order than one device's, and Adam's first step, lr g / (|g| + eps), turns that rounding
   into up to 3e-4 where |g| < eps. There the split is held where it
   differs, before Adam (``_tp_grads``): every gradient leaf, at the same
   parameters as one device's, within 1e-5 of that leaf's largest |g|; and
   its update after (``_applied``): every parameter within 1e-5 abs of one
   device's AdamW of the split's gradients. Loss, grad norm and moments keep
-  1e-5 against one device's step. The gathered step (the hybrid and xLSTM,
-  and every family on a ``model`` axis of 1) computes each data index's
+  1e-5 against one device's step. The gathered step (xLSTM, and every
+  family on a ``model`` axis of 1) computes each data index's
   rows as one device does, and is held to 1e-5 on its parameters against
   one device's step (``test_gathered_step_matches_single_device``);
 - sharded vs the JAX single-device step: the reference test's own
@@ -159,11 +159,15 @@ def _max_abs(a, b):
 def _tp_grads(cfg, tc, placed, batch, mesh):
     """The split step's gradients at ``placed``, gathered, held against one
     device's gradients at the same parameters: every leaf within 1e-5 of
-    its largest |g| (measured: at most 1e-6)."""
+    its largest |g| (measured: at most 1e-6; a leaf of no elements, as
+    zamba2 smoke's empty tail, has none to hold)."""
     _, want = loss_and_grads(sh.gather(placed), cfg, tc, batch)
     _, got = sharded_loss_and_grads(placed, cfg, tc, batch, mesh)
     got = sh.gather(got)
     for a, b in zip(leaves(got), leaves(want)):
+        assert a.shape == b.shape
+        if not b.numel():
+            continue
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), \
             a.shape
     return got
@@ -215,13 +219,13 @@ def test_sharded_step_matches_single_device(smoke32, mesh_name, accum):
 # name: (arch, mesh shape, accum): the gathered step's cases
 GATHERED = {"llama-4x1": ("llama3.2-1b", (4, 1), 1),
             "llama-2x1-accum2": ("llama3.2-1b", (2, 1), 2),
-            "zamba2-2x2": ("zamba2-7b", (2, 2), 1),
+            "zamba2-2x1": ("zamba2-7b", (2, 1), 1),
             "xlstm-2x2": ("xlstm-125m", (2, 2), 1)}
 
 
 @pytest.mark.parametrize("case", list(GATHERED))
 def test_gathered_step_matches_single_device(case):
-    """The gathered step (llama on a ``model`` axis of 1; the hybrid and
+    """The gathered step (llama and the hybrid on a ``model`` axis of 1;
     xLSTM on any mesh): each data index gathers the parameters onto its
     first device and runs its rows as one device does; the gradients are
     averaged onto the mesh's first device. One step == one device's:
