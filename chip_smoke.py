@@ -2947,6 +2947,22 @@ PREFILL_BF16_TOL = 0.5
 # decode_bounds readings
 DECODE_WRONG_MERGES = ("the last shard's pair dropped",
                        "the pairs weighed equally")
+# Seer (top-k and threshold) and LServe over the split, beside DSA: their
+# BLOCK-token blocks and BUDGET-token budget (the config's, the serve
+# runs'); (a) and (c) run all three, (b) SPLIT_METHODS_B
+SPLIT_METHODS = ("seer", "seer-threshold", "lserve")
+SPLIT_METHODS_B = ("seer", "lserve")
+# abs bound on those methods' split bf16 logits against one device's in
+# (a) and (b), and their near-tie margin, set as DECODE_BF16_TOL is, from
+# ``--phases decode_bounds`` (its ``methods`` readings, PERF.md): the right
+# split reaches 0.477, one device's bf16 against fp32 1.30; every step of
+# every fault at (a) reads 1.15 or more, the candidate fault 1.48 or more
+# at (a) and (b), and each (out, lse) fault at (b) passes 1.0 at some step
+METHOD_BF16_TOL = 1.0
+# the deliberate fault in the merge of the shards' (value, index)
+# candidates (``topk.merge_shard_topk``): (c)'s fp32 check must fail under
+# it, and decode_bounds reads what it does to the bf16 logits
+CANDIDATE_FAULT = "the last shard's candidates dropped"
 
 
 def _profile_call(fn):
@@ -3015,55 +3031,164 @@ def _place_cache(c, cfg, mesh, B, S):
     return out
 
 
+def _method_mem(cfg, method: str):
+    """``cfg.memory`` with ``method`` ("dsa", "seer", "seer-threshold",
+    "lserve")."""
+    if method == "seer-threshold":
+        return cfg.memory.replace(method="seer", selection="threshold")
+    return cfg.memory.replace(method=method)
+
+
+def _kernels_of(method: str):
+    """The two kernels a split step of ``method`` launches."""
+    return (("page_minmax", "paged_decode_attention") if method == "lserve"
+            else _DSA)
+
+
+def _split_fns(cfg, tp, method="dsa", record=False):
+    """(one device's sparse fn, the split's method) of ``method``: DSA at
+    DECODE_PAGE-token micro-pages; Seer and LServe through
+    ``core.methods.split_sparse`` at their blocks."""
+    from repro_torch.core.methods import dsa, get_sparse_method, split_sparse
+
+    mem = _method_mem(cfg, method)
+    if method == "dsa":
+        return (dsa.make_sparse_fn(cfg, mem, tp=tp, page=DECODE_PAGE),
+                dsa.SplitDSA(cfg, mem, page=DECODE_PAGE, record=record))
+    _, mk = get_sparse_method(mem.method)
+    return (mk(cfg, mem, tp=tp),
+            split_sparse(cfg, mem, page=DECODE_PAGE, record=record))
+
+
+def _method_params(cfg, method, mesh, dev, stacked=True):
+    """One device's weights of ``method`` (seeded; the hybrid's one set
+    unstacked) and the same placed by ``method_specs`` on ``mesh``."""
+    from repro_torch.core.methods import get_sparse_method
+    from repro_torch.distributed import sharding as sh
+
+    mem = _method_mem(cfg, method)
+    init, _ = get_sparse_method(mem.method)
+    sp1 = init(cfg, mem, 1, stacked=stacked, device=dev)
+    return sp1, sh.device_put(sp1, sh.make_shardings(
+        sh.method_specs(sp1, cfg, mesh), mesh))
+
+
+def _dropped_candidates():
+    """``topk.merge_shard_topk`` with CANDIDATE_FAULT: the last shard's
+    (value, index) candidates left out of the merge (its ids still
+    delivered to every shard)."""
+    from repro_torch.distributed import topk
+
+    real = topk.merge_shard_topk
+    return lambda shard_topk, n_local, k, devices, **kw: real(
+        shard_topk, n_local, k, devices[:-1], **kw)
+
+
+class _PageIds:
+    """While on, keeps the page ids of every ``ops.paged_decode_attention``
+    call (one device's selections)."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+
+        self.real, self.pages, self.on = ops.paged_decode_attention, [], False
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        def call(q, kc, vc, page_ids, *a, **kw):
+            if self.on:
+                self.pages.append(page_ids.clone())
+            return self.real(q, kc, vc, page_ids, *a, **kw)
+        ops.paged_decode_attention = call
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.paged_decode_attention = self.real
+
+
 def _decode_pair(cfg, tp, one, placed, mesh, c1, c2, tok, steps, sp1, sp2,
-                 record=False):
-    """``steps`` greedy steps of one device's ``decode_step`` (DSA,
-    ``make_sparse_fn``) and of ``decode_step_tp`` (``SplitDSA``), both fed
+                 record=False, method="dsa"):
+    """``steps`` greedy steps of one device's ``decode_step`` (``method``'s
+    ``make_sparse_fn``) and of ``decode_step_tp`` (its split), both fed
     one device's tokens. -> per step (ms one, ms split, max |logit diff|,
     one device's tokens, the split's, one device's top-2 margins), the
-    split's launches, the first shard's kernel inputs."""
+    split's launches of the method's two kernels, the first shard's
+    inputs of each (``ops`` name -> args), the split, the caches, the next
+    token; with ``record`` also one device's page ids a call (the split
+    keeps its own in ``split.selected``)."""
     import torch
-    from repro_torch.core.methods import dsa
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
 
-    sfn = dsa.make_sparse_fn(cfg, cfg.memory, tp=tp, page=DECODE_PAGE)
-    split = dsa.SplitDSA(cfg, cfg.memory, page=DECODE_PAGE,
-                         record=record)
-    rows, launches = [], {k: 0 for k in _DSA}
+    sfn, split = _split_fns(cfg, tp, method, record)
+    names = _kernels_of(method)
+    rows, launches = [], {k: 0 for k in names}
     caps = None
-    for i in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        l1, c1 = M.decode_step(one, cfg, tok, c1, tp=tp, sparse_fn=sfn,
-                               sparse_params=sp1)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        c0 = ops.launch_counts()
-        if i == 0:
-            # the first shard that owns selected pages
-            owns = lambda q, kc, vc, pages, *a: bool((pages >= 0).any())
-            with _FirstCall("relevancy_topk") as rel, \
-                    _FirstCall("paged_decode_attention", owns) as pda:
+    # the selection kernel's wrapper as ``ops`` names it
+    select = "page_minmax" if method == "lserve" else "relevancy_topk"
+    with _PageIds() as picked:
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            picked.on = record
+            l1, c1 = M.decode_step(one, cfg, tok, c1, tp=tp, sparse_fn=sfn,
+                                   sparse_params=sp1)
+            picked.on = False
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            c0 = ops.launch_counts()
+            if i == 0:
+                # the first shard that owns selected pages
+                owns = lambda q, kc, vc, pages, *a: bool((pages >= 0).any())
+                with _FirstCall(select) as sel, \
+                        _FirstCall("paged_decode_attention", owns) as pda:
+                    l2, c2 = M.decode_step_tp(placed, cfg, tok, c2, mesh,
+                                              tp=tp, sparse=split,
+                                              sparse_params=sp2)
+                caps = {select: sel.args, "paged_decode_attention": pda.args}
+            else:
                 l2, c2 = M.decode_step_tp(placed, cfg, tok, c2, mesh, tp=tp,
                                           sparse=split, sparse_params=sp2)
-            caps = (rel.args, pda.args)
-        else:
-            l2, c2 = M.decode_step_tp(placed, cfg, tok, c2, mesh, tp=tp,
-                                      sparse=split, sparse_params=sp2)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        cn = ops.launch_counts()
-        for k in _DSA:
-            launches[k] += cn[k] - c0[k]
-        top2 = l1.float().topk(2, dim=-1).values
-        rows.append({"ms_one": 1e3 * (t1 - t0), "ms_split": 1e3 * (t2 - t1),
-                     "err": float((l1.float() - l2.float()).abs().max()),
-                     "tok_one": l1.argmax(-1).tolist(),
-                     "tok_split": l2.argmax(-1).tolist(),
-                     "margin": (top2[:, 0] - top2[:, 1]).tolist()})
-        tok = l1.argmax(-1)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            cn = ops.launch_counts()
+            for k in names:
+                launches[k] += cn[k] - c0[k]
+            top2 = l1.float().topk(2, dim=-1).values
+            rows.append({"ms_one": 1e3 * (t1 - t0),
+                         "ms_split": 1e3 * (t2 - t1),
+                         "err": float((l1.float() - l2.float()).abs().max()),
+                         "tok_one": l1.argmax(-1).tolist(),
+                         "tok_split": l2.argmax(-1).tolist(),
+                         "margin": (top2[:, 0] - top2[:, 1]).tolist()})
+            tok = l1.argmax(-1)
+    if record:
+        split.picked = picked.pages
     return rows, launches, caps, split, c1, c2, tok
+
+
+def _pages_equal(split, sites):
+    """The split's merged selections (one a computing group a site, in
+    data-index order) equal one device's (``split.picked``, one a site),
+    as sets of ids: the split's padding is -1."""
+    import torch
+
+    picked = split.picked
+    G = len(split.selected) // max(sites, 1)
+    if not (len(picked) == sites and len(split.selected) == G * sites):
+        return False
+    for i, b in enumerate(picked):
+        got = torch.sort(torch.cat(split.selected[G * i:G * i + G]).long(),
+                         1).values
+        w = b.shape[1]
+        if not (torch.equal(got[:, got.shape[1] - w:],
+                            torch.sort(b.long(), 1).values)
+                and bool((got[:, :got.shape[1] - w] == -1).all())):
+            return False
+    return True
 
 
 def _tokens_check(name, rows, tol=None):
@@ -3091,45 +3216,99 @@ def _tokens_check(name, rows, tol=None):
 
 
 def _shard_rows(label, caps, launches, steps, phase="decode_sharded"):
-    """The two kernels at the first shard's shapes as the main path gave
-    them: kernel against plain (the relevancy top-k through
-    ``ops.relevancy_topk`` with kernels on and off; paged attention against
-    ``paged_decode_attention_plain``), then times, bound and library time
-    (``_relevancy_timing``, ``_paged_timing``)."""
+    """The kernels at the first shard's shapes as the main path gave them
+    (``caps``, by ``ops`` name): kernel against plain (the relevancy top-k
+    through ``ops.relevancy_topk`` with kernels on and off; paged
+    attention against ``paged_decode_attention_plain``; page_minmax
+    bit-exact), then times, bound and library time (``_relevancy_timing``,
+    ``_paged_timing``, ``_minmax_timing``). -> {kernel name: row}."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import sparse_decode_attention as sda
 
-    (rq, rk, rw, rkk), rkw = caps[0][0][:4], caps[0][1]
-    kv, ki = ops.relevancy_topk(rq, rk, rw, rkk, **rkw)
-    ops.use_kernels(False)
-    try:
-        pv, pi = ops.relevancy_topk(rq, rk, rw, rkk, **rkw)
-    finally:
-        ops.use_kernels(True)
-    rel_err = _topk_check(f"relevancy, {label}", kv, ki, pv, pi)
-    blk = ops._pow2_block(max(rk.shape[1], 2), rkw.get("block", 2048))
-    rel = dict(_relevancy_timing(rq, rk, rw, blk), path=f"{phase} {label}",
-               library_ms=None, max_abs_err=rel_err,
-               launches=launches["relevancy_topk_candidates"] // steps,
-               launches_note="a split step (all shards, all layers)",
-               shape=f"q [{', '.join(map(str, rq.shape))}] {rq.dtype}, keys "
-                     f"[{', '.join(map(str, rk.shape))}] (a shard's pages), "
-                     f"top {rkk}, block {blk}")
-    (q, kc, vc, pages, lens), pkw = caps[1][0][:5], caps[1][1]
+    out = {}
+    note = "a split step (all shards, all layers)"
+    if "relevancy_topk" in caps:
+        (rq, rk, rw, rkk), rkw = caps["relevancy_topk"][0][:4], \
+            caps["relevancy_topk"][1]
+        kv, ki = ops.relevancy_topk(rq, rk, rw, rkk, **rkw)
+        ops.use_kernels(False)
+        try:
+            pv, pi = ops.relevancy_topk(rq, rk, rw, rkk, **rkw)
+        finally:
+            ops.use_kernels(True)
+        rel_err = _topk_check(f"relevancy, {label}", kv, ki, pv, pi)
+        blk = ops._pow2_block(max(rk.shape[1], 2), rkw.get("block", 2048))
+        out["relevancy_topk_candidates"] = dict(
+            _relevancy_timing(rq, rk, rw, blk), path=f"{phase} {label}",
+            library_ms=None, max_abs_err=rel_err,
+            launches=launches["relevancy_topk_candidates"] // steps,
+            launches_note=note,
+            shape=f"q [{', '.join(map(str, rq.shape))}] {rq.dtype}, keys "
+                  f"[{', '.join(map(str, rk.shape))}] (a shard's blocks), "
+                  f"top {rkk}, block {blk}")
+    if "page_minmax" in caps:
+        (k,), kw = caps["page_minmax"][0][:1], caps["page_minmax"][1]
+        ps = kw.get("page_size", 64)
+        out["page_minmax"] = dict(
+            _minmax_timing(f"page_minmax, {label}", k, ps),
+            path=f"{phase} {label}", max_abs_err=0.0,
+            launches=launches["page_minmax"] // steps, launches_note=note,
+            shape=f"k [{', '.join(map(str, k.shape))}] {k.dtype} (a shard's "
+                  f"slice), pages of {ps}, C = {k.shape[2] * k.shape[3]}")
+    if "paged_decode_attention" not in caps:
+        return out
+    (q, kc, vc, pages, lens), pkw = caps["paged_decode_attention"][0][:5], \
+        caps["paged_decode_attention"][1]
     ps = pkw.get("page_size", DECODE_PAGE)
     ko, kl = sda.paged_decode_attention(q, kc, vc, pages, lens, page_size=ps)
     po, pl_ = sda.paged_decode_attention_plain(q, kc, vc, pages, lens,
                                                page_size=ps)
     err = _attn_check(f"paged attention, {label}", ko, kl, po, pl_)
-    paged = dict(_paged_timing(q, kc, vc, pages, lens, ps),
-                 path=f"{phase} {label}", max_abs_err=err,
-                 launches=launches["paged_decode_attention"] // steps,
-                 launches_note="a split step (all shards, all layers)",
-                 shape=f"q [{', '.join(map(str, q.shape))}] {q.dtype}, k/v "
-                       f"[{', '.join(map(str, kc.shape))}] (a shard's slice), "
-                       f"{int((pages >= 0).sum())} of {pages.numel()} "
-                       f"selected pages its own")
-    return rel, paged
+    out["paged_decode_attention"] = dict(
+        _paged_timing(q, kc, vc, pages, lens, ps), path=f"{phase} {label}",
+        max_abs_err=err, launches=launches["paged_decode_attention"] // steps,
+        launches_note=note,
+        shape=f"q [{', '.join(map(str, q.shape))}] {q.dtype}, k/v "
+              f"[{', '.join(map(str, kc.shape))}] (a shard's slice), "
+              f"{int((pages >= 0).sum())} of {pages.numel()} selected "
+              f"{ps}-token pages its own")
+    return out
+
+
+def _minmax_timing(name, k, ps):
+    """page_minmax on ``k``: bit-exact against its plain version; kernel
+    (cold L2, and warm), plain and library (``torch.aminmax`` + ``.float()``)
+    times and its bound."""
+    import torch
+    from repro_torch.kernels import page_pool as pp
+
+    mn, mx = pp.page_minmax(k, page_size=ps)
+    pmn, pmx = pp.page_minmax_plain(k, page_size=ps)
+    _exact(f"{name} min", mn, pmn)
+    _exact(f"{name} max", mx, pmx)
+    B, S, KV, dh = k.shape
+    n = cold_copies(pp.cost(k, page_size=ps).bytes)
+    ks = [k] + [k.clone() for _ in range(n - 1)]
+    ms = time_ms([lambda x=x: pp.page_minmax(x, page_size=ps) for x in ks])
+    ms_warm = time_ms(lambda: pp.page_minmax(k, page_size=ps))
+    plain_ms = time_ms([lambda x=x: pp.page_minmax_plain(x, page_size=ps)
+                        for x in ks])
+
+    def library(x):
+        lo, hi = torch.aminmax(x.view(B, S // ps, ps, KV, dh), dim=2)
+        return lo.float(), hi.float()
+
+    _exact(f"{name}: aminmax yardstick min", library(k)[0], pmn)
+    library_ms = time_ms([lambda x=x: library(x) for x in ks])
+    del ks
+    log(f"  {name}: bit-exact, {ms:.5f} ms cold (warm {ms_warm:.5f}), plain "
+        f"{plain_ms:.5f}, aminmax {library_ms:.5f}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            **pp.cost(k, page_size=ps).bound(), "ms_l2_warm": ms_warm,
+            "timing": f"cold L2: ms, plain_ms and library_ms rotate over {n} "
+                      f"copies of k; ms_l2_warm on one copy",
+            "tolerance": "bit-exact",
+            "library": "torch.aminmax over the page axis, then .float()"}
 
 
 def _exchange_walk(cfg, B, S, tp):
@@ -3215,14 +3394,18 @@ def _wrong_merge(kind):
 
 
 def phase_decode_bounds(dev):
-    """The readings behind DECODE_BF16_TOL (``--phases decode_bounds``, not
-    a default phase). At (a)'s and (b)'s shapes and mesh, every run fed
-    the same seeded tokens: (1) one device's bf16 logits against the fp32
-    logits of the same weights (the bf16 ones cast) on the same cache
-    (at (a) also prefill's last logits, bf16 against fp32); (2) the
-    split's bf16 logits against one device's on a copy of its cache, with
-    the merge of the shards' (out, lse) pairs right and with each fault of
-    DECODE_WRONG_MERGES. One ``decode_bounds`` line."""
+    """The readings behind DECODE_BF16_TOL and METHOD_BF16_TOL
+    (``--phases decode_bounds``, not a default phase). At (a)'s and (b)'s
+    shapes and mesh, for DSA and each method the phase runs there
+    (SPLIT_METHODS, SPLIT_METHODS_B), every run fed the same seeded
+    tokens: (1) one device's bf16 logits against the fp32 logits of the
+    same weights (the bf16 ones cast) on the same cache (at (a) also
+    prefill's last logits, bf16 against fp32); (2) the split's bf16 logits
+    against one device's on a copy of its cache, with the merges right,
+    with each fault of DECODE_WRONG_MERGES in the merge of the (out, lse)
+    pairs and with CANDIDATE_FAULT in the merge of the candidates. One
+    ``decode_bounds`` line (the methods' under each layout's
+    ``methods``)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core.methods import dsa
@@ -3244,30 +3427,23 @@ def phase_decode_bounds(dev):
     sp1 = dsa.dsa_init(cfg, cfg.memory, 1, device=dev)
     sp2 = sh.device_put(sp1, sh.make_shardings(
         sh.method_specs(sp1, cfg, mesh), mesh))
-    sfn = dsa.make_sparse_fn(cfg, cfg.memory, tp=tp, page=DECODE_PAGE)
-    split = dsa.SplitDSA(cfg, cfg.memory, page=DECODE_PAGE)
     g = torch.Generator(device=dev).manual_seed(13)
-
-    def one_step(params, c_cfg):
-        return lambda t, c: M.decode_step(params, c_cfg, t, c, tp=tp,
-                                          sparse_fn=sfn, sparse_params=sp1)
-
-    def split_step(t, c):
-        return M.decode_step_tp(placed, cfg, t, c, mesh, tp=tp,
-                                sparse=split, sparse_params=sp2)
 
     def diffs(a, b):
         return [float((x - y).abs().max()) for x, y in zip(a, b)]
 
     out = {"card": card_line(), "arch": SERVE_ARCH, "mesh": dict(mesh.shape),
-           "page": DECODE_PAGE, "faults": list(DECODE_WRONG_MERGES),
-           "tolerance_in_use": DECODE_BF16_TOL}
+           "page": DECODE_PAGE,
+           "faults": list(DECODE_WRONG_MERGES) + [CANDIDATE_FAULT],
+           "tolerance_in_use": DECODE_BF16_TOL,
+           "methods_tolerance_in_use": METHOD_BF16_TOL}
     for label, (B, S, steps) in (("a", DECODE_A), ("b", DECODE_B)):
         ctx = S - steps
         feed = torch.randint(0, cfg.vocab_size, (steps, B), generator=g,
                              device=dev, dtype=torch.int32)
         r = {"batch": B, "cache": S, "context": ctx, "steps": steps}
         with torch.no_grad():
+            c32 = None
             if label == "a":
                 toks = torch.randint(0, cfg.vocab_size, (B, ctx),
                                      generator=g, device=dev,
@@ -3285,31 +3461,66 @@ def phase_decode_bounds(dev):
                                 dtype=torch.bfloat16)
                 _rewind({"k": k, "v": v}, ctx)
                 c1 = {"k": k, "v": v, "length": ctx}
-                c32 = {"k": k.float(), "v": v.float(), "length": ctx}
                 del k, v
-            ref = _forced(one_step(one, cfg), c1, feed)
-            r["bf16_vs_fp32"] = diffs(
-                ref, _forced(one_step(one32, cfg32), c32, feed))
-            del c32
-            torch.cuda.empty_cache()
-            _rewind(c1, ctx)
-            c2 = _place_cache({"k": c1["k"], "v": c1["v"]}, cfg, mesh, B, S)
-            c2["length"] = ctx
-            del c1
-            r["split_vs_one"] = diffs(_forced(split_step, c2, feed), ref)
-            real = topk.merge_partials
-            for kind in DECODE_WRONG_MERGES:
-                _rewind(c2, ctx, mesh)
-                topk.merge_partials = _wrong_merge(kind)
-                try:
-                    r[f"wrong merge, {kind}"] = diffs(
-                        _forced(split_step, c2, feed), ref)
-                finally:
-                    topk.merge_partials = real
-            del c2
+            methods = SPLIT_METHODS if label == "a" else SPLIT_METHODS_B
+            for method in ("dsa",) + methods:
+                m = r if method == "dsa" else \
+                    r.setdefault("methods", {}).setdefault(method, {})
+                sfn, split = _split_fns(cfg, tp, method)
+                if method == "dsa":
+                    sp1_m, sp2_m = sp1, sp2
+                else:
+                    sp1_m, sp2_m = _method_params(cfg, method, mesh, dev)
+
+                def one_step(params, c_cfg):
+                    return lambda t, c: M.decode_step(
+                        params, c_cfg, t, c, tp=tp, sparse_fn=sfn,
+                        sparse_params=sp1_m)
+
+                def split_step(t, c):
+                    return M.decode_step_tp(placed, cfg, t, c, mesh, tp=tp,
+                                            sparse=split,
+                                            sparse_params=sp2_m)
+
+                _rewind(c1, ctx)
+                ref = _forced(one_step(one, cfg), c1, feed)
+                _rewind(c1, ctx)
+                if label == "a":
+                    _rewind(c32, ctx)
+                    cf = c32
+                else:       # one device's cache, cast (34 GB: made anew)
+                    cf = {"k": c1["k"].float(), "v": c1["v"].float(),
+                          "length": ctx}
+                m["bf16_vs_fp32"] = diffs(
+                    ref, _forced(one_step(one32, cfg32), cf, feed))
+                del cf
+                torch.cuda.empty_cache()
+                c2 = _place_cache({"k": c1["k"], "v": c1["v"]}, cfg, mesh, B,
+                                  S)
+                c2["length"] = ctx
+                m["split_vs_one"] = diffs(_forced(split_step, c2, feed), ref)
+                real, real_c = topk.merge_partials, topk.merge_shard_topk
+                for kind in DECODE_WRONG_MERGES + (CANDIDATE_FAULT,):
+                    _rewind(c2, ctx, mesh)
+                    if kind == CANDIDATE_FAULT:
+                        topk.merge_shard_topk = _dropped_candidates()
+                    else:
+                        topk.merge_partials = _wrong_merge(kind)
+                    try:
+                        m[f"wrong merge, {kind}"] = diffs(
+                            _forced(split_step, c2, feed), ref)
+                    finally:
+                        topk.merge_partials = real
+                        topk.merge_shard_topk = real_c
+                del c2
+                torch.cuda.empty_cache()
+                if method != "dsa":
+                    log(f"  ({label}) {method} {json.dumps(m)}")
+            del c1, c32
             torch.cuda.empty_cache()
         out[label] = r
-        log(f"  ({label}) {json.dumps(r)}")
+        log(f"  ({label}) "
+            f"{json.dumps({k: v for k, v in r.items() if k != 'methods'})}")
     del one, one32, placed, sp1, sp2
     torch.cuda.empty_cache()
     out["hybrid"] = _hybrid_bounds(dev)
@@ -3463,6 +3674,158 @@ def _states_gap(got, want):
     return worst
 
 
+def _method_runs(tag, methods, cfg, tp, one, placed, mesh, c1, c2, ctx, tok,
+                 steps, want, dev, rows=None, phase="decode_sharded"):
+    """``steps`` greedy bf16 steps of each of ``methods`` (Seer, Seer's
+    threshold, LServe) on the caches of ``tag``'s DSA run, each from the
+    same ``ctx`` tokens (``_rewind``) and first token ``tok``: the split
+    against one device's (``_decode_pair``), tokens and logits within
+    METHOD_BF16_TOL, ``want`` launches of each of the method's kernels a
+    split step. ``rows``: {method: its kernels to time at the first shard's
+    shapes (``_shard_rows``)}. -> (the line's dict, the kernel rows by
+    name, launches by path)."""
+    import torch
+
+    out, rows_out, launches_out = {}, {}, {}
+    for method in methods:
+        t0 = time.perf_counter()
+        _rewind(c1, ctx)
+        _rewind(c2, ctx, mesh)
+        sp1, sp2 = _method_params(cfg, method, mesh, dev)
+        with torch.no_grad():
+            got, launches, caps, _, c1, c2, _ = _decode_pair(
+                cfg, tp, one, placed, mesh, c1, c2, tok, steps, sp1, sp2,
+                method=method)
+        t1 = time.perf_counter()
+        ties, near = _tokens_check(f"{tag} {method}", got, METHOD_BF16_TOL)
+        if launches != {k: want * steps for k in _kernels_of(method)}:
+            raise AssertionError(f"{phase} {tag} {method}: launches "
+                                 f"{launches}, want {want} a step")
+        launches_out[f"{phase} {tag} {method}"] = launches
+        out[method] = {
+            "step_ms_one_device_median": statistics.median(
+                r["ms_one"] for r in got[1:]),
+            "step_ms_split_median": statistics.median(
+                r["ms_split"] for r in got[1:]),
+            "logits_max_abs_diff": [r["err"] for r in got],
+            "logits_tolerance": METHOD_BF16_TOL, "near_ties": ties,
+            "smallest_top2_margin": near,
+            "launches_per_step": {k: v // steps for k, v in launches.items()},
+            "seconds": t1 - t0}
+        log(f"  {tag} {method}: step ms one device "
+            f"{out[method]['step_ms_one_device_median']:.2f}, split "
+            f"{out[method]['step_ms_split_median']:.2f}; {t1 - t0:.1f} s")
+        if rows and method in rows:
+            label = f"{tag} {method}: a shard of {len(_first_seq(mesh, c2))}"
+            got_rows = _shard_rows(label, {
+                k: v for k, v in caps.items()
+                if _ROW_KERNEL[k] in rows[method]}, launches, steps, phase)
+            for name, row in got_rows.items():
+                rows_out.setdefault(name, []).append(row)
+            out[method]["rows_seconds"] = time.perf_counter() - t1
+    return out, rows_out, launches_out
+
+
+# the ``ops`` name of each kernel's wrapper call that ``_decode_pair`` keeps
+_ROW_KERNEL = {"relevancy_topk": "relevancy_topk_candidates",
+               "page_minmax": "page_minmax",
+               "paged_decode_attention": "paged_decode_attention"}
+
+
+def _first_seq(mesh, caches):
+    """The first sequence group of ``caches``' layout on ``mesh``."""
+    from repro_torch.distributed import sharding as sh
+
+    kname = "shared_k" if "shared_k" in caches else "k"
+    return sh.seq_groups(mesh, caches[kname].shape[1])[0]
+
+
+def _fp32_methods(cfg, tp, one, placed, mesh, c0, ctx, dev, sites, tag,
+                  methods, fault=True, hybrid=False, rows=None,
+                  phase="decode_sharded"):
+    """(c): one fp32 step of each of ``methods`` from the cache ``c0`` (a
+    one-device tree kept as it is), the split against one device's:
+    logits within LOGIT_TOL and the selected ids equal; with ``fault``,
+    the same step with CANDIDATE_FAULT must fail that check. ``rows`` as
+    ``_method_runs``'. -> (per method dict, rows by name, launches by
+    path)."""
+    import torch
+    from repro_torch.distributed import topk
+
+    out, rows_out, launches_out = {}, {}, {}
+    B, S = c0["shared_k" if hybrid else "k"].shape[1:3]
+    tok = torch.randint(0, cfg.vocab_size, (B,), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5),
+                        dtype=torch.int32)
+    for method in methods:
+        sp1, sp2 = _method_params(cfg, method, mesh, dev, stacked=not hybrid)
+        res = {}
+        for name in (("right", "fault") if fault else ("right",)):
+            c1 = _copy_cache(c0)
+            c2 = _place_cache(c1, cfg, mesh, B, S)
+            real = topk.merge_shard_topk
+            if name == "fault":
+                topk.merge_shard_topk = _dropped_candidates()
+            try:
+                with torch.no_grad():
+                    got, launches, caps, split, c1, c2, _ = _decode_pair(
+                        cfg, tp, one, placed, mesh, c1, c2, tok, 1, sp1, sp2,
+                        record=True, method=method)
+            finally:
+                topk.merge_shard_topk = real
+            res[name] = (got[0]["err"], _pages_equal(split, sites),
+                         _states_gap(c2, c1) if hybrid else 0.0)
+            if name == "right":
+                path = (f"{phase} {tag} {method} on "
+                        f"{mesh.shape['data']} x {mesh.shape['model']} B {B}")
+                launches_out[path] = launches
+                if rows and method in rows:
+                    n_seq = len(_first_seq(mesh, c2))
+                    got_rows = _shard_rows(
+                        f"{tag} {method}: a shard of {n_seq}",
+                        {k: v for k, v in caps.items()
+                         if _ROW_KERNEL[k] in rows[method]}, launches, 1,
+                        phase)
+                    for k, row in got_rows.items():
+                        rows_out.setdefault(k, []).append(row)
+            del c1, c2
+        err, same, states = res["right"]
+        r = {"logits_max_abs_diff": err, "selected_ids_equal": same,
+             "tolerance": LOGIT_TOL}
+        if hybrid:
+            r["states_max_abs_diff"] = states
+        if fault:
+            f_err, f_same, _ = res["fault"]
+            r["candidate_fault"] = {"fault": CANDIDATE_FAULT,
+                                    "logits_max_abs_diff": f_err,
+                                    "selected_ids_equal": f_same,
+                                    "fails_the_check": not (
+                                        f_err <= LOGIT_TOL and f_same)}
+        log(f"  {tag} {method} fp32 on {mesh.shape['data']} x "
+            f"{mesh.shape['model']}, B {B}: logits within {err:.3g} (tol "
+            f"{LOGIT_TOL}), ids equal {same}"
+            + (f"; {CANDIDATE_FAULT}: "
+               f"{r['candidate_fault']['logits_max_abs_diff']:.3g}, ids "
+               f"equal {r['candidate_fault']['selected_ids_equal']}"
+               if fault else ""))
+        if not (err <= LOGIT_TOL and same and states <= LOGIT_TOL):
+            raise AssertionError(f"{phase} {tag} {method} "
+                                 f"{dict(mesh.shape)} B {B}: err {err}, ids "
+                                 f"equal {same}, states {states}")
+        if fault and not r["candidate_fault"]["fails_the_check"]:
+            raise AssertionError(f"{phase} {tag} {method}: the check passes "
+                                 f"with {CANDIDATE_FAULT}")
+        out[method] = r
+    return out, rows_out, launches_out
+
+
+def _merge_rows(into, rows):
+    """Kernel rows ({name: a row, or a list of them}) added to ``into``'s
+    lists."""
+    for k, v in rows.items():
+        into.setdefault(k, []).extend(v if isinstance(v, list) else [v])
+
+
 def phase_decode_sharded(dev):
     """Decode over a sequence-split cache (``models.model.decode_step_tp``)
     on the one card, one process over meshes whose entries are all
@@ -3515,6 +3878,10 @@ def phase_decode_sharded(dev):
     sp2 = sh.device_put(sp1, sh.make_shardings(
         sh.method_specs(sp1, cfg, mesh), mesh))
     g = torch.Generator(device=dev).manual_seed(11)
+    out["methods"] = {"block": cfg.memory.block_size,
+                      "token_budget": cfg.memory.token_budget,
+                      "pages_per_physical": cfg.memory.pages_per_physical,
+                      "threshold": cfg.memory.threshold}
 
     # (a) decode_32k's layout: prefill_tp, reshard, 8 steps
     B, S, steps = DECODE_A
@@ -3546,18 +3913,16 @@ def phase_decode_sharded(dev):
                                  f"logits differ from prefill's by {pre_err}"
                                  f" > {PREFILL_BF16_TOL}")
         torch.cuda.reset_peak_memory_stats()
+        tok_a = l1.argmax(-1)
         rows, launches, caps, _, c1, c2, tok = _decode_pair(
-            cfg, tp, one, placed, mesh, c1, c2, l1.argmax(-1), steps, sp1,
-            sp2)
+            cfg, tp, one, placed, mesh, c1, c2, tok_a, steps, sp1, sp2)
         peak = torch.cuda.max_memory_allocated()
     ties, near = _tokens_check("(a) decode_32k layout", rows)
     if launches != {k: want * steps for k in _DSA}:
         raise AssertionError(f"decode_sharded (a): launches {launches}, "
                              f"want {want} a step")
-    rel, paged = _shard_rows("(a) decode_32k: a shard of 4", caps, launches,
-                             steps)
-    rows_out["relevancy_topk_candidates"].append(rel)
-    rows_out["paged_decode_attention"].append(paged)
+    _merge_rows(rows_out, _shard_rows("(a) decode_32k: a shard of 4", caps,
+                                      launches, steps))
     launches_out["decode_sharded (a)"] = launches
     out["a"] = {
         "layout": "decode_32k: rows on data, the sequence on model",
@@ -3605,6 +3970,16 @@ def phase_decode_sharded(dev):
         f"{100 * p_one['device_busy_share']:.1f} % with "
         f"{p_one['device_ops']}")
     out["a"]["exchange_per_step"] = _exchange_walk(cfg, B, S, tp)
+    # Seer (top-k, threshold) and LServe on the same prefilled cache
+    t_m = time.perf_counter()
+    out["methods"]["a"], got_rows, got_launches = _method_runs(
+        "(a)", SPLIT_METHODS, cfg, tp, one, placed, mesh, c1, c2, ctx, tok_a,
+        steps, want, dev, rows={"seer": ("relevancy_topk_candidates",
+                                         "paged_decode_attention"),
+                                "lserve": ("page_minmax",)})
+    out["methods"]["a_seconds"] = time.perf_counter() - t_m
+    _merge_rows(rows_out, got_rows)
+    launches_out.update(got_launches)
     del c1, c2
     torch.cuda.empty_cache()
 
@@ -3627,15 +4002,19 @@ def phase_decode_sharded(dev):
         rows, launches, caps, _, c1, c2, _ = _decode_pair(
             cfg, tp, one, placed, mesh, c1, c2, tok, steps, sp1, sp2)
         peak = torch.cuda.max_memory_allocated()
+    t_m = time.perf_counter()
+    out["methods"]["b"], _, got_launches = _method_runs(
+        "(b)", SPLIT_METHODS_B, cfg, tp, one, placed, mesh, c1, c2, ctx, tok,
+        steps, mesh.size * L, dev)
+    out["methods"]["b_seconds"] = time.perf_counter() - t_m
+    launches_out.update(got_launches)
     del c1, c2          # the kernel rows' cold copies need the room
     torch.cuda.empty_cache()
     ties, near = _tokens_check("(b) long_500k layout", rows)
     if launches != {k: mesh.size * L * steps for k in _DSA}:
         raise AssertionError(f"decode_sharded (b): launches {launches}")
-    rel, paged = _shard_rows("(b) long_500k: a shard of 8", caps, launches,
-                             steps)
-    rows_out["relevancy_topk_candidates"].append(rel)
-    rows_out["paged_decode_attention"].append(paged)
+    _merge_rows(rows_out, _shard_rows("(b) long_500k: a shard of 8", caps,
+                                      launches, steps))
     launches_out["decode_sharded (b)"] = launches
     out["b"] = {
         "layout": "long_500k: the sequence over (data, model), data-major",
@@ -3658,59 +4037,43 @@ def phase_decode_sharded(dev):
     del one, placed
     torch.cuda.empty_cache()
 
-    # (c) one fp32 step in each layout: logits and the selected pages
+    # (c) one fp32 step in each layout: logits and the selected pages, for
+    # DSA and each method; the candidate-merge fault fails that check
     S, steps = DECODE_C
     cfg32 = cfg.replace(dtype="float32")
     out["c"] = []
+    t_m, t_dsa = time.perf_counter(), 0.0
     for mesh_c, B in DECODE_C_CASES:
         meshc = make_mesh(*mesh_c)
         one = init_params(cfg32, 0, tp=tp, device=dev)
         placed = _place(init_params(cfg32, 0, tp=tp, device=dev), cfg32,
                         meshc)
-        sp2 = sh.device_put(sp1, sh.make_shardings(
-            sh.method_specs(sp1, cfg32, meshc), meshc))
         shape = (L, B, S, cfg.n_kv_heads, cfg.hd)
         ctx = S - 1
         k = torch.randn(shape, generator=g, device=dev)
         v = torch.randn(shape, generator=g, device=dev)
         k[:, :, ctx:] = 0
         v[:, :, ctx:] = 0
-        c2 = _place_cache({"k": k, "v": v}, cfg32, meshc, B, S)
-        c2["length"] = ctx
-        c1 = {"k": k, "v": v, "length": ctx}
-        picked = []
-        real = dsa.select_pages
-        dsa.select_pages = lambda *a, **kw: picked.append(real(*a, **kw)) \
-            or picked[-1]
-        try:
-            with torch.no_grad():
-                tok = torch.randint(0, cfg.vocab_size, (B,), generator=g,
-                                    device=dev, dtype=torch.int32)
-                rows, _, _, split, _, _, _ = _decode_pair(
-                    cfg32, tp, one, placed, meshc, c1, c2, tok, steps, sp1,
-                    sp2, record=True)
-        finally:
-            dsa.select_pages = real
-        err = rows[0]["err"]
-        # a layer's selections: one a computing group, in data-index order
-        G = len(split.selected) // L
-        same = len(picked) == L and len(split.selected) == G * L and all(
-            torch.equal(torch.sort(torch.cat(split.selected[G * i:G * i + G])
-                                   .long(), 1).values[:, -b.shape[1]:],
-                        torch.sort(b.long(), 1).values)
-            for i, b in enumerate(picked))
-        log(f"  (c) fp32 on {meshc.shape['data']} x {meshc.shape['model']},"
-            f" B {B}: logits max abs diff {err:.3g} (tol {LOGIT_TOL}), "
-            f"selected pages equal: {same}")
-        if not (err <= LOGIT_TOL and same):
-            raise AssertionError(f"decode_sharded (c) {dict(meshc.shape)} B "
-                                 f"{B}: err {err}, pages equal {same}")
+        c0 = {"k": k, "v": v, "length": ctx}
+        t0 = time.perf_counter()
+        got, _, _ = _fp32_methods(cfg32, tp, one, placed, meshc, c0, ctx,
+                                  dev, L, "(c)", ("dsa",))
+        t_dsa += time.perf_counter() - t0
+        err, same = got["dsa"]["logits_max_abs_diff"], \
+            got["dsa"]["selected_ids_equal"]
+        methods, _, got_launches = _fp32_methods(
+            cfg32, tp, one, placed, meshc, c0, ctx, dev, L, "(c)",
+            SPLIT_METHODS)
+        launches_out.update(got_launches)
         out["c"].append({"batch": B, "cache": S, "mesh": dict(meshc.shape),
                          "dtype": "float32", "logits_max_abs_diff": err,
                          "tolerance": LOGIT_TOL,
-                         "selected_pages_equal": same})
-        del c1, c2, one, placed, k, v
+                         "selected_pages_equal": same,
+                         "candidate_fault": got["dsa"]["candidate_fault"],
+                         "methods": methods})
+        del c0, one, placed, k, v
         torch.cuda.empty_cache()
+    out["methods"]["c_seconds"] = time.perf_counter() - t_m - t_dsa
     out["seconds"] = time.perf_counter() - t_start
     out["kernel_rows"] = rows_out
     print(json.dumps({"decode_sharded": out}), flush=True)
@@ -4019,66 +4382,62 @@ def _hybrid_decode(dev, mesh, label, cfg, one, placed, sp1, sp2, B, S,
                              f"{states} from one device's > "
                              f"{HYBRID_STATE_TOL}")
     out["exchange_per_step"] = _exchange_walk(cfg, B, S, tp)
-    rel, paged = _shard_rows(f"({label}) zamba2: a shard of "
-                             f"{mesh.size if B == 1 else tp}", caps,
-                             launches, steps, phase="hybrid_sharded")
-    return out, rel, paged, launches
+    got = _shard_rows(f"({label}) zamba2: a shard of "
+                      f"{mesh.size if B == 1 else tp}", caps, launches, steps,
+                      phase="hybrid_sharded")
+    return out, got, launches
+
+
+# the methods (c) runs beside DSA on the hybrid: paged attention at dh 112
+# over 64-token blocks, page_minmax at C = 32 x 112
+HYBRID_C_METHODS = ("seer", "lserve")
 
 
 def _hybrid_fp32(dev, g):
     """(c): one fp32 step in each of DECODE_C_CASES' layouts at
-    HYBRID_C's depth and cache: logits within LOGIT_TOL of one device's,
-    the selected pages equal, the states within LOGIT_TOL."""
+    HYBRID_C's depth and cache, DSA and each of HYBRID_C_METHODS: logits
+    within LOGIT_TOL of one device's, the selected ids equal, the states
+    within LOGIT_TOL; the methods' kernels at the first layout's shard
+    shapes. -> (per layout dicts, kernel rows, launches by path, the
+    methods' seconds)."""
     import torch
-    from repro_torch.core.methods import dsa
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
 
     layers, S = HYBRID_C
-    out = []
-    for mesh_c, B in DECODE_C_CASES:
+    out, rows, launches = [], {}, {}
+    t_m = 0.0
+    for i, (mesh_c, B) in enumerate(DECODE_C_CASES):
         meshc = make_mesh(*mesh_c)
         tp = meshc.shape["model"]
-        cfg, one, placed, sp1, sp2 = _hybrid_params(layers, dev, meshc,
-                                                    "float32")
-        c1 = _hybrid_cache(cfg, B, S, S - 1, g, dev)
-        c2 = _place_cache(c1, cfg, meshc, B, S)
-        tok = torch.randint(0, cfg.vocab_size, (B,), generator=g, device=dev,
-                            dtype=torch.int32)
-        picked = []
-        real = dsa.select_pages
-        dsa.select_pages = lambda *a, **kw: picked.append(real(*a, **kw)) \
-            or picked[-1]
-        try:
-            with torch.no_grad():
-                rows, _, _, split, c1, c2, _ = _decode_pair(
-                    cfg, tp, one, placed, meshc, c1, c2, tok, 1, sp1, sp2,
-                    record=True)
-        finally:
-            dsa.select_pages = real
-        err = rows[0]["err"]
-        states = _states_gap(c2, c1)
+        cfg, one, placed, _, _ = _hybrid_params(layers, dev, meshc,
+                                                "float32")
+        c0 = _hybrid_cache(cfg, B, S, S - 1, g, dev)
         sites = M._hybrid_shape(cfg)[0]
-        G = len(split.selected) // sites
-        same = len(picked) == sites and len(split.selected) == G * sites \
-            and all(torch.equal(torch.sort(torch.cat(
-                split.selected[G * i:G * i + G]).long(), 1).values[
-                    :, -b.shape[1]:], torch.sort(b.long(), 1).values)
-                for i, b in enumerate(picked))
-        log(f"  (c) fp32 {layers} layers on {meshc.shape['data']} x {tp}, B "
-            f"{B}: logits within {err:.3g} (tol {LOGIT_TOL}), states "
-            f"{states:.3g}, selected pages equal: {same}")
-        if not (err <= LOGIT_TOL and states <= LOGIT_TOL and same):
-            raise AssertionError(f"hybrid_sharded (c) {dict(meshc.shape)} B "
-                                 f"{B}: err {err}, states {states}, pages "
-                                 f"equal {same}")
+        got, _, _ = _fp32_methods(cfg, tp, one, placed, meshc, c0, S - 1,
+                                  dev, sites, "(c)", ("dsa",), fault=False,
+                                  hybrid=True, phase="hybrid_sharded")
+        t0 = time.perf_counter()
+        methods, got_rows, got_launches = _fp32_methods(
+            cfg, tp, one, placed, meshc, c0, S - 1, dev, sites, "(c)",
+            HYBRID_C_METHODS, fault=False, hybrid=True,
+            rows={"seer": ("paged_decode_attention",),
+                  "lserve": ("page_minmax",)} if i == 0 else None,
+            phase="hybrid_sharded")
+        t_m += time.perf_counter() - t0
+        _merge_rows(rows, got_rows)
+        launches.update(got_launches)
+        r = got["dsa"]
         out.append({"layers": layers, "batch": B, "cache": S,
                     "mesh": dict(meshc.shape), "dtype": "float32",
-                    "logits_max_abs_diff": err, "states_max_abs_diff": states,
-                    "tolerance": LOGIT_TOL, "selected_pages_equal": same})
-        del c1, c2, one, placed
+                    "logits_max_abs_diff": r["logits_max_abs_diff"],
+                    "states_max_abs_diff": r["states_max_abs_diff"],
+                    "tolerance": LOGIT_TOL,
+                    "selected_pages_equal": r["selected_ids_equal"],
+                    "methods": methods})
+        del c0, one, placed
         torch.cuda.empty_cache()
-    return out
+    return out, rows, launches, t_m
 
 
 def phase_hybrid_sharded(dev, seed: int = 0):
@@ -4127,23 +4486,24 @@ def phase_hybrid_sharded(dev, seed: int = 0):
     out["p"] = _hybrid_prefill(dev, mesh, cfg, one, placed, g)
     lap("p")
     _, B, S, steps = HYBRID_A
-    out["a"], rel, paged, launches["hybrid_sharded (a)"] = _hybrid_decode(
+    out["a"], got, launches["hybrid_sharded (a)"] = _hybrid_decode(
         dev, mesh, "a", cfg, one, placed, sp1, sp2, B, S, steps, g)
-    rows["relevancy_topk_candidates"].append(rel)
-    rows["paged_decode_attention"].append(paged)
+    _merge_rows(rows, got)
     del one, placed
     torch.cuda.empty_cache()
     lap("a")
     layers, B, S, steps = HYBRID_B
     cfg, one, placed, sp1, sp2 = _hybrid_params(layers, dev, mesh)
-    out["b"], rel, paged, launches["hybrid_sharded (b)"] = _hybrid_decode(
+    out["b"], got, launches["hybrid_sharded (b)"] = _hybrid_decode(
         dev, mesh, "b", cfg, one, placed, sp1, sp2, B, S, steps, g)
-    rows["relevancy_topk_candidates"].append(rel)
-    rows["paged_decode_attention"].append(paged)
+    _merge_rows(rows, got)
     del one, placed
     torch.cuda.empty_cache()
     lap("b")
-    out["c"] = _hybrid_fp32(dev, g)
+    out["c"], got_rows, got_launches, out["c_methods_seconds"] = \
+        _hybrid_fp32(dev, g)
+    _merge_rows(rows, got_rows)
+    launches.update(got_launches)
     lap("c")
     out["seconds_by_part"] = seconds
     out["seconds"] = time.perf_counter() - t_start
@@ -5689,7 +6049,8 @@ def main(argv=None):
         if decode_rows and k["name"] in decode_rows:
             k.setdefault("other_shapes", []).extend(decode_rows[k["name"]])
             k.setdefault("launches_by_path", {}).update(
-                {path: c[k["name"]] for path, c in decode_launches.items()})
+                {path: c[k["name"]] for path, c in decode_launches.items()
+                 if k["name"] in c})
     for k in kernels:
         if k["name"] != "flash_attention":
             continue

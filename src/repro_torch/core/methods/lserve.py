@@ -22,7 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, MemoryConfig
-from repro_torch.core.methods.dsa import repad_dead_heads, strip_dead_heads
+from repro_torch.core.methods.dsa import (_repad_partial, repad_dead_heads,
+                                          strip_dead_heads)
 from repro_torch.core.pipeline import MemoryPipeline
 from repro_torch.kernels import ops, ref
 
@@ -95,6 +96,87 @@ def make_sparse_fn(cfg: ArchConfig, mem: MemoryConfig, *, tp: int = 16):
         return repad_dead_heads(out, q, cfg)
 
     return sparse_fn
+
+
+class SplitLServe:
+    """LServe over a sequence-split cache, for
+    ``models.model.decode_step_tp`` (``make_sparse_fn`` as GSPMD partitions
+    it over ``cache_specs``), with ``dsa.SplitDSA``'s protocol. It learns
+    nothing and its query side is the whole gathered q every shard already
+    holds; no KV page, page bound or raw score crosses.
+
+      prepare    per shard the page min / max of its own slice (the
+                 ``page_minmax`` kernel), max-reduced over kv heads there
+                 (the decode layouts cut the cache by sequence only);
+      relevancy  per shard its physical pages' bounds (``_physical_
+                 scores``: every query head, the dead ones included, as one
+                 device); a physical page (``pages_per_physical`` logical
+                 pages) never straddles two shards;
+      retrieve   per shard its stable top-min(k, local physical pages),
+                 merged on the sequence group's first device
+                 (``topk.merge_shard_topk``), cut to one device's count
+                 (at most the physical pages there are), the physical page
+                 ids delivered to every shard; each expands them to
+                 logical pages and drops those from ``length`` on;
+      apply      ``ops.paged_decode_attention`` per shard over the selected
+                 logical pages it owns -> (out, lse) per shard.
+
+    ``record=True`` keeps each call's logical page ids (``selected``)."""
+
+    stateful = False
+
+    def __init__(self, cfg: ArchConfig, mem: MemoryConfig, *,
+                 record: bool = False):
+        self.cfg, self.record = cfg, record
+        self.page, self.ppp = mem.block_size, mem.pages_per_physical
+        self.n_sel = max(mem.token_budget // (self.page * self.ppp), 1)
+        self.selected = []
+
+    def index_query(self, sps, qs):
+        """Nothing to project: the shards score with the gathered q."""
+        return [() for _ in qs]
+
+    def __call__(self, shards, length):
+        """One sequence group, as ``SplitDSA.__call__`` -> each shard's
+        (out [B,Hp,hd], lse [B,Hp]) fp32 on its device."""
+        from repro_torch.distributed import topk
+
+        ps, ppp = self.page, self.ppp
+        devices = [s["kc"].device for s in shards]
+        Sl = shards[0]["kc"].shape[1]
+        if Sl % (ps * ppp):
+            raise ValueError(
+                f"a shard's {Sl} tokens hold no whole number of "
+                f"{ps * ppp}-token physical pages ({ppp} pages of {ps}): a "
+                f"physical page would straddle two shards")
+        n_local = Sl // (ps * ppp)
+        n_sel = min(self.n_sel, n_local * len(shards))
+
+        def shard_topk(i, k_local):
+            s = shards[i]
+            pmin, pmax = _page_bounds(s["kc"], ps)
+            sc = _physical_scores(s["q"][:, 0], pmin[:, :, None],
+                                  pmax[:, :, None], ppp)
+            return ref.topk_stable(sc, k_local)
+
+        _, phys = topk.merge_shard_topk(
+            shard_topk, n_local, self.n_sel, devices, deliver=devices,
+            keep=lambda vals, idx: idx[:, :n_sel])
+        pages = []
+        for p in phys:
+            logical = _logical_pages(p, ppp)
+            lb = torch.as_tensor(length, device=p.device).reshape(-1, 1)
+            live = (logical * ps < lb) & (logical < Sl * len(shards) // ps)
+            pages.append(torch.where(live, logical, torch.full_like(
+                logical, -1)).to(torch.int32))
+        if self.record:
+            self.selected.append(pages[0])
+        parts = topk.sparse_decode_partials(
+            [strip_dead_heads(s["q"], self.cfg) for s in shards],
+            [s["kc"] for s in shards], [s["vc"] for s in shards], pages,
+            length, devices, page_size=ps)
+        return [_repad_partial(o, lse, s["q"]) for (o, lse), s in
+                zip(parts, shards)]
 
 
 def build_pipeline(cfg: ArchConfig, mem: MemoryConfig, sp: Params, *,

@@ -22,8 +22,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, MemoryConfig
-from repro_torch.core.methods.dsa import (_matmul_promoted, repad_dead_heads,
-                                          strip_dead_heads)
+from repro_torch.core.methods.dsa import (_matmul_promoted, _repad_partial,
+                                          repad_dead_heads, strip_dead_heads)
 from repro_torch.core.pipeline import MemoryPipeline
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
@@ -98,6 +98,82 @@ def make_sparse_fn(cfg: ArchConfig, mem: MemoryConfig, *, tp: int = 16):
         return repad_dead_heads(out, q, cfg)
 
     return sparse_fn
+
+
+class SplitSeer:
+    """Seer over a sequence-split cache, for ``models.model.decode_step_tp``
+    (``make_sparse_fn`` as GSPMD partitions it over ``cache_specs``), with
+    ``dsa.SplitDSA``'s protocol. The gate weights are replicated
+    (``method_specs``); no KV page, pooled key or raw score crosses.
+
+      prepare    the query side per member from its gathered q
+                 (``index_query``: ``_gate_q``, nothing exchanged); the key
+                 side per shard, its own slice's gated keys pooled per
+                 ``block_size`` block (``_gate_k``);
+      relevancy  + retrieve: ``ops.relevancy_topk`` per shard (one head,
+                 unit weight), the (value, index) candidates merged on the
+                 sequence group's first device (``topk.merge_shard_topk``:
+                 ReLU ties at 0 go to the lower global block, as one
+                 device's kernel orders them). There, as one device does
+                 after its top-k, blocks from ``length`` on are dropped
+                 and, in threshold mode, those whose softmax over the
+                 merged values (the -inf padding included) is below
+                 ``threshold``; then the block ids go to every shard;
+      apply      ``ops.paged_decode_attention`` per shard over the selected
+                 blocks it owns -> (out, lse) per shard.
+
+    ``record=True`` keeps each call's block ids (``selected``). As on one
+    device, a query with dead TP heads does not multiply ``wq_gate``: it
+    raises."""
+
+    stateful = False
+
+    def __init__(self, cfg: ArchConfig, mem: MemoryConfig, *,
+                 record: bool = False):
+        self.cfg, self.mem, self.record = cfg, mem, record
+        self.page = mem.block_size
+        self.n_sel = max(mem.token_budget // self.page, 1)
+        self.selected = []
+
+    def index_query(self, sps, qs):
+        """One model group: each member's gate weights and its gathered
+        query [B,1,Hp,hd] -> each member's (gated query [B,1,di], unit
+        weight [B,1])."""
+        return [_gate_q(sp, q) for sp, q in zip(sps, qs)]
+
+    def __call__(self, shards, length):
+        """One sequence group, as ``SplitDSA.__call__`` (``iq`` each
+        shard's ``index_query`` pair, ``sp`` its gate weights) -> each
+        shard's (out [B,Hp,hd], lse [B,Hp]) fp32 on its device."""
+        from repro_torch.distributed import topk
+
+        bs, mem = self.page, self.mem
+        devices = [s["kc"].device for s in shards]
+        Sl = shards[0]["kc"].shape[1]
+        if Sl % bs:
+            raise ValueError(f"a shard's {Sl} tokens hold no whole number "
+                             f"of {bs}-token blocks")
+        k_blk = [_gate_k(s["sp"], s["kc"], bs) for s in shards]
+
+        def keep(vals, bidx):
+            lb = torch.as_tensor(length, device=bidx.device).reshape(-1, 1)
+            live = bidx * bs < lb
+            if mem.selection == "threshold":
+                live &= torch.softmax(vals, dim=-1) >= mem.threshold
+            return torch.where(live, bidx, torch.full_like(bidx, -1)).to(
+                torch.int32)
+
+        _, bids = topk.distributed_relevancy_topk(
+            [s["iq"][0] for s in shards], k_blk, [s["iq"][1] for s in shards],
+            self.n_sel, devices, block=4096, deliver=devices, keep=keep)
+        if self.record:
+            self.selected.append(bids[0])
+        parts = topk.sparse_decode_partials(
+            [strip_dead_heads(s["q"], self.cfg) for s in shards],
+            [s["kc"] for s in shards], [s["vc"] for s in shards], bids,
+            length, devices, page_size=bs)
+        return [_repad_partial(o, lse, s["q"]) for (o, lse), s in
+                zip(parts, shards)]
 
 
 def build_pipeline(cfg: ArchConfig, mem: MemoryConfig, sp: Params, *,

@@ -10,11 +10,14 @@
 // pages) that is 33.5 MB of bf16 keys in and 2.1 MB out: about 10.6 us at
 // 3.35 TB/s, against 33.5 M compares.
 //
-// Design: one CTA per (page, slot). A row of the page holds C = KV x dh
-// channels; threads take vectors of VEC channels side by side (16-byte
-// loads: 8 bf16 or 4 fp32), so a warp reads 512 contiguous bytes of a row.
-// When a row has fewer vectors than the CTA has threads, the spare threads
-// take every R-th row of the page, so all 256 threads load. Each thread
+// Design: one CTA per (page, slot, chunk of channels). A row of the page
+// holds C = KV x dh channels; threads take vectors of VEC channels side by
+// side (16-byte loads: 8 bf16 or 4 fp32), so a warp reads 512 contiguous
+// bytes of a row, and a CTA takes up to 256 vectors of the row: a wider row
+// is cut into chunks over the grid's third axis (zamba2's C = 32 x 112 in
+// fp32: 4 chunks), so a few long pages still fill the SMs. When a row has
+// fewer vectors than the CTA has threads, the spare threads take every
+// R-th row of the page, so all 256 threads load. Each thread
 // keeps a running min and max of its channels in registers over its rows;
 // the R partial results meet in shared memory and one thread per channel
 // folds them and writes the page's min and max. The compare propagates NaN
@@ -74,7 +77,8 @@ page_minmax_kernel(const T* __restrict__ k, float* __restrict__ out_min,
   extern __shared__ __align__(16) float smem[];
   const int p = blockIdx.x, b = blockIdx.y, n_pages = gridDim.x;
   const int G = C / VEC;                 // vectors per row
-  const int Gc = min(G, kThreads);       // vectors per pass
+  const int Gc = min(G, kThreads);       // vectors per chunk
+  const int g0 = blockIdx.z * Gc;        // this CTA's chunk
   const int R = kThreads / Gc;           // rows walked side by side
   const int t = threadIdx.x;
   const int r0 = t / Gc, gi = t % Gc;
@@ -85,55 +89,53 @@ page_minmax_kernel(const T* __restrict__ k, float* __restrict__ out_min,
   const size_t o = ((size_t)b * n_pages + p) * C;
   const float inf = __int_as_float(0x7f800000);
 
-  for (int g0 = 0; g0 < G; g0 += Gc) {
-    const int g = g0 + gi;
-    float mn[VEC], mx[VEC];
+  const int g = g0 + gi;
+  float mn[VEC], mx[VEC];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      mn[i] = inf;
-      mx[i] = -inf;
-    }
-    if (active && g < G) {
+  for (int i = 0; i < VEC; ++i) {
+    mn[i] = inf;
+    mx[i] = -inf;
+  }
+  if (active && g < G) {
 #pragma unroll 4
-      for (int r = r0; r < ps; r += R) {
-        float v[VEC];
-        Load<T, VEC>::run(page + (size_t)r * C + (size_t)g * VEC, v);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          mn[i] = take_min(mn[i], v[i]);
-          mx[i] = take_max(mx[i], v[i]);
-        }
-      }
-    }
-    if (active) {
+    for (int r = r0; r < ps; r += R) {
+      float v[VEC];
+      Load<T, VEC>::run(page + (size_t)r * C + (size_t)g * VEC, v);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
-        smin[(r0 * Gc + gi) * VEC + i] = mn[i];
-        smax[(r0 * Gc + gi) * VEC + i] = mx[i];
+        mn[i] = take_min(mn[i], v[i]);
+        mx[i] = take_max(mx[i], v[i]);
       }
     }
-    __syncthreads();
-    const int n_out = min(Gc, G - g0) * VEC;
-    for (int e = t; e < n_out; e += kThreads) {
-      float a = smin[e], z = smax[e];
-      for (int r = 1; r < R; ++r) {
-        a = take_min(a, smin[r * Gc * VEC + e]);
-        z = take_max(z, smax[r * Gc * VEC + e]);
-      }
-      out_min[o + (size_t)g0 * VEC + e] = a;
-      out_max[o + (size_t)g0 * VEC + e] = z;
+  }
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      smin[(r0 * Gc + gi) * VEC + i] = mn[i];
+      smax[(r0 * Gc + gi) * VEC + i] = mx[i];
     }
-    __syncthreads();
+  }
+  __syncthreads();
+  const int n_out = min(Gc, G - g0) * VEC;
+  for (int e = t; e < n_out; e += kThreads) {
+    float a = smin[e], z = smax[e];
+    for (int r = 1; r < R; ++r) {
+      a = take_min(a, smin[r * Gc * VEC + e]);
+      z = take_max(z, smax[r * Gc * VEC + e]);
+    }
+    out_min[o + (size_t)g0 * VEC + e] = a;
+    out_max[o + (size_t)g0 * VEC + e] = z;
   }
 }
 
 template <typename T, int VEC>
 int launch(const void* k, void* mn, void* mx, int B, int S, int C, int ps,
            cudaStream_t stream) {
-  const int Gc = min(C / VEC, kThreads);
+  const int G = C / VEC;
+  const int Gc = min(G, kThreads);
   const int R = kThreads / Gc;
   const size_t smem = sizeof(float) * 2 * (size_t)R * Gc * VEC;
-  const dim3 grid(S / ps, B);
+  const dim3 grid(S / ps, B, (G + Gc - 1) / Gc);
   page_minmax_kernel<T, VEC><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(k), static_cast<float*>(mn), static_cast<float*>(mx), S, C, ps);
   return (int)cudaGetLastError();

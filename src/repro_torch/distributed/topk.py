@@ -4,9 +4,11 @@
 The paper's link principle, "transfer only the top-k indices" (§5.2): each
 shard runs the relevancy kernel over ITS slice of the compressed keys and
 sends back only (value, index) pairs, 8 bytes a candidate, which the first
-device merges; the apply runs the paged attention kernel per shard over its
-slice of the view and sends back only (out, lse) pairs, merged by
-``ops.lse_merge``. Raw scores (O(S)) and KV pages never cross.
+device merges (``merge_shard_topk``: one merge for the split's DSA, Seer
+and LServe, whose candidates are block or physical page scores); the
+apply runs the paged attention kernel per shard over its slice of the
+view and sends back only (out, lse) pairs, merged by ``ops.lse_merge``.
+Raw scores (O(S)) and KV pages never cross.
 
 ``devices`` is a mesh (``launch.mesh.mesh_from_devices``): one shard per
 entry, in order, the sequence axis cut into equal contiguous slices, the
@@ -64,33 +66,34 @@ def gather_shards(parts, device=None, axis: int = 1) -> torch.Tensor:
     return torch.cat([p.to(device) for p in parts], dim=axis)
 
 
-def distributed_relevancy_topk(q, keys, weights, k: int,
-                               devices: Sequence[torch.device], *,
-                               block: int = 2048, deliver=None):
-    """Exact global top-k with an index-only exchange. q [B, Hq, dk];
-    keys [B, S, dk] sharded on S; weights [B, Hq] (q and weights may also
-    be per-shard lists, resident). Returns (vals, idx) [B, k] in GLOBAL
-    sequence coordinates on ``devices[0]``, padded with (-inf, -1) past
-    ``n_shards * min(k, S / n_shards)`` candidates; with ``deliver`` (a
-    list of devices) (vals, [idx on each of them]).
+def merge_shard_topk(shard_topk, n_local: int, k: int,
+                     devices: Sequence[torch.device], *, deliver=None,
+                     keep=None):
+    """One merge of the shards' candidates into the exact global top-k,
+    shared by the split's methods (DSA's and Seer's relevancy kernel,
+    LServe's physical page scores). ``shard_topk(s, k_local)`` -> shard
+    s's own exact top-``k_local`` (vals [B, k_local], LOCAL idx), sorted
+    descending with ties by ascending index, on its device; every shard
+    holds ``n_local`` scored items, and ``k_local = min(k, n_local)``.
 
-    Shard s returns its own exact top-min(k, local) in index order among
-    ties; the candidates concatenate in shard order, so a stable sort by
-    descending value breaks ties by ascending global index, as the
-    reference's ``lax.top_k`` does (never ``torch.topk``)."""
+    Only the (value, index) pairs cross, onto ``devices[0]``: each offset
+    to global indices, concatenated in shard order, so a stable sort by
+    descending value breaks ties by ascending global index, as one
+    device's top-k does (never ``torch.topk``). Past ``n_shards *
+    k_local`` candidates the result is padded with (-inf, -1). ``keep(vals,
+    idx) -> idx`` runs on ``devices[0]`` before the ids leave it (Seer's
+    threshold over the merged values, LServe's count). Returns (vals [B,
+    k], idx) on ``devices[0]``; with ``deliver`` (a list of devices) (vals,
+    [idx on each of them])."""
     n = len(devices)
     main = devices[0]
-    parts = _shards(keys, n)
-    qs, ws = _per_shard(q, n), _per_shard(weights, n)
-    local_S = parts[0].shape[1]
-    k_local = min(k, local_S)
+    k_local = min(k, n_local)
     vals, idx = [], []
-    for s, (dev, kl) in enumerate(zip(devices, parts)):
-        v, i = ops.relevancy_topk(qs[s].to(dev), kl.to(dev), ws[s].to(dev),
-                                  k_local, block=block)
+    for s in range(n):
+        v, i = shard_topk(s, k_local)
         with collective("all-gather"):          # (value, index) pairs only
             vals.append(v.to(main))
-            idx.append((i + s * local_S).to(main))
+            idx.append((i + s * n_local).to(main))
     top_v, pos = topk_stable(torch.cat(vals, dim=1), min(k, n * k_local))
     top_i = torch.gather(torch.cat(idx, dim=1), 1, pos.long())
     if top_v.shape[1] < k:           # cannot select more than exist
@@ -99,10 +102,36 @@ def distributed_relevancy_topk(q, keys, weights, k: int,
                                                  float("-inf"))], dim=1)
         top_i = torch.cat([top_i, top_i.new_full((top_i.shape[0], pad),
                                                  -1)], dim=1)
+    if keep is not None:
+        top_i = keep(top_v, top_i)
     if deliver is None:
         return top_v, top_i
-    with collective("collective-permute"):      # the page ids, to each
+    with collective("collective-permute"):      # the ids, to each
         return top_v, [top_i.to(d) for d in deliver]
+
+
+def distributed_relevancy_topk(q, keys, weights, k: int,
+                               devices: Sequence[torch.device], *,
+                               block: int = 2048, deliver=None, keep=None):
+    """Exact global top-k with an index-only exchange. q [B, Hq, dk];
+    keys [B, S, dk] sharded on S; weights [B, Hq] (q and weights may also
+    be per-shard lists, resident). Each shard runs ``ops.relevancy_topk``
+    over its slice; ``merge_shard_topk`` merges (and, with ``keep`` and
+    ``deliver``, filters and delivers) the candidates. Returns (vals,
+    idx) [B, k] in GLOBAL sequence coordinates on ``devices[0]``, padded
+    with (-inf, -1) past ``n_shards * min(k, S / n_shards)`` candidates;
+    with ``deliver`` (vals, [idx on each of those devices])."""
+    n = len(devices)
+    parts = _shards(keys, n)
+    qs, ws = _per_shard(q, n), _per_shard(weights, n)
+
+    def shard_topk(s, k_local):
+        dev = devices[s]
+        return ops.relevancy_topk(qs[s].to(dev), parts[s].to(dev),
+                                  ws[s].to(dev), k_local, block=block)
+
+    return merge_shard_topk(shard_topk, parts[0].shape[1], k, devices,
+                            deliver=deliver, keep=keep)
 
 
 def page_add_(kx, delta, lpg) -> torch.Tensor:

@@ -38,11 +38,13 @@ machine, with or without a card; on the card it touches none.
     decode split (``models.model.decode_step_tp``): the cache placed by
     ``cache_specs`` (the hybrid's SSM states by heads, its conv states
     whole on every model member),
-    the parameters by ``param_specs``, DSA at 64-token pages through
-    ``core.methods.dsa.SplitDSA`` (stateless for ``baseline`` and
-    ``optimized-spdecode``, the index cache for ``optimized-idxcache``),
-    the optimized variants with the weights TP-resident (no FSDP), as the
-    reference's ``dryrun.py:166-167``. decode_32k walks data index 0's
+    the parameters by ``param_specs``; the baseline runs the config's
+    ``memory.method`` (``core.methods.split_sparse``: DSA at 64-token
+    pages, Seer or LServe at their ``block_size``), the optimized variants
+    DSA whatever the method (stateless for ``optimized-spdecode``, the
+    index cache for ``optimized-idxcache``), as the reference's
+    ``dryrun.py:109-131``, with the weights TP-resident (no FSDP), as its
+    ``dryrun.py:166-167``. decode_32k walks data index 0's
     model group (its rows, the sequence over its members); the other data
     indices' work is the same by symmetry, and their MoE router inputs
     stand in as zeros. long_500k walks every coordinate: the sequence runs
@@ -295,7 +297,9 @@ def walk_decode(cfg, shape, mesh, tp: int, variant: str,
     if cfg.family != "ssm" and S >= cfg.memory.min_context:
         from repro_torch.core.methods import (dsa, get_sparse_method,
                                               sparse_kwargs)
-        sp = _place(sparse_structs(cfg, tp), dev)
+        opt = variant.startswith("optimized")      # DSA, any method
+        sp = _place(sparse_structs(cfg.replace(memory=cfg.memory.replace(
+            method="dsa")) if opt else cfg, tp), dev)
         devices = tuple(mesh.device(i) for i in group)
         if variant == "optimized-spdecode":
             sparse_fn = dsa.make_sparse_fn_distributed(
@@ -328,7 +332,7 @@ def walk_decode(cfg, shape, mesh, tp: int, variant: str,
 def _walk_decode_split(cfg, shape, mesh, tp: int, variant: str,
                        rec: Dict) -> op_walk.OpWalk:
     """One step of the decode split over ``mesh`` (inside placeholders)."""
-    from repro_torch.core.methods import dsa
+    from repro_torch.core.methods import dsa, split_sparse
 
     S, B = shape.seq_len, shape.global_batch
     fsdp = False if variant.startswith("optimized") else None
@@ -342,16 +346,19 @@ def _walk_decode_split(cfg, shape, mesh, tp: int, variant: str,
     token = batch_structs(cfg, shape)["token"].to(mesh.device(0))
     sparse = sp = None
     if S >= cfg.memory.min_context:
-        if cfg.memory.method != "dsa":
-            raise ValueError(f"{cfg.name}: the decode split runs DSA, not "
-                             f"{cfg.memory.method} (ROADMAP)")
+        # the baseline: the config's method, as the reference's
+        # ``make_sparse_fn`` for any method (DSA at PAGE-token micro-pages,
+        # Seer and LServe at their blocks); the optimized variants: DSA
+        # whatever the method (the reference's dryrun.py:118-127)
+        mem = cfg.memory
+        if variant.startswith("optimized"):
+            mem = mem.replace(method="dsa")
         stateful = variant == "optimized-idxcache"
-        sparse = dsa.SplitDSA(cfg, cfg.memory, page=PAGE,
-                              stateful=stateful)
-        sp = sparse_structs(cfg, tp)
+        sparse = split_sparse(cfg, mem, page=PAGE, stateful=stateful)
+        sp = sparse_structs(cfg.replace(memory=mem), tp)
         if stateful:
             sp = {"p": sp, "kidx_sum": dsa.idx_cache_init(
-                cfg, cfg.memory, B, S, page=PAGE, device="cpu")}
+                cfg, mem, B, S, page=PAGE, device="cpu")}
             specs = sh.sparse_cache_specs(sp, cfg, shape, mesh)
         else:
             specs = sh.method_specs(sp, cfg, mesh)
@@ -360,9 +367,7 @@ def _walk_decode_split(cfg, shape, mesh, tp: int, variant: str,
     groups = sh.model_groups(mesh)
     seq = len(sh.seq_groups(mesh, B)[0])
     rows = B // len(groups) if big else B
-    rec["sparse"] = (None if sparse is None else
-                     f"DSA, {PAGE}-token pages, "
-                     f"{'index cache' if sparse.stateful else 'stateless'}")
+    rec["sparse"] = None if sparse is None else _sparse_name(sparse, mem)
     rec["walked"] = (
         f"the decode split: data index 0's model group ({len(groups[0])} "
         f"coordinates, {rows} rows, {S // seq} tokens of the cache each); "
@@ -390,6 +395,20 @@ def _walk_decode_split(cfg, shape, mesh, tp: int, variant: str,
         M._decode_layers([g], cfg, router)
         g.logits()
     return w
+
+
+def _sparse_name(sparse, mem) -> str:
+    """The record's name of a split method: the method, its page size and
+    (DSA) its state or (Seer) its selection mode."""
+    if mem.method == "dsa":
+        return (f"DSA, {sparse.page}-token pages, "
+                f"{'index cache' if sparse.stateful else 'stateless'}")
+    if mem.method == "seer":
+        return (f"Seer, {sparse.page}-token blocks, {mem.selection}"
+                + (f" {mem.threshold:g}" if mem.selection == "threshold"
+                   else f" {sparse.n_sel}"))
+    return (f"LServe, {sparse.page}-token pages, {sparse.ppp} a physical "
+            f"page, top {sparse.n_sel}")
 
 
 # ---------------------------------------------------------------------------

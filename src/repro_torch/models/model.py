@@ -293,8 +293,8 @@ def forward(params: Params, cfg: ArchConfig, tokens, *, positions=None,
 
 def _stack_mamba(states, lead, empty):
     """Per-layer (ssm, (conv x, B, C)) states, flattened in layer order ->
-    the same tree stacked [*lead, ...]; with no layer (a zero-length tail)
-    the already stacked ``empty``."""
+    the same tree stacked [*lead, ...]; with no layer (a zero-length body
+    or tail) the already stacked ``empty``."""
     if not states:
         return empty
     lead = tuple(lead)
@@ -355,18 +355,24 @@ def _hybrid_forward(params, cfg, x, cos, sin, collect_cache, remat, tp):
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     caches = None
     if collect_cache:
-        # an empty tail's stacks: fp32 ssm, conv states in the model dtype
-        # (a forward's conv states are)
+        # an empty body's or tail's stacks: fp32 ssm, conv states in the
+        # model dtype (a forward's conv states are)
         ssm0, conv0 = S.mamba_state_init(cfg, B, device=x.device)
-        empty = (ssm0.new_zeros((0,) + ssm0.shape),
-                 tuple(c.new_zeros((0,) + c.shape, dtype=x.dtype)
-                       for c in conv0))
-        bs, bc = _stack_mamba(body_st, (n_super, per), None)
-        ts, tc = _stack_mamba(tail_st, (tail,), empty)
+        empty = lambda lead: (ssm0.new_zeros(lead + ssm0.shape), tuple(
+            c.new_zeros(lead + c.shape, dtype=x.dtype) for c in conv0))
+        bs, bc = _stack_mamba(body_st, (n_super, per), empty((0, per)))
+        ts, tc = _stack_mamba(tail_st, (tail,), empty((0,)))
+        kv0 = x.new_zeros((0, B, Sq, cfg.n_kv_heads, cfg.hd))
         caches = {"body_ssm": bs, "body_conv": bc, "tail_ssm": ts,
-                  "tail_conv": tc, "shared_k": torch.stack(ks),
-                  "shared_v": torch.stack(vs), "length": Sq}
+                  "tail_conv": tc, "shared_k": _stack_or(ks, kv0),
+                  "shared_v": _stack_or(vs, kv0), "length": Sq}
     return x, aux, caches
+
+
+def _stack_or(ts, empty):
+    """``torch.stack(ts)``, or ``empty`` (a zero-length stack) when there
+    is nothing to stack (a hybrid with no shared-block site)."""
+    return torch.stack(ts) if ts else empty
 
 
 def _xlstm_forward(params, cfg, x, collect_cache, remat, states=None):
@@ -530,14 +536,15 @@ def forward_tp(group, cfg: ArchConfig, tokens, *, positions3=None,
     return xs, aux, caches
 
 
-def _member_empty(cfg: ArchConfig, B: int, n: int, device, dtype):
-    """A zero-length stack of a member's Mamba2 states (an empty tail's):
-    fp32 ssm of its heads, conv states in the model dtype (x's of its
-    channels)."""
+def _member_empty(cfg: ArchConfig, B: int, n: int, device, dtype,
+                  lead=(0,)):
+    """A zero-length stack ``[*lead, B, ...]`` of a member's Mamba2 states
+    (an empty tail's, or an empty body's at ``lead`` (0, per)): fp32 ssm
+    of its heads, conv states in the model dtype (x's of its channels)."""
     di, H = S.shard_widths(cfg, (0, n))
     K = cfg.ssm_conv
-    z = lambda *shape, dt=dtype: torch.zeros((0, B) + shape, dtype=dt,
-                                              device=device)
+    z = lambda *shape, dt=dtype: torch.zeros(tuple(lead) + (B,) + shape,
+                                              dtype=dt, device=device)
     return (z(H, cfg.ssm_head_dim, cfg.ssm_state, dt=torch.float32),
             (z(di, K - 1), z(cfg.ssm_state, K - 1), z(cfg.ssm_state, K - 1)))
 
@@ -582,16 +589,19 @@ def _hybrid_forward_tp(group, cfg, xs, cos, sin, collect_cache, remat, tp):
     caches = None
     if collect_cache:
         caches = []
+        kv = cfg.n_kv_heads // n if cfg.kv_shardable(n) else cfg.n_kv_heads
         for m, x in enumerate(xs):
             bs, bc = _stack_mamba([st[m] for st in body_st], (n_super, per),
-                                  None)
+                                  _member_empty(cfg, B, n, x.device,
+                                                x.dtype, (0, per)))
             ts, tc = _stack_mamba([st[m] for st in tail_st], (tail,),
                                   _member_empty(cfg, B, n, x.device,
                                                 x.dtype))
+            kv0 = x.new_zeros((0, B, x.shape[1], kv, cfg.hd))
             caches.append({"body_ssm": bs, "body_conv": bc, "tail_ssm": ts,
                            "tail_conv": tc,
-                           "shared_k": torch.stack([k[m] for k in ks]),
-                           "shared_v": torch.stack([v[m] for v in vs]),
+                           "shared_k": _stack_or([k[m] for k in ks], kv0),
+                           "shared_v": _stack_or([v[m] for v in vs], kv0),
                            "length": x.shape[1]})
     aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
     return xs, aux, caches
@@ -760,10 +770,13 @@ def decode_step_tp(params, cfg: ArchConfig, token, caches, mesh, *,
     conv states whole on every model member) -> (logits [B, V] on the
     first coordinate's device, the caches; with a stateful ``sparse``,
     the sparse params too). ``params``: placed by ``param_specs``;
-    ``sparse``: ``core.methods.dsa.SplitDSA`` or None (dense);
-    ``sparse_params``: its indexer weights placed by ``method_specs`` (the
-    hybrid's: one set, used at every site of its shared block;
-    stateful: ``{"p": those, "kidx_sum": placed like K}``).
+    ``sparse``: a split method (``core.methods.split_sparse``:
+    ``dsa.SplitDSA``, ``seer.SplitSeer`` in top-k or threshold mode,
+    ``lserve.SplitLServe``) or None (dense); ``sparse_params``: its
+    weights placed by ``method_specs`` (DSA's indexer, Seer's gate,
+    LServe's dummy leaf; the hybrid's: one set, used at every site of its
+    shared block; stateful DSA: ``{"p": those, "kidx_sum": placed like
+    K}``).
 
     Each computing data index runs its ``DecodeGroup`` (decode_32k: every
     data index over its rows; long_500k, a batch the data axes do not cut:
@@ -866,14 +879,15 @@ class DecodeGroup:
     all-gather q (and k / v where the kv heads shard); the coordinate
     owning position ``length`` writes k / v into its slice; every
     coordinate of the sequence group attends over its own slice
-    (``sparse``, or dense ``attention_decode_partial``) and only (out,
-    lse) pairs cross: member m's head slice merged by ``lse_merge``, into
-    its row-parallel ``wo``, all-reduced. Under long_500k a coordinate of
+    (``sparse``: its selection's candidates and page ids cross too; or
+    dense ``attention_decode_partial``) and only (out, lse) pairs cross:
+    member m's head slice merged by ``lse_merge``, into its row-parallel
+    ``wo``, all-reduced. Under long_500k a coordinate of
     another data index attends with the query of the member of its model
     index (sent to it, with the new k / v to the owner). The FFN is
     ``prefill_tp``'s. The hybrid's sites read its shared block and
-    ``shared_k`` / ``shared_v``, with one set of indexer weights at every
-    site (its ``decode_step``'s); between them ``mamba`` runs a Mamba2
+    ``shared_k`` / ``shared_v``, with one set of the method's weights at
+    every site (its ``decode_step``'s); between them ``mamba`` runs a Mamba2
     layer's decode shard, and ``new_states`` keeps each member's new
     states."""
 
@@ -1196,7 +1210,8 @@ def _hybrid_decode(params, cfg, x, cos, sin, caches, tp, sparse_fn,
                                 length, sparse_fn, sparse_params)
     x, tail_st = _mamba_layers(params["tail"], x, cfg, tail, states=(
         caches["tail_ssm"], caches["tail_conv"]))
-    bs, bc = _stack_mamba(body, (n_super, per), None)
+    bs, bc = _stack_mamba(body, (n_super, per),
+                          (caches["body_ssm"], caches["body_conv"]))
     ts, tc = _stack_mamba(tail_st, (tail,),
                           (caches["tail_ssm"], caches["tail_conv"]))
     return x, dict(caches, body_ssm=bs, body_conv=bc, tail_ssm=ts,

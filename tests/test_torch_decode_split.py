@@ -42,7 +42,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro.configs import get_arch as jget_arch  # noqa: E402
 from repro.core.methods import dsa as jdsa  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
@@ -50,19 +49,19 @@ from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core.methods import dsa  # noqa: E402
 from repro_torch.distributed import collectives as col  # noqa: E402
 from repro_torch.distributed import sharding as sh  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import op_walk  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.train.optimizer import leaves  # noqa: E402
 from repro_torch.weights import from_jax_params  # noqa: E402
 
+from torch_decode_cases import (AXES, CACHE_TOL, CTX, HYBRID_TAIL,  # noqa: E402
+                                JAX_TOL, LOGIT_TOL, PAGE, STEPS, S, _caches,
+                                _cfgs, _Copies, _Recorded, _shards_agree,
+                                _sorted_pages, _tree)
+
 torch.set_num_threads(2)
-AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 FSDP_WIDTH = {"d_ff": 16384, "vocab_size": 32768}   # leaves of 2^22
-HYBRID_TAIL = {"n_layers": 3, "shared_attn_every": 2}   # a 1-layer tail
-LOGIT_TOL, CACHE_TOL, JAX_TOL = 2e-5, 1e-5, 1e-4
-S, CTX, STEPS, PAGE = 64, 37, 4, 4
 # name: (arch, mesh shape, batch, config changes, fsdp, method)
 CASES = {
     "llama-1x2-kv-sharded": ("llama3.2-1b", (1, 2), 2, {}, None, "dsa"),
@@ -96,57 +95,6 @@ CASES = {
 }
 
 
-def _cfgs(arch, kw):
-    return (jget_arch(arch).smoke().replace(dtype="float32", **kw),
-            get_arch(arch).smoke().replace(dtype="float32", **kw))
-
-
-def _cache(cfg, B, seed=0):
-    """k / v [L, B, S, KV, hd] from a numpy seed, zero past CTX tokens."""
-    rng = np.random.default_rng(seed)
-    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
-    k = rng.standard_normal(shape).astype(np.float32)
-    v = rng.standard_normal(shape).astype(np.float32)
-    k[:, :, CTX:] = 0
-    v[:, :, CTX:] = 0
-    return k, v
-
-
-def _caches(cfg, B, seed=0):
-    """A cache tree of numpy arrays from a seed: a transformer's k / v
-    (``_cache``); the hybrid's ``make_cache`` tree, shared_k / shared_v
-    zero past CTX tokens, every recurrent state drawn."""
-    if cfg.family != "hybrid":
-        k, v = _cache(cfg, B, seed)
-        return {"k": k, "v": v}
-    rng = np.random.default_rng(seed)
-    draw = lambda t: rng.standard_normal(tuple(t.shape)).astype(np.float32)
-    out = {}
-    for name, t in M.make_cache(cfg, B, S, device="cpu").items():
-        if name != "length":
-            out[name] = tuple(map(draw, t)) if isinstance(t, tuple) \
-                else draw(t)
-    for name in ("shared_k", "shared_v"):
-        out[name][:, :, CTX:] = 0
-    return out
-
-
-def _tree(c, fn):
-    return {k: tuple(map(fn, v)) if isinstance(v, tuple) else fn(v)
-            for k, v in c.items()}
-
-
-def _shards_agree(c2, c1):
-    """Every shard of every placed cache leaf (K / V, the hybrid's SSM and
-    conv states) within CACHE_TOL of its slice of one device's."""
-    for x, want in zip(leaves(c2), leaves(c1)):
-        if isinstance(x, sh.ShardedTensor):
-            assert tuple(x.shape) == tuple(want.shape)
-            for s_, sl in zip(x.shards, x.slices):
-                if s_.numel():
-                    assert float((s_ - want[sl]).abs().max()) <= CACHE_TOL
-
-
 def _kidx(sp, k):
     """The pooled index cache of a cache's k: per page, the sum of its
     tokens' index keys [L, B, S / PAGE, di] (zero keys add nothing)."""
@@ -155,21 +103,6 @@ def _kidx(sp, k):
     return torch.stack([dsa._matmul_promoted(
         kk[i].reshape(B, S, -1), sp["wk_idx"][i]).float().reshape(
         B, S // PAGE, PAGE, -1).sum(2) for i in range(L_)])
-
-
-class _Recorded:
-    """``ops.paged_decode_attention`` recording the page ids of the
-    one-device step's calls (the split records its own merged ids)."""
-
-    def __init__(self, monkeypatch):
-        self.pages, self.on = [], False
-        real = ops.paged_decode_attention
-
-        def rec(q, kc, vc, page_ids, length, **kw):
-            if self.on:
-                self.pages.append(page_ids.clone())
-            return real(q, kc, vc, page_ids, length, **kw)
-        monkeypatch.setattr(ops, "paged_decode_attention", rec)
 
 
 def _jax_step(jcfg, tp, method, mem):
@@ -183,10 +116,6 @@ def _jax_step(jcfg, tp, method, mem):
     return jax.jit(lambda p, t, c, sp: JM.decode_step(
         p, jcfg, t, c, tp=tp, sparse_fn=fn, sparse_params=sp,
         sparse_stateful=method == "idxcache"))
-
-
-def _sorted_pages(p):
-    return torch.sort(p.long(), dim=1).values
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -382,29 +311,6 @@ def test_all_to_all_moves_n_minus_1_over_n():
 # ---------------------------------------------------------------------------
 
 WS = 1024          # 16 pages of 64 a shard at 4 shards
-
-
-class _Copies(op_walk.OpWalk):
-    """An op walk that also keeps every copy between two cards (its
-    receiving card, shape and bytes) and the shape of every tensor an op
-    makes on a card."""
-
-    def __init__(self):
-        super().__init__()
-        self.copies, self.shapes = [], set()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = super().__torch_dispatch__(func, types, args, kwargs)
-        for t in torch.utils._pytree.tree_flatten(out)[0]:
-            if isinstance(t, torch.Tensor) and op_walk.device_of(t) \
-                    .startswith("cuda"):
-                self.shapes.add(tuple(t.shape))
-        if func is torch.ops.aten._to_copy.default:
-            src, dst = op_walk.device_of(args[0]), op_walk.device_of(out)
-            if src != dst and src.startswith("cuda"):
-                self.copies.append((dst, tuple(out.shape),
-                                    op_walk.nbytes(out)))
-        return out
 
 
 def _walk(shape, B):

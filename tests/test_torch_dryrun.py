@@ -281,6 +281,86 @@ def test_decode_cells_walk_the_split(cells, B, coords, tmp_path):
     assert rec["collective_bytes"]["all-to-all"] > 0   # the (out, lse)
 
 
+# the baseline decode cell runs the config's method, as the reference's
+# make_sparse_fn for any method (the smoke config's 8-token blocks and
+# budget of 32 tokens): the kernel it selects with, and its record's name
+METHOD_CELLS = {
+    "seer": ({"method": "seer"}, "relevancy_topk_candidates",
+             "Seer, 8-token blocks, topk 4"),
+    "seer-threshold": ({"method": "seer", "selection": "threshold"},
+                       "relevancy_topk_candidates",
+                       "Seer, 8-token blocks, threshold 0.0005"),
+    "lserve": ({"method": "lserve"}, "page_minmax",
+               "LServe, 8-token pages, 4 a physical page, top 1")}
+
+
+@pytest.mark.parametrize("method", list(METHOD_CELLS))
+@pytest.mark.parametrize("B,coords", [(2, 4), (1, 8)],
+                         ids=["decode_32k-layout", "long_500k-layout"])
+def test_decode_cells_walk_seer_and_lserve(cells, method, B, coords,
+                                           tmp_path):
+    """A Seer (top-k or threshold) or LServe decode cell walks the decode
+    split with that method (``core.methods.split_sparse``): its record
+    names the method, each coordinate of the sequence group launches its
+    selection kernel (relevancy; LServe's page_minmax) and paged attention
+    once a layer over its slice, and the busiest card's peak holds its
+    slice of the cache. The optimized variants run DSA whatever the
+    method, as the reference's."""
+    _, cfg, mesh, _ = cells
+    kw, kernel, name = METHOD_CELLS[method]
+    cfg = cfg.replace(memory=cfg.memory.replace(**kw))
+    S = 8192
+    shape = ShapeConfig("smoke_decode_split", S, B, "decode")
+    rec = dryrun.run_cell(SMOKE, "smoke_decode_split", cfg=cfg, shape=shape,
+                          mesh=mesh, out_dir=str(tmp_path), force=True)
+    assert rec["ok"], rec.get("error")
+    assert rec["walked"].startswith("the decode split")
+    assert rec["sparse"] == name
+    assert rec["kernel_calls"] == {kernel: coords * cfg.n_layers,
+                                   "paged_decode_attention":
+                                       coords * cfg.n_layers}
+    whole = 2 * cfg.n_layers * B * S * cfg.n_kv_heads * cfg.hd * 2
+    ma = rec["memory_analysis"]
+    assert whole // 8 <= ma["max_peak_live_bytes"] < whole // 2
+    rec = dryrun.run_cell(SMOKE, "smoke_decode_split",
+                          variant="optimized-spdecode", cfg=cfg, shape=shape,
+                          mesh=mesh, out_dir=str(tmp_path), force=True)
+    assert rec["ok"] and rec["sparse"] == "DSA, 64-token pages, stateless"
+
+
+@pytest.mark.parametrize("method", ["seer", "lserve"])
+def test_llama_decode_32k_cell_walks_seer_and_lserve(method, tmp_path):
+    """llama3.2-1b's decode_32k cell on the 16 x 16 production mesh with
+    the config's method Seer or LServe (a config change: the reference's
+    dry run has no method flag either): data index 0's model group walks
+    the split, one selection kernel and one paged attention launch a
+    coordinate a layer, the busiest card holding its 8 rows' 1/16 of the
+    sequence. ``pytest -s`` prints the record's summary (terms, peak)."""
+    cfg = get_arch(SMOKE)
+    cfg = cfg.replace(memory=cfg.memory.replace(method=method))
+    rec = dryrun.run_cell(SMOKE, "decode_32k", cfg=cfg,
+                          out_dir=str(tmp_path), force=True)
+    assert rec["ok"], rec.get("error")
+    assert rec["mesh"] == "16x16" and rec["sparse"].startswith(
+        {"seer": "Seer", "lserve": "LServe"}[method])
+    kernel = "relevancy_topk_candidates" if method == "seer" else \
+        "page_minmax"
+    assert rec["kernel_calls"] == {kernel: 16 * cfg.n_layers,
+                                   "paged_decode_attention":
+                                       16 * cfg.n_layers}
+    # a card's K / V: 8 rows x 2048 tokens x 8 kv heads x 64, 16 layers
+    kv = 2 * cfg.n_layers * 8 * 2048 * cfg.n_kv_heads * cfg.hd * 2
+    ma = rec["memory_analysis"]
+    assert ma["device"] == "cuda:0" and kv < ma["peak_live_bytes"] < 2 ** 30
+    rl = rec["roofline"]
+    print(json.dumps({"method": method, "sparse": rec["sparse"],
+                      "compute_ms": rl["compute_s"] * 1e3,
+                      "memory_ms": rl["memory_s"] * 1e3,
+                      "collective_ms": rl["collective_s"] * 1e3,
+                      "peak_live_gib": ma["peak_live_bytes"] / 2 ** 30,
+                      "walk_s": rec["walk_s"]}))
+
+
 def test_moe_decode_walk_stands_in_for_the_other_data_indices(cells,
                                                               tmp_path):
     """MoE on decode_32k's layout: the walk runs data index 0's
