@@ -1007,6 +1007,32 @@ def _exact(name, a, b):
         raise AssertionError(f"{name}: not bit-exact")
 
 
+def _exact_nan(name, a, b):
+    """NaN exactly where ``b`` has NaN, every other element bit-exact (a
+    NaN's payload is free)."""
+    import torch
+
+    nan = b.isnan()
+    if a.shape != b.shape or not torch.equal(a.isnan(), nan):
+        raise AssertionError(f"{name}: NaN positions differ")
+    _exact(name, a.masked_fill(nan, 0), b.masked_fill(nan, 0))
+
+
+def _plan_note(k, ps):
+    """The bulk route's plan for ``k`` on its card, or that it takes the
+    scalar one."""
+    import torch
+    from repro_torch.kernels import page_pool as pp
+
+    B, S, KV, dh = k.shape
+    if KV * dh * k.element_size() % 16:
+        return "scalar route"
+    n_sm = torch.cuda.get_device_properties(k.device).multi_processor_count
+    p = pp.minmax_plan(B, S, KV * dh, k.element_size(), ps, n_sm)
+    return (f"{p.tiles} tiles of {p.rows} x {16 * p.W} B in {p.bands} "
+            f"band(s) on {p.grid} CTAs, {p.stages} stages, {p.smem} B")
+
+
 def check_page_minmax(dev):
     import torch
     from repro_torch.kernels import ops
@@ -1023,14 +1049,26 @@ def check_page_minmax(dev):
     _exact("page_minmax main path max", mx, pmx)
     log(f"  page_minmax LServe shape bf16: bit-exact ({mn.numel()} x 2)")
     # edge cases through the public op: fp32, 16-token pages, one page,
-    # all-negative and mixed-sign values, scalar loads (KV x dh = 15)
+    # all-negative and mixed-sign values, scalar loads (KV x dh = 15); the
+    # bulk route's plans: 4 pieces a row (the hybrid's C = 3584 fp32),
+    # fewer tiles than SMs (8), more than 2 x SMs (2048), two CTAs an SM
+    # (ps 16's 256 tiles), bands a page (ps 128), uneven pieces (4176-byte
+    # rows: 131 + 130 vectors)
     cases = [("fp32", torch.float32, 4, 1024, 8, 64, 64, False),
              ("bf16 ps=16", torch.bfloat16, 4, 1024, 8, 64, 16, False),
              ("one page", torch.bfloat16, 2, 64, 8, 64, 64, False),
              ("all negative", torch.bfloat16, 2, 256, 8, 64, 64, True),
              ("mixed sign fp32", torch.float32, 2, 256, 8, 64, 16, False),
              ("scalar loads bf16", torch.bfloat16, 2, 128, 3, 5, 64, False),
-             ("scalar loads fp32", torch.float32, 2, 128, 3, 5, 16, False)]
+             ("scalar loads fp32", torch.float32, 2, 128, 3, 5, 16, False),
+             ("C 3584 fp32", torch.float32, 2, 2048, 32, 112, 64, False),
+             ("8 tiles bf16", torch.bfloat16, 1, 512, 8, 64, 64, False),
+             ("2048 tiles fp32 ps=16", torch.float32, 4, 4096, 8, 64, 16,
+              False),
+             ("two bands bf16 ps=128", torch.bfloat16, 2, 1024, 8, 64, 128,
+              False),
+             ("uneven pieces bf16", torch.bfloat16, 2, 1024, 8, 261, 64,
+              False)]
     for name, dt, b, S, kv, d, p, negative in cases:
         kk = torch.randn(b, S, kv, d, generator=g, device=dev) * 3 - 0.5
         if negative:
@@ -1040,7 +1078,26 @@ def check_page_minmax(dev):
         r = pp.page_minmax_plain(kk, page_size=p)
         _exact(f"page_minmax {name} min", a[0], r[0])
         _exact(f"page_minmax {name} max", a[1], r[1])
-        log(f"  page_minmax {name}: bit-exact")
+        log(f"  page_minmax {name}: bit-exact ({_plan_note(kk, p)})")
+    # NaN and +-inf in some pages: NaN where the plain version has NaN,
+    # every other element bit-exact
+    for dt, kv, d in ((torch.float32, 8, 64), (torch.bfloat16, 8, 64),
+                      (torch.float32, 32, 112)):
+        kk = torch.randn(2, 512, kv, d, generator=g, device=dev) * 3 - 0.5
+        kk[0, 70, 1, 3] = kk[1, 5, 7, 63] = float("nan")     # pages 1, 0
+        kk[0, 130:140, 2] = float("inf")                     # page 2
+        kk[1, 200, :, 10:20] = -float("inf")                 # page 3
+        kk[1, 260, 0] = float("nan")                         # page 4: both
+        kk[1, 261, 0] = float("inf")
+        kk[1, 300:320, 4:6] = float("nan")                   # whole columns
+        kk = kk.to(dt)
+        a = ops.page_minmax(kk, page_size=64)
+        r = pp.page_minmax_plain(kk, page_size=64)
+        for i, what in enumerate(("min", "max")):
+            _exact_nan(f"page_minmax NaN/inf {dt} C {kv * d} {what}", a[i],
+                       r[i])
+        log(f"  page_minmax NaN and inf, {dt}, C {kv * d}: NaN where the "
+            f"plain version's, the rest bit-exact")
     try:
         pp.page_minmax(k[:, : ps + 1], page_size=ps)
     except ValueError:
@@ -1065,6 +1122,8 @@ def check_page_minmax(dev):
     _exact("aminmax yardstick min", lo, pmn)
     library_ms = time_ms([lambda x=x: library(x) for x in ks])
     del ks
+    log(f"  page_minmax main path: {ms:.5f} ms cold (warm {ms_warm:.5f}), "
+        f"plain {plain_ms:.5f}, aminmax {library_ms:.5f}")
     return {
         "name": "page_minmax", "route": "cuda",
         "source": "src/repro_torch/csrc/page_minmax.cu",
@@ -1077,6 +1136,7 @@ def check_page_minmax(dev):
         "tolerance": "bit-exact",
         "library": "torch.aminmax over the page axis, then .float()",
         "shape": f"k [{B},{VIEW},{KV},{dh}] bf16, pages of {ps}",
+        "plan": _plan_note(k, ps),
     }
 
 
@@ -3308,7 +3368,8 @@ def _minmax_timing(name, k, ps):
             "timing": f"cold L2: ms, plain_ms and library_ms rotate over {n} "
                       f"copies of k; ms_l2_warm on one copy",
             "tolerance": "bit-exact",
-            "library": "torch.aminmax over the page axis, then .float()"}
+            "library": "torch.aminmax over the page axis, then .float()",
+            "plan": _plan_note(k, ps)}
 
 
 def _exchange_walk(cfg, B, S, tp):
@@ -4750,7 +4811,8 @@ def _check_retrievals(run: str, events, slot_of):
 # the CUDA symbol of each kernel, as the profiler names it
 KERNEL_SYMBOLS = {"relevancy_topk_candidates": "relevancy_topk_kernel",
                   "paged_decode_attention": "paged_decode_kernel",
-                  "page_minmax": "page_minmax_kernel",
+                  # both routes: page_minmax_bulk<T>, page_minmax_scalar<T>
+                  "page_minmax": "page_minmax_",
                   "bm25_topk_candidates": "bm25_topk_kernel",
                   # both routes: flash_attention_kernel<T, DH>,
                   # flash_attention_sm90_kernel<DH>

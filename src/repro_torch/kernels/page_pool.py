@@ -12,11 +12,13 @@ here the scatters write the pool in place with ``index_put_`` and return it.
 
 ``page_minmax`` (LServe's prepare stage) launches the CUDA kernel
 (``csrc/page_minmax.cu``) for CUDA tensors and runs ``page_minmax_plain``
-for CPU tensors; it never falls back from one to the other.
+for CPU tensors; it never falls back from one to the other. Its bulk route
+follows ``minmax_plan``, a pure function of the shape and the SM count.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -98,6 +100,60 @@ def cost(k_cache, *, page_size: int = 64) -> _cost.KernelCost:
                             + 2 * n_out * 4)
 
 
+#: ``csrc/page_minmax.cu``'s threads a CTA
+THREADS = 256
+#: the bulk route's sizes, picked on an H100 at LServe's shapes: one CTA an
+#: SM holds a ring of up to RING_BYTES in stages of up to STAGE_BYTES, 2 to
+#: MAX_STAGES of them; where every tile of whole rows fits in two CTAs an
+#: SM, two CTAs an SM hold half of each, so all of a small input is asked
+#: for at once. Rows of more than THREADS 16-byte vectors are cut into equal
+#: pieces read one copy a row, through 2 stages: more copies in flight
+#: slowed those strided reads
+STAGE_BYTES = 64 * 1024
+RING_BYTES = 192 * 1024
+MAX_STAGES = 8
+
+
+class MinmaxPlan(NamedTuple):
+    """The bulk route's tiling of k [B, S, C] in pages of ``ps`` rows: a
+    tile is one (slot, page, piece of ``W`` 16-byte vectors of a row; a
+    row's last piece may be narrower), streamed in ``bands`` of ``rows``
+    rows (a page's last band may be shorter) through a ring of ``stages``
+    stages of rows x W vectors. ``grid`` persistent CTAs take tiles
+    ``cta, cta + grid, ...``; ``smem`` is a CTA's dynamic shared memory:
+    the ring, two tiles' (min, max) partials of THREADS vectors, one 8-byte
+    mbarrier a stage."""
+    W: int
+    pieces: int
+    rows: int
+    bands: int
+    stages: int
+    tiles: int
+    grid: int
+    smem: int
+
+
+def minmax_plan(B: int, S: int, C: int, elem_bytes: int, ps: int,
+                n_sm: int) -> MinmaxPlan:
+    """The bulk route's plan for k [B, S, C] of ``elem_bytes`` elements
+    (``C * elem_bytes`` a multiple of 16) in pages of ``ps``, on a card of
+    ``n_sm`` SMs. The grid is one CTA a tile where there are fewer tiles
+    than CTAs fit, so the CTAs' tile counts differ by at most one."""
+    G = C * elem_bytes // 16                     # vectors in a row
+    pieces = -(-G // THREADS)
+    W = -(-G // pieces)
+    pieces = -(-G // W)
+    tiles = B * (S // ps) * pieces
+    per_sm = 2 if pieces == 1 and tiles <= 2 * n_sm else 1
+    bands = -(-ps // max(1, STAGE_BYTES // per_sm // (16 * W)))
+    rows = -(-ps // bands)
+    stages = 2 if pieces > 1 else max(2, min(
+        MAX_STAGES, RING_BYTES // per_sm // (16 * rows * W)))
+    smem = 16 * (stages * rows * W + 4 * THREADS) + 8 * stages
+    return MinmaxPlan(W, pieces, rows, bands, stages, tiles,
+                      min(tiles, per_sm * n_sm), smem)
+
+
 def page_minmax(k_cache, *, page_size: int = 64):
     """k_cache [B,S,KV,dh] (fp32 or bf16) -> (min, max) [B,S/ps,KV,dh]
     fp32. Raises when S is not a multiple of ``page_size``. Under an op
@@ -124,16 +180,20 @@ def _launch(k_cache, page_size):
         return mn, mx
     k = k_cache.contiguous()
     C = KV * dh
-    is_bf16 = k.dtype == torch.bfloat16
-    per_16b = 8 if is_bf16 else 4          # elements in one 16-byte load
-    wide = int(C % per_16b == 0 and k.data_ptr() % 16 == 0)
+    # the bulk route takes 16-byte vectors; the scalar route (W = 0) the rest
+    plan = (0, 0, 0, 0, 0)
+    if C * k.element_size() % 16 == 0 and k.data_ptr() % 16 == 0:
+        p = minmax_plan(B, S, C, k.element_size(), page_size,
+                        torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+        plan = (p.W, p.rows, p.stages, p.grid, p.smem)
     lib = _build.load("page_minmax")
     fn = lib.page_minmax_cuda
     fn.restype = _I
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P] + [_I] * 10 + [_P]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(k.data_ptr(), mn.data_ptr(), mx.data_ptr(), B, S, C, page_size,
-             int(is_bf16), wide, stream)
+             int(k.dtype == torch.bfloat16), *plan, stream)
     _build.check(lib, err, "page_minmax")
     page_minmax.launches += 1
     return mn, mx

@@ -107,22 +107,32 @@ def test_paged_decode_attention_family_shapes(dev, dtype, KV, dh):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ps", [16, 64])
-@pytest.mark.parametrize("channels", [(8, 64), (3, 5)])
-def test_page_minmax_kernel(dev, dtype, ps, channels):
-    """Bit-exact against the plain version, on mixed-sign values, with the
-    16-byte loads (KV x dh = 512) and the scalar ones (KV x dh = 15)."""
+@pytest.mark.parametrize("channels", [(8, 64), (3, 5), (32, 112)])
+@pytest.mark.parametrize("n_pages", [4, 128])
+def test_page_minmax_kernel(dev, dtype, ps, channels, n_pages):
+    """Bit-exact against the plain version, on mixed-sign values with NaN
+    and +-inf in some pages (NaN exactly where the plain version has NaN):
+    the bulk route at KV x dh = 512 and at the hybrid's 3584 (4 pieces a
+    row), with fewer tiles than SMs (4 pages a slot) and more than 2 x SMs
+    (128), and the scalar route (KV x dh = 15)."""
     KV, dh = channels
     g = torch.Generator(device=dev).manual_seed(3)
-    k = (torch.randn(3, 4 * ps, KV, dh, generator=g, device=dev) * 3
-         - 0.5).to(dtype)
+    k = torch.randn(3, n_pages * ps, KV, dh, generator=g, device=dev) * 3 - 0.5
     k[1, ps:] = 0                                   # dead pages: 0 and 0
+    k[0, ps + 3, 0, 1] = float("nan")               # page 1
+    k[2, 2 * ps:2 * ps + 2, KV - 1] = float("inf")  # page 2
+    k[2, 3 * ps + 1, :, dh // 2] = -float("inf")    # page 3
+    k = k.to(dtype)
     n0 = pp.page_minmax.launches
     mn, mx = ops.page_minmax(k, page_size=ps)
     assert pp.page_minmax.launches == n0 + 1
     pmn, pmx = pp.page_minmax_plain(k, page_size=ps)
-    assert mn.dtype == torch.float32 and mn.shape == (3, 4, KV, dh)
-    assert torch.equal(mn.view(torch.int32), pmn.view(torch.int32))
-    assert torch.equal(mx.view(torch.int32), pmx.view(torch.int32))
+    assert mn.dtype == torch.float32 and mn.shape == (3, n_pages, KV, dh)
+    for got, want in ((mn, pmn), (mx, pmx)):
+        nan = want.isnan()
+        assert nan.any() and torch.equal(got.isnan(), nan)
+        assert torch.equal(got.masked_fill(nan, 0).view(torch.int32),
+                           want.masked_fill(nan, 0).view(torch.int32))
     with pytest.raises(ValueError):
         pp.page_minmax(k[:, :ps + 1], page_size=ps)
 
