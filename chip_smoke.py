@@ -53,7 +53,7 @@ failure (the script then exits non-zero):
 3b. train_families: granite-moe-1b-a400m, musicgen-medium, zamba2-7b and
    xlstm-125m (``TRAIN_FAMILIES``) trained the same way at their published
    widths at a constant lr (1e-5; musicgen 3e-6, xLSTM 3e-4), zamba2 cut
-   to 12 layers (2 shared-block sites at dh 112) and xLSTM to 6 of its 12
+   to 6 layers (1 shared-block site at dh 112) and xLSTM to 2 of its 12
    layers and S 128 (its token loops): batch 0's loss after one step at the train phase's
    schedule and at the family's (the lr probe); 4 steps with finite,
    falling loss, 2 flash launches per attention layer per step, all on the
@@ -77,12 +77,23 @@ failure (the script then exits non-zero):
    ops of a profiled step against one device's, the data-axis gradient
    reduction's and the sharded AdamW's ms, which on one card are
    device-local); the
-   params saved from the mesh, restored onto a (4,) model mesh and onto
-   one device, bit-equal; one fp32 step (S 512, lr 1e-3) sharded against
-   single device within the CPU tests' tolerances, its data replicas
-   agreeing; granite-moe-1b-a400m at full width cut to 4 layers, one
+   params saved from the mesh (at 4 layers), restored onto a (4,) model
+   mesh and onto one device, bit-equal; 3 of the same step with the
+   Megatron-SP
+   residual (``TrainConfig.sp``: each member its S / 4 slice of the
+   residual, the normed inputs all-gathered, the partials
+   reduce-scattered) from the same weights and batches, against the TP
+   step's (losses, bit-equal where the card's norms and sums run in the
+   same order, within 2e-2 in any case; the worst leaf within its bf16
+   bound; 256 flash launches a step on the tensor cores; step ms, peak
+   memory, a profiled step's busy share and device ops); one fp32 step
+   (S 512, lr 1e-3) sharded against single device within the CPU tests'
+   tolerances, its data replicas agreeing, without and with SP;
+   granite-moe-1b-a400m at full width cut to 4 layers, one
    expert-parallel step on a (1, 4) mesh (32 experts, 8 a shard) against
-   one device's; the compressed pod sync on (2, 2, 2) ("pod", "data",
+   one device's, and one with the shard-local dispatch
+   (``TrainConfig.ep_local``) against it (loss within 1e-5 relative, step
+   ms); the compressed pod sync on (2, 2, 2) ("pod", "data",
    "model") at 4 layers, int8 and bf16 (step 1's loss bit-equal to the
    uncompressed step's, each residual held against one recomputed from
    the reduced gradients, int8's non-zero);
@@ -116,10 +127,10 @@ failure (the script then exits non-zero):
    heads, the gated norm's variance all-reduced, ``out_proj``
    row-parallel), zamba2-7b at full width with seeded weights, one process
    over a (2, 4) mesh of ``cuda:0`` entries, depth cut for memory and time
-   (``HYBRID_*``): (t) one tensor-parallel train step at 12 layers (bf16,
+   (``HYBRID_*``): (t) one tensor-parallel train step at 6 layers (bf16,
    B 4 x S 2048, remat, lr 1e-5) against one device's from the same
    weights and batch (losses within 2e-2, the worst leaf within its bf16
-   bound, 32 flash launches a step on the tensor cores, step ms, peak
+   bound, 16 flash launches a step on the tensor cores, step ms, peak
    memory, a profiled step's busy share and device ops of each) and an
    fp32 step (S 512) within the CPU tests' tolerances; (p) ``prefill_tp``
    of B 4 x 4096 at 27 layers against ``prefill`` (HYBRID_PREFILL_TOL);
@@ -229,12 +240,13 @@ failure (the script then exits non-zero):
    shard-local shapes (view 4096 and 2048, beside their bounds and library
    times), DSA's cached against its stateless distributed decode for one
    layer at fp32 (one ``fleet_direct`` line);
-10. methods: MemAgent at full width (llama3.2-1b bf16, seeded weights,
+10. methods: MemAgent at full width (llama3.2-1b bf16 cut to 8 of its 16
+   layers, seeded weights,
    Appendix D's segments of 5000, 1024-token memory and 32-token answer,
    B 2, a 10,000-token document and a 64-token question) through
    ``run_memagent`` with ``prefill`` / ``decode_step`` placed by
    ``split_mesh_roles`` (the card takes both roles): each segment's
-   prefill and 1024 decode steps timed apart (the paper's Fig. 12), 48
+   prefill and 1024 decode steps timed apart (the paper's Fig. 12), 24
    flash launches on the tensor cores and no other kernel, an int32
    answer in the vocab, segment 1's prefill logits at fp32 through the
    kernel against the plain path (one ``memagent`` line); its
@@ -314,17 +326,19 @@ CLI_TP, CLI_TOTAL_STEPS = 4, 20          # launch/train.py's --tp, --steps
 # the train_families phase: arch -> (depth cut to, 0 for none; B; S; lr; S
 # of the fp32 kernel-vs-plain step at B 1), at published widths. zamba2-7b's
 # 81 layers do not fit 80 GB with fp32 AdamW moments (~12 bytes a
-# parameter): 12 layers keep 2 shared-block sites. xLSTM's token loops (one
-# step of host code per token) cut its S, and its depth to 6 of 12 layers
-# (3 pairs: the script's time, since the hybrid_sharded phase); no kernel
+# parameter): 6 layers keep 1 shared-block site (12, 2 sites, until the
+# script's time grew past its limit's reach). xLSTM's token loops (one
+# step of host code per token) cut its S, and its depth to 2 of 12 layers
+# (one pair: the script's time, since the hybrid_sharded phase and the SP
+# step); no kernel
 # is on its path, so its fp32 step is a short one. The lr is constant (one warm-up step): Adam's
 # first steps move every parameter by about lr, and at 1.4-1.8 B parameters
 # the train phase's schedule (lr 3e-3, 5 warm-up steps: 6e-4 at step 1)
 # overshoots, musicgen's even at 1e-5 (``_lr_probe``).
 TRAIN_FAMILIES = {"granite-moe-1b-a400m": (0, TRAIN_B, TRAIN_S, 1e-5, 512),
                   "musicgen-medium": (0, TRAIN_B, TRAIN_S, 3e-6, 512),
-                  "zamba2-7b": (12, TRAIN_B, TRAIN_S, 1e-5, 512),
-                  "xlstm-125m": (6, TRAIN_B, 128, 3e-4, 32)}
+                  "zamba2-7b": (6, TRAIN_B, TRAIN_S, 1e-5, 512),
+                  "xlstm-125m": (2, TRAIN_B, 128, 3e-4, 32)}
 TRAIN_FAMILY_STEPS = 4
 # the train_sharded phase: llama3.2-1b at full width on a (2, 4) mesh of the
 # card. The pod sync's (2, 2, 2) mesh holds 4 copies of every leaf and of
@@ -1711,14 +1725,12 @@ def phase_train(dev):
     """Full-width llama3.2-1b in bf16 (seeded random weights, ``TokenStream``
     data, remat, B 4 x S 2048, lr 3e-3 with 5 warm-up steps): 6 steps with
     finite, falling loss and 2 flash launches per layer per step (forward and
-    remat recompute; counts reset just before and read just after); a
-    checkpoint at step 3 restored by a fresh Trainer reproduces step 4's
-    loss; two profiled steps; one step with accum 2; then at fp32, B 1 x S
-    1024, one step's loss and gradients through the kernel against the plain
+    remat recompute; counts reset just before and read just after); two
+    profiled steps; one step with accum 2; a checkpoint round trip
+    (``_resume_check``, at POD_LAYERS layers); then at fp32, B 1 x S 1024,
+    one step's loss and gradients through the kernel against the plain
     path. Returns the flash launches of the 6 steps."""
     import dataclasses
-    import shutil
-    import tempfile
 
     import torch
     from repro_torch.configs import get_arch
@@ -1730,77 +1742,54 @@ def phase_train(dev):
     cfg = get_arch(TRAIN_ARCH)
     B, S, L = TRAIN_B, TRAIN_S, cfg.n_layers
     batches = _train_batches(cfg, dev, TRAIN_STEPS + 3, B, S)
-    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    try:
-        tc = TrainConfig(opt=OptConfig(lr=3e-3, warmup_steps=5,
-                                       total_steps=TRAIN_STEPS),
-                         remat=True, tp=16, ckpt_dir=ckdir, ckpt_every=10**9)
-        tr = Trainer(cfg, tc, init_params(cfg, 0, device=dev))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses, step_s, per_step, save_s = [], [], [], None
-        ops.reset_launch_counts()
-        for i in range(TRAIN_STEPS):
-            n0 = ops.launch_counts()["flash_attention"]
-            t0 = time.perf_counter()
-            losses.append(tr.train_step(batches[i])["loss"])
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            per_step.append(ops.launch_counts()["flash_attention"] - n0)
-            if tr.step == 3:
-                t0 = time.perf_counter()
-                tr.save()
-                save_s = time.perf_counter() - t0
-        counts = ops.launch_counts()
-        routes = ops.flash_route_counts()
-        peak = torch.cuda.max_memory_allocated()
-        log(f"  losses {[round(x, 4) for x in losses]}, step s "
-            f"{[round(x, 3) for x in step_s]}, flash launches per step "
-            f"{per_step} (expected {L} layers x 1 microbatch x 2)")
-        if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"train: non-finite loss {losses}")
-        if not losses[-1] < losses[0]:
-            raise AssertionError(f"train: loss did not fall: {losses}")
-        if per_step != [2 * L] * TRAIN_STEPS:
-            raise AssertionError(f"train: flash launches per step {per_step}")
-        if routes != {"tensor_cores": counts["flash_attention"],
-                      "cuda_cores": 0}:
-            raise AssertionError(f"train bf16: flash routes {routes}")
-        if any(n for name, n in counts.items() if name != "flash_attention"):
-            raise AssertionError(f"train: other kernels launched {counts}")
-
-        profile = _profile_steps(tr, batches[TRAIN_STEPS:TRAIN_STEPS + 2])
+    tc = TrainConfig(opt=OptConfig(lr=3e-3, warmup_steps=5,
+                                   total_steps=TRAIN_STEPS),
+                     remat=True, tp=16)
+    tr = Trainer(cfg, tc, init_params(cfg, 0, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, per_step = [], [], []
+    ops.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
         n0 = ops.launch_counts()["flash_attention"]
-        accum_step = make_train_step(cfg, dataclasses.replace(tc, accum=2))
-        mb = {k: v.reshape(2, B // 2, S) for k, v in batches[-1].items()}
-        _, _, st = accum_step(tr.params, tr.opt_state, mb)
-        accum_launches = ops.launch_counts()["flash_attention"] - n0
-        if not math.isfinite(float(st["loss"])) or accum_launches != 4 * L:
-            raise AssertionError(f"train accum=2: loss {float(st['loss'])}, "
-                                 f"{accum_launches} flash launches")
-        log(f"  accum=2 step: loss {float(st['loss']):.4f}, flash launches "
-            f"{accum_launches} (= {L} x 2 microbatches x 2)")
-        del tr, st, accum_step
-        torch.cuda.empty_cache()
-
-        # resume: a fresh Trainer (other init) restores step 3 on
-        # construction; its step 4 on step 4's batch reproduces the loss
         t0 = time.perf_counter()
-        tr2 = Trainer(cfg, tc, init_params(cfg, 1, device=dev))
-        restore_s = time.perf_counter() - t0
-        if tr2.step != 3:
-            raise AssertionError(f"restored step {tr2.step}, expected 3")
-        resumed = tr2.train_step(batches[3])["loss"]
-        rel = abs(resumed - losses[3]) / abs(losses[3])
-        log(f"  resume from step 3: step 4 loss {resumed:.6f} vs "
-            f"{losses[3]:.6f} (rel {rel:.3g}, tol 1e-3); save "
-            f"{save_s:.1f} s, restore {restore_s:.1f} s")
-        if not rel <= 1e-3:
-            raise AssertionError(f"resumed loss {resumed} != {losses[3]}")
-        del tr2
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(ckdir, ignore_errors=True)
+        losses.append(tr.train_step(batches[i])["loss"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(ops.launch_counts()["flash_attention"] - n0)
+    counts = ops.launch_counts()
+    routes = ops.flash_route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  losses {[round(x, 4) for x in losses]}, step s "
+        f"{[round(x, 3) for x in step_s]}, flash launches per step "
+        f"{per_step} (expected {L} layers x 1 microbatch x 2)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall: {losses}")
+    if per_step != [2 * L] * TRAIN_STEPS:
+        raise AssertionError(f"train: flash launches per step {per_step}")
+    if routes != {"tensor_cores": counts["flash_attention"],
+                  "cuda_cores": 0}:
+        raise AssertionError(f"train bf16: flash routes {routes}")
+    if any(n for name, n in counts.items() if name != "flash_attention"):
+        raise AssertionError(f"train: other kernels launched {counts}")
+
+    profile = _profile_steps(tr, batches[TRAIN_STEPS:TRAIN_STEPS + 2])
+    n0 = ops.launch_counts()["flash_attention"]
+    accum_step = make_train_step(cfg, dataclasses.replace(tc, accum=2))
+    mb = {k: v.reshape(2, B // 2, S) for k, v in batches[-1].items()}
+    _, _, st = accum_step(tr.params, tr.opt_state, mb)
+    accum_launches = ops.launch_counts()["flash_attention"] - n0
+    if not math.isfinite(float(st["loss"])) or accum_launches != 4 * L:
+        raise AssertionError(f"train accum=2: loss {float(st['loss'])}, "
+                             f"{accum_launches} flash launches")
+    log(f"  accum=2 step: loss {float(st['loss']):.4f}, flash launches "
+        f"{accum_launches} (= {L} x 2 microbatches x 2)")
+    del tr, st, accum_step
+    torch.cuda.empty_cache()
+
+    resume = _resume_check(cfg, batches, dev)
 
     compare = _train_compare(dev, cfg)
     toks = B * S
@@ -1815,10 +1804,60 @@ def phase_train(dev):
         "flash_launches_by_route": routes,
         "flash_launches_per_step": per_step,
         "accum2_flash_launches": accum_launches,
-        "ckpt_save_s": save_s, "ckpt_restore_s": restore_s,
-        "resume_step4_loss": resumed, "resume_rel_err": rel,
-        "profiled_steps": profile, "fp32_compare": compare}}), flush=True)
+        "resume": resume, "profiled_steps": profile,
+        "fp32_compare": compare}}), flush=True)
     return counts["flash_attention"], profile["flash_ms_in_situ"], routes
+
+
+def _resume_check(cfg, batches, dev):
+    """The checkpoint round trip, at POD_LAYERS layers (at full depth it
+    writes and reads 12 GB of parameters and fp32 moments: the disk's
+    time, not the step's): 4 steps of ``cfg`` cut to POD_LAYERS, the
+    train phase's schedule, a save at step 3; a fresh Trainer (other
+    init) restores step 3 on construction and its step 4 on step 4's
+    batch reproduces the loss within 1e-3 relative."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.train import OptConfig, Trainer, TrainConfig
+
+    cut = cfg.replace(n_layers=POD_LAYERS)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tc = TrainConfig(opt=OptConfig(lr=3e-3, warmup_steps=5,
+                                       total_steps=TRAIN_STEPS),
+                         remat=True, tp=16, ckpt_dir=ckdir, ckpt_every=10**9)
+        tr = Trainer(cut, tc, init_params(cut, 0, device=dev))
+        losses = []
+        for b in batches[:4]:
+            losses.append(tr.train_step(b)["loss"])
+            if tr.step == 3:
+                t0 = time.perf_counter()
+                tr.save()
+                save_s = time.perf_counter() - t0
+        del tr
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tr = Trainer(cut, tc, init_params(cut, 1, device=dev))
+        restore_s = time.perf_counter() - t0
+        if tr.step != 3:
+            raise AssertionError(f"restored step {tr.step}, expected 3")
+        resumed = tr.train_step(batches[3])["loss"]
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    rel = abs(resumed - losses[3]) / abs(losses[3])
+    log(f"  resume ({POD_LAYERS} layers) from step 3: step 4 loss "
+        f"{resumed:.6f} vs {losses[3]:.6f} (rel {rel:.3g}, tol 1e-3); save "
+        f"{save_s:.1f} s, restore {restore_s:.1f} s")
+    if not rel <= 1e-3:
+        raise AssertionError(f"resumed loss {resumed} != {losses[3]}")
+    return {"layers": POD_LAYERS, "ckpt_save_s": save_s,
+            "ckpt_restore_s": restore_s, "step4_loss": losses[3],
+            "resumed_step4_loss": resumed, "rel_err": rel}
 
 
 def _train_compare(dev, cfg, B: int = 1, S: int = 1024, tp: int = 16):
@@ -2103,12 +2142,16 @@ def _sharded_parts(tr, dev):
 
 def _granite_tp(dev):
     """granite-moe-1b-a400m at full width cut to GRANITE_TP_LAYERS layers,
-    bf16, B 4 x S 2048, remat, lr 1e-5 (the train_families phase's): one
-    single-device step, then one expert-parallel step on a (1, 4) mesh of
-    the card (32 experts, 8 a shard; the router, the dispatch, the capacity
-    and the aux on every shard) from the same weights and batch: loss
-    within 2e-2 relative, the worst leaf within its bf16 bound, tp x layers
-    x 2 flash launches a step on the tensor cores, step ms."""
+    bf16, B 4 x S 2048, remat, lr 1e-5 (the train_families phase's): two
+    single-device steps, then two expert-parallel steps on a (1, 4) mesh
+    of the card (32 experts, 8 a shard; the router, the dispatch, the
+    capacity and the aux on every shard) from the same weights and
+    batches: losses within 2e-2 relative, the worst leaf within its bf16
+    bound, tp x layers x 2 flash launches a step on the tensor cores, step
+    ms (the second, warm); then two steps with the shard-local dispatch
+    (``TrainConfig.ep_local``) from the same weights and batches: losses
+    within 1e-5 relative of the expert-parallel steps', as many flash
+    launches, step ms."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa, ops
@@ -2125,7 +2168,7 @@ def _granite_tp(dev):
                      remat=True, tp=CLI_TP)
     mesh = make_mesh(*GRANITE_TP_MESH)
     n = mesh.shape["model"]
-    batches = _train_batches(cfg, dev, 1, TRAIN_B, TRAIN_S, seed=2)
+    batches = _train_batches(cfg, dev, 2, TRAIN_B, TRAIN_S, seed=2)
     tr = Trainer(cfg, tc, init_params(cfg, 0, tp=tc.tp, device=dev))
     single, single_s, _ = _steps(tr, batches)
     host = [p.detach().cpu() for p in leaves(tr.params)]
@@ -2142,6 +2185,25 @@ def _granite_tp(dev):
     worst, bound = _bf16_leaf_bound(tr.params, host, len(batches), lr)
     del tr, host
     torch.cuda.empty_cache()
+    # the shard-local dispatch (``TrainConfig.ep_local``) from the same
+    # weights and batch
+    tr = Trainer(cfg, dataclasses.replace(tc, ep_local=True),
+                 _place(init_params(cfg, 0, tp=tc.tp, device=dev), cfg,
+                        mesh), mesh)
+    ops.reset_launch_counts()
+    local, local_s, local_per_step = _steps(tr, batches)
+    local_routes = ops.flash_route_counts()
+    local_rel = [abs(a - b) / abs(b) for a, b in zip(local, losses)]
+    del tr
+    torch.cuda.empty_cache()
+    log(f"  granite local dispatch: losses {local} against the current "
+        f"dispatch's {losses} (rel {max(local_rel):.3g}, tol 1e-5); step ms "
+        f"{1e3 * local_s[-1]:.1f} vs {1e3 * step_s[-1]:.1f}; flash launches "
+        f"a step {local_per_step}")
+    if max(local_rel) > 1e-5 or local_per_step != per_step or \
+            local_routes[fa.CUDA_CORES]:
+        raise AssertionError(f"granite local dispatch: {local} vs {losses},"
+                             f" flash {local_per_step}, {local_routes}")
     log(f"  granite expert-parallel ({GRANITE_TP_LAYERS} layers, "
         f"{dict(mesh.shape)}, {cfg.n_experts // n} experts a shard): losses "
         f"{[round(x, 5) for x in losses]} vs one device "
@@ -2165,7 +2227,12 @@ def _granite_tp(dev):
             "worst_leaf_of_bf16_bound": worst, "leaf_bound": bound,
             "single_step_s": single_s, "tp_step_s": step_s,
             "tp_peak_memory_bytes": peak, "flash_launches_per_step": per_step,
-            "flash_launches_by_route": routes}, sum(per_step), routes
+            "flash_launches_by_route": routes,
+            "local_dispatch": {"losses": local, "loss_rel_err": local_rel,
+                               "loss_tol": 1e-5, "step_s": local_s,
+                               "flash_launches_per_step": local_per_step},
+            "local_launches": (sum(local_per_step), local_routes)}, \
+        sum(per_step), routes
 
 
 def _gathered_step(cfg, tc, batches, single, host, dev):
@@ -2224,7 +2291,9 @@ def _gathered_step(cfg, tc, batches, single, host, dev):
 
 def _reshard(params, cfg, dev):
     """The params tree saved from its mesh, restored onto a (4,) model mesh
-    and onto one device: bit-equal leaves."""
+    and onto one device: bit-equal leaves (the train_sharded phase's at
+    POD_LAYERS layers: at full depth the round trips are the disk's time,
+    not the step's)."""
     import shutil
     import tempfile
 
@@ -2362,12 +2431,15 @@ def phase_train_sharded(dev):
     (GATHERED_*), one profiled step's busy share and device ops against one
     device's, the gradient reduction's and the sharded AdamW's ms; the
     params saved from the mesh and restored onto a (4,) model mesh and onto
-    one device bit-equal; one fp32 step (``_sharded_fp32``); granite's
-    expert-parallel step (``_granite_tp``); the compressed pod sync
+    one device bit-equal (at POD_LAYERS layers); the same step with the
+    Megatron-SP residual
+    (``_sp_step``); one fp32 step without and with SP
+    (``_sharded_fp32``); granite's expert-parallel step, and with the
+    shard-local dispatch (``_granite_tp``); the compressed pod sync
     (``_pod_sync``); GPipe (``_gpipe``). The seconds each part took. One
     ``train_sharded`` line. Returns {path: (flash launches, routes)} of the
-    gathered and the tensor-parallel steps, granite's step and the
-    pipelined forward."""
+    gathered and the tensor-parallel steps, the SP step, granite's steps
+    and the pipelined forward."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa, ops
@@ -2457,7 +2529,9 @@ def phase_train_sharded(dev):
     if profile["flash_launches_profiled"] != want:
         raise AssertionError(f"train_sharded: {profile} in the profiled step")
     lap("tensor_parallel_profiled_step")
-    reshard = _reshard(tr.params, cfg, dev)
+    cut = cfg.replace(n_layers=POD_LAYERS)
+    reshard = _reshard(_place(init_params(cut, 0, tp=tc.tp, device=dev), cut,
+                              mesh), cut, dev)
     lap("reshard")
     parts = _sharded_parts(tr, dev)
     log(f"  one profiled tensor-parallel step: busy "
@@ -2467,13 +2541,20 @@ def phase_train_sharded(dev):
         f"{parts['sharded_adamw_ms']:.2f} ms; device ops a step (profiler) "
         f"{profile['device_ops_per_step']:.0f} against one device's "
         f"{single_profile['device_ops_per_step']:.0f}")
+    tp_host = [p.full().cpu() for p in leaves(tr.params)]
     del tr
     torch.cuda.empty_cache()
     lap("exchange_parts")
 
-    fp32 = _sharded_fp32(cfg, mesh, dev)
+    sp, sp_launches, sp_routes = _sp_step(cfg, tc, mesh, batches, losses,
+                                          step_s, peak, profile, tp_host,
+                                          dev)
+    del tp_host
+    lap("sp_steps")
+    fp32 = _sharded_fp32(cfg, mesh, dev, variants={"sp": {"sp": True}})
     lap("fp32")
     granite, gr_launches, gr_routes = _granite_tp(dev)
+    gl_launches = granite.pop("local_launches")
     lap("granite_expert_parallel")
     pod = _pod_sync(cfg, tc, batches[0], dev)
     lap("pod_sync")
@@ -2511,16 +2592,89 @@ def phase_train_sharded(dev):
         "collectives_note": "one card: every mesh entry is cuda:0, so the "
                             "all-reduces and gathers are device-local "
                             "copies and adds, not interconnect transfers",
-        "gathered": gathered, "reshard": reshard, "fp32": fp32,
+        "gathered": gathered, "reshard": reshard, "sp": sp, "fp32": fp32,
         "granite_expert_parallel": granite, "pod_sync": pod, "gpipe": gpipe,
         "seconds_by_part": split_s}}), flush=True)
     return {"gathered": (ga_launches, ga_routes),
             "train_sharded": (counts["flash_attention"], routes),
+            "train_sharded_sp": (sp_launches, sp_routes),
             "granite_tp": (gr_launches, gr_routes),
+            "granite_tp_local": gl_launches,
             "gpipe": (gp_launches, gp_routes)}
 
 
-def _sharded_fp32(cfg, mesh, dev, label="train_sharded fp32"):
+def _sp_step(cfg, tc, mesh, batches, tp_losses, tp_s, tp_peak, tp_profile,
+             tp_host, dev):
+    """The tensor-parallel step with the Megatron-SP residual
+    (``TrainConfig.sp``) on ``mesh`` from the same weights and batches as
+    the TP step's (its losses, step seconds, peak, profiled step and final
+    parameters on the host: ``tp_*``): losses against the TP step's
+    (bit-equal where the card's norms and sums run in the same order;
+    within 2e-2 relative in any case), the worst leaf within its bf16
+    bound of the TP step's, 256 flash launches a step on the tensor cores,
+    step ms, peak memory, one profiled step's busy share and device ops.
+    -> (the line's dict, flash launches, by route)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.models import init_params
+    from repro_torch.train import Trainer
+
+    n = SHARDED_STEPS
+    dp, tp = mesh.shape["data"], mesh.shape["model"]
+    want = dp * tp * cfg.n_layers * 2
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, dataclasses.replace(tc, sp=True),
+                 _place(init_params(cfg, 0, tp=tc.tp, device=dev), cfg,
+                        mesh), mesh)
+    ops.reset_launch_counts()
+    losses, step_s, per_step = _steps(tr, batches[:n])
+    counts = ops.launch_counts()
+    routes = ops.flash_route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, tp_losses)]
+    worst, bound = _bf16_leaf_bound(tr.params, tp_host, n, SHARDED_LR)
+    profile = _profile_busy(tr, batches[n:])
+    del tr
+    torch.cuda.empty_cache()
+    equal = losses == list(tp_losses)
+    log(f"  SP: losses {[round(x, 5) for x in losses]} against the TP "
+        f"step's {[round(x, 5) for x in tp_losses]} (bit-equal: {equal}; "
+        f"rel {max(rel):.3g}, tol 2e-2); worst leaf {worst:.3g} of its bf16 "
+        f"bound; step ms {1e3 * statistics.median(step_s):.1f} vs the TP "
+        f"step's {1e3 * statistics.median(tp_s):.1f}; peak "
+        f"{peak / 1e9:.2f} vs {tp_peak / 1e9:.2f} GB; busy "
+        f"{100 * profile['device_busy_share']:.1f} vs "
+        f"{100 * tp_profile['device_busy_share']:.1f} %; device ops a step "
+        f"{profile['device_ops_per_step']:.0f} vs "
+        f"{tp_profile['device_ops_per_step']:.0f}; flash launches per step "
+        f"{per_step} (expected {want})")
+    if not all(math.isfinite(x) for x in losses) or max(rel) > 2e-2:
+        raise AssertionError(f"train_sharded SP: {losses} vs {tp_losses}")
+    if not worst <= 1.0:
+        raise AssertionError(f"train_sharded SP: a leaf {worst} of its bf16 "
+                             f"bound apart")
+    if per_step != [want] * n or profile["flash_launches_profiled"] != want:
+        raise AssertionError(f"train_sharded SP: flash launches {per_step}, "
+                             f"profiled {profile['flash_launches_profiled']}")
+    if routes != {fa.TENSOR_CORES: counts["flash_attention"],
+                  fa.CUDA_CORES: 0} or any(
+            c for name, c in counts.items() if name != "flash_attention"):
+        raise AssertionError(f"train_sharded SP: launches {counts}, flash "
+                             f"routes {routes}")
+    return {"steps": n, "losses": losses, "tp_losses": list(tp_losses),
+            "losses_bit_equal": equal, "loss_rel_err": rel,
+            "loss_tol": 2e-2, "worst_leaf_of_bf16_bound": worst,
+            "leaf_bound": bound, "step_s": step_s,
+            "step_ms_median": 1e3 * statistics.median(step_s),
+            "tp_step_ms_median": 1e3 * statistics.median(tp_s),
+            "peak_memory_bytes": peak, "tp_peak_memory_bytes": tp_peak,
+            "flash_launches_per_step": per_step,
+            "flash_launches_by_route": routes, "profiled_step": profile}, \
+        counts["flash_attention"], routes
+
+
+def _sharded_fp32(cfg, mesh, dev, label="train_sharded fp32",
+                  variants=None):
     """One fp32 step (B 4 x S SHARDED_FP32_S, lr SHARDED_FP32_LR from step
     1, so that an update is 100 x the tolerance) on one device and on
     ``mesh``: loss within 1e-5 relative, every shard equal to its slice of
@@ -2528,7 +2682,10 @@ def _sharded_fp32(cfg, mesh, dev, label="train_sharded fp32"):
     parameter and first moment within 1e-5 abs, except the parameters
     where the clipped gradient is below 100 eps = 1e-6: there Adam's first
     step, lr g / (|g| + eps), turns fp32 rounding in g into up to 2 lr
-    (the CPU tests' rule; at most 0.1 % of the elements)."""
+    (the CPU tests' rule; at most 0.1 % of the elements). ``variants``
+    ({name: TrainConfig changes}): one more step on ``mesh`` each, from
+    the same weights, held to the same rules against the same one-device
+    step (its dict under its name)."""
     import torch
     from repro_torch.models import init_params
     from repro_torch.train import OptConfig, Trainer, TrainConfig
@@ -2538,7 +2695,6 @@ def _sharded_fp32(cfg, mesh, dev, label="train_sharded fp32"):
     lr = SHARDED_FP32_LR
     tc32 = TrainConfig(opt=OptConfig(lr=lr, warmup_steps=1), remat=True,
                        tp=CLI_TP)
-    oc = tc32.opt
     batch = _train_batches(cfg32, dev, 1, TRAIN_B, SHARDED_FP32_S, seed=1)[0]
     tr = Trainer(cfg32, tc32, init_params(cfg32, 2, tp=tc32.tp, device=dev))
     # the single-device results stay on the card (15 GB beside the mesh's
@@ -2549,6 +2705,28 @@ def _sharded_fp32(cfg, mesh, dev, label="train_sharded fp32"):
     host_m = list(leaves(tr.opt_state.m))
     del tr
     torch.cuda.empty_cache()
+    out = _fp32_split(cfg32, tc32, mesh, dev, label, batch, single, host,
+                      host_m, p0)
+    for name, kw in (variants or {}).items():
+        out[name] = _fp32_split(cfg32, dataclasses.replace(tc32, **kw), mesh,
+                                dev, f"{label} {name}", batch, single, host,
+                                host_m, p0)
+    del host, host_m, p0
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fp32_split(cfg32, tc32, mesh, dev, label, batch, single, host, host_m,
+                p0):
+    """``_sharded_fp32``'s step on ``mesh`` under ``tc32``, against the
+    one-device step's loss ``single``, parameters ``host``, first moments
+    ``host_m`` and starting parameters ``p0``."""
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.train import Trainer
+    from repro_torch.train.optimizer import leaves
+
+    lr, oc = tc32.opt.lr, tc32.opt
     tr = Trainer(cfg32, tc32, _place(init_params(cfg32, 2, tp=tc32.tp,
                                                  device=dev), cfg32, mesh),
                  mesh)
@@ -2580,9 +2758,9 @@ def _sharded_fp32(cfg, mesh, dev, label="train_sharded fp32"):
         loose += int(off.sum())
         total += d.numel()
         del full, hm, d, off
-    del tr, host, host_m, p0
+    del tr
     torch.cuda.empty_cache()
-    log(f"  fp32 (B {TRAIN_B} x S {SHARDED_FP32_S}, lr {lr}): loss "
+    log(f"  {label} (B {TRAIN_B} x S {SHARDED_FP32_S}, lr {lr}): loss "
         f"{sharded:.6f} vs {single:.6f} (rel {rel:.3g}, tol 1e-5), worst "
         f"leaf {worst:.3g}: {loose} of {total} parameters beyond 1e-5, all "
         f"with clipped |g| < 100 eps (worst {worst_loose:.3g}, tol 2 lr); "
@@ -4147,15 +4325,16 @@ def phase_decode_sharded(dev):
 
 # zamba2-7b at full width (32 q / 32 kv heads at dh 112, 112 SSM heads of
 # 64 channels, d_inner 7168) on a (2, 4) mesh of the card, its depth cut for
-# memory and time: the train step at 12 layers (2 shared-block sites, as
-# train_families runs it), the prefill and decode_32k's layout at 27 (4
+# memory and time: the train step at 6 layers (1 shared-block site and no
+# tail; train_families runs 12, 2 sites), the prefill and decode_32k's
+# layout at 27 (4
 # sites and the 3-layer tail, as zamba2-dsa-generate), long_500k's layout at
 # 13 (2 sites and a 1-layer tail: one site's shared_k + shared_v hold 7.5
 # GB at 524,288 tokens, and the phase keeps one device's copy beside the
 # split's), the fp32 checks at 7 (1 site and a 1-layer tail)
 HYBRID_ARCH = "zamba2-7b"
 HYBRID_MESH = ((2, 4), ("data", "model"))
-HYBRID_TRAIN = (12, 1e-5)               # layers, lr (the train step)
+HYBRID_TRAIN = (6, 1e-5)                # layers (1 site), lr (the train step)
 HYBRID_PREFILL = (27, 4, 4096)          # layers, B, S
 HYBRID_A = (27, 4, 32768, 8)            # decode_32k's: layers, B, cache, steps
 HYBRID_B = (13, 1, 524288, 4)           # long_500k's
@@ -4507,7 +4686,7 @@ def phase_hybrid_sharded(dev, seed: int = 0):
     weights, depth cut as HYBRID_* say. (t) one tensor-parallel train step
     on (2, 4) against one device's from the same weights and batch (bf16,
     B 4 x S 2048, remat, lr 1e-5): losses within 2e-2, the worst leaf
-    within its bf16 bound, 2 sites x 2 x 4 members x 2 data indices = 32
+    within its bf16 bound, 1 site x 2 x 4 members x 2 data indices = 16
     flash launches a step on the tensor cores, step ms, peak memory, a
     profiled step's busy share and device ops of each, one fp32 step (S
     512) within the CPU tests' tolerances; (p) ``prefill_tp`` of B 4 x
@@ -5565,6 +5744,9 @@ def phase_fleet(dev, runs, kernels):
 
 MEMAGENT_B = 2
 MEMAGENT_SEGMENTS = 2     # the fewest that carry a memory to the next segment
+# llama3.2-1b's depth cut to 8 of 16 layers for the script's time: the
+# segments' 2 x 1024 decode steps are host-bound, about 40 ms a step at 16
+MEMAGENT_LAYERS = 8
 MEMAGENT_Q = 64
 TTT_B, TTT_S, TTT_CHUNK = 4, 8192, 256
 
@@ -5581,14 +5763,15 @@ def _memagent_inputs(cfg, ma, dev):
 
 
 def phase_memagent(dev):
-    """MemAgent at full width (llama3.2-1b bf16, seeded weights) with the
+    """MemAgent at full width (llama3.2-1b bf16 cut to MEMAGENT_LAYERS
+    layers, seeded weights) with the
     paper's Appendix D config (segments of 5000, a 1024-token memory, 32
     answer tokens), B 2, a 2-segment document and a 64-token question:
     ``run_memagent`` with the model's ``prefill`` / ``decode_step`` placed
     through ``split_mesh_roles`` (one card takes both roles). Each prefill
     is closed by a synchronize on both sides, which splits every segment
     into its prefill and its 1024 decode steps (the paper's Fig. 12). 48
-    flash launches (16 layers x 3 prefills), all on the tensor cores, and
+    flash launches (MEMAGENT_LAYERS x 3 prefills), all on the tensor cores, and
     no other kernel; then segment 1's prefill logits at fp32 through the
     kernel against the plain path; then MemAgent's ``build_pipeline``
     through ``run`` under a StageProfiler, apply handed the raw memory.
@@ -5603,7 +5786,7 @@ def phase_memagent(dev):
     from repro_torch.launch.mesh import mesh_from_devices, split_mesh_roles
     from repro_torch.models import init_params, model as M
 
-    cfg = get_arch(SERVE_ARCH)
+    cfg = get_arch(SERVE_ARCH).replace(n_layers=MEMAGENT_LAYERS)
     ma = memagent.MemAgentConfig()
     # one card takes both roles: the mesh names it twice
     pre, dec = split_mesh_roles(mesh_from_devices([dev] * 2))
@@ -5691,6 +5874,7 @@ def phase_memagent(dev):
 
     print(json.dumps({"memagent": {
         "card": card_line(), "arch": SERVE_ARCH, "dtype": "bfloat16",
+        "layers": MEMAGENT_LAYERS,
         "config": dataclasses.asdict(ma), "batch": MEMAGENT_B,
         "segments": MEMAGENT_SEGMENTS, "question_len": MEMAGENT_Q,
         "roles": {"prefill": [str(d) for d in pre],

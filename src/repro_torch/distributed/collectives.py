@@ -20,10 +20,11 @@ reckons. ``all_to_all`` turns the tensor-parallel prefill's caches (a
 member's kv heads over the whole sequence) into the decode split's (every
 kv head over a member's sequence slice). The group operations of the
 tensor-parallel split (``group_broadcast``, ``group_all_reduce``,
-``group_all_gather``) are ``autograd.Function``s over the members'
-tensors; each backward is the exact adjoint of its forward (a broadcast's
-is a sum onto the source, an all-reduce's an all-reduce, an all-gather's a
-reduce-scatter), so one scalar loss taken on one member differentiates
+``group_all_gather``, ``group_reduce_scatter``) are ``autograd.Function``s
+over the members' tensors; each backward is the exact adjoint of its
+forward (a broadcast's is a sum onto the source, an all-reduce's an
+all-reduce, an all-gather's a reduce-scatter and a reduce-scatter's an
+all-gather), so one scalar loss taken on one member differentiates
 through the whole group. Each labels its copies between devices for an op
 walk (``launch.op_walk.collective``), in the backward too.
 """
@@ -123,18 +124,20 @@ def _reduce_blocks(xs: Sequence[torch.Tensor], dim: int, sizes, devices,
                    op: str = "sum") -> List[torch.Tensor]:
     """Block k of dim ``dim`` (``sizes[k]`` long) reduced over the
     participants onto ``devices[k]``: each block copied there in the inputs'
-    dtype, accumulated in fp32 in participant order, cast back."""
+    dtype, accumulated in fp32 (fp64 inputs in fp64) in participant order,
+    cast back."""
     outs, off = [], 0
+    acc_dt = torch.promote_types(xs[0].dtype, torch.float32)
     for size, dev in zip(sizes, devices):
         acc = None
         for x in xs:
             part = x.narrow(dim, off, size).to(dev)
             if acc is None:
-                acc = part.to(torch.float32, copy=True)
+                acc = part.to(acc_dt, copy=True)
             elif op == "max":
-                torch.maximum(acc, part.to(torch.float32), out=acc)
+                torch.maximum(acc, part.to(acc_dt), out=acc)
             else:
-                acc += part.to(torch.float32)
+                acc += part.to(acc_dt)
         if op == "mean":
             acc /= len(xs)
         outs.append(acc.to(xs[0].dtype))
@@ -261,6 +264,20 @@ class _AllGather(torch.autograd.Function):
             _grads(ctx, gs), ctx.dim, ctx.sizes, ctx.devices))
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, *xs):
+        ctx.dim = dim
+        return _saw_outputs(ctx, reduce_scatter(xs, dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = _grads(ctx, gs)
+        with placing(), collective("all-gather"):
+            return (None,) + tuple(_gather_blocks(gs, ctx.dim,
+                                                  [g.device for g in gs]))
+
+
 def group_broadcast(x: torch.Tensor, devices) -> List[torch.Tensor]:
     """One copy of ``x`` on each of ``devices`` (forward: a copy; backward:
     the copies' gradients summed onto ``x``'s device in member order)."""
@@ -287,6 +304,19 @@ def group_all_gather(xs: Sequence[torch.Tensor], dim: int, devices=None
     if len(xs) == 1 and devices == [xs[0].device]:
         return list(xs)
     return list(_AllGather.apply(dim, devices, *xs))
+
+
+def group_reduce_scatter(xs: Sequence[torch.Tensor], dim: int
+                         ) -> List[torch.Tensor]:
+    """Member k's block of ``dim`` (``torch.tensor_split``'s sizes) of the
+    sum of the members' equal-shaped partials, on its own device: summed in
+    fp32 in member order and cast back, so each element equals the
+    index-order sum ``group_all_reduce`` gives. Backward: the blocks'
+    gradients all-gathered onto every member (each partial reaches every
+    block). One member alone gets its tensor back."""
+    if len(xs) == 1:
+        return list(xs)
+    return list(_ReduceScatter.apply(dim, *xs))
 
 
 def group_max(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:

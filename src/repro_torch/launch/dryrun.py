@@ -59,11 +59,16 @@ machine, with or without a card; on the card it touches none.
     hybrid's idxcache cell fails there too). A decode cell's cache holds
     ``seq_len - 1`` tokens (the shape's length, a host int).
 
-The reference's variant hints ``set_ep_constraint`` (shard-local MoE
-dispatch) and ``set_sp_residual`` (Megatron-SP residual) are GSPMD
-sharding constraints; the port's eager step has nothing to apply them to,
-so a cell under such a variant walks the baseline step and its record says
-so (``hints_not_applied``).
+A train cell under an optimized variant applies the reference's hints
+under its conditions (``dryrun.py:55-61``): ``set_ep_constraint`` when the
+variant starts with ``optimized`` and the model's experts split over the
+model axis (``TrainConfig.ep_local``: each expert-parallel shard
+dispatches and combines its own slots), ``set_sp_residual`` when ``sp`` is
+one of the variant's words and the sequence splits over the model axis
+(``TrainConfig.sp``: the Megatron-SP residual, reduce-scatters and
+all-gathers in place of each layer's all-reduces). The record lists them
+(``hints_applied``). As in the reference, a hint meets no site where the
+step has none: xLSTM's gathered step, a model axis of 1.
 
 Each record (``build/dryrun/<arch>__<shape>__<mesh>__<variant>.json``)
 holds the reference's keys: ``memory_analysis`` (argument and peak live
@@ -117,9 +122,9 @@ def _cell_path(arch: str, shape: str, mesh: str, variant: str,
     return os.path.join(out_dir, f"{arch}__{shape}__{tag}__{variant}.json")
 
 
-def _unapplied_hints(cfg, shape, tp: int, variant: str):
-    """The reference's GSPMD hints this variant turns on for a train
-    cell (``dryrun.py:54-61``), which the port does not apply."""
+def train_hints(cfg, shape, tp: int, variant: str):
+    """The reference's hints this variant turns on for a train cell
+    (``dryrun.py:55-61``), by the reference's names."""
     out = []
     if variant.startswith("optimized") and cfg.n_experts \
             and cfg.n_experts % tp == 0:
@@ -181,10 +186,15 @@ def _fsdp_symmetry(w: op_walk.OpWalk, mesh):
         dst.bytes += got
 
 
-def walk_train(cfg, shape, mesh, tp: int, rec: Dict) -> op_walk.OpWalk:
-    """One sharded train step over ``mesh`` (inside placeholders)."""
+def walk_train(cfg, shape, mesh, tp: int, rec: Dict,
+               variant: str = "baseline") -> op_walk.OpWalk:
+    """One sharded train step over ``mesh`` (inside placeholders), with the
+    variant's hints (``train_hints``)."""
     accum = pick_accum(cfg, shape, mesh.size // tp)
     rec["accum"] = accum
+    hints = train_hints(cfg, shape, tp, variant)
+    if hints:
+        rec["hints_applied"] = hints
     specs = input_specs(cfg, shape, mesh, tp=tp)
     params = sh.device_put(specs["params"], specs["params_sharding"])
     opt = init_opt_state(params)
@@ -195,7 +205,9 @@ def walk_train(cfg, shape, mesh, tp: int, rec: Dict) -> op_walk.OpWalk:
                      if k == "positions3" else
                      x.reshape((accum, mb) + x.shape[1:]))
                  for k, x in batch.items()}
-    tc = TrainConfig(accum=accum, tp=tp, remat=True)
+    tc = TrainConfig(accum=accum, tp=tp, remat=True,
+                     sp="set_sp_residual" in hints,
+                     ep_local="set_ep_constraint" in hints)
     dp = len(sh.model_groups(mesh))
     if not splits_model(cfg, mesh):
         step = make_train_step(cfg, tc, mesh)
@@ -454,10 +466,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     try:
         with op_walk.placeholders():
             if shape.kind == "train":
-                hints = _unapplied_hints(cfg, shape, tp, variant)
-                if hints:
-                    rec["hints_not_applied"] = hints
-                w = walk_train(cfg, shape, mesh, tp, rec)
+                w = walk_train(cfg, shape, mesh, tp, rec, variant)
             elif shape.kind == "prefill":
                 w = walk_prefill(cfg, shape, mesh, tp, rec)
             else:

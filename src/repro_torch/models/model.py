@@ -155,24 +155,34 @@ def _attn_out(lp: Params, out, cfg: ArchConfig, tp: int, shard=None):
     return out.reshape(B, Sq, HP * hd) @ lp["wo"]
 
 
-def _ffn_part(lp, x, cfg: ArchConfig, shard=None):
+def _ffn_part(lp, x, cfg: ArchConfig):
     """The FFN half of a transformer layer on the residual x -> (its output
-    before the residual add, MoE aux or None); a model shard's is a
-    row-parallel partial."""
-    h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
+    before the residual add, MoE aux or None)."""
+    return _ffn_mix(lp, L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
+
+
+def _ffn_mix(lp, h, cfg: ArchConfig, shard=None, ep_local: bool = False):
+    """``_ffn_part`` after its norm, on the normed h; a model shard's
+    (``shard=(m, n)``) is a row-parallel partial (``ep_local``: an
+    expert-parallel shard's own dispatch, ``moe.moe_apply``'s ``local``)."""
     if cfg.n_experts:
-        return MOE.moe_apply(lp["moe"], h, cfg, shard=shard)
+        return MOE.moe_apply(lp["moe"], h, cfg, shard=shard, local=ep_local)
     return L.mlp(lp["mlp"], h), None
 
 
-def _attn_part(lp, x, cos, sin, cfg: ArchConfig, tp: int, shard=None,
-               all_kv: bool = False):
+def _attn_part(lp, x, cos, sin, cfg: ArchConfig, tp: int):
     """The attention half of a transformer layer on the residual x -> (its
-    output before the residual add, k, v, q). A model shard's
+    output before the residual add, k, v, q)."""
+    return _attn_mix(lp, L.rms_norm(lp["attn_norm"], x, cfg.norm_eps), cos,
+                     sin, cfg, tp)
+
+
+def _attn_mix(lp, h, cos, sin, cfg: ArchConfig, tp: int, shard=None,
+              all_kv: bool = False):
+    """``_attn_part`` after its norm, on the normed h. A model shard's
     (``shard=(m, n)``) attends over its heads and gives a row-parallel
     partial; a shard whose kv heads do not shard projects those its q heads
     read, or, with ``all_kv``, all of them."""
-    h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
     ap, lo = lp["attn"], 0
     if shard is not None:
         ap = A.shard_kv_params(ap, cfg, tp, shard, all_kv)
@@ -433,26 +443,50 @@ def _tp_devices(group):
 
 
 def _tp_layer(lps, xs, cos, sin, cfg: ArchConfig, tp: int,
-              all_kv: bool = False):
+              all_kv: bool = False, sp: bool = False,
+              ep_local: bool = False):
     """One transformer layer over a model group in lockstep. ``lps``, the
     members' local layer trees (an FSDP leaf's ``DataSlices`` gathered here,
     inside the remat, so the recompute gathers again); ``xs``, each
     member's copy of the residual stream. Each member runs its shard of the
-    attention half and of the FFN half (``_attn_part``, ``_ffn_part``);
+    attention half and of the FFN half (``_attn_mix``, ``_ffn_mix``);
     each half's row-parallel partials are all-reduced over the group before
-    the residual add. -> (xs, member 0's MoE aux or None, ks, vs per
-    member)."""
+    the residual add. With ``sp`` (the Megatron-SP residual, the
+    reference's ``set_sp_residual``) ``xs`` are the members' sequence
+    slices: each member norms its slice, the normed slices are all-gathered
+    over the sequence before the projections (the reference's
+    ``_sp_gather``), and each half's partials are reduce-scattered into
+    the slices (the same fp32 sums in member order as the all-reduce's).
+    ``ep_local``: the MoE's shard-local dispatch. -> (xs, member 0's MoE
+    aux or None, ks, vs per member)."""
     n = len(xs)
     lps = [sh.materialize(lp, x.device) for lp, x in zip(lps, xs)]
-    att = [_attn_part(lp, x, cos[m], sin[m], cfg, tp, (m, n), all_kv)[:3]
-           for m, (lp, x) in enumerate(zip(lps, xs))]
-    xs = [x + y for x, y in zip(xs, col.group_all_reduce([a[0]
-                                                          for a in att]))]
-    ffn = [_ffn_part(lp, x, cfg, (m, n))
-           for m, (lp, x) in enumerate(zip(lps, xs))]
-    xs = [x + y.to(x.dtype) for x, y in zip(
-        xs, col.group_all_reduce([f[0] for f in ffn]))]
+
+    def normed(key, xs):
+        hs = [L.rms_norm(lp[key], x, cfg.norm_eps) for lp, x in zip(lps, xs)]
+        return col.group_all_gather(hs, 1) if sp else hs
+
+    def add(xs, ys):
+        ys = col.group_reduce_scatter(ys, 1) if sp else \
+            col.group_all_reduce(ys)
+        return [x + y.to(x.dtype) for x, y in zip(xs, ys)]
+
+    att = [_attn_mix(lp, h, cos[m], sin[m], cfg, tp, (m, n), all_kv)[:3]
+           for m, (lp, h) in enumerate(zip(lps, normed("attn_norm", xs)))]
+    xs = add(xs, [a[0] for a in att])
+    ffn = [_ffn_mix(lp, h, cfg, (m, n), ep_local)
+           for m, (lp, h) in enumerate(zip(lps, normed("mlp_norm", xs)))]
+    xs = add(xs, [f[0] for f in ffn])
     return xs, ffn[0][1], [a[1] for a in att], [a[2] for a in att]
+
+
+def _seq_slices(xs, sp: bool):
+    """Each member's sequence slice of its copy of the residual (views);
+    ``xs`` itself without ``sp``."""
+    if not sp:
+        return xs
+    s = xs[0].shape[1] // len(xs)
+    return [x[:, m * s:(m + 1) * s] for m, x in enumerate(xs)]
 
 
 def _mamba_tp(lps, xs, cfg: ArchConfig, states=None):
@@ -482,7 +516,8 @@ def _split_families(cfg: ArchConfig, n: int):
 
 def forward_tp(group, cfg: ArchConfig, tokens, *, positions3=None,
                img_embeds=None, collect_cache: bool = False,
-               remat: bool = False, tp: int = 16):
+               remat: bool = False, tp: int = 16, sp: bool = False,
+               ep_local: bool = False):
     """``forward`` over one model group: ``group`` holds each model shard's
     local parameter tree (``sharding.group_view``), in model-index order,
     each on its member's device. -> (each member's hidden [B,S,d], member
@@ -495,10 +530,24 @@ def forward_tp(group, cfg: ArchConfig, tokens, *, positions3=None,
     of the whole group; the hybrid's ``_hybrid_forward_tp``). A member's
     caches hold its own kv heads when ``kv_shardable``, else all of them
     (the hybrid's also its heads of the SSM states and its channels of x's
-    conv states). Not xLSTM."""
+    conv states). Not xLSTM.
+
+    ``sp`` runs the Megatron-SP residual (the reference's
+    ``set_sp_residual``): after the embedding each member keeps its S / n
+    slice of the residual (a view), the layers run on the slices
+    (``_tp_layer``; the hybrid's shared block alone, as the reference's
+    ``_sp`` sites lie only in its transformer layer), the final norm runs
+    on the slice and one all-gather over the sequence gives every member
+    the whole hidden state back. It needs S % n == 0. ``ep_local`` runs
+    the MoE's shard-local dispatch (the reference's
+    ``set_ep_constraint``). Neither changes the result."""
     _split_families(cfg, len(group))
     devs = _tp_devices(group)
     B, Sq = tokens.shape
+    if sp and Sq % len(group):
+        raise ValueError(f"{cfg.name}: the sequence-parallel residual needs "
+                         f"the sequence length {Sq} to divide over the "
+                         f"{len(group)} model shards (S % n == 0)")
     toks = col.group_broadcast(tokens, devs)
     xs = col.group_all_gather(
         [L.embed(sh.materialize(g["embed"], d), t)
@@ -514,12 +563,14 @@ def forward_tp(group, cfg: ArchConfig, tokens, *, positions3=None,
     cos, sin = [t[0] for t in tables], [t[1] for t in tables]
     if cfg.family == "hybrid":
         return _hybrid_forward_tp(group, cfg, xs, cos, sin, collect_cache,
-                                  remat, tp)
+                                  remat, tp, sp)
     per = [_unstack(g["layers"], cfg.n_layers) for g in group]
     aux = torch.zeros((), dtype=torch.float32, device=devs[0])
     ks, vs = [], []
+    xs = _seq_slices(xs, sp)
     for i in range(cfg.n_layers):
-        args = ([p[i] for p in per], xs, cos, sin, cfg, tp, collect_cache)
+        args = ([p[i] for p in per], xs, cos, sin, cfg, tp, collect_cache,
+                sp, ep_local)
         xs, aux_l, k, v = (_remat(_tp_layer, *args) if remat
                            else _tp_layer(*args))
         aux = _add_aux(aux, aux_l)
@@ -528,6 +579,8 @@ def forward_tp(group, cfg: ArchConfig, tokens, *, positions3=None,
             vs.append(v)
     xs = [L.rms_norm(g["final_norm"], x, cfg.norm_eps)
           for g, x in zip(group, xs)]
+    if sp:
+        xs = col.group_all_gather(xs, 1)
     caches = None
     if collect_cache:
         caches = [{"k": torch.stack([k[m] for k in ks]),
@@ -549,13 +602,17 @@ def _member_empty(cfg: ArchConfig, B: int, n: int, device, dtype,
             (z(di, K - 1), z(cfg.ssm_state, K - 1), z(cfg.ssm_state, K - 1)))
 
 
-def _hybrid_forward_tp(group, cfg, xs, cos, sin, collect_cache, remat, tp):
+def _hybrid_forward_tp(group, cfg, xs, cos, sin, collect_cache, remat, tp,
+                       sp: bool = False):
     """The split twin of ``_hybrid_forward``: per super block each Mamba2
     layer's shard (``_mamba_tp``), then the shared attention + MLP block at
     that site through ``_tp_layer``, under remat as one function of the
     group (the group ops inside it, so the recompute reduces again); then
     the tail's layers. An FSDP leaf of the double-stacked body is gathered
-    one Mamba2 layer at a time (``DataSlices.layers`` twice)."""
+    one Mamba2 layer at a time (``DataSlices.layers`` twice). With ``sp``
+    the shared block enters on each member's sequence slice of the
+    replicated residual and leaves by an all-gather over the sequence; the
+    Mamba2 layers run on the whole residual as without it."""
     n_super, per, tail = _hybrid_shape(cfg)
     n = len(group)
     B = xs[0].shape[0]
@@ -568,8 +625,10 @@ def _hybrid_forward_tp(group, cfg, xs, cos, sin, collect_cache, remat, tp):
         for lps in zip(*[_unstack(b, per) for b in blps]):
             xs, st = _mamba_tp(list(lps), xs, cfg)
             sts.append(st)
-        xs, _, ks, vs = _tp_layer(shared, xs, cos, sin, cfg, tp,
-                                  collect_cache)
+        xs, _, ks, vs = _tp_layer(shared, _seq_slices(xs, sp), cos, sin,
+                                  cfg, tp, collect_cache, sp)
+        if sp:
+            xs = col.group_all_gather(xs, 1)
         return xs, sts, ks, vs
 
     def run(fn, *a):
@@ -618,14 +677,16 @@ def _tp_logits(group, cfg: ArchConfig, xs):
 
 
 def train_loss_tp(group, cfg: ArchConfig, batch: Dict, *, remat: bool = True,
-                  tp: int = 16) -> torch.Tensor:
-    """``train_loss`` over one model group (``forward_tp``): the logits cut
-    over the vocabulary, the vocabulary-parallel cross-entropy
-    (``layers.cross_entropy_tp``); one scalar, on member 0's device."""
+                  tp: int = 16, sp: bool = False,
+                  ep_local: bool = False) -> torch.Tensor:
+    """``train_loss`` over one model group (``forward_tp``, with its ``sp``
+    and ``ep_local``): the logits cut over the vocabulary, the
+    vocabulary-parallel cross-entropy (``layers.cross_entropy_tp``); one
+    scalar, on member 0's device."""
     xs, aux, _ = forward_tp(group, cfg, batch["tokens"],
                             positions3=batch.get("positions3"),
                             img_embeds=batch.get("img_embeds"), remat=remat,
-                            tp=tp)
+                            tp=tp, sp=sp, ep_local=ep_local)
     logits, starts = _tp_logits(group, cfg, xs)
     labels = col.group_broadcast(batch["labels"], _tp_devices(group))
     return L.cross_entropy_tp(logits, labels, starts) + MOE_AUX_COEF * aux

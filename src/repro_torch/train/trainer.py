@@ -25,9 +25,13 @@ each data index's model group runs the tensor-parallel ``loss_and_grads``
 split by heads, the MLP and the vocabulary by columns, MoE by experts or
 d_ff, the hybrid's Mamba2 blocks by heads, FSDP leaves gathered one layer
 at a time); each coordinate gets the
-gradient of its own shards. Then a leaf replicated over ``model`` sums its
-copies' gradients over the model group (each copy reaches the loss only
-through its own shard), and each slice's gradient is averaged over the data
+gradient of its own shards. ``TrainConfig.sp`` and ``ep_local`` turn on
+the reference's optimized train variants there (the Megatron-SP residual;
+the MoE's shard-local dispatch); they change no result, and the gathered
+step has nothing for them to change. Then a leaf replicated over
+``model`` sums its copies' gradients over the model group (each copy
+reaches the loss only through its own shard), and each slice's gradient
+is averaged over the data
 indices onto the coordinates that own it: a ring all-reduce for leaves
 replicated over the data axes, a reduce-scatter (the FSDP gather's
 backward) for FSDP leaves. xLSTM (the reference replicates its
@@ -75,6 +79,12 @@ class TrainConfig:
     ckpt_dir: str = ""
     ckpt_every: int = 100
     tp: int = 16
+    # the reference's optimized train variants, on the tensor-parallel
+    # step (``models.model.forward_tp``): the Megatron-SP residual
+    # (``set_sp_residual``) and the MoE's shard-local expert dispatch
+    # (``set_ep_constraint``); off, as the reference's CLI leaves them
+    sp: bool = False
+    ep_local: bool = False
 
 
 def _unflatten(like, flat):
@@ -229,7 +239,8 @@ def _tp_group_grads(params, cfg, tc, part, mesh, d: int):
 
     def one(b):
         with torch.enable_grad():
-            loss = M.train_loss_tp(group, cfg, b, remat=tc.remat, tp=tc.tp)
+            loss = M.train_loss_tp(group, cfg, b, remat=tc.remat, tp=tc.tp,
+                                   sp=tc.sp, ep_local=tc.ep_local)
             got = torch.autograd.grad(loss, ts, allow_unused=True)
         return loss.detach(), [torch.zeros_like(t) if g is None else g
                                for t, g in zip(ts, got)]

@@ -395,11 +395,71 @@ def test_run_cell_other_families(cells, arch, tmp_path):
 
 
 def test_variant_hints_are_recorded_not_applied(cells):
-    out, cfg, mesh, _ = cells
+    """The ``optimized-sp`` train cell records the hint it applies
+    (``hints_applied``: the Megatron-SP residual; no experts, so no
+    dispatch hint) and walks it: the activations' all-reduces become
+    reduce-scatters and all-gathers, so every all-reduce byte left is the
+    gradient exchange (each of the 8 cards receiving what data index 1's
+    first one does, by symmetry) or the loss's [B, S] statistics, under
+    one activation's bytes; the FLOPs and the flash launches are the
+    baseline's, the bytes fewer."""
+    out, cfg, mesh, recs = cells
     rec = dryrun.run_cell(SMOKE, "smoke_train", variant="optimized-sp",
                           cfg=cfg, shape=smoke_shape("train"), mesh=mesh,
                           out_dir=str(out), force=True)
-    assert rec["ok"] and rec["hints_not_applied"] == ["set_sp_residual"]
+    assert rec["ok"] and rec["hints_applied"] == ["set_sp_residual"]
+    assert "hints_not_applied" not in rec
+    base, sh = recs["train"], smoke_shape("train")
+    gr = rec["grad_reduce"]
+    left = rec["collective_bytes"]["all-reduce"] - mesh.size * (
+        gr["data_axis_bytes_in"] + gr["model_axis_bytes_in"])
+    act = sh.global_batch // 2 * sh.seq_len * cfg.d_model * 2
+    assert 0 <= left < act
+    assert base["collective_bytes"]["all-reduce"] - \
+        rec["collective_bytes"]["all-reduce"] >= cfg.n_layers * act
+    assert rec["collective_bytes"]["reduce-scatter"] > \
+        base["collective_bytes"]["reduce-scatter"]
+    assert rec["roofline"]["flops_per_dev"] == \
+        base["roofline"]["flops_per_dev"]
+    assert rec["roofline"]["hbm_bytes_per_dev"] < \
+        base["roofline"]["hbm_bytes_per_dev"]
+    assert rec["kernel_calls"] == base["kernel_calls"]
+
+
+def test_moe_optimized_cell_walks_the_local_dispatch(cells, tmp_path,
+                                                     monkeypatch):
+    """granite smoke's ``optimized`` train cell (4 experts over the 4 model
+    shards: one each) applies the shard-local dispatch: every MoE group of
+    every shard dispatches through it (2 layers, forward and recompute, 4
+    shards, 1 group), with the baseline's FLOPs and collectives and fewer
+    bytes and a lower peak."""
+    from repro_torch.models import moe
+
+    _, _, mesh, _ = cells
+    arch = "granite-moe-1b-a400m"
+    cfg = get_arch(arch).smoke()
+    shape = ShapeConfig("smoke_train", 64, 64, "train")   # whole groups
+    recs, calls = {}, []
+    real = moe._Dispatch.apply
+    monkeypatch.setattr(moe._Dispatch, "apply",
+                        lambda *a: calls.append(1) or real(*a))
+    for variant in ("baseline", "optimized"):
+        recs[variant] = dryrun.run_cell(arch, "smoke_train", variant=variant,
+                                        cfg=cfg, shape=shape, mesh=mesh,
+                                        out_dir=str(tmp_path), force=True)
+        assert recs[variant]["ok"], recs[variant].get("error")
+        if variant == "baseline":
+            assert not calls and "hints_applied" not in recs[variant]
+    base, opt = recs["baseline"], recs["optimized"]
+    assert opt["hints_applied"] == ["set_ep_constraint"]
+    assert len(calls) == cfg.n_layers * 2 * mesh.shape["model"]
+    assert opt["collective_bytes"] == base["collective_bytes"]
+    assert opt["roofline"]["flops_per_dev"] == \
+        base["roofline"]["flops_per_dev"]
+    assert opt["roofline"]["hbm_bytes_per_dev"] < \
+        base["roofline"]["hbm_bytes_per_dev"]
+    assert opt["memory_analysis"]["peak_live_bytes"] < \
+        base["memory_analysis"]["peak_live_bytes"]
 
 
 def test_report_reads_the_records(cells, capsys):
