@@ -2893,7 +2893,6 @@ def _pod_sync(cfg, tc, batch, dev):
 ROOFLINE_DECODE_B = 4
 ROOFLINE_DECODE_LEN = VIEW - 1      # inside [min_context, fallback_context]
 ROOFLINE_TIMED = 3
-ROOFLINE_DRYRUN_LAYERS = 2          # the dry run's decode_32k cell, cut
 
 
 def _walks_equal(name, real, fake):
@@ -3125,25 +3124,27 @@ def phase_roofline(dev):
     meshes only: a mesh of one card's entries aliases ``.to``), with the
     terms, the bound, the measured step and MFU, and the walk's peak live
     bytes beside ``max_memory_allocated``; (c) the dry run of llama3.2-1b's
-    decode_32k cell on the 16 x 16 mesh of placeholder cards, cut to
-    ROOFLINE_DRYRUN_LAYERS layers (the decode split walks 16 coordinates a
-    layer: the whole depth takes a minute here). One ``roofline`` line."""
-    from repro_torch.configs import get_arch
+    decode_32k cell on the 16 x 16 mesh of placeholder cards at all 16
+    layers, trip-count scaled (``dryrun.trip_scale``: walks at 2 and 3
+    layers, solved for 16; the whole depth walked takes a minute). One
+    ``roofline`` line."""
     from repro_torch.launch import dryrun
 
     out = {"card": card_line(), "train": _roofline_train(dev),
            "decode": _roofline_decode(dev)}
     t0 = time.perf_counter()
-    cfg = get_arch("llama3.2-1b").replace(n_layers=ROOFLINE_DRYRUN_LAYERS)
-    rec = dryrun.run_cell("llama3.2-1b", "decode_32k", force=True, cfg=cfg,
+    rec = dryrun.run_cell("llama3.2-1b", "decode_32k", force=True,
                           out_dir=os.path.join(ROOT, "chiprun_out", "dryrun"))
     if not rec.get("ok"):
         raise AssertionError(f"roofline dry run: {rec.get('error')}")
+    if rec["cut"]["units"] != {"layers": {"full": 16, "walked": [2, 3]}}:
+        raise AssertionError(f"roofline dry run: cut {rec['cut']}")
     rl, ma = rec["roofline"], rec["memory_analysis"]
     out["dryrun"] = {
-        "cell": f"llama3.2-1b decode_32k 16x16 baseline, "
-                f"{ROOFLINE_DRYRUN_LAYERS} of 16 layers", "wall_s":
-        time.perf_counter() - t0, "device": rl["device"],
+        "cell": "llama3.2-1b decode_32k 16x16 baseline, 16 layers, "
+                "trip-count scaled", "wall_s":
+        time.perf_counter() - t0, "walks": rec["walks"], "cut": rec["cut"],
+        "device": rl["device"],
         "compute_s": rl["compute_s"], "memory_s": rl["memory_s"],
         "collective_s": rl["collective_s"], "bottleneck": rl["bottleneck"],
         "mfu_at_bound": rl["mfu"], "flops_by_dtype": rl["flops_by_dtype"],
@@ -5744,9 +5745,9 @@ def phase_fleet(dev, runs, kernels):
 
 MEMAGENT_B = 2
 MEMAGENT_SEGMENTS = 2     # the fewest that carry a memory to the next segment
-# llama3.2-1b's depth cut to 8 of 16 layers for the script's time: the
+# llama3.2-1b's depth cut to 6 of 16 layers for the script's time: the
 # segments' 2 x 1024 decode steps are host-bound, about 40 ms a step at 16
-MEMAGENT_LAYERS = 8
+MEMAGENT_LAYERS = 6
 MEMAGENT_Q = 64
 TTT_B, TTT_S, TTT_CHUNK = 4, 8192, 256
 
@@ -5770,8 +5771,8 @@ def phase_memagent(dev):
     ``run_memagent`` with the model's ``prefill`` / ``decode_step`` placed
     through ``split_mesh_roles`` (one card takes both roles). Each prefill
     is closed by a synchronize on both sides, which splits every segment
-    into its prefill and its 1024 decode steps (the paper's Fig. 12). 48
-    flash launches (MEMAGENT_LAYERS x 3 prefills), all on the tensor cores, and
+    into its prefill and its 1024 decode steps (the paper's Fig. 12).
+    MEMAGENT_LAYERS x 3 prefills flash launches, all on the tensor cores, and
     no other kernel; then segment 1's prefill logits at fp32 through the
     kernel against the plain path; then MemAgent's ``build_pipeline``
     through ``run`` under a StageProfiler, apply handed the raw memory.

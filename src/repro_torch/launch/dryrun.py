@@ -4,7 +4,7 @@ bytes (twin of ``repro.launch.dryrun``).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
         [--shape S] [--multi-pod] [--both-meshes] [--variant baseline]
-        [--force]
+        [--force] [--full] [--tally N]
 
 The reference lowers and compiles each cell's jitted step on 512
 placeholder CPU devices and reads XLA's memory analysis and HLO. The port
@@ -70,21 +70,35 @@ all-gathers in place of each layer's all-reduces). The record lists them
 (``hints_applied``). As in the reference, a hint meets no site where the
 step has none: xLSTM's gathered step, a model axis of 1.
 
+Trip counts, as the reference's (its HLO walk scales each ``lax.scan``
+body by its trip count): by default a cell is cut. Its repeated units (the
+layer stack; the hybrid's super blocks and tail; the micro-steps; xLSTM's
+time loop) are walked at small counts (``trip_scale``), each walk in
+placeholders of its own with the full cell's pins (FSDP, ``pick_accum``,
+the hints, the parameters' specs), and every count of every card is
+solved for the full counts, exactly (``op_walk.TripScale``); the busiest
+card is chosen after. ``--full`` (``run_cell(..., cut=False)``) walks the
+whole step. ``--tally N`` prints the busiest card's N ops that move the
+most bytes.
+
 Each record (``build/dryrun/<arch>__<shape>__<mesh>__<variant>.json``)
 holds the reference's keys: ``memory_analysis`` (argument and peak live
 bytes of the busiest device, whether they fit in the card's 80 GB),
 ``roofline`` (``launch.roofline``: the busiest device's terms), ``ok`` or
-``error``.
+``error``; and ``walks`` (each walk's unit counts and seconds) and
+``cut`` (the units, their full counts and walk counts, and whether the
+solved peak is exact; None for an uncut walk).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
 import time
 import traceback
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -184,19 +198,30 @@ def _fsdp_symmetry(w: op_walk.OpWalk, mesh):
         dst.per_collective["reduce-scatter"] += got
         dst.coll_bytes += got
         dst.bytes += got
+        w.by_device_op[str(mesh.device(m0))][
+            "reduce-scatter (the stand-ins', by symmetry)"][2] += got
 
 
 def walk_train(cfg, shape, mesh, tp: int, rec: Dict,
-               variant: str = "baseline") -> op_walk.OpWalk:
+               variant: str = "baseline", *, accum: Optional[int] = None,
+               hints: Optional[List[str]] = None,
+               pspecs=None) -> op_walk.OpWalk:
     """One sharded train step over ``mesh`` (inside placeholders), with the
-    variant's hints (``train_hints``)."""
-    accum = pick_accum(cfg, shape, mesh.size // tp)
+    variant's hints (``train_hints``). ``accum``, ``hints`` and ``pspecs``
+    (a tree of the parameters' ``PartitionSpec``) pin what ``pick_accum``,
+    ``train_hints`` and ``param_specs`` would choose for this config and
+    shape (a cut walk takes the full cell's)."""
+    if accum is None:
+        accum = pick_accum(cfg, shape, mesh.size // tp)
     rec["accum"] = accum
-    hints = train_hints(cfg, shape, tp, variant)
+    if hints is None:
+        hints = train_hints(cfg, shape, tp, variant)
     if hints:
         rec["hints_applied"] = hints
     specs = input_specs(cfg, shape, mesh, tp=tp)
-    params = sh.device_put(specs["params"], specs["params_sharding"])
+    params = sh.device_put(specs["params"], specs["params_sharding"]
+                           if pspecs is None else
+                           sh.make_shardings(pspecs, mesh))
     opt = init_opt_state(params)
     batch = specs["batch"]
     if accum > 1:
@@ -211,15 +236,14 @@ def walk_train(cfg, shape, mesh, tp: int, rec: Dict,
     dp = len(sh.model_groups(mesh))
     if not splits_model(cfg, mesh):
         step = make_train_step(cfg, tc, mesh)
-        rec["walked"] = (f"the gathered sharded Trainer step: {dp} data "
-                         f"indices, accum {accum}")
+        rec["walked"] = f"the gathered sharded Trainer step: {dp} data indices"
         with op_walk.OpWalk() as w:
             w.track(params, opt.m, opt.v, batch)
             step(params, opt, batch)
         return w
     rec["walked"] = (
         f"the tensor-parallel step: data index 0's model group "
-        f"({mesh.size // dp} coordinates), accum {accum}; the other "
+        f"({mesh.size // dp} coordinates); the other "
         f"{dp - 1} data indices stand in (zero gradients reduced over the "
         f"data axes as walked; the FSDP gradients they send data index 0's "
         f"coordinates counted from data index 1's by symmetry); every "
@@ -268,7 +292,8 @@ def _grad_reduce(w: op_walk.OpWalk, mesh, params, accum: int) -> Dict:
             "ratio": data_axis / slice_bytes, "ring_ratio": 2 * (n - 1) / n}
 
 
-def walk_prefill(cfg, shape, mesh, tp: int, rec: Dict) -> op_walk.OpWalk:
+def walk_prefill(cfg, shape, mesh, tp: int, rec: Dict,
+                 pspecs=None) -> op_walk.OpWalk:
     group, dev, rows = _first_part(mesh, shape.global_batch)
     batch = _place(batch_structs(cfg, shape.__class__(
         shape.name, shape.seq_len, rows, shape.kind)), dev)
@@ -277,7 +302,7 @@ def walk_prefill(cfg, shape, mesh, tp: int, rec: Dict) -> op_walk.OpWalk:
     if splits_model(cfg, mesh):
         structs = param_structs(cfg, tp)
         params = sh.device_put(structs, sh.make_shardings(
-            sh.param_specs(structs, cfg, mesh), mesh))
+            pspecs or sh.param_specs(structs, cfg, mesh), mesh))
         rec["walked"] = (f"data index 0's {rows} rows over its model group "
                          f"({len(group)} coordinates)")
         with torch.no_grad(), op_walk.OpWalk() as w:
@@ -293,10 +318,10 @@ def walk_prefill(cfg, shape, mesh, tp: int, rec: Dict) -> op_walk.OpWalk:
     return w
 
 
-def walk_decode(cfg, shape, mesh, tp: int, variant: str,
-                rec: Dict) -> op_walk.OpWalk:
+def walk_decode(cfg, shape, mesh, tp: int, variant: str, rec: Dict,
+                pspecs=None) -> op_walk.OpWalk:
     if splits_model(cfg, mesh):
-        return _walk_decode_split(cfg, shape, mesh, tp, variant, rec)
+        return _walk_decode_split(cfg, shape, mesh, tp, variant, rec, pspecs)
     group, dev, rows = _first_part(mesh, shape.global_batch)
     S = shape.seq_len
     params = _place(param_structs(cfg, tp), dev)
@@ -341,16 +366,24 @@ def walk_decode(cfg, shape, mesh, tp: int, variant: str,
     return w
 
 
-def _walk_decode_split(cfg, shape, mesh, tp: int, variant: str,
-                       rec: Dict) -> op_walk.OpWalk:
+def _fsdp(shape, variant: str) -> Optional[bool]:
+    """The cell's ``param_specs(fsdp=...)``: the optimized decode variants
+    keep the weights TP-resident (the reference's ``dryrun.py:166-167``);
+    elsewhere the rule (None: FSDP from 5e9 counted parameters)."""
+    return False if shape.kind == "decode" and variant.startswith(
+        "optimized") else None
+
+
+def _walk_decode_split(cfg, shape, mesh, tp: int, variant: str, rec: Dict,
+                       pspecs=None) -> op_walk.OpWalk:
     """One step of the decode split over ``mesh`` (inside placeholders)."""
     from repro_torch.core.methods import dsa, split_sparse
 
     S, B = shape.seq_len, shape.global_batch
-    fsdp = False if variant.startswith("optimized") else None
     structs = param_structs(cfg, tp)
     params = sh.device_put(structs, sh.make_shardings(
-        sh.param_specs(structs, cfg, mesh, fsdp=fsdp), mesh))
+        pspecs or sh.param_specs(structs, cfg, mesh,
+                                 fsdp=_fsdp(shape, variant)), mesh))
     c = cache_structs(cfg, B, S, tp)
     caches = sh.device_put(c, sh.make_shardings(
         sh.cache_specs(c, cfg, shape, mesh), mesh))
@@ -424,32 +457,297 @@ def _sparse_name(sparse, mem) -> str:
 
 
 # ---------------------------------------------------------------------------
+# trip counts: the cut walks
+# ---------------------------------------------------------------------------
+
+LAYERS, SUPER, TAIL, ACCUM, LENGTH = ("layers", "super blocks", "tail layers",
+                                      "accum", "seq_len")
+
+
+def pins(cfg, shape, mesh, variant: str = "baseline") -> Dict:
+    """What a train walk decides from the config's depth and the shape's
+    length, taken from the full cell so that a cut walk keeps its program:
+    ``pick_accum`` (it reads both) and the variant's hints. (The FSDP rule,
+    ``sharding.FSDP_THRESHOLD`` on the counted parameters, is pinned with
+    the parameters' specs in ``cell_counts``: zamba2's 6.7e9 against 5e9
+    would fall under it at a few layers.)"""
+    tp = mesh.shape["model"]
+    if shape.kind != "train":
+        return {}
+    return {"accum": pick_accum(cfg, shape, mesh.size // tp),
+            "hints": train_hints(cfg, shape, tp, variant)}
+
+
+def trip_scale(cfg, shape, accum: int = 1) -> op_walk.TripScale:
+    """The cell's repeated units, cut where the reference's scans are
+    (``models/model.py``'s layer scans, the micro-step scan, xLSTM's scans
+    over time), each walked at the least counts at which its program and
+    the site of its peak live bytes are the full cell's (the smoke tests,
+    ``tests/test_torch_dryrun_cut.py``, hold each cut walk to the uncut
+    one):
+
+      * the transformer families: the layer stack, at 2 and 3 layers (at
+        1 the one layer is the first and the last: the peak misses what a
+        layer carries into the next);
+      * the hybrid: its super blocks (``shared_attn_every`` Mamba2 layers
+        and one site of the shared block) and its tail layers, each at 2
+        and 3 (no count of 0: a hybrid with no site or no tail is another
+        program);
+      * xLSTM: the time loop of a train or prefill cell, its depth kept;
+        a prefill at lengths 2 and 3 (at length 1 its products move other
+        bytes, the tests find); a train step at 4, 5 and 6: the
+        backward of each step's slice is a zero tensor of the whole
+        sequence, so its bytes grow with the square of the length, and
+        its peak lies on one line from length 4 on;
+      * a train cell's micro-steps, at accum 2 and 3 and the full
+        micro-batch (accum 1 keeps the gradients in the model dtype and
+        accumulates nothing: another program); the work of every other
+        unit is done once a micro-step, so those terms multiply.
+
+    A unit whose full count is no more than its last walk's is walked at
+    its full count, not cut."""
+    units, powers = [], {}
+    if cfg.xlstm_pattern:
+        if shape.kind == "train":
+            units.append(op_walk.Unit(LENGTH, shape.seq_len, 4, 5))
+            powers[LENGTH] = 2
+        elif shape.kind == "prefill":
+            units.append(op_walk.Unit(LENGTH, shape.seq_len, 2, 3))
+    elif cfg.family == "hybrid":
+        n_super, _, tail = M._hybrid_shape(cfg)
+        units += [op_walk.Unit(SUPER, n_super, 2, 3),
+                  op_walk.Unit(TAIL, tail, 2, 3)]
+    else:
+        units.append(op_walk.Unit(LAYERS, cfg.n_layers, 2, 3))
+    if shape.kind == "train":
+        units.append(op_walk.Unit(ACCUM, accum, 2, 3))
+    units = [u for u in units if u.full > u.lo + powers.get(u.name, 1) * (
+        u.hi - u.lo)]
+    terms = [()]
+    for u in units:
+        if u.name != ACCUM:
+            terms += [(u.name,) * k for k in range(1, powers.get(u.name, 1)
+                                                   + 1)]
+    if any(u.name == ACCUM for u in units):
+        terms += [t + (ACCUM,) for t in terms]
+    return op_walk.TripScale(units, terms)
+
+
+#: the smoke tests' bound on a solved peak that is not exact
+PEAK_BOUND = 0.02
+
+
+def peak_exact(cfg, shape) -> bool:
+    """Whether a cut walk's peak live bytes are exact: the smoke tests hold
+    them equal to the uncut walk's in every family and kind but the
+    hybrid's prefill and decode, whose peaks move between sites (a super
+    block's Mamba2 layers, its site, the tail, on other cards) up to 4
+    super blocks; there the solved peak is under the uncut walk's by at
+    most ``PEAK_BOUND`` of it in those tests."""
+    return not (cfg.family == "hybrid" and shape.kind != "train")
+
+
+def _cut(cfg, shape, accum: int, counts: Dict[str, int]):
+    """(cfg, shape, accum) of the walk at ``counts`` ({unit: count}; the
+    other units at their full counts). The micro-batch stays the full
+    cell's, so each data index's part of it, and the MoE dispatch groups
+    ``trainer.data_parts`` cuts it into, stay too."""
+    if LAYERS in counts:
+        cfg = cfg.replace(n_layers=counts[LAYERS])
+    if SUPER in counts or TAIL in counts:
+        n_super, per, tail = M._hybrid_shape(cfg)
+        cfg = cfg.replace(n_layers=counts.get(SUPER, n_super) * per
+                          + counts.get(TAIL, tail))
+    if LENGTH in counts:
+        shape = dataclasses.replace(shape, seq_len=counts[LENGTH])
+    if ACCUM in counts:
+        mb = shape.global_batch // accum
+        accum = counts[ACCUM]
+        shape = dataclasses.replace(shape, global_batch=mb * accum)
+    return cfg, shape, accum
+
+
+def _by_path(tree) -> Dict:
+    out = {}
+    sh.tree_map_with_path(lambda p, x: out.__setitem__(p, x), tree)
+    return out
+
+
+def _check_cut(full, cut, specs, counts: Dict[str, int]):
+    """Raise unless the full config's parameter specs cut the walk's
+    parameters on dims of the full sizes: a spec never cuts a dim that a
+    trip count sizes (the stacked layers)."""
+    full, cut = _by_path(full), _by_path(cut)
+    for path, spec in _by_path(specs).items():
+        for i, axes in enumerate(spec):
+            if axes is not None and full[path].shape[i] != cut[path].shape[i]:
+                raise ValueError(
+                    f"{', '.join(counts)}: the full config cuts parameter "
+                    f"{'/'.join(map(str, path))} over {axes} on dim {i} "
+                    f"({full[path].shape[i]}); the walk at {counts} has "
+                    f"{cut[path].shape[i]} there")
+
+
+def _walk(cfg, shape, mesh, tp: int, variant: str, rec: Dict,
+          pin: Dict) -> op_walk.OpWalk:
+    """One walk of the cell's step (inside placeholders)."""
+    pspecs = pin.get("pspecs")
+    if shape.kind == "train":
+        return walk_train(cfg, shape, mesh, tp, rec, variant,
+                          accum=pin["accum"], hints=pin["hints"],
+                          pspecs=pspecs)
+    if shape.kind == "prefill":
+        return walk_prefill(cfg, shape, mesh, tp, rec, pspecs)
+    return walk_decode(cfg, shape, mesh, tp, variant, rec, pspecs)
+
+
+GRAD_REDUCE = ("slice_bytes", "data_axis_bytes_in", "model_axis_bytes_in")
+
+
+def _counts(w: op_walk.OpWalk, rec: Dict) -> Dict[Tuple, float]:
+    """Every count of a walk, flat: per device its FLOPs by dtype, bytes,
+    bytes by collective, peak live and argument bytes, and its [calls,
+    flops, bytes] by op; the kernel calls by name; the gradient exchange's
+    bytes (``grad_reduce``)."""
+    out: Dict[Tuple, float] = {}
+    for dev, c in w.costs.items():
+        out[("bytes", dev)] = c.bytes
+        for k, v in c.flops_by_dtype.items():
+            out[("flops", dev, k)] = v
+        for k, v in c.per_collective.items():
+            out[("collective", dev, k)] = v
+    for dev, n in w.peak_live.items():
+        out[("peak", dev)] = n
+    for dev, n in w.argument_bytes.items():
+        out[("arguments", dev)] = n
+    for r in w.kernels:
+        out[("kernel", r.name)] = out.get(("kernel", r.name), 0) + 1
+    for dev, ops in w.by_device_op.items():
+        for name, row in ops.items():
+            for i, v in enumerate(row):
+                out[("op", dev, name, i)] = v
+    for k in GRAD_REDUCE:
+        if k in rec.get("grad_reduce", {}):
+            out[("grad_reduce", k)] = rec["grad_reduce"][k]
+    return out
+
+
+def costs_of(counts: Dict[Tuple, float]) -> Dict[str, op_walk.Costs]:
+    """The per-device ``Costs`` of flat counts (``cell_counts``)."""
+    costs: Dict[str, op_walk.Costs] = {}
+
+    def get(dev):
+        if dev not in costs:      # whole numbers stay whole
+            costs[dev] = op_walk.Costs(0, 0, 0, {k: 0 for k in
+                                                 op_walk.COLLECTIVES})
+        return costs[dev]
+
+    for key, v in counts.items():
+        if key[0] == "bytes":
+            get(key[1]).bytes = v
+        elif key[0] == "flops":
+            get(key[1]).add_flops(key[2], v)
+        elif key[0] == "collective":
+            c = get(key[1])
+            c.per_collective[key[2]] = v
+            c.coll_bytes += v
+    return costs
+
+
+def cell_counts(cfg, shape, mesh, variant: str = "baseline",
+                cut: bool = True) -> Tuple[Dict[Tuple, float], Dict]:
+    """A cell's counts (``_counts``' keys): with ``cut``, solved from walks
+    at small trip counts (``trip_scale``) for the full ones, each walk in
+    placeholders of its own over structs of its own config and shape, with
+    the full cell's ``pins`` and, where the depth is cut, the full config's
+    parameter specs (its FSDP rule; and FSDP cuts a leaf of 2**22 elements
+    or more: zamba2's stacked ``w_B`` is one at 13 super blocks, not at 2,
+    and its 6.7e9 counted parameters, 5e9 or more, would be under 5e9 at
+    a few layers); else one walk of
+    the whole step. Returns the counts and {"rec": the first walk's record
+    keys, "walks": [{"counts": the units' counts, "seconds"}], "scale":
+    the ``TripScale``}. Raises where a cut would change the program (a
+    spec that cuts a dim a trip count sizes) or a count cannot be fit."""
+    tp = mesh.shape["model"]
+    pin = pins(cfg, shape, mesh, variant)
+    accum = pin.get("accum", 1)
+    ts = trip_scale(cfg, shape, accum) if cut else op_walk.TripScale([])
+    depth = any(u.name in (LAYERS, SUPER, TAIL) for u in ts.units)
+    if depth:
+        full = param_structs(cfg, tp)
+        pin["pspecs"] = sh.param_specs(full, cfg, mesh,
+                                       fsdp=_fsdp(shape, variant))
+    samples, walks, first = {}, [], None
+    for point in ts.points():
+        counts = {u.name: n for u, n in zip(ts.units, point)}
+        c_cfg, c_shape, c_accum = _cut(cfg, shape, accum, counts)
+        if depth:
+            _check_cut(full, param_structs(c_cfg, tp), pin["pspecs"], counts)
+        t0 = time.time()
+        rec: Dict = {}
+        with op_walk.placeholders():
+            w = _walk(c_cfg, c_shape, mesh, tp, variant, rec,
+                      dict(pin, accum=c_accum))
+        samples[point] = _counts(w, rec)
+        del w
+        walks.append({"counts": counts, "seconds": time.time() - t0})
+        if first is None:
+            first = rec
+    if pin.get("accum") is not None:
+        first["accum"] = pin["accum"]
+    return ts.fit(samples), {"rec": first, "walks": walks, "scale": ts}
+
+
+def top_ops(counts: Dict[Tuple, float], device: str, n: int = 10) -> List:
+    """The ``n`` ops that move the most bytes on ``device``: [op, calls,
+    flops, bytes], most bytes first."""
+    rows: Dict[str, List] = {}
+    for key, v in counts.items():
+        if key[0] == "op" and key[1] == device:
+            rows.setdefault(key[2], [key[2], 0, 0, 0])[key[3] + 1] = v
+    return sorted(rows.values(), key=lambda r: -r[3])[:n]
+
+
+# ---------------------------------------------------------------------------
 # dry-run one cell
 # ---------------------------------------------------------------------------
 
 
-def memory_analysis(w: op_walk.OpWalk, device: str) -> Dict:
+def memory_analysis(peak: Dict[str, int], args: Dict[str, int],
+                    device: str) -> Dict:
     """Argument and peak live bytes of ``device`` (the busiest), whether
     its peak fits in one card's memory, and the largest peak of any
     card."""
-    cards = {d: n for d, n in w.peak_live.items() if d.startswith("cuda")}
+    cards = {d: n for d, n in peak.items() if d.startswith("cuda")}
     top = max(cards, key=cards.get) if cards else device
-    peak = w.peak_live.get(device, 0)
+    mine = peak.get(device, 0)
     return {"device": device,
-            "argument_size_in_bytes": int(w.argument_bytes.get(device, 0)),
-            "peak_live_bytes": int(peak), "fits": peak <= HBM_BYTES,
+            "argument_size_in_bytes": int(args.get(device, 0)),
+            "peak_live_bytes": int(mine), "fits": mine <= HBM_BYTES,
             "max_peak_device": top,
             "max_peak_live_bytes": int(cards.get(top, 0)),
             "max_fits": cards.get(top, 0) <= HBM_BYTES,
             "card_bytes": HBM_BYTES}
 
 
+def _cut_text(ts: op_walk.TripScale) -> str:
+    walked = ts.walked()
+    return "; ".join(f"{u.name} walked at "
+                     f"{', '.join(str(n) for n in walked[u.name])}, solved "
+                     f"for {u.full}" for u in ts.units)
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
              variant: str = "baseline", force: bool = False, *, cfg=None,
-             shape=None, mesh=None, out_dir: Optional[str] = None) -> Dict:
+             shape=None, mesh=None, out_dir: Optional[str] = None,
+             cut: bool = True, tally: int = 0) -> Dict:
     """Walk one cell and write its record. ``cfg``, ``shape`` and ``mesh``
     replace the arch's config, ``SHAPES[shape_name]`` and the production
-    mesh (a test's smoke cell on a small mesh of ``op_walk.cards``)."""
+    mesh (a test's smoke cell on a small mesh of ``op_walk.cards``).
+    ``cut`` (the default, as trip-count scaling is the reference's):
+    walk the repeated units at small counts and solve for the full ones
+    (``cell_counts``); ``cut=False`` walks the whole step. ``tally``: print
+    the busiest card's ``tally`` ops that move the most bytes."""
     cfg = cfg or get_arch(arch)
     shape = shape or SHAPES[shape_name]
     mesh = mesh or make_production_mesh(multi_pod=multi_pod)
@@ -458,30 +756,42 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     if os.path.exists(path) and not force:
         with open(path) as f:
             return json.load(f)
-    tp = mesh.shape["model"]
     chips = mesh.size
     t0 = time.time()
     rec: Dict = {"arch": arch, "shape": shape_name, "mesh": name,
                  "variant": variant, "ok": False}
     try:
-        with op_walk.placeholders():
-            if shape.kind == "train":
-                w = walk_train(cfg, shape, mesh, tp, rec, variant)
-            elif shape.kind == "prefill":
-                w = walk_prefill(cfg, shape, mesh, tp, rec)
-            else:
-                w = walk_decode(cfg, shape, mesh, tp, variant, rec)
+        counts, info = cell_counts(cfg, shape, mesh, variant, cut)
+        ts, walked = info["scale"], info["rec"]
+        rec.update({k: v for k, v in walked.items() if k != "grad_reduce"})
+        if ts.units:
+            rec["walked"] += (f"; trip-count scaled from {len(ts.terms)} "
+                              f"walks: {_cut_text(ts)}")
         rec["walk_s"] = time.time() - t0
-        rl = RL.from_walk(w.costs, chips, RL.model_flops_for(cfg, shape))
-        rec["memory_analysis"] = memory_analysis(w, rl.device)
+        rec["walks"] = info["walks"]
+        rec["cut"] = None if not cut else {
+            "units": {u.name: {"full": u.full, "walked": ts.walked()[u.name]}
+                      for u in ts.units},
+            "peak": "exact" if not ts.units or peak_exact(cfg, shape) else
+            f"not exact: the smoke tests find it under the uncut walk's "
+            f"by at most {PEAK_BOUND:.0%}"}
+        costs = costs_of(counts)
+        rl = RL.from_walk(costs, chips, RL.model_flops_for(cfg, shape))
+        per = lambda kind: {k[1]: v for k, v in counts.items()  # noqa: E731
+                            if k[0] == kind}
+        rec["memory_analysis"] = memory_analysis(per("peak"),
+                                                 per("arguments"), rl.device)
         rec["roofline"] = rl.to_dict()
         rec["roofline"]["ideal_memory_s"] = (
             RL.ideal_memory_bytes(cfg, shape, chips) / HBM_BW)
-        rec["collective_bytes"] = RL.collective_bytes(w.costs)
-        rec["kernel_calls"] = {}
-        for r in w.kernels:
-            rec["kernel_calls"][r.name] = rec["kernel_calls"].get(r.name,
-                                                                  0) + 1
+        rec["collective_bytes"] = RL.collective_bytes(costs)
+        rec["kernel_calls"] = per("kernel")
+        if walked.get("grad_reduce"):
+            g = {k: per("grad_reduce").get(k, 0) for k in GRAD_REDUCE}
+            rec["grad_reduce"] = dict(
+                card=walked["grad_reduce"]["card"], **g,
+                ratio=g["data_axis_bytes_in"] / g["slice_bytes"],
+                ring_ratio=walked["grad_reduce"]["ring_ratio"])
         rec["ok"] = True
         ma = rec["memory_analysis"]
         print(f"[dryrun] {arch} {shape_name} {name} {variant}: "
@@ -489,7 +799,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
               f"memory={rl.memory_s*1e3:.2f}ms "
               f"collective={rl.collective_s*1e3:.2f}ms "
               f"bottleneck={rl.bottleneck} mfu={rl.mfu:.3f} on {rl.device} "
-              f"(walk {rec['walk_s']:.0f}s)")
+              f"(walk {rec['walk_s']:.0f}s, {len(rec['walks'])} walk(s))")
         print(f"  memory: arguments {ma['argument_size_in_bytes']/2**30:.2f}"
               f"GiB, peak live {ma['peak_live_bytes']/2**30:.2f}GiB on "
               f"{ma['device']} (fits 80 GB: {ma['fits']}); largest peak "
@@ -498,6 +808,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         print(f"  walk: flops/dev={rl.flops:.3e} bytes/dev={rl.hbm_bytes:.3e}"
               f" {rl.flops_by_dtype}")
         print(f"  collectives: { {k: f'{v/2**20:.1f}MiB' for k, v in rl.per_collective.items() if v} }")
+        for op, calls, flops, nbytes in top_ops(counts, rl.device, tally):
+            print(f"  op {op}: {calls} calls, {flops:.4g} flops, "
+                  f"{nbytes:.6g} bytes ({nbytes / HBM_BW * 1e3:.4f} ms)")
     except Exception as e:  # noqa: BLE001
         rec["error"] = f"{type(e).__name__}: {e}"
         rec["traceback"] = traceback.format_exc()[-2000:]
@@ -516,6 +829,10 @@ def main(argv=None):
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--full", action="store_true",
+                    help="walk the whole step (no trip-count scaling)")
+    ap.add_argument("--tally", type=int, default=0,
+                    help="print the busiest card's N ops by bytes")
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else sorted(ARCHS)
@@ -525,7 +842,8 @@ def main(argv=None):
     for mp in meshes:
         for a in archs:
             for s in shapes:
-                rec = run_cell(a, s, mp, args.variant, args.force)
+                rec = run_cell(a, s, mp, args.variant, args.force,
+                               cut=not args.full, tally=args.tally)
                 n_ok += rec.get("ok", False)
                 n_fail += not rec.get("ok", False)
     print(f"[dryrun] done: {n_ok} ok, {n_fail} failed")

@@ -32,10 +32,14 @@ dtype (``flops_by_dtype``):
   * peak live bytes per device: each storage counted once across its
     views, from when the walk first sees it until its last tensor goes.
 
-There are no trip counts: a Python loop runs its body as often as it
-runs, and each run is counted. The backward's ops run on autograd's
-device thread on the card; the mode is thread-local state that autograd
-carries there, so they are counted too.
+A walk has no trip counts of its own: a Python loop runs its body as
+often as it runs, and each run is counted. The backward's ops run on
+autograd's device thread on the card; the mode is thread-local state that
+autograd carries there, so they are counted too. The trip counts come
+from ``TripScale``, the twin of ``hlo_walk``'s scaling of a while body by
+its trip count: the dry run (``launch.dryrun``) walks each repeated unit
+of a cell (the layer stack, the micro-steps, the time loop) at two small
+counts and solves each count of the walk for the full ones, exactly.
 
 Placeholder devices (``placeholders``): the twin of the reference's 512
 host-platform devices. Inside it every tensor is a ``FakeTensor`` (no
@@ -53,15 +57,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import weakref
 from collections import defaultdict
+from fractions import Fraction
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import cost as _kcost
@@ -80,6 +85,23 @@ FACTORIES = frozenset({
     "linspace", "lift_fresh", "lift_fresh_copy", "_local_scalar_dense",
     "set_", "resize_", "_unsafe_view"})
 _COPIES = (aten._to_copy.default, aten.copy_.default)
+
+
+def _flat(tree, out=None) -> List[torch.Tensor]:
+    """The tensors of a call's arguments or results (nested tuples, lists
+    and dicts), in ``tree_flatten``'s order; a walk's hot path, where
+    ``tree_flatten`` cost a quarter of a walk's time."""
+    if out is None:
+        out = []
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _flat(x, out)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            _flat(x, out)
+    return out
 
 
 def nbytes(t: torch.Tensor) -> int:
@@ -117,6 +139,124 @@ class Costs:
             sorted(self.flops_by_dtype.items())), "bytes": self.bytes,
             "coll_bytes": self.coll_bytes,
             "per_collective": dict(self.per_collective)}
+
+
+# ---------------------------------------------------------------------------
+# trip counts
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Unit:
+    """A repeated unit of a step, the twin of a ``lax.scan``: its trip
+    count in the full step, and the counts it is walked at, ``lo`` and
+    every ``hi - lo`` after it as far as a term's power of it needs."""
+    name: str
+    full: int
+    lo: int
+    hi: int
+
+
+def _choose(z: Fraction, k: int) -> Fraction:
+    out = Fraction(1)
+    for i in range(k):
+        out = out * (z - i) / (i + 1)
+    return out
+
+
+class TripScale:
+    """A step's counts at its full trip counts, solved from walks at small
+    ones: the twin of ``hlo_walk``'s scaling of each while body by its trip
+    count, for a walk that sees no loop. Each count is taken to be a
+    polynomial in the units' trip counts with one coefficient a term of
+    ``terms``: a tuple of units whose counts multiply, a unit named twice
+    for its square (``()``: the work outside every unit; ``("layers",)``:
+    a layer's; ``("layers", "accum")``: a layer's in a micro-step;
+    ``("seq_len", "seq_len")``: work that grows with the square of the
+    length). The terms are closed under dropping a factor. There is one
+    walk a term (``points``), each unit at ``lo`` plus its power in the
+    term times ``hi - lo``, and the counts at the full trip counts are the
+    terms' forward differences times binomials (Newton's form), exact
+    (``Fraction``). A count that does not come out a whole number >= 0
+    from whole-number walks cannot be fit, and ``fit`` raises, naming the
+    units of its terms."""
+
+    def __init__(self, units, terms=None):
+        self.units = tuple(units)
+        names = [u.name for u in self.units]
+        for u in self.units:
+            if not 1 <= u.lo < u.hi or u.full < u.lo:
+                raise ValueError(f"{u.name}: cannot walk {u.lo} and {u.hi} "
+                                 f"to solve for {u.full}")
+        if terms is None:
+            terms = [()] + [(n,) for n in names]
+        self.terms = [tuple(sorted(t)) for t in terms]
+        for t in self.terms:
+            if not set(t) <= set(names):
+                raise ValueError(f"term {t}: units {names}")
+            for u in set(t):
+                less = list(t)
+                less.remove(u)
+                if tuple(less) not in self.terms:
+                    raise ValueError(f"term {t} without {tuple(less)}")
+        self._z = {u.name: Fraction(u.full - u.lo, u.hi - u.lo)
+                   for u in self.units}
+
+    def point(self, term) -> Tuple[int, ...]:
+        return tuple(u.lo + term.count(u.name) * (u.hi - u.lo)
+                     for u in self.units)
+
+    def points(self) -> List[Tuple[int, ...]]:
+        """The walks' counts, in the order of ``units``: one a term."""
+        return [self.point(t) for t in self.terms]
+
+    def walked(self) -> Dict[str, List[int]]:
+        """{unit: the counts it is walked at}."""
+        return {u.name: sorted({p[i] for p in self.points()})
+                for i, u in enumerate(self.units)}
+
+    def _differences(self, term):
+        """[(coefficient, sub-term)] of the term's forward difference."""
+        out = [(1, ())]
+        for u in sorted(set(term)):
+            k = term.count(u)
+            out = [(c * (-1) ** (k - j) * math.comb(k, j),
+                    tuple(sorted(sub + (u,) * j)))
+                   for c, sub in out for j in range(k + 1)]
+        return out
+
+    def fit(self, samples: Dict[Tuple[int, ...], Dict]) -> Dict:
+        """{key: count at the full trip counts} from {point: {key:
+        count}} (a key missing from a walk counts 0 there)."""
+        keys = {k: None for s in samples.values() for k in s}
+        diffs = {t: self._differences(t) for t in self.terms}
+        scale = {}
+        for t in self.terms:
+            z = Fraction(1)
+            for u in set(t):
+                z *= _choose(self._z[u], t.count(u))
+            scale[t] = z
+        out = {}
+        for key in keys:
+            f = {t: Fraction(samples[self.point(t)].get(key, 0))
+                 for t in self.terms}
+            total, parts = Fraction(0), []
+            for t in self.terms:
+                delta = sum(c * f[sub] for c, sub in diffs[t])
+                if delta:
+                    parts.append(t)
+                total += delta * scale[t]
+            whole = all(v.denominator == 1 for v in f.values())
+            if whole and (total.denominator != 1 or total < 0):
+                units = sorted({u for t in parts for u in t})
+                raise ValueError(
+                    f"{', '.join(units) or 'no unit'}: {key!r} cannot be fit "
+                    f"exactly: {float(total)} at "
+                    f"{ {u.name: u.full for u in self.units} } from walks "
+                    f"{ {self.point(t): int(f[t]) for t in self.terms} }")
+            out[key] = int(total) if total.denominator == 1 else \
+                float(total)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -291,9 +431,8 @@ class _PlaceFn(TorchFunctionMode):
         target = _as_card(kwargs.get("device"))
         if isinstance(target, Card):
             kwargs["device"] = "cpu"
-        flat = tree_flatten((args, kwargs))[0]
-        if target is None and not any(isinstance(t, torch.Tensor)
-                                      for t in flat):
+        flat = _flat((args, kwargs))
+        if target is None and not flat:
             target = _HOST              # made without a device: the host
         default = next((d for d in map(placeholder_device, flat)
                         if d is not None), None)
@@ -327,7 +466,7 @@ class _Place(TorchDispatchMode):
         asked = _as_card(kwargs.get("device"))
         if isinstance(asked, Card):
             target, kwargs["device"] = asked, torch.device("cpu")
-        flat, _ = tree_flatten((args, kwargs))
+        flat = _flat((args, kwargs))
         _PLACE["inside"] += 1
         try:
             out = func(*args, **kwargs)
@@ -338,12 +477,11 @@ class _Place(TorchDispatchMode):
         dev = target or next((d for d in (placeholder_device(t)
                                           for t in flat) if d is not None),
                              None)
-        if dev is None and not any(isinstance(t, torch.Tensor)
-                                   for t in flat):
+        if dev is None and not flat:
             dev = _PLACE["default"] or self.last
         if dev is not None:
             self.last = dev
-            for t in tree_flatten(out)[0]:
+            for t in _flat(out):
                 if isinstance(t, FakeTensor):
                     t.__dict__[_ATTR] = dev
         return out
@@ -449,10 +587,11 @@ class OpWalk(TorchDispatchMode):
         self.live: Dict[str, int] = defaultdict(int)
         self.peak_live: Dict[str, int] = defaultdict(int)
         self.argument_bytes: Dict[str, int] = defaultdict(int)
-        #: {op name: [calls, flops, bytes]} over every device, kernel
-        #: records under their wrapper's name
-        self.by_op: Dict[str, List[float]] = defaultdict(lambda: [0, 0.0,
-                                                                   0.0])
+        #: {device: {op name: [calls, flops, bytes]}}: each device's
+        #: share of ``costs`` by op (a call counted where its outputs are),
+        #: kernel records under their wrapper's name
+        self.by_device_op: Dict[str, Dict[str, List[float]]] = defaultdict(
+            lambda: defaultdict(lambda: [0, 0.0, 0.0]))
         self._storages: Dict[int, Tuple[str, int]] = {}
         self._quiet = 0
         self._open = False
@@ -485,7 +624,7 @@ class OpWalk(TorchDispatchMode):
         for n, key in cost.terms:
             c.add_flops(key, n)
         c.bytes += cost.bytes
-        row = self.by_op[name]
+        row = self.by_device_op[dev][name]
         row[0] += 1
         row[1] += cost.operations
         row[2] += cost.bytes
@@ -494,9 +633,8 @@ class OpWalk(TorchDispatchMode):
             out = launch()
         finally:
             self._quiet -= 1
-        for t in tree_flatten(out)[0]:
-            if isinstance(t, torch.Tensor):
-                self._see(t)
+        for t in _flat(out):
+            self._see(t)
         return out
 
     def track(self, *trees):
@@ -520,20 +658,28 @@ class OpWalk(TorchDispatchMode):
     def kernel_keys(self) -> List[Tuple]:
         return [r.key() for r in self.kernels]
 
+    @property
+    def by_op(self) -> Dict[str, List[float]]:
+        """{op name: [calls, flops, bytes]} over every device."""
+        out: Dict[str, List[float]] = {}
+        for ops in self.by_device_op.values():
+            for name, row in ops.items():
+                acc = out.setdefault(name, [0, 0.0, 0.0])
+                for i, v in enumerate(row):
+                    acc[i] += v
+        return out
+
     # -- the dispatch -------------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if self._quiet:
-            for t in tree_flatten(out)[0]:
-                if isinstance(t, torch.Tensor):
-                    self._see(t)
+            for t in _flat(out):
+                self._see(t)
             return out
-        ins = [t for t in tree_flatten((args, kwargs))[0]
-               if isinstance(t, torch.Tensor)]
-        outs = [t for t in tree_flatten(out)[0]
-                if isinstance(t, torch.Tensor)]
+        ins = _flat((args, kwargs))
+        outs = _flat(out)
         for t in ins + outs:
             self._see(t)
         name = func.overloadpacket.__name__
@@ -550,25 +696,29 @@ class OpWalk(TorchDispatchMode):
                     c.per_collective[kind] += b
                     self.costs[s_dev].bytes += nbytes(src)
                     c.bytes += b
-                    row = self.by_op[f"{name} ({kind})"]
-                    row[0] += 1
-                    row[2] += nbytes(src) + b
+                    label = f"{name} ({kind})"
+                    self.by_device_op[d_dev][label][0] += 1
+                    self.by_device_op[d_dev][label][2] += b
+                    self.by_device_op[s_dev][label][2] += nbytes(src)
                 return out
         if func.is_view or name in FACTORIES or not ins or not outs:
             return out
         dev = device_of(outs[0]) if outs else device_of(ins[0])
         c = self.costs[dev]
-        row = self.by_op[name]
-        row[0] += 1
+        mine = self.by_device_op[dev][name]
+        mine[0] += 1
         formula = flop_registry.get(func.overloadpacket)
         if formula is not None:
             n = formula(*args, **kwargs, out_val=out)
             c.add_flops(_kcost.dtype_key(ins[0].dtype), n)
-            row[1] += n
+            mine[1] += n
         for t in ins:
-            self.costs[device_of(t)].bytes += nbytes(t)
-        c.bytes += sum(nbytes(t) for t in outs)
-        row[2] += sum(nbytes(t) for t in ins + outs)
+            d = device_of(t)
+            self.costs[d].bytes += nbytes(t)
+            self.by_device_op[d][name][2] += nbytes(t)
+        out_bytes = sum(nbytes(t) for t in outs)
+        c.bytes += out_bytes
+        mine[2] += out_bytes
         return out
 
     def _see(self, t: torch.Tensor) -> bool:
